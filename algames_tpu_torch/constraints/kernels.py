@@ -1,5 +1,6 @@
-"""Constraint families of the flagship game: pairwise collision avoidance and
-box bounds (counterpart of ``algames_tpu/constraints/kernels.py``).
+"""Constraint families of the unicycle games: pairwise collision avoidance,
+static circular obstacles and box bounds on states or controls (counterpart
+of ``algames_tpu/constraints/kernels.py``).
 
     evaluate(par, z)  -> vals [B, K, C]
     jacobian(par, z)  -> jac  [B, K, C, dim]
@@ -35,6 +36,33 @@ def collision_jacobian(par: CollisionParams, xs: torch.Tensor) -> torch.Tensor:
     jac = xs.new_zeros(xs.shape[:-1] + (1, xs.shape[-1]))
     jac[..., 0, list(par.pxi)] = -2.0 * d
     jac[..., 0, list(par.pxj)] = 2.0 * d
+    return jac
+
+
+@dataclasses.dataclass
+class CircleParams:
+    """c_j = r_j^2 - (x - xc_j)^2 - (y - yc_j)^2  (C = number of circles)."""
+    xc: torch.Tensor                  # [C]
+    yc: torch.Tensor                  # [C]
+    radius: torch.Tensor              # [C]
+    xi: int                           # state index of the x coordinate
+    yi: int
+
+
+def _circle_offsets(par: CircleParams, xs: torch.Tensor):
+    return xs[..., par.xi, None] - par.xc, xs[..., par.yi, None] - par.yc
+
+
+def circle_evaluate(par: CircleParams, xs: torch.Tensor) -> torch.Tensor:
+    dx, dy = _circle_offsets(par, xs)
+    return par.radius ** 2 - dx * dx - dy * dy
+
+
+def circle_jacobian(par: CircleParams, xs: torch.Tensor) -> torch.Tensor:
+    dx, dy = _circle_offsets(par, xs)
+    jac = xs.new_zeros(dx.shape + (xs.shape[-1],))
+    jac[..., par.xi] = -2.0 * dx
+    jac[..., par.yi] = -2.0 * dy
     return jac
 
 
@@ -76,22 +104,26 @@ def bound_jacobian(par: BoundParams, zs: torch.Tensor) -> torch.Tensor:
     return J.expand(zs.shape[:-1] + (2 * dim, dim))
 
 
+EVALUATE = {CollisionParams: collision_evaluate,
+            CircleParams: circle_evaluate, BoundParams: bound_evaluate}
+JACOBIAN = {CollisionParams: collision_jacobian,
+            CircleParams: circle_jacobian, BoundParams: bound_jacobian}
+
+
 def evaluate(par, zs):
-    if isinstance(par, CollisionParams):
-        return collision_evaluate(par, zs)
-    return bound_evaluate(par, zs)
+    return EVALUATE[type(par)](par, zs)
 
 
 def jacobian(par, zs):
-    if isinstance(par, CollisionParams):
-        return collision_jacobian(par, zs)
-    return bound_jacobian(par, zs)
+    return JACOBIAN[type(par)](par, zs)
 
 
 def num_rows(par) -> int:
     """Static number of constraint rows C of a family instance."""
     if isinstance(par, CollisionParams):
         return 1
+    if isinstance(par, CircleParams):
+        return int(par.xc.shape[0])
     if isinstance(par, BoundParams):
         return 2 * int(par.z_max.shape[0])
     raise TypeError(type(par))

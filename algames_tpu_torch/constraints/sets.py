@@ -1,5 +1,6 @@
 """Game constraint container, AL state and its updates (counterpart of
-``algames_tpu/constraints/sets.py``, flagship families only).
+``algames_tpu/constraints/sets.py``: collision, circle, state/velocity and
+control bound families).
 
 A ``ConBlock`` pairs a family-parameter record (shared by every lane) with
 the AL state ``lam``/``mu`` [B, K, C] (K = applied knots, C = rows).  A
@@ -24,7 +25,7 @@ import torch
 
 from ..core.spec import ProblemSpec
 from . import kernels
-from .kernels import CollisionParams, make_bound
+from .kernels import CircleParams, CollisionParams, make_bound
 
 
 @dataclasses.dataclass
@@ -110,8 +111,7 @@ def add_collision_avoidance(spec: ProblemSpec, gc: GameConstraints, radius,
         par = CollisionParams(
             radius=torch.as_tensor(float(radius), dtype=dtype, device=device),
             pxi=spec.px[i], pxj=spec.px[j])
-        blk = _new_block(spec, par, i, True, dtype, device)
-        return dataclasses.replace(gc, state_blocks=gc.state_blocks + (blk,))
+        return _push_state(gc, _new_block(spec, par, i, True, dtype, device))
     radius = np.broadcast_to(np.asarray(radius, np.float64), (spec.p,))
     for a in range(spec.p):
         for b in range(spec.p):
@@ -121,18 +121,73 @@ def add_collision_avoidance(spec: ProblemSpec, gc: GameConstraints, radius,
     return gc
 
 
+def _promote_bound(z, dim):
+    """A scalar bound is broadcast to the full dimension."""
+    z = np.asarray(z, np.float64)
+    return np.full((dim,), float(z)) if z.ndim == 0 else z
+
+
+def _push_state(gc: GameConstraints, blk: ConBlock) -> GameConstraints:
+    return dataclasses.replace(gc, state_blocks=gc.state_blocks + (blk,))
+
+
+def add_state_bound(spec: ProblemSpec, gc: GameConstraints, i: int,
+                    x_max, x_min) -> GameConstraints:
+    """Box bound on the full state, owned by player i (infinite entries are
+    masked out)."""
+    dtype, device = gc.alpha_dual.dtype, gc.alpha_dual.device
+    par = make_bound(_promote_bound(x_max, spec.n),
+                     _promote_bound(x_min, spec.n), dtype, device)
+    return _push_state(gc, _new_block(spec, par, i, True, dtype, device))
+
+
 def add_control_bound(spec: ProblemSpec, gc: GameConstraints,
                       u_max, u_min) -> GameConstraints:
     """Shared box bound on the full control vector (a scalar is
     broadcast)."""
     dtype, device = gc.alpha_dual.dtype, gc.alpha_dual.device
-
-    def full(z):
-        z = np.asarray(z, np.float64)
-        return np.full((spec.m,), float(z)) if z.ndim == 0 else z
-    par = make_bound(full(u_max), full(u_min), dtype, device)
+    par = make_bound(_promote_bound(u_max, spec.m),
+                     _promote_bound(u_min, spec.m), dtype, device)
     blk = _new_block(spec, par, -1, False, dtype, device)
     return dataclasses.replace(gc, control_blocks=gc.control_blocks + (blk,))
+
+
+def add_circle_constraint(spec: ProblemSpec, gc: GameConstraints, xc, yc,
+                          radius, i: int | None = None) -> GameConstraints:
+    """Static circular obstacles on player i's position, or one block per
+    player when ``i`` is None."""
+    dtype, device = gc.alpha_dual.dtype, gc.alpha_dual.device
+    if i is None:
+        for a in range(spec.p):
+            gc = add_circle_constraint(spec, gc, xc, yc, radius, a)
+        return gc
+
+    def vec(v):
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
+                               device=device)
+    par = CircleParams(xc=vec(xc), yc=vec(yc), radius=vec(radius),
+                       xi=spec.px[i][0], yi=spec.px[i][1])
+    return _push_state(gc, _new_block(spec, par, i, True, dtype, device))
+
+
+def add_velocity_bound(spec: ProblemSpec, model, gc: GameConstraints,
+                       v_max, v_min) -> GameConstraints:
+    """Speed bounds: for each player i with a finite bound, a state bound on
+    i's velocity index is added to every player (p blocks per such i)."""
+    v_max = np.asarray(v_max, np.float64)
+    v_min = np.asarray(v_min, np.float64)
+    if not v_max.shape == v_min.shape == (spec.p,):
+        raise ValueError("v_max and v_min need one entry per player")
+    for i in range(spec.p):
+        if np.isinf(v_max[i]) and np.isinf(v_min[i]):
+            continue
+        x_max = np.full((spec.n,), np.inf)
+        x_min = np.full((spec.n,), -np.inf)
+        vi = model.velocity_index(i)
+        x_max[vi], x_min[vi] = v_max[i], v_min[i]
+        for j in range(spec.p):
+            gc = add_state_bound(spec, gc, j, x_max, x_min)
+    return gc
 
 
 def block_inputs(block: ConBlock, traj):

@@ -1,12 +1,13 @@
 """Carry a reference ``GameProblem`` over into the port.
 
 ``problem_from_reference`` reads the attributes of the reference package's
-``GameProblem`` / ``GameObjective`` / ``GameConstraints`` / ``ConBlock`` /
-``CollisionParams`` / ``BoundParams`` by name and converts each array leaf
-with ``np.asarray`` (which works on the reference's arrays without importing
-its framework).  The static ``ProblemSpec`` is rebuilt field by field.  It
-raises on anything the port does not carry: other models or constraint
-families, CollisionCost terms, and options the port has not ported.
+``GameProblem`` / ``GameObjective`` (with its CollisionCost pairs) /
+``GameConstraints`` / ``ConBlock`` / ``CollisionParams`` / ``CircleParams``
+/ ``BoundParams`` by name and converts each array leaf with ``np.asarray``
+(which works on the reference's arrays without importing its framework).
+The static ``ProblemSpec`` is rebuilt field by field.  It raises on anything
+the port does not carry: other models or constraint families, and options
+the port has not ported.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .constraints.kernels import BoundParams, CollisionParams
+from .constraints.kernels import BoundParams, CircleParams, CollisionParams
 from .constraints.sets import ConBlock, GameConstraints
 from .core.spec import ProblemSpec
 from .models.unicycle import UnicycleGame
@@ -49,10 +50,13 @@ def problem_from_reference(prob, device, dtype) -> GameProblem:
                                   "regularize=False and dual_reset=False "
                                   "are not ported")
     opts = Options(**{f: getattr(ro, f) for f in _fields(Options)})
-    if len(prob.obj.pair_i):
-        raise NotImplementedError("CollisionCost terms are not ported")
-    obj = GameObjective(Qd=t(prob.obj.Qd), Rd=t(prob.obj.Rd),
-                        xf=t(prob.obj.xf), uf=t(prob.obj.uf))
+    o = prob.obj
+    obj = GameObjective(
+        Qd=t(o.Qd), Rd=t(o.Rd), xf=t(o.xf), uf=t(o.uf), mu=t(o.mu), r=t(o.r),
+        pair_i=tuple(int(i) for i in o.pair_i),
+        pair_j=tuple(int(j) for j in o.pair_j),
+        pxi=tuple(tuple(int(k) for k in ix) for ix in o.pxi),
+        pxj=tuple(tuple(int(k) for k in ix) for ix in o.pxj))
 
     def block(b):
         if getattr(b, "sense", "ineq") != "ineq":
@@ -62,6 +66,10 @@ def problem_from_reference(prob, device, dtype) -> GameProblem:
             par = CollisionParams(radius=t(b.params.radius),
                                   pxi=tuple(b.params.pxi),
                                   pxj=tuple(b.params.pxj))
+        elif kind == "CircleParams":
+            par = CircleParams(xc=t(b.params.xc), yc=t(b.params.yc),
+                               radius=t(b.params.radius), xi=int(b.params.xi),
+                               yi=int(b.params.yi))
         elif kind == "BoundParams":
             par = BoundParams(z_max=t(b.params.z_max), z_min=t(b.params.z_min),
                               mask=tuple(bool(v) for v in b.params.mask))

@@ -3,15 +3,8 @@
 // Replaces algames_tpu/ops/thomas_pallas.py::solve_thomas_pallas_structured
 // (_make_fwd_kernel_sq, _make_bwd_kernel_sq, _reduced_solve(pivot=True)).
 //
-// Per scenario lane the KKT system of one Newton step is block tridiagonal
-// over T knots.  The statx rows [Q_i | 0 | -I] eliminate the p*n multiplier
-// unknowns in closed form, so each knot of the forward sweep reduces to one
-// d x d system (d = n+m) with R = p*n+1 right-hand sides, solved by Gaussian
-// elimination with row partial pivoting; the backward sweep rebuilds the
-// multipliers  lam_{i,t} = Q_i x_t + A_{t+1}^T lam_{i,t+1} - a_{i,t}.
-// Q_i is given as diag(q_i) + sum_k w_k w_k^T (k owned by player i).
-//
-// Layout: every operand is batch-leading and contiguous, [B, T, ...].
+// Q_i is given as diag(q_i) + sum_k w_k w_k^T (k owned by player i); the
+// sweep itself, shared with the dense-Q kernel K3, is in thomas_common.cuh.
 //
 // What bounds it on the card: neither bytes nor flops.  A lane moves ~160 KB
 // (f32, both launches, G and y_hat included) and does ~1.2 MFLOP; the sweep
@@ -22,16 +15,16 @@
 // lanes), with every per-knot operand, the recursion carry and the
 // augmented system [d x (d+R)] held in shared memory: no intermediate of the
 // sweep touches device memory except G and y_hat, which the backward launch
-// reads back.  Pivoting is virtual, as on the TPU: a row is marked used
-// instead of being moved, the pivot is the unused row of largest magnitude
-// with the lowest index on ties (the reference's tie-break), found by one
-// warp with shuffles.
-#include <cuda_runtime.h>
+// reads back.
+#include "thomas_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxM = 32;
+using thomas::Bwd;
+using thomas::Fwd;
+using thomas::kMaxM;
+using thomas::kThreads;
+
 constexpr int kMaxNW = 64;
 
 struct SqMeta {
@@ -39,31 +32,48 @@ struct SqMeta {
   int w_owner[kMaxNW];  // player owning rank-1 vector k
 };
 
-// Shared-memory layout of the forward kernel, in scalars.
-struct FwdLayout {
-  int Gx, yx, q, w, Ub, Bm, At, At1T, b, F, Fw, M, sol, total;
-  __host__ __device__ FwdLayout(int n, int m, int p, int NW) {
-    const int pn = p * n, d = n + m, R = pn + 1, W = n + m + pn;
-    int o = 0;
-    Gx = o;   o += n * pn;
-    yx = o;   o += n;
-    q = o;    o += p * n;
-    w = o;    o += NW * n;
-    Ub = o;   o += m * m;
-    Bm = o;   o += n * m;
-    At = o;   o += n * n;
-    At1T = o; o += n * n;
-    b = o;    o += W;
-    F = o;    o += n * pn;
-    Fw = o;   o += n * NW;
-    M = o;    o += d * (d + R);
-    sol = o;  o += d * R;
-    total = o;
+// Q_i = diag(q_i) + sum_{owner(k) = i} w_k w_k^T.  Fw[a, k] =
+// F_{owner(k)}[a, :] . w_k is computed once per knot before the system.
+template <typename T>
+struct SqForm {
+  const T *Bs, *q, *w, *F, *Fw;
+  int n, m, p, pn, NW;
+  const int* w_owner;
+  __device__ T btq(int r, int o, int cc) const {
+    T v = Bs[cc * m + r] * q[o * n + cc];
+    #pragma unroll 1
+    for (int k = 0; k < NW; ++k) {
+      if (w_owner[k] != o) continue;
+      T bw = T(0);
+      #pragma unroll 1
+      for (int j = 0; j < n; ++j) bw += Bs[j * m + r] * w[k * n + j];
+      v += bw * w[k * n + cc];
+    }
+    return v;
+  }
+  __device__ T fq(int a, int cc) const {
+    T v = T(0);
+    for (int i = 0; i < p; ++i) v += F[a * pn + i * n + cc] * q[i * n + cc];
+    #pragma unroll 1
+    for (int k = 0; k < NW; ++k) v += Fw[a * NW + k] * w[k * n + cc];
+    return v;
   }
 };
 
+// Backward: Q_i x = diag(q_i) x + sum_{owner(k) = i} (w_k . x) w_k, with
+// wx[k] = w_k . x computed once per knot.
 template <typename T>
-__device__ __forceinline__ T absval(T v) { return v < T(0) ? -v : v; }
+struct SqBwdForm {
+  const T *q, *w, *xu, *wx;
+  int n, NW;
+  const int* w_owner;
+  __device__ T qx(int i, int a) const {
+    T v = q[i * n + a] * xu[a];
+    for (int k = 0; k < NW; ++k)
+      if (w_owner[k] == i) v += wx[k] * w[k * n + a];
+    return v;
+  }
+};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) thomas_sq_fwd_kernel(
@@ -71,185 +81,37 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_fwd_kernel(
     const T* __restrict__ Ub, const T* __restrict__ Bm,
     const T* __restrict__ A, const T* __restrict__ bk,
     T* __restrict__ G_out, T* __restrict__ y_out,
-    int Tn, int n, int m, int p, int NW, SqMeta meta) {
+    int Tn, int n, int m, int p, int NW, const __grid_constant__ SqMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int pn = p * n, d = n + m, R = pn + 1, W = n + m + pn, C = d + R;
-  const FwdLayout L(n, m, p, NW);
-  T* Gx = sm + L.Gx;
-  T* yx = sm + L.yx;
-  T* q = sm + L.q;
-  T* w = sm + L.w;
-  T* Ubs = sm + L.Ub;
-  T* Bs = sm + L.Bm;
-  T* Ats = sm + L.At;
-  T* At1T = sm + L.At1T;
-  T* bs = sm + L.b;
-  T* F = sm + L.F;
-  T* Fw = sm + L.Fw;
-  T* M = sm + L.M;
-  T* sol = sm + L.sol;
-  int* used = reinterpret_cast<int*>(sm + L.total);
-  int* pivrow = used + d;
-  T* pivval = reinterpret_cast<T*>(pivrow + d);  // 2d ints keep 8-byte alignment
-
+  const Fwd<T> S(smem_raw, n, m, p, p * n + NW * n, n * NW);
+  T* w = S.q + p * n;
+  const SqForm<T> qf{S.Bs, S.q, w, S.F, S.Fw, n, m, p, S.pn, NW,
+                     meta.w_owner};
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nth = blockDim.x;
+  const int nth = kThreads;
 
-  for (int i = tid; i < n * pn; i += nth) Gx[i] = T(0);
-  for (int i = tid; i < n; i += nth) yx[i] = T(0);
-
+  thomas::init_carry(S);
   for (int t = 0; t < Tn; ++t) {
     const size_t kt = (size_t)lane * Tn + t;
-    for (int i = tid; i < p * n; i += nth) q[i] = qd[kt * p * n + i];
+    for (int i = tid; i < p * n; i += nth) S.q[i] = qd[kt * p * n + i];
     for (int i = tid; i < NW * n; i += nth) w[i] = wv[kt * NW * n + i];
-    for (int i = tid; i < m * m; i += nth) Ubs[i] = Ub[kt * m * m + i];
-    for (int i = tid; i < n * m; i += nth) Bs[i] = Bm[kt * n * m + i];
-    for (int i = tid; i < n * n; i += nth) {
-      Ats[i] = A[kt * n * n + i];
-      // A_{t+1}^T, gated to zero at the last knot.
-      const int a = i / n, c = i % n;
-      At1T[i] = (t < Tn - 1) ? A[(kt + 1) * n * n + c * n + a] : T(0);
-    }
-    for (int i = tid; i < W; i += nth) bs[i] = bk[kt * W + i];
-    for (int r = tid; r < d; r += nth) used[r] = 0;
+    thomas::load_knot(S, Ub, Bm, A, bk, kt, t, Tn);
     __syncthreads();
-
-    // Thomas fill-in F = -A_t G_{t-1} (x rows of the carry) [n, pn].
-    for (int idx = tid; idx < n * pn; idx += nth) {
-      const int a = idx / pn, c = idx % pn;
-      T s = T(0);
-      for (int k = 0; k < n; ++k) s += Ats[a * n + k] * Gx[k * pn + c];
-      F[idx] = -s;
-    }
+    thomas::fill_in(S);
     __syncthreads();
-    // Fw[a, k] = F_{owner(k)}[a, :] . w_k
     for (int idx = tid; idx < n * NW; idx += nth) {
       const int a = idx / NW, k = idx % NW;
       const int o = meta.w_owner[k];
       T s = T(0);
-      for (int j = 0; j < n; ++j) s += F[a * pn + o * n + j] * w[k * n + j];
-      Fw[idx] = s;
+      #pragma unroll 1
+      for (int j = 0; j < n; ++j) s += S.F[a * S.pn + o * n + j] * w[k * n + j];
+      S.Fw[idx] = s;
     }
     __syncthreads();
-
-    // Augmented reduced system M = [K | RHS], rows [statu (m) | dyn (n)],
-    // columns [u (m) | x (n) | G rhs (pn) | y rhs (1)].
-    for (int idx = tid; idx < d * C; idx += nth) {
-      const int r = idx / C, c = idx % C;
-      T v;
-      if (r < m) {
-        const int o = meta.owner[r];
-        if (c < m) {
-          v = Ubs[r * m + c];
-        } else if (c < d) {                      // B^T Q_owner
-          const int cc = c - m;
-          v = Bs[cc * m + r] * q[o * n + cc];
-          for (int k = 0; k < NW; ++k) {
-            if (meta.w_owner[k] != o) continue;
-            T bw = T(0);
-            for (int j = 0; j < n; ++j) bw += Bs[j * m + r] * w[k * n + j];
-            v += bw * w[k * n + cc];
-          }
-        } else if (c < d + pn) {                 // owner-embedded B^T A_{t+1}^T
-          const int jj = c - d, i = jj / n, cc = jj % n;
-          v = T(0);
-          if (i == o)
-            for (int k = 0; k < n; ++k) v += Bs[k * m + r] * At1T[k * n + cc];
-        } else {                                 // c + B^T a_owner
-          v = bs[pn + r];
-          for (int k = 0; k < n; ++k) v += Bs[k * m + r] * bs[o * n + k];
-        }
-      } else {
-        const int a = r - m;
-        if (c < m) {
-          v = Bs[a * m + c];
-        } else if (c < d) {                      // -I + sum_i F_i Q_i
-          const int cc = c - m;
-          v = T(0);
-          for (int i = 0; i < p; ++i) v += F[a * pn + i * n + cc] * q[i * n + cc];
-          for (int k = 0; k < NW; ++k) v += Fw[a * NW + k] * w[k * n + cc];
-          v += (a == cc) ? T(-1) : T(0);
-        } else if (c < d + pn) {                 // F_i A_{t+1}^T
-          const int jj = c - d, i = jj / n, cc = jj % n;
-          v = T(0);
-          for (int k = 0; k < n; ++k) v += F[a * pn + i * n + k] * At1T[k * n + cc];
-        } else {                                 // d0 - A_t y_{t-1} + F a
-          T s1 = T(0), s2 = T(0);
-          for (int k = 0; k < n; ++k) s1 += Ats[a * n + k] * yx[k];
-          for (int j = 0; j < pn; ++j) s2 += F[a * pn + j] * bs[j];
-          v = bs[pn + m + a] - s1 + s2;
-        }
-      }
-      M[idx] = v;
-    }
+    thomas::build_system<false>(S, meta.owner, qf);
     __syncthreads();
-
-    // Gaussian elimination with virtual row partial pivoting.
-    for (int i = 0; i < d; ++i) {
-      if (tid < 32) {
-        T best = T(-1);
-        int bi = d;
-        for (int r = tid; r < d; r += 32) {
-          if (used[r]) continue;
-          const T v = absval(M[r * C + i]);
-          if (bi == d || v > best) { best = v; bi = r; }
-        }
-        for (int off = 16; off > 0; off >>= 1) {
-          const T ob = __shfl_down_sync(0xffffffffu, best, off);
-          const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-          // An empty lane (oi == d) never wins, so a row of NaNs still
-          // yields a valid pivot index.
-          if (oi != d && (bi == d || ob > best || (ob == best && oi < bi))) {
-            best = ob;
-            bi = oi;
-          }
-        }
-        if (tid == 0) {
-          pivrow[i] = bi;
-          used[bi] = 1;
-          *pivval = M[bi * C + i];
-        }
-      }
-      __syncthreads();
-      const int pr = pivrow[i];
-      const T piv = *pivval;
-      for (int c = i + 1 + tid; c < C; c += nth) M[pr * C + c] /= piv;
-      __syncthreads();
-      const int span = C - i - 1;
-      for (int idx = tid; idx < d * span; idx += nth) {
-        const int r = idx / span, c = i + 1 + idx % span;
-        if (used[r]) continue;
-        M[r * C + c] -= M[r * C + i] * M[pr * C + c];
-      }
-      __syncthreads();
-    }
-    // Back substitution in variable order, one thread per right-hand side.
-    for (int col = tid; col < R; col += nth) {
-      for (int i = d - 1; i >= 0; --i) {
-        const int pr = pivrow[i];
-        T acc = M[pr * C + d + col];
-        for (int j = i + 1; j < d; ++j) acc -= M[pr * C + j] * sol[j * R + col];
-        sol[i * R + col] = acc;
-      }
-    }
-    __syncthreads();
-
-    // Outputs in (x, u) row order; the carry keeps the x rows.
-    for (int idx = tid; idx < d * pn; idx += nth) {
-      const int r = idx / pn, c = idx % pn;
-      const int src = (r < n) ? (m + r) : (r - n);
-      G_out[kt * d * pn + idx] = sol[src * R + c];
-    }
-    for (int r = tid; r < d; r += nth) {
-      const int src = (r < n) ? (m + r) : (r - n);
-      y_out[kt * d + r] = sol[src * R + pn];
-    }
-    for (int idx = tid; idx < n * pn; idx += nth)
-      Gx[idx] = sol[(m + idx / pn) * R + idx % pn];
-    for (int a = tid; a < n; a += nth) yx[a] = sol[(m + a) * R + pn];
-    __syncthreads();
+    thomas::solve_and_store<false>(S, G_out, y_out, kt);
   }
 }
 
@@ -258,77 +120,34 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_bwd_kernel(
     const T* __restrict__ G, const T* __restrict__ yhat,
     const T* __restrict__ qd, const T* __restrict__ wv,
     const T* __restrict__ A, const T* __restrict__ bk,
-    T* __restrict__ y_out, int Tn, int n, int m, int p, int NW, SqMeta meta) {
+    T* __restrict__ y_out, int Tn, int n, int m, int p, int NW,
+    const __grid_constant__ SqMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int pn = p * n, d = n + m, W = n + m + pn;
-  T* lam_next = sm;
-  T* lam = lam_next + pn;
-  T* xu = lam + pn;
-  T* q = xu + d;
-  T* w = q + p * n;
-  T* At1T = w + NW * n;
-  T* wx = At1T + n * n;
-
+  const Bwd<T> S(smem_raw, n, m, p, p * n + NW * n);
+  T* w = S.q + p * n;
+  T* wx = S.ext;
+  const SqBwdForm<T> qf{S.q, w, S.xu, wx, n, NW, meta.w_owner};
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nth = blockDim.x;
-  for (int i = tid; i < pn; i += nth) lam_next[i] = T(0);
+  const int nth = kThreads;
 
+  thomas::init_lam(S);
   for (int t = Tn - 1; t >= 0; --t) {
     const size_t kt = (size_t)lane * Tn + t;
-    for (int i = tid; i < p * n; i += nth) q[i] = qd[kt * p * n + i];
+    for (int i = tid; i < p * n; i += nth) S.q[i] = qd[kt * p * n + i];
     for (int i = tid; i < NW * n; i += nth) w[i] = wv[kt * NW * n + i];
-    for (int i = tid; i < n * n; i += nth) {
-      const int a = i / n, c = i % n;
-      At1T[i] = (t < Tn - 1) ? A[(kt + 1) * n * n + c * n + a] : T(0);
-    }
+    thomas::load_At1T(S, A, kt, t, Tn);
     __syncthreads();
-    // xu = y_hat - G lam_{t+1}
-    for (int r = tid; r < d; r += nth) {
-      T s = T(0);
-      for (int c = 0; c < pn; ++c) s += G[kt * d * pn + r * pn + c] * lam_next[c];
-      xu[r] = yhat[kt * d + r] - s;
-    }
+    thomas::primal_step(S, G, yhat, kt);
     __syncthreads();
     for (int k = tid; k < NW; k += nth) {
       T s = T(0);
-      for (int j = 0; j < n; ++j) s += w[k * n + j] * xu[j];
+      for (int j = 0; j < n; ++j) s += w[k * n + j] * S.xu[j];
       wx[k] = s;
     }
     __syncthreads();
-    // lam_i = diag(q_i) x + sum_{owner k = i} (w_k . x) w_k
-    //         + A_{t+1}^T lam_{i,t+1} - a_i
-    for (int idx = tid; idx < pn; idx += nth) {
-      const int i = idx / n, a = idx % n;
-      T v = q[idx] * xu[a];
-      for (int k = 0; k < NW; ++k)
-        if (meta.w_owner[k] == i) v += wx[k] * w[k * n + a];
-      T s = T(0);
-      for (int b = 0; b < n; ++b) s += At1T[a * n + b] * lam_next[i * n + b];
-      lam[idx] = v + s - bk[kt * W + idx];
-    }
-    __syncthreads();
-    for (int r = tid; r < d; r += nth) y_out[kt * W + r] = xu[r];
-    for (int j = tid; j < pn; j += nth) {
-      y_out[kt * W + d + j] = lam[j];
-      lam_next[j] = lam[j];
-    }
-    __syncthreads();
+    thomas::multipliers_and_store(S, bk, y_out, kt, qf);
   }
-}
-
-template <typename T>
-size_t fwd_smem_bytes(int n, int m, int p, int NW) {
-  const FwdLayout L(n, m, p, NW);
-  const int d = n + m;
-  return L.total * sizeof(T) + 2 * d * sizeof(int) + sizeof(T);
-}
-
-template <typename T>
-size_t bwd_smem_bytes(int n, int m, int p, int NW) {
-  const int pn = p * n, d = n + m;
-  return (2 * pn + d + p * n + NW * n + n * n + NW) * sizeof(T);
 }
 
 SqMeta make_meta(const int* owner, const int* w_owner, int m, int NW) {
@@ -340,13 +159,6 @@ SqMeta make_meta(const int* owner, const int* w_owner, int m, int NW) {
 
 bool dims_ok(int m, int NW) { return m <= kMaxM && NW <= kMaxNW; }
 
-template <typename T, typename K>
-int set_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <typename T>
 int launch_fwd(const void* qd, const void* wv, const void* Ub, const void* Bm,
                const void* A, const void* b, const int* owner,
@@ -354,8 +166,9 @@ int launch_fwd(const void* qd, const void* wv, const void* Ub, const void* Bm,
                int m, int p, int NW, void* stream) {
   if (!dims_ok(m, NW)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t bytes = fwd_smem_bytes<T>(n, m, p, NW);
-  int err = set_smem<T>(thomas_sq_fwd_kernel<T>, bytes);
+  const size_t bytes =
+      thomas::fwd_smem_bytes<T>(n, m, p, p * n + NW * n, n * NW);
+  int err = thomas::set_smem((const void*)thomas_sq_fwd_kernel<T>, bytes);
   if (err) return err;
   thomas_sq_fwd_kernel<T><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       (const T*)qd, (const T*)wv, (const T*)Ub, (const T*)Bm, (const T*)A,
@@ -371,8 +184,8 @@ int launch_bwd(const void* G, const void* yhat, const void* qd, const void* wv,
                int p, int NW, void* stream) {
   if (!dims_ok(m, NW)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t bytes = bwd_smem_bytes<T>(n, m, p, NW);
-  int err = set_smem<T>(thomas_sq_bwd_kernel<T>, bytes);
+  const size_t bytes = thomas::bwd_smem_bytes<T>(n, m, p, p * n + NW * n, NW);
+  int err = thomas::set_smem((const void*)thomas_sq_bwd_kernel<T>, bytes);
   if (err) return err;
   thomas_sq_bwd_kernel<T><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       (const T*)G, (const T*)yhat, (const T*)qd, (const T*)wv, (const T*)A,

@@ -1,15 +1,20 @@
-// Fused line-search trial for the unicycle game (kernel K2).
+// Fused line-search trial for the unicycle games (kernels K2 and K4).
 //
 // Replaces algames_tpu/ops/trial_kernel.py::_trial_eval_handwritten
 // (_make_kernel_h, the whole-horizon variant; the per-knot variant
-// _make_kernel computes the same function).
+// _make_kernel computes the same function), and, for the unicycle family,
+// algames_tpu/ops/trial_pallas.py::trial_eval_pallas as driven by
+// fused_trial_for_spec (the generic fused trial): collision-cost pairs in
+// the objective, circle obstacles and state bounds besides the collision
+// constraints.
 //
 // One trial of the backtracking line search, per scenario lane: the trial
 // point z + alpha dz, the RK2 defects, the hand-derived unicycle RK2 dual
-// pulls A^T lam / B^T lam, the cost gradients with dt / terminal scaling,
-// the collision and box-bound values with their AL gradients, the Tikhonov
-// pull toward the current iterate, and the mean 1-norm of the residual.
-// It writes the carried point (rx0, ru0, rd, constraint values) and tn.
+// pulls A^T lam / B^T lam, the cost gradients (collision-cost pairs
+// included) with dt / terminal scaling, the state- and control-constraint
+// values with their AL gradients, the Tikhonov pull toward the current
+// iterate, and the mean 1-norm of the residual.  It writes the carried point
+// (rx0, ru0, rd, constraint values) and tn.
 //
 // Unicycle midpoint step F = x + dt f(x + dt/2 f(x,u), u) with
 // f = [cos(th) v; sin(th) v; omega; a].  With g = J_f(mid)^T (dt lam):
@@ -19,27 +24,48 @@
 // player i's multiplier is picked for those two rows.
 //
 // What bounds it on the card: latency.  The trial reads the iterate and the
-// step (x, u, lam: ~4 KB per lane in f32, twice) plus the AL state (~2.7 KB)
-// and writes ~5.5 KB, at about one flop per byte, so at full occupancy it
-// would be bound by device-memory bytes; but a batch of 1,024 lanes gives
-// about eight warps per SM, too few to hide the per-knot loads and the
-// sin/cos chains.  The design is a single pass: one warp per lane, one
-// thread per knot (a loop over knots when T > 32), every intermediate in
-// registers or shared memory, and one warp-shuffle sum for the norm.  The
-// static structure (collision pairs, bound masks) travels as a by-value
-// parameter table, so one compiled kernel serves any player count and block
-// list.
+// step (x, u, lam: ~4 KB per lane in f32 for the flagship, twice) plus the
+// AL state and writes the carried point, at about one flop per byte, so at
+// full occupancy it would be bound by device-memory bytes; but a batch of
+// 1,024 lanes gives about eight warps per SM, too few to hide the per-knot
+// loads and the sin/cos chains.  The design is a single pass: one warp per
+// lane, one thread per knot (a loop over knots when T > 32), every
+// intermediate in registers or shared memory, and one warp-shuffle sum for
+// the norm.  The static structure (block kinds, owners, indices, bound
+// masks, collision-cost pairs) travels as a by-value parameter table, so
+// one compiled kernel serves any player count and block list; the family
+// parameters (radii, circle centres, bounds, pair weights) are small device
+// arrays.  State bounds read their AL state only at finite rows and write
+// 0 at the others, as the masked bound evaluation does.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 32;
-constexpr int kMaxSB = 64;   // collision blocks
-constexpr int kMaxCB = 4;    // control-bound blocks
-constexpr int kMaxM = 32;    // control dimension
+constexpr int kMaxSB = 64;    // state blocks
+constexpr int kMaxCB = 4;     // control-bound blocks
+constexpr int kMaxM = 32;     // control dimension
+constexpr int kMaxN = 32;     // state dimension (2n bound rows in a 64-bit mask)
+constexpr int kMaxPair = 64;  // collision-cost pairs
+
+enum : short { kCollision = 0, kCircle = 1, kBound = 2 };
+
+// One state block.  a[]: collision pxi0, pxi1, pxj0, pxj1; circle xi, yi
+// and the number of circles.  ``row`` is the block's first row in the
+// stacked [Csum] rows of the AL state and the values; ``par`` its first
+// entry in the parameter array (collision r^2; circle (xc, yc, r) per
+// circle; bound z_max [n] then z_min [n]); ``mask`` the finite rows of a
+// bound (bit j: upper bound of state j, bit n+j: lower bound).
+struct SBlock {
+  unsigned long long mask;
+  int row, par;
+  short kind, owner;
+  short a[4];
+};
 
 struct TrialMeta {
-  int s_meta[kMaxSB][5];                 // owner, pxi0, pxi1, pxj0, pxj1
+  SBlock sb[kMaxSB];
+  short pair[kMaxPair][5];               // owner, pxi0, pxi1, pxj0, pxj1
   unsigned char c_mask[kMaxCB][2 * kMaxM];
 };
 
@@ -83,18 +109,21 @@ __global__ void __launch_bounds__(kThreads) trial_unicycle_kernel(
     const T* __restrict__ alpha, const T* __restrict__ reg,
     const T* __restrict__ Qd, const T* __restrict__ xf,
     const T* __restrict__ Rdp, const T* __restrict__ ufp,
-    const T* __restrict__ r2, const T* __restrict__ slam,
+    const T* __restrict__ spar, const T* __restrict__ slam,
     const T* __restrict__ smu, const T* __restrict__ zmax,
     const T* __restrict__ zmin, const T* __restrict__ clam,
-    const T* __restrict__ cmu, T* __restrict__ rx0_out,
-    T* __restrict__ ru0_out, T* __restrict__ rd_out, T* __restrict__ sc_out,
-    T* __restrict__ cc_out, T* __restrict__ tn_out, int N, int p, int nsb,
-    int ncb, int S, T dt, TrialMeta meta) {
+    const T* __restrict__ cmu, const T* __restrict__ pmr,
+    T* __restrict__ rx0_out, T* __restrict__ ru0_out, T* __restrict__ rd_out,
+    T* __restrict__ sc_out, T* __restrict__ cc_out, T* __restrict__ tn_out,
+    int N, int p, int nsb, int csum, int ncb, int npair, int S, T dt,
+    T eps_n, const __grid_constant__ TrialMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Tn = N - 1, n = 4 * p, m = 2 * p;
   const int b = blockIdx.x, tid = threadIdx.x;
-  T* alx = reinterpret_cast<T*>(smem_raw) + tid * (p * n + m);  // AL grads
+  const int per = p * n + m + (npair ? p * n : 0);
+  T* alx = reinterpret_cast<T*>(smem_raw) + tid * per;  // AL grads
   T* alu = alx + p * n;
+  T* cgx = alu + m;                                        // pair grads
 
   Lane<T> L;
   L.x = x + (size_t)b * N * n;
@@ -112,23 +141,63 @@ __global__ void __launch_bounds__(kThreads) trial_unicycle_kernel(
   for (int t = tid; t < Tn; t += kThreads) {
     for (int c = 0; c < p * n; ++c) alx[c] = T(0);
     for (int c = 0; c < m; ++c) alu[c] = T(0);
+    const T scale = (t + 1 < N - 1) ? dt : T(1);
 
-    // Collision blocks: c = r^2 - |x_i - x_j|^2 at knot t+1.
+    // State blocks at knot t+1; rows of the stacked AL state / values.
     for (int k = 0; k < nsb; ++k) {
-      const int* sm = meta.s_meta[k];
-      const T d0 = L.X(t + 1, sm[1]) - L.X(t + 1, sm[3]);
-      const T d1 = L.X(t + 1, sm[2]) - L.X(t + 1, sm[4]);
-      const T cv = r2[k] - (d0 * d0 + d1 * d1);
-      const size_t o = ((size_t)b * nsb + k) * Tn + t;
-      const T lc = slam[o];
-      const T irho = (cv >= T(0) || lc > T(0)) ? smu[o] : T(0);
-      const T w = lc + irho * cv;
-      T* g = alx + sm[0] * n;
-      g[sm[1]] += (T(-2) * d0) * w;
-      g[sm[3]] += (T(2) * d0) * w;
-      g[sm[2]] += (T(-2) * d1) * w;
-      g[sm[4]] += (T(2) * d1) * w;
-      sc_out[o] = cv;
+      const SBlock& sb = meta.sb[k];
+      T* g = alx + sb.owner * n;
+      const size_t o0 = ((size_t)b * csum + sb.row) * Tn + t;
+      if (sb.kind == kCollision) {    // c = r^2 - |x_i - x_j|^2
+        const T d0 = L.X(t + 1, sb.a[0]) - L.X(t + 1, sb.a[2]);
+        const T d1 = L.X(t + 1, sb.a[1]) - L.X(t + 1, sb.a[3]);
+        const T cv = spar[sb.par] - (d0 * d0 + d1 * d1);
+        const T lc = slam[o0];
+        const T irho = (cv >= T(0) || lc > T(0)) ? smu[o0] : T(0);
+        const T w = lc + irho * cv;
+        g[sb.a[0]] += (T(-2) * d0) * w;
+        g[sb.a[2]] += (T(2) * d0) * w;
+        g[sb.a[1]] += (T(-2) * d1) * w;
+        g[sb.a[3]] += (T(2) * d1) * w;
+        sc_out[o0] = cv;
+      } else if (sb.kind == kCircle) {  // c_j = r_j^2 - |(x, y) - c_j|^2
+        const T px = L.X(t + 1, sb.a[0]), py = L.X(t + 1, sb.a[1]);
+        for (int j = 0; j < sb.a[2]; ++j) {
+          const T* pc = spar + sb.par + 3 * j;
+          const T ex = px - pc[0], ey = py - pc[1];
+          const T cv = pc[2] * pc[2] - ex * ex - ey * ey;
+          const size_t o = o0 + (size_t)j * Tn;
+          const T lc = slam[o];
+          const T irho = (cv >= T(0) || lc > T(0)) ? smu[o] : T(0);
+          const T w = lc + irho * cv;
+          g[sb.a[0]] += (T(-2) * ex) * w;
+          g[sb.a[1]] += (T(-2) * ey) * w;
+          sc_out[o] = cv;
+        }
+      } else {                          // c = [x - z_max; z_min - x], masked
+        const T* zx = spar + sb.par;
+        for (int j = 0; j < n; ++j) {
+          const bool mu_ = (sb.mask >> j) & 1ull;
+          const bool ml_ = (sb.mask >> (n + j)) & 1ull;
+          const size_t ou = o0 + (size_t)j * Tn, ol = o0 + (size_t)(n + j) * Tn;
+          T cu = T(0), cl = T(0), gj = T(0);
+          if (mu_) {
+            cu = L.X(t + 1, j) - zx[j];
+            const T lu = slam[ou];
+            const T iu = (cu >= T(0) || lu > T(0)) ? smu[ou] : T(0);
+            gj = lu + iu * cu;
+          }
+          if (ml_) {
+            cl = zx[n + j] - L.X(t + 1, j);
+            const T ll = slam[ol];
+            const T il = (cl >= T(0) || ll > T(0)) ? smu[ol] : T(0);
+            gj -= ll + il * cl;
+          }
+          if (mu_ || ml_) g[j] += gj;
+          sc_out[ou] = cu;
+          sc_out[ol] = cl;
+        }
+      }
     }
     // Control-bound blocks: c = [u - z_max; z_min - u] (masked rows 0).
     for (int k = 0; k < ncb; ++k) {
@@ -147,8 +216,29 @@ __global__ void __launch_bounds__(kThreads) trial_unicycle_kernel(
         cc_out[o + m + j] = cl;
       }
     }
+    // Collision-cost pairs at knot t+1 (scaled like the cost): player i is
+    // pushed off player j while |delta| < r,
+    //   g = mu (r (eps + delta) / (eps_n + |delta|) - delta).
+    if (npair) {
+      for (int c = 0; c < p * n; ++c) cgx[c] = T(0);
+      for (int k = 0; k < npair; ++k) {
+        const short* pr = meta.pair[k];
+        const T d0 = L.X(t + 1, pr[1]) - L.X(t + 1, pr[3]);
+        const T d1 = L.X(t + 1, pr[2]) - L.X(t + 1, pr[4]);
+        const T dn = sqrt(d0 * d0 + d1 * d1);
+        const T mu = pmr[2 * k], r = pmr[2 * k + 1];
+        if (!(r - dn > T(0))) continue;
+        const T eps = T(1e-10);
+        const T g0 = mu * (r * (eps + d0) / (eps_n + dn) - d0) * scale;
+        const T g1 = mu * (r * (eps + d1) / (eps_n + dn) - d1) * scale;
+        T* cg = cgx + pr[0] * n;
+        cg[pr[1]] -= g0;
+        cg[pr[2]] -= g1;
+        cg[pr[3]] += g0;
+        cg[pr[4]] += g1;
+      }
+    }
 
-    const T scale = (t + 1 < N - 1) ? dt : T(1);
     const bool has_next = t + 1 < Tn;
     for (int j = 0; j < p; ++j) {
       // RK2 step of player j at knot t: defects and control rows.
@@ -207,7 +297,8 @@ __global__ void __launch_bounds__(kThreads) trial_unicycle_kernel(
         for (int q = 0; q < 4; ++q) {
           const int c = cs[q];
           const T x1 = L.X(t + 1, c);
-          const T qx = Qd[i * n + c] * (x1 - xf[i * n + c]) * scale;
+          T qx = Qd[i * n + c] * (x1 - xf[i * n + c]) * scale;
+          if (npair) qx += cgx[i * n + c];
           const T r = (qx + gx[q]) - L.Lm(i, t, c);
           rx0[c] = r;
           part += absval((r + alx[i * n + c]) + rg * (x1 - L.X0(t + 1, c)));
@@ -224,21 +315,37 @@ template <typename T>
 int launch(const void* x, const void* u, const void* lam, const void* dx,
            const void* du, const void* dlam, const void* alpha,
            const void* reg, const void* Qd, const void* xf, const void* Rdp,
-           const void* ufp, const void* r2, const void* slam, const void* smu,
-           const void* zmax, const void* zmin, const void* clam,
-           const void* cmu, const int* s_meta, const unsigned char* c_mask,
-           void* rx0, void* ru0, void* rd, void* sc, void* cc, void* tn,
-           int B, int N, int p, int nsb, int ncb, int S, double dt,
-           void* stream) {
-  if (nsb > kMaxSB || ncb > kMaxCB || 2 * p > kMaxM)
+           const void* ufp, const void* spar, const void* slam,
+           const void* smu, const void* zmax, const void* zmin,
+           const void* clam, const void* cmu, const void* pmr,
+           const int* s_meta, const unsigned long long* s_mask,
+           const int* p_meta, const unsigned char* c_mask, void* rx0,
+           void* ru0, void* rd, void* sc, void* cc, void* tn, int B, int N,
+           int p, int nsb, int csum, int ncb, int npair, int S, double dt,
+           double eps_n, void* stream) {
+  const int n = 4 * p, m = 2 * p;
+  if (nsb > kMaxSB || ncb > kMaxCB || npair > kMaxPair || m > kMaxM ||
+      n > kMaxN)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   TrialMeta meta = {};
-  for (int k = 0; k < nsb; ++k)
-    for (int j = 0; j < 5; ++j) meta.s_meta[k][j] = s_meta[5 * k + j];
+  // s_meta per state block: kind, owner, row, par, a0, a1, a2, a3.
+  for (int k = 0; k < nsb; ++k) {
+    const int* s = s_meta + 8 * k;
+    SBlock& sb = meta.sb[k];
+    sb.kind = (short)s[0];
+    sb.owner = (short)s[1];
+    sb.row = s[2];
+    sb.par = s[3];
+    for (int j = 0; j < 4; ++j) sb.a[j] = (short)s[4 + j];
+    sb.mask = s_mask[k];
+  }
+  for (int k = 0; k < npair; ++k)
+    for (int j = 0; j < 5; ++j) meta.pair[k][j] = (short)p_meta[5 * k + j];
   for (int k = 0; k < ncb; ++k)
-    for (int j = 0; j < 4 * p; ++j) meta.c_mask[k][j] = c_mask[4 * p * k + j];
-  const size_t bytes = (size_t)kThreads * (4 * p * p + 2 * p) * sizeof(T);
+    for (int j = 0; j < 2 * m; ++j) meta.c_mask[k][j] = c_mask[2 * m * k + j];
+  const int per = p * n + m + (npair ? p * n : 0);
+  const size_t bytes = (size_t)kThreads * per * sizeof(T);
   if (bytes > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
         trial_unicycle_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -248,10 +355,11 @@ int launch(const void* x, const void* u, const void* lam, const void* dx,
   trial_unicycle_kernel<T><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       (const T*)x, (const T*)u, (const T*)lam, (const T*)dx, (const T*)du,
       (const T*)dlam, (const T*)alpha, (const T*)reg, (const T*)Qd,
-      (const T*)xf, (const T*)Rdp, (const T*)ufp, (const T*)r2,
+      (const T*)xf, (const T*)Rdp, (const T*)ufp, (const T*)spar,
       (const T*)slam, (const T*)smu, (const T*)zmax, (const T*)zmin,
-      (const T*)clam, (const T*)cmu, (T*)rx0, (T*)ru0, (T*)rd, (T*)sc,
-      (T*)cc, (T*)tn, N, p, nsb, ncb, S, (T)dt, meta);
+      (const T*)clam, (const T*)cmu, (const T*)pmr, (T*)rx0, (T*)ru0,
+      (T*)rd, (T*)sc, (T*)cc, (T*)tn, N, p, nsb, csum, ncb, npair, S, (T)dt,
+      (T)eps_n, meta);
   return (int)cudaGetLastError();
 }
 
@@ -262,15 +370,16 @@ int launch(const void* x, const void* u, const void* lam, const void* dx,
       const void* x, const void* u, const void* lam, const void* dx,          \
       const void* du, const void* dlam, const void* alpha, const void* reg,   \
       const void* Qd, const void* xf, const void* Rdp, const void* ufp,       \
-      const void* r2, const void* slam, const void* smu, const void* zmax,    \
-      const void* zmin, const void* clam, const void* cmu, const int* s_meta, \
+      const void* spar, const void* slam, const void* smu, const void* zmax,  \
+      const void* zmin, const void* clam, const void* cmu, const void* pmr,   \
+      const int* s_meta, const unsigned long long* s_mask, const int* p_meta, \
       const unsigned char* c_mask, void* rx0, void* ru0, void* rd, void* sc,  \
-      void* cc, void* tn, int B, int N, int p, int nsb, int ncb, int S,       \
-      double dt, void* stream) {                                              \
+      void* cc, void* tn, int B, int N, int p, int nsb, int csum, int ncb,    \
+      int npair, int S, double dt, double eps_n, void* stream) {              \
     return launch<T>(x, u, lam, dx, du, dlam, alpha, reg, Qd, xf, Rdp, ufp,   \
-                     r2, slam, smu, zmax, zmin, clam, cmu, s_meta, c_mask,    \
-                     rx0, ru0, rd, sc, cc, tn, B, N, p, nsb, ncb, S, dt,      \
-                     stream);                                                 \
+                     spar, slam, smu, zmax, zmin, clam, cmu, pmr, s_meta,     \
+                     s_mask, p_meta, c_mask, rx0, ru0, rd, sc, cc, tn, B, N,  \
+                     p, nsb, csum, ncb, npair, S, dt, eps_n, stream);         \
   }
 
 TRIAL_EXPORT(f32, float)

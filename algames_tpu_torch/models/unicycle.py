@@ -22,6 +22,10 @@ class UnicycleGame(GameModel):
         # xd_i = cos(theta_i) v_i, yd_i = sin(theta_i) v_i, (thd, vd) = u
         return torch.cat([torch.cos(th) * v, torch.sin(th) * v, u], dim=-1)
 
+    def velocity_index(self, i: int) -> int:
+        """State index of player i's speed."""
+        return self.pz[i][3]
+
 
 def unicycle_game(p: int = 2) -> UnicycleGame:
     return UnicycleGame(

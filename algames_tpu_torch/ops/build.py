@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` for Hopper (``sm_90a``) into ``_build/<name>-<hash>.so``, keyed
-by a hash of the source and the flags, and loaded with ``ctypes``.  The
+by a hash of the source, the shared ``csrc/*.cuh`` headers and the flags,
+and loaded with ``ctypes``.  The
 compiler's register/shared-memory report (``-Xptxas -v``) is kept beside the
 library as ``<name>-<hash>.log``.  Nothing here runs at import time.
 """
@@ -37,7 +38,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, keyed by its source, the shared headers and the
+    flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 

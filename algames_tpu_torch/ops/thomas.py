@@ -1,22 +1,27 @@
-"""Kernel K1: the structured-Q Schur-condensed block-Thomas KKT sweep.
+"""Kernels K1 and K3: the Schur-condensed block-Thomas KKT sweep, with the
+statx Hessian blocks in structured (K1) or dense (K3) form.
 
-Replaces ``algames_tpu/ops/thomas_pallas.py::solve_thomas_pallas_structured``
+K1 replaces ``algames_tpu/ops/thomas_pallas.py::solve_thomas_pallas_structured``
 (forward ``_make_fwd_kernel_sq``, backward ``_make_bwd_kernel_sq``, pivoted
-``_reduced_solve``).  The kernel is CUDA C++ in ``csrc/thomas_sq.cu``: two
-launches, forward and backward, one thread block per scenario lane with the
-knot recursion as a loop inside the block.
+``_reduced_solve``); K3 replaces ``solve_thomas_pallas`` (``_make_fwd_kernel``,
+``_make_bwd_kernel``) for homogeneous specs.  Both are CUDA C++
+(``csrc/thomas_sq.cu``, ``csrc/thomas_dense.cu``, sharing
+``csrc/thomas_common.cuh``): two launches, forward and backward, one thread
+block per scenario lane with the knot recursion as a loop inside the block.
 
 On the card the sweep is bound by the latency of its dependent chain (T
-knots x d pivot steps, one block barrier each), not by bytes or flops: a
-lane moves ~160 KB over both launches and does ~1.2 MFLOP.  The design
-keeps the whole per-knot working set (operands, the (G, y) carry, the
-augmented d x (d+R) system) in shared memory and runs one independent lane
-per block, so the batch fills the SMs with independent chains.  See the source for the details.
+knots x d pivot steps, one block barrier each), not by bytes or flops: at
+flagship shapes a lane moves ~160 KB over both launches and does ~1.2 MFLOP.
+The design keeps the whole per-knot working set (operands, the (G, y) carry,
+the augmented d x (d+R) system) in shared memory and runs one independent
+lane per block, so the batch fills the SMs with independent chains.  See the
+sources for the details.
 
-``solve_thomas_structured`` takes the plain PyTorch version
-(``solve_thomas_structured_plain``: densify Q, then
-``problem.linear_solver.solve_tridiagonal_schur``) for CPU tensors only; for
-CUDA tensors it launches the kernel or raises.
+Each wrapper takes its plain PyTorch version (``problem.linear_solver
+.solve_tridiagonal_schur``, after densifying Q for K1) for CPU tensors only;
+for CUDA tensors it launches the kernel or raises.  ``kkt_solve`` picks K1
+or K3 by the form of the Hessian blocks, ``kkt_solve_plain`` their plain
+versions.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from ..problem.residual import StructuredQ
 from . import build
 
 _LIB = "thomas_sq"
+_LIB_DENSE = "thomas_dense"
 
 
 def structured_to_dense(sq: StructuredQ, w_owner, p: int) -> torch.Tensor:
@@ -47,21 +53,20 @@ def solve_thomas_structured_plain(spec, sq: StructuredQ, b: torch.Tensor,
     return solve_tridiagonal_schur(spec, jb, b)
 
 
-def _check(spec, sq: StructuredQ, b: torch.Tensor, w_owner) -> None:
+def _check_operands(spec, blocks, b: torch.Tensor, want) -> None:
+    """Raise unless the spec is homogeneous and ``b`` and every named
+    operand of ``blocks`` has its shape, ``b``'s type and device, and is
+    contiguous."""
     if not spec.homogeneous:
-        raise ValueError("the structured Thomas sweep needs a homogeneous "
-                         "spec")
-    Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
-    NW = len(w_owner)
-    want = {"qdiag": (Bsz, T, p, n), "wv": (Bsz, T, NW, n),
-            "Ublk": (Bsz, T, m, m), "A": (Bsz, T, n, n), "B": (Bsz, T, n, m)}
+        raise ValueError("the Thomas sweep kernels need a homogeneous spec")
+    Bsz, T = b.shape[0], spec.T
     if tuple(b.shape) != (Bsz, T, spec.W):
         raise ValueError(f"b has shape {tuple(b.shape)}, want "
                          f"{(Bsz, T, spec.W)}")
     if b.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"unsupported dtype {b.dtype}")
     for name, shape in want.items():
-        a = getattr(sq, name)
+        a = getattr(blocks, name)
         if tuple(a.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(a.shape)}, want "
                              f"{shape}")
@@ -72,8 +77,18 @@ def _check(spec, sq: StructuredQ, b: torch.Tensor, w_owner) -> None:
             raise ValueError(f"{name} must be contiguous")
     if not b.is_contiguous():
         raise ValueError("b must be contiguous")
-    if m > 32 or NW > 64:
-        raise ValueError("the kernel takes m <= 32 and at most 64 w vectors")
+    if spec.m > 32:
+        raise ValueError("the kernels take m <= 32")
+
+
+def _check(spec, sq: StructuredQ, b: torch.Tensor, w_owner) -> None:
+    Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
+    NW = len(w_owner)
+    _check_operands(spec, sq, b, {
+        "qdiag": (Bsz, T, p, n), "wv": (Bsz, T, NW, n),
+        "Ublk": (Bsz, T, m, m), "A": (Bsz, T, n, n), "B": (Bsz, T, n, m)})
+    if NW > 64:
+        raise ValueError("the kernel takes at most 64 w vectors")
 
 
 def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
@@ -113,3 +128,61 @@ def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
 
 
 solve_thomas_structured.launches = 0
+
+
+def solve_thomas_plain(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3 (pivoted ``torch.linalg`` solves)."""
+    return solve_tridiagonal_schur(spec, jb, b)
+
+
+def solve_thomas(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
+    """Solve the KKT system with dense Hessian blocks (kernel K3) for ``b``
+    [B, T, W]; ``jb`` leaves are [B, T, ...] and contiguous.  Returns the
+    flat [B, S] solution in per-knot column order."""
+    Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
+    _check_operands(spec, jb, b, {
+        "Qblk": (Bsz, T, p, n, n), "Ublk": (Bsz, T, m, m),
+        "A": (Bsz, T, n, n), "B": (Bsz, T, n, m)})
+    if b.device.type == "cpu":
+        return solve_thomas_plain(spec, jb, b)
+    if b.device.type != "cuda":
+        raise ValueError(f"unsupported device {b.device}")
+    lib = build.load(_LIB_DENSE)
+    sfx = "f32" if b.dtype == torch.float32 else "f64"
+    P, I = build.P, build.I
+    fwd = build.bind(lib, f"thomas_dense_fwd_{sfx}", [P] * 8 + [I] * 5 + [P])
+    bwd = build.bind(lib, f"thomas_dense_bwd_{sfx}", [P] * 6 + [I] * 5 + [P])
+    d, pn = n + m, p * n
+    owner = build.int_table(owner_map_u(spec))
+    G = torch.empty((Bsz, T, d, pn), dtype=b.dtype, device=b.device)
+    yhat = torch.empty((Bsz, T, d), dtype=b.dtype, device=b.device)
+    y = torch.empty((Bsz, T, spec.W), dtype=b.dtype, device=b.device)
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(lib, _LIB_DENSE, fwd(
+            jb.Qblk.data_ptr(), jb.Ublk.data_ptr(), jb.B.data_ptr(),
+            jb.A.data_ptr(), b.data_ptr(), owner, G.data_ptr(),
+            yhat.data_ptr(), Bsz, T, n, m, p, stream))
+        build.check(lib, _LIB_DENSE, bwd(
+            G.data_ptr(), yhat.data_ptr(), jb.Qblk.data_ptr(),
+            jb.A.data_ptr(), b.data_ptr(), y.data_ptr(), Bsz, T, n, m, p,
+            stream))
+    solve_thomas.launches += 1
+    return y.reshape(Bsz, -1)
+
+
+solve_thomas.launches = 0
+
+
+def kkt_solve(spec, blocks, b: torch.Tensor, w_owner) -> torch.Tensor:
+    """K1 for :class:`StructuredQ` blocks, K3 for :class:`JacBlocks`."""
+    if isinstance(blocks, StructuredQ):
+        return solve_thomas_structured(spec, blocks, b, w_owner)
+    return solve_thomas(spec, blocks, b)
+
+
+def kkt_solve_plain(spec, blocks, b: torch.Tensor, w_owner) -> torch.Tensor:
+    """The plain version of :func:`kkt_solve`'s kernel, on any device."""
+    if isinstance(blocks, StructuredQ):
+        return solve_thomas_structured_plain(spec, blocks, b, w_owner)
+    return solve_thomas_plain(spec, blocks, b)

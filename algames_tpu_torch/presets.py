@@ -1,25 +1,32 @@
-"""The flagship problem, built natively (counterpart of
-``algames_tpu/presets.py::flagship_unicycle``)."""
+"""Problem configurations built natively (counterparts of
+``algames_tpu/presets.py``).  Each builder returns
+``(GameProblem, ProblemSpec)`` on ``device`` (the card unless the caller
+asks for the CPU).  f32 gates stationarity at 1e-2 (the f32 floor of the AL
+terms with mu up to 1e7), f64 at 1e-3."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .constraints.sets import (add_collision_avoidance, add_control_bound,
+from .constraints.sets import (add_circle_constraint, add_collision_avoidance,
+                               add_control_bound, add_velocity_bound,
                                game_constraints)
 from .core.spec import spec_from_model
 from .models.unicycle import unicycle_game
-from .objective.objective import game_objective
+from .objective.objective import add_collision_cost, game_objective
 from .problem.options import Options
 from .problem.problem import game_problem
 
 
-def flagship_unicycle(device, dtype=torch.float64, outer: int = 7,
+def _options(dtype, outer, inner) -> Options:
+    return Options(outer_iter=outer, inner_iter=inner,
+                   eps_opt=1e-2 if dtype == torch.float32 else 1e-3)
+
+
+def flagship_unicycle(device="cuda", dtype=torch.float64, outer: int = 7,
                       inner: int = 20, p: int = 3, N: int = 20):
     """3-player unicycle merge, N=20, with pairwise collision avoidance
-    (r = 0.08) and control bounds of +-2.  f32 gates stationarity at 1e-2
-    (the f32 floor of the AL terms with mu up to 1e7), f64 at 1e-3.
-    Returns ``(GameProblem, ProblemSpec)``."""
+    (r = 0.08) and control bounds of +-2."""
     dt = 0.1
     model = unicycle_game(p=p)
     spec = spec_from_model(model, N, dt)
@@ -30,9 +37,46 @@ def flagship_unicycle(device, dtype=torch.float64, outer: int = 7,
     gc = game_constraints(spec, dtype=dtype, device=device)
     gc = add_collision_avoidance(spec, gc, 0.08)
     gc = add_control_bound(spec, gc, 2 * np.ones(2 * p), -2 * np.ones(2 * p))
-    opts = Options(outer_iter=outer, inner_iter=inner,
-                   eps_opt=1e-2 if dtype == torch.float32 else 1e-3)
     x0 = torch.as_tensor(
         np.concatenate([np.zeros(p), 0.4 * np.arange(p), np.zeros(p),
                         0.5 * np.ones(p)]), dtype=dtype, device=device)
-    return game_problem(N, dt, x0, model, opts, obj, gc), spec
+    return game_problem(N, dt, x0, model, _options(dtype, outer, inner), obj,
+                        gc), spec
+
+
+def roundabout(device="cuda", dtype=torch.float64, outer: int = 10,
+               inner: int = 16):
+    """4-player unicycle roundabout, N=40: players enter from the four
+    sides (goal permutation [3, 2, 0, 1]) around a central island circle
+    (r = 0.3), with pairwise collision constraints (r = 0.08), a smooth
+    collision cost (radius 0.4, mu 5), speed bounds [-0.2, 1.5], control
+    bounds of +-3 and entry speeds 0.3 + 0.1 i."""
+    p, N, dt = 4, 40, 0.1
+    model = unicycle_game(p=p)
+    spec = spec_from_model(model, N, dt)
+    starts = np.array([[-1.5, 0.0], [1.5, 0.0], [0.0, -1.5], [0.0, 1.5]])
+    order = [3, 2, 0, 1]
+    goals = np.array([-starts[order[i]] for i in range(p)])
+    headings = np.arctan2(-starts[:, 1], -starts[:, 0])
+    obj = game_objective(
+        spec, Q=[np.asarray([5.0, 5.0, 0.2, 0.2])] * p,
+        R=[0.1 * np.ones(2)] * p,
+        xf=[np.asarray([goals[i, 0], goals[i, 1], headings[i], 0.3])
+            for i in range(p)],
+        uf=[np.zeros(2)] * p, dtype=dtype, device=device)
+    obj = add_collision_cost(spec, obj, radius=0.4 * np.ones(p),
+                             mu=5.0 * np.ones(p))
+    gc = game_constraints(spec, dtype=dtype, device=device)
+    gc = add_collision_avoidance(spec, gc, 0.08)
+    gc = add_circle_constraint(spec, gc, [0.0], [0.0], [0.3])
+    gc = add_velocity_bound(spec, model, gc, 1.5 * np.ones(p),
+                            -0.2 * np.ones(p))
+    gc = add_control_bound(spec, gc, 3 * np.ones(spec.m),
+                           -3 * np.ones(spec.m))
+    x0 = np.zeros(spec.n)
+    for i in range(p):
+        x0[list(spec.px[i])] = starts[i]
+        x0[spec.pz[i][2]] = headings[i]
+        x0[spec.pz[i][3]] = 0.3 + 0.1 * i
+    return game_problem(N, dt, torch.as_tensor(x0, dtype=dtype, device=device),
+                        model, _options(dtype, outer, inner), obj, gc), spec

@@ -1,5 +1,7 @@
-"""KKT residual and structured Jacobian assembly (counterpart of
-``algames_tpu/problem/residual.py``, structured-Q path).
+"""KKT residual and Jacobian assembly (counterpart of
+``algames_tpu/problem/residual.py``): the structured-Q form (diagonal plus
+rank-1 statx Hessians) for diagonal objectives, and the dense form for
+objectives with collision-cost pairs.
 
 Per-knot layout (0-based t):
 
@@ -21,8 +23,10 @@ from ..constraints.kernels import BoundParams
 from ..core.spec import ProblemSpec, owner_map_u
 from ..core.traj import PrimalDual
 from ..models.integration import rk2_step, rk2_vjp, step_jacobians
-from ..objective.objective import cost_gradient, cost_hessian_diag
+from ..objective.objective import (cost_gradient, cost_hessian,
+                                   cost_hessian_diag)
 from ..utils import lanes
+from .linear_solver import JacBlocks
 
 
 @dataclasses.dataclass
@@ -114,20 +118,34 @@ def _bound_masks(blk, like):
 
 
 def _al_grad(blk, J, w):
-    """J'w per knot: closed form for bounds, elementwise for the single-row
-    collision blocks."""
+    """J'w per knot: closed form for bounds (J is the constant
+    [+I; -I] * mask), elementwise for single-row blocks, a contraction over
+    the rows otherwise."""
     if isinstance(blk.params, BoundParams):
         dim = blk.params.z_max.shape[0]
         mu_, ml_ = _bound_masks(blk, w)
         return w[..., :dim] * mu_ - w[..., dim:] * ml_
-    return J[..., 0, :] * w
+    if J.shape[-2] == 1:
+        return J[..., 0, :] * w
+    return torch.einsum('...cd,...c->...d', J, w)
 
 
-def _al_hess_bound(blk, irho):
-    """J' diag(irho) J of a bound block: diagonal [B, K, dim, dim]."""
+def _bound_hess_diag(blk, irho):
+    """Diagonal of J' diag(irho) J of a bound block, [B, K, dim]."""
     dim = blk.params.z_max.shape[0]
     mu_, ml_ = _bound_masks(blk, irho)
-    return torch.diag_embed(irho[..., :dim] * mu_ + irho[..., dim:] * ml_)
+    return irho[..., :dim] * mu_ + irho[..., dim:] * ml_
+
+
+def _al_hess(blk, J, irho):
+    """J' diag(irho) J per knot, [B, K, dim, dim] (same structure dispatch
+    as :func:`_al_grad`)."""
+    if isinstance(blk.params, BoundParams):
+        return torch.diag_embed(_bound_hess_diag(blk, irho))
+    if J.shape[-2] == 1:
+        return ((J[..., 0, :, None] * J[..., 0, None, :])
+                * irho[..., 0, None, None])
+    return torch.einsum('...cd,...c,...ce->...de', J, irho, J)
 
 
 def _blk_jacobian_for_carry(blk, traj):
@@ -219,21 +237,83 @@ def structured_w_owner(gc: gcm.GameConstraints):
     return tuple(owners)
 
 
+def structured_q_supported(spec: ProblemSpec, obj, gc) -> bool:
+    """True iff the statx Hessians decompose as :class:`StructuredQ`: the
+    objective has no collision-cost pairs (their Hessians are dense
+    cross-player blocks).  Every constraint family qualifies: bound blocks
+    are diagonal, every other block adds one w vector per row."""
+    return not obj.pair_i
+
+
+def _control_hessian(spec: ProblemSpec, Ru, dtype, device):
+    """Owner-embedded control cost Hessian [m, m] and the [m, m] 0/1 mask
+    of same-owner control pairs (only those couple)."""
+    own = torch.as_tensor(owner_map_u(spec), device=device)
+    same = (own[:, None] == own[None, :]).to(dtype)
+    Ublk = torch.zeros((spec.m, spec.m), dtype=dtype, device=device)
+    for i in range(spec.p):
+        oi = (own == i).to(dtype)
+        Ublk = Ublk + Ru[i] * (oi[:, None] * oi[None, :])
+    return Ublk, same
+
+
+def assemble_from_point(spec: ProblemSpec, obj, gc, traj, pd: PointData,
+                        reg=0.0):
+    """Residual, dense :class:`JacBlocks` and the violations (sta, con),
+    each [B], from carried PointData; ``reg`` [B] (or a scalar) is added to
+    the primal diagonals.  Only the cost Hessians and the AL contractions
+    with the current (lam, mu) are recomputed."""
+    T, p, n, m = spec.T, spec.p, spec.n, spec.m
+    Bsz = traj.x.shape[0]
+    dtype, device = traj.x.dtype, traj.x.device
+    Qx, Ru = cost_hessian(spec, obj, traj)
+    Qblk = Qx[:, :, 1:].permute(0, 2, 1, 3, 4)               # [B, T, p, n, n]
+    Ublk, same = _control_hessian(spec, Ru, dtype, device)
+
+    rx, ru = pd.rx0, pd.ru0
+    sta_v = torch.zeros((Bsz,), dtype=dtype, device=device)
+    con_v = torch.zeros((Bsz,), dtype=dtype, device=device)
+    grad_per = [None] * p
+    hess_per = [None] * p
+    for blk, c, J in zip(gc.state_blocks, pd.state_c, pd.state_J):
+        irho = _irho(blk, c)
+        grad = _al_grad(blk, J, blk.lam + irho * c)
+        hess = _al_hess(blk, J, irho)
+        i = blk.owner
+        grad_per[i] = grad if grad_per[i] is None else grad_per[i] + grad
+        hess_per[i] = hess if hess_per[i] is None else hess_per[i] + hess
+        sta_v = torch.maximum(sta_v, gcm.block_violation_max(c))
+    gsum = _owner_stack(spec, grad_per, pd.rd)
+    if gsum is not None:
+        rx = rx + gsum
+    hsum = _owner_stack(spec, hess_per, Qblk[:, :, 0])
+    if hsum is not None:
+        Qblk = Qblk + hsum
+    Ublk = Ublk.expand(Bsz, T, m, m)
+    for blk, c, J in zip(gc.control_blocks, pd.control_c, pd.control_J):
+        irho = _irho(blk, c)
+        ru = ru + _al_grad(blk, J, blk.lam + irho * c)
+        Ublk = Ublk + _al_hess(blk, J, irho) * same
+        con_v = torch.maximum(con_v, gcm.block_violation_max(c))
+
+    eye_n = torch.eye(n, dtype=dtype, device=device)
+    eye_m = torch.eye(m, dtype=dtype, device=device)
+    Qblk = Qblk + lanes(reg, 5) * eye_n
+    Ublk = (Ublk + lanes(reg, 4) * eye_m).expand(Bsz, T, m, m)
+    return (Residual(rx=rx, ru=ru, rd=pd.rd),
+            JacBlocks(Qblk=Qblk, Ublk=Ublk, A=pd.A, B=pd.B), sta_v, con_v)
+
+
 def assemble_structured_from_point(spec: ProblemSpec, obj, gc, traj,
                                    pd: PointData, reg=0.0):
-    """Residual, :class:`StructuredQ` and the violations (sta, con), each
-    [B], from carried PointData; ``reg`` [B] (or a scalar) is added to the
-    primal diagonals.  Requires a homogeneous spec."""
+    """:func:`assemble_from_point` with the statx Hessians in
+    :class:`StructuredQ` form (the dense Qblk never exists); requires
+    :func:`structured_q_supported`."""
     T, p, n, m = spec.T, spec.p, spec.n, spec.m
     Bsz = traj.x.shape[0]
     dtype, device = traj.x.dtype, traj.x.device
     Qx, Ru = cost_hessian_diag(spec, obj, dtype, device)
-    own = torch.as_tensor(owner_map_u(spec), device=device)
-    same = (own[:, None] == own[None, :]).to(dtype)          # [m, m]
-    Ublk = torch.zeros((m, m), dtype=dtype, device=device)
-    for i in range(p):
-        oi = (own == i).to(dtype)
-        Ublk = Ublk + Ru[i] * (oi[:, None] * oi[None, :])
+    Ublk, same = _control_hessian(spec, Ru, dtype, device)
     qdiag = Qx[:, 1:].permute(1, 0, 2)                       # [T, p, n]
 
     rx, ru = pd.rx0, pd.ru0
@@ -248,9 +328,7 @@ def assemble_structured_from_point(spec: ProblemSpec, obj, gc, traj,
         i = blk.owner
         grad_per[i] = grad if grad_per[i] is None else grad_per[i] + grad
         if isinstance(blk.params, BoundParams):
-            dim = blk.params.z_max.shape[0]
-            mu_, ml_ = _bound_masks(blk, irho)
-            dvec = irho[..., :dim] * mu_ + irho[..., dim:] * ml_
+            dvec = _bound_hess_diag(blk, irho)
             qadd_per[i] = dvec if qadd_per[i] is None else qadd_per[i] + dvec
         else:
             for cc in range(blk.lam.shape[-1]):
@@ -267,7 +345,7 @@ def assemble_structured_from_point(spec: ProblemSpec, obj, gc, traj,
     for blk, c, J in zip(gc.control_blocks, pd.control_c, pd.control_J):
         irho = _irho(blk, c)
         ru = ru + _al_grad(blk, J, blk.lam + irho * c)
-        Ublk = Ublk + _al_hess_bound(blk, irho) * same
+        Ublk = Ublk + _al_hess(blk, J, irho) * same
         con_v = torch.maximum(con_v, gcm.block_violation_max(c))
 
     qdiag = (qdiag + lanes(reg, 4)).expand(Bsz, T, p, n)

@@ -13,9 +13,11 @@ Iterate-level control flow:
 
   outer k = 0..outer_iter-1
     inner l = 0..inner_iter-1 with reg = reg_0 * (l+1)^4
-      rebuild residual + structured Jacobian from the carried point data,
-      record stats, stop on opt_vio < eps_opt
-      KKT step (kernel K1), backtracking line search (kernel K2 when
+      rebuild residual + Jacobian from the carried point data (structured
+      Hessians for diagonal objectives, dense ones with collision-cost
+      pairs), record stats, stop on opt_vio < eps_opt
+      KKT step (kernel K1 on structured, K3 on dense Hessians),
+      backtracking line search (the fused trial kernel when
       ``opts.ls_fused``), update; stop on a failed line search or a step
       below delta_min
     convergence gate on 4 violations, dual ascent + penalty schedule
@@ -30,7 +32,7 @@ from ..constraints import sets as gcm
 from ..core.traj import (PrimalDual, delta_step, init_traj, unpack_step,
                          update_traj)
 from ..models.integration import rollout_rk3
-from ..ops.thomas import solve_thomas_structured
+from ..ops.thomas import kkt_solve
 from ..ops.trial import trial_eval, trial_eval_plain, trial_supported
 from ..stats import Statistics, init_stats, record
 from ..utils import tree_map, where_tree
@@ -64,12 +66,14 @@ class _Carry:
 
 
 def _kkt_solver(method):
-    """``"thomas"``: kernel K1 (its plain version on CPU tensors).  A
-    callable ``(spec, StructuredQ, b, w_owner) -> [B, S]`` is used as is,
-    e.g. ``ops.thomas.solve_thomas_structured_plain`` to run the plain
-    version on the card."""
+    """``"thomas"``: kernel K1 or K3, by the form of the Hessian blocks
+    (their plain versions on CPU tensors).  A callable
+    ``(spec, blocks, b, w_owner) -> [B, S]`` receives the
+    :class:`~.residual.StructuredQ` or :class:`~.linear_solver.JacBlocks`
+    blocks and is used as is, e.g. ``ops.thomas.kkt_solve_plain`` to run
+    the plain versions on the card."""
     if method == "thomas":
-        return solve_thomas_structured
+        return kkt_solve
     if callable(method):
         return method
     raise ValueError(f"unknown linear-solver method {method!r}; expected "
@@ -140,8 +144,12 @@ def _iteration(prob: GameProblem, kkt, w_owner, c: _Carry, active):
     gc, traj, pd = c.gc, c.traj, c.pd
     dtype = traj.x.dtype
     reg = opts.reg_0 * (c.l + 1).to(dtype) ** 4       # reference l^4 schedule
-    res, sq, sta_v, con_v = R.assemble_structured_from_point(
-        spec, obj, gc, traj, pd, reg=reg)
+    if R.structured_q_supported(spec, obj, gc):
+        res, blocks, sta_v, con_v = R.assemble_structured_from_point(
+            spec, obj, gc, traj, pd, reg=reg)
+    else:
+        res, blocks, sta_v, con_v = R.assemble_from_point(
+            spec, obj, gc, traj, pd, reg=reg)
     res_norm = R.residual_norm(spec, res)
     dyn_v = R.dynamics_violation(res)
     opt_v = R.optimality_violation(res)
@@ -151,14 +159,14 @@ def _iteration(prob: GameProblem, kkt, w_owner, c: _Carry, active):
     stop_opt = opt_v < opts.eps_opt
 
     b = R.residual_knot_blocks(spec, res)
-    dflat = kkt(spec, _contiguous(sq), (-b).contiguous(), w_owner)
+    dflat = kkt(spec, _contiguous(blocks), (-b).contiguous(), w_owner)
     dtraj = _contiguous(unpack_step(spec, dflat))
 
     # The fused trial where the problem lies inside its specialization;
     # otherwise the eager trial (an explicit branch, never a fallback on
     # error).
     trial_fn = (trial_eval if opts.ls_fused
-                and trial_supported(model, spec, gc) else None)
+                and trial_supported(model, spec, obj, gc) else None)
     alpha, j, lite = line_search(
         model, spec, obj, gc, opts, traj, dtraj, res_norm, reg,
         live=active & ~stop_opt, trial_fn=trial_fn)
@@ -260,8 +268,7 @@ def newton_solve(prob: GameProblem, x0s: torch.Tensor | None = None,
     ``prob.x0`` as a batch of one).  Returns a batched SolveResult."""
     spec, opts = prob.spec, prob.opts
     if not spec.homogeneous:
-        raise NotImplementedError("the structured KKT path needs a "
-                                  "homogeneous spec")
+        raise NotImplementedError("the KKT kernels need a homogeneous spec")
     if x0s is None:
         x0s = prob.x0[None]
     kkt = _kkt_solver(method)

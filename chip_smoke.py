@@ -1,24 +1,55 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's main path -- the flagship batched game solve,
-``parallel.solve_many`` -> ``newton_solve`` with ``method="thomas"`` and
-``ls_fused=True`` -- on the card through its two hand-written CUDA kernels,
-after checking each kernel against its plain PyTorch version:
+Drives the port's two main paths through ``parallel.solve_many`` ->
+``newton_solve`` with ``method="thomas"`` and ``ls_fused=True`` on the card,
+through its hand-written CUDA kernels, after checking each kernel against
+its plain PyTorch version:
 
-1. build both kernels from ``algames_tpu_torch/csrc`` with nvcc (timed);
-2. K1 (block-Thomas KKT sweep) vs its plain version at flagship shapes,
-   B=1024, over AL penalties mu = 1 .. 1e7: f64 <= 1e-9, f32 (against the
-   f64 plain version) <= 1e-3, worst per-lane relative error;
-3. K2 (fused line-search trial) vs its plain version, B=1024: every carried
-   leaf and tn, f64 <= 1e-12 and f32 <= 1e-5 relative;
-4. one f64 flagship solve (outer 7 x inner 20) through the kernels against
-   ``tests/golden/uni3_N20.npz``: same iteration count, x and u within 1e-8;
+- the flagship batched game solve (3-player unicycle merge, N=20): K1
+  (structured-Q block-Thomas KKT sweep) and K2 (fused line-search trial);
+- the 4-player roundabout (N=40, collision-cost pairs, circle obstacle,
+  speed and control bounds): K3 (dense-Q KKT sweep) and K4 (the fused trial
+  widened to those families; same source and wrapper as K2).
+
+Phases:
+
+1. build the three kernel libraries from ``algames_tpu_torch/csrc`` with
+   nvcc, one process per source started together (timed; registers and
+   spills from ``-Xptxas -v``);
+2. K1 vs its plain version at flagship shapes, B=1024, over AL penalties
+   mu = 1 .. 1e7: f64 <= 1e-9, f32 (against the f64 plain version) <= 1e-3,
+   worst per-lane relative error;
+3. K2 vs its plain version, B=1024: every carried leaf and tn, f64 <= 1e-12
+   and f32 <= 1e-5 relative;
+4. one f64 flagship solve (outer 7 x inner 20) through K1 and K2 (not K3)
+   against ``tests/golden/uni3_N20.npz``: same iteration count, x and u
+   within 1e-8;
 5. the flagship sweep in f32: 4096 scenarios (x0 + 0.05 N(0, 1) noise from
    numpy seed 0), outer 3 x 8, chunk 1024; every trajectory finite,
-   converged fraction >= 0.99, no divergence, both kernels launched; the
-   same sweep with the plain versions on the card, and a profile of one
-   chunk for the host/launch overhead.
+   converged fraction >= 0.99, no divergence, K1 and K2 launched; the same
+   sweep with the plain versions on the card, and a profile of one chunk;
+6. K3 vs its plain version on roundabout KKT systems, B=1024, mu = 1 ..
+   1e7, speeds from the entry speeds to the limit: f64 <= 1e-9, f32 <=
+   1e-3; over the whole speed band, f32 no worse than max(1e-3, 10 x the
+   f32 plain version's own error); K3 vs K1 on flagship systems turned
+   dense, f64 <= 1e-9;
+7. K4 vs its plain version on roundabout trial inputs, B=1024: f64 <=
+   1e-12, f32 <= 1e-5 relative;
+8. one f64 roundabout solve (outer 10 x inner 16) through K3 and K4 (not
+   K1) against ``tests/golden/round4_N40.npz``: iteration 37, x and u
+   within 1e-8;
+9. the roundabout sweep in f32: 4096 scenarios (x0 + 0.05 N(0, 1), numpy
+   seed 0), outer 10 x 16, chunk 1024; every trajectory finite, no
+   divergence, converged fraction >= the reference package's own on these
+   inputs minus 0.01, K3 and K4 launched and K1 not; one chunk with the
+   plain versions on the card, and a profile of one chunk's first two
+   outer iterations.
+
+Kernel times are per wrapper call (CUDA events) and the kernels' own device
+time (profiler).  Each kernel's bound is the larger of its bytes (inputs
+read once, outputs written once) over 3.35 TB/s and its operations over 67
+TFLOP/s (f32), counted from this run's shapes.
 
 It needs one CUDA card and exits non-zero, printing no result, without one
 or when any check fails.  The last two lines are a JSON object describing
@@ -26,8 +57,10 @@ each kernel and ``{"ok": true, "device": {...}}``.
 
 Run from the repository root:  python3 chip_smoke.py
 """
+import concurrent.futures
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -39,6 +72,13 @@ HERE = Path(__file__).resolve().parent
 MUS = [10.0 ** k for k in range(8)]
 B_KERNEL = 1024
 N_SWEEP, CHUNK = 4096, 1024
+# Published H100 SXM peaks (NVIDIA data sheet): device-memory rate and the
+# f32 rate outside the tensor cores.
+PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
+# The reference package's f32 `schur` solve of the first 256 roundabout
+# sweep scenarios converges on 253 of them
+# (`tests/roundabout_reference.py subset`).
+REF_CONVERGED_ROUND4 = 253 / 256
 
 
 def log(msg):
@@ -122,17 +162,153 @@ def al_state(gc, B, rng, dev, dtype, mu=None):
 
 
 def phase_build():
+    """Build every kernel library, one nvcc per source, all started
+    together."""
     from algames_tpu_torch.ops import build
-    out = {}
-    for name in ("thomas_sq", "trial_unicycle"):
+
+    def one(name):
         t0 = time.perf_counter()
         so = build.build(name)
-        out[name] = time.perf_counter() - t0
-        log(f"[build] {name}: {out[name]:.1f} s -> {so.name}")
-        for line in so.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+        return so, time.perf_counter() - t0
+    names = ("thomas_sq", "thomas_dense", "trial_unicycle")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        done = dict(zip(names, pool.map(one, names)))
+    log(f"[build] {len(names)} libraries in {time.perf_counter() - t0:.1f} s"
+        " (in parallel)")
+    for name, (so, secs) in done.items():
+        log(f"[build] {name}: {secs:.1f} s -> {so.name}")
+        for kern, regs, spills in ptxas_report(
+                so.with_suffix(".log").read_text()):
+            log(f"[build]   {kern}: {regs} registers, {spills}")
+
+
+def ptxas_report(text):
+    """(kernel, registers, spill line) per kernel of an ``-Xptxas -v``
+    report."""
+    out, kern, spills = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for \S*?([a-z][a-z_]*_kernel)"
+                      r"I([fd])E", line)
+        if m:
+            kern = (f"{m.group(1)}"
+                    f"<{'float' if m.group(2) == 'f' else 'double'}>")
+        elif "spill" in line:
+            spills = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kern:
+            out.append((kern, int(m.group(1)), spills))
+            kern = None
     return out
+
+
+def bound(nbytes, flops):
+    """Least time (ms) the card could take for the work: the larger of the
+    bytes over the memory rate and the f32 operations over the f32 peak."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def tensor_bytes(tensors):
+    return sum(a.numel() * a.element_size() for a in tensors)
+
+
+def thomas_flops(spec, Bsz, NW=0, dense=False):
+    """Arithmetic operations of one Thomas sweep (forward + backward) over
+    ``Bsz`` lanes, counted from the kernels' loops."""
+    n, m, p, T = spec.n, spec.m, spec.p, spec.T
+    pn, d = p * n, n + m
+    R = pn + 1
+    C = d + R
+    f = 2 * n * n * pn                                   # F = -A G
+    if dense:
+        f += 2 * m * n * n + 2 * n * n * pn              # B^T Q, sum F_i Q_i
+        f += 2 * pn * n                                  # Q_i x (backward)
+    else:
+        f += 2 * n * NW * n                              # F w
+        f += m * n * (1 + (NW / p) * (2 * n + 2))        # B^T Q
+        f += n * n * (2 * p + 2 * NW)                    # sum F_i Q_i
+        f += 2 * NW * n + pn * (1 + 2 * NW / p)          # Q_i x (backward)
+    f += 2 * m * n * n + 2 * m * n                       # B^T A^T, B^T a
+    f += 2 * n * pn * n + n * (2 * n + 2 * pn + 2)       # F A^T, d0 - Ay + Fa
+    f += sum((C - i - 1) + 2 * (d - 1 - i) * (C - i - 1) for i in range(d))
+    f += R * d * (d - 1)                                 # back substitution
+    f += 2 * d * pn + pn * (2 * n + 2)                   # x, u and lam
+    return Bsz * T * f
+
+
+def trial_flops(spec, obj, gc, Bsz):
+    """Arithmetic operations of one fused trial over ``Bsz`` lanes, counted
+    per knot from the kernel's arithmetic (trial point, dynamics and pulls
+    per player, statx rows, constraint rows, collision-cost pairs)."""
+    from algames_tpu_torch.constraints.kernels import BoundParams
+    p, m = spec.p, spec.m
+    rows = bound_rows = 0
+    for b in gc.state_blocks:
+        if isinstance(b.params, BoundParams):
+            bound_rows += sum(b.params.mask)
+        else:
+            rows += b.lam.shape[-1]
+    per_knot = (48 * p * p + 60 * p + 20 * rows + 6 * bound_rows
+                + 14 * m * len(gc.control_blocks) + 30 * len(obj.pair_i))
+    return Bsz * spec.T * per_knot
+
+
+def dense_kkt(spec, jb):
+    """The dense [B, S, S] KKT matrix of the per-knot blocks (rows in
+    equation order [statx | statu | dyn], columns [x | u | lam] per knot):
+    only the library yardstick uses it."""
+    import torch
+    T, n, m, p, W = spec.T, spec.n, spec.m, spec.p, spec.W
+    pn = p * n
+    Bsz, dtype, dev = jb.A.shape[0], jb.A.dtype, jb.A.device
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    D = torch.zeros((Bsz, T, W, W), dtype=dtype, device=dev)
+    for i in range(p):
+        D[:, :, i * n:(i + 1) * n, :n] = jb.Qblk[:, :, i]
+        D[:, :, i * n:(i + 1) * n, n + m + i * n:n + m + (i + 1) * n] = -eye
+    D[:, :, pn:pn + m, n:n + m] = jb.Ublk
+    for i in range(p):
+        for j in spec.pu[i]:
+            D[:, :, pn + j, n + m + i * n:n + m + (i + 1) * n] = jb.B[..., j]
+    D[:, :, pn + m:, :n] = -eye
+    D[:, :, pn + m:, n:n + m] = jb.B
+    K = torch.zeros((Bsz, T * W, T * W), dtype=dtype, device=dev)
+    for t in range(T):
+        K[:, t * W:(t + 1) * W, t * W:(t + 1) * W] = D[:, t]
+        if t + 1 < T:
+            At1 = jb.A[:, t + 1]
+            for i in range(p):
+                c0 = (t + 1) * W + n + m + i * n
+                K[:, t * W + i * n:t * W + (i + 1) * n, c0:c0 + n] = \
+                    At1.transpose(-1, -2)
+            K[:, (t + 1) * W + pn + m:(t + 2) * W, t * W:t * W + n] = At1
+    return K
+
+
+def library_solve_ms(spec, jb, b, lanes):
+    """``torch.linalg.solve`` on the dense KKT matrices of every system, in
+    calls of ``lanes`` systems each (as many as fit on the card): (ms for
+    all the systems, the solution)."""
+    import torch
+    Bsz = b.shape[0]
+    ms, ys = 0.0, []
+    for s in range(0, Bsz, lanes):
+        K = dense_kkt(spec, tree_slice(jb, s + lanes, s))
+        rhs = b[s:s + lanes].reshape(K.shape[0], -1, 1)
+        ms += cuda_ms(lambda: torch.linalg.solve(K, rhs), 1)
+        ys.append(torch.linalg.solve(K, rhs)[..., 0])
+        del K
+        torch.cuda.empty_cache()
+    return ms, torch.cat(ys)
+
+
+def tree_slice(tree, stop, start=0):
+    """Lanes ``start:stop`` of every leaf."""
+    from algames_tpu_torch.utils import tree_map
+    return tree_map(lambda a: a[start:stop].contiguous(), tree)
 
 
 def k1_system(dev, B, mu, seed, penalize_rows=False):
@@ -167,7 +343,9 @@ def k1_system(dev, B, mu, seed, penalize_rows=False):
 def phase_k1(dev):
     import torch
     from algames_tpu_torch.ops.thomas import (solve_thomas_structured,
-                                              solve_thomas_structured_plain)
+                                              solve_thomas_structured_plain,
+                                              structured_to_dense)
+    from algames_tpu_torch.problem.linear_solver import JacBlocks
     from algames_tpu_torch.utils import tree_map
 
     def compare(mu, seed, penalize_rows):
@@ -211,17 +389,36 @@ def phase_k1(dev):
         f"f32 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at B={B_KERNEL} "
         f"(per call, CUDA events); kernel device time {dev_ms:.4f} ms "
         f"(profiler, fwd + bwd)")
-    return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms}
+    jb32 = JacBlocks(Qblk=structured_to_dense(sq32, w_owner, spec.p),
+                     Ublk=sq32.Ublk, A=sq32.A, B=sq32.B)
+    lib_ms, y_lib = library_solve_ms(spec, jb32, b32, B_KERNEL)
+    y = solve_thomas_structured(spec, sq32, b32, w_owner)
+    dev_lib = float(rel_err(y_lib, y).max())
+    bnd = bound(tensor_bytes([sq32.qdiag, sq32.wv, sq32.Ublk, sq32.A,
+                              sq32.B, b32]) + tensor_bytes([y]),
+                thomas_flops(spec, B_KERNEL, NW=len(w_owner)))
+    log(f"[K1] library: torch.linalg.solve on the dense [{B_KERNEL}, "
+        f"{spec.S}, {spec.S}] KKT matrices, f32, one call: {lib_ms:.4f} ms; "
+        f"worst relative deviation from K1 {dev_lib:.3e} (not gated); bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev_ms, **bnd, "library_ms": lib_ms}
 
 
-def k2_inputs(dev, dtype, B, seed):
+def trial_inputs(preset, iterates, half_duals, dev, dtype, seed):
+    """B_KERNEL lanes of trial inputs for one game: iterates from
+    ``iterates(prob, spec, B, rng, dev, dtype)``, small random steps,
+    positive duals (half of them zeroed with ``half_duals``, so that
+    inactive rows go unpenalized), penalties from 1 to 1e7, per-lane alpha
+    and reg, all from numpy seed ``seed``."""
     import torch
+    from algames_tpu_torch.constraints.sets import map_blocks
     from algames_tpu_torch.core.traj import PrimalDual
-    from algames_tpu_torch.presets import flagship_unicycle
 
-    prob, spec = flagship_unicycle(dev, dtype)
+    B = B_KERNEL
+    prob, spec = preset(dev, dtype)
     rng = np.random.default_rng(seed)
-    traj = random_iterates(prob, spec, B, rng, dev, dtype)
+    traj = iterates(prob, spec, B, rng, dev, dtype)
 
     def t(a):
         return torch.as_tensor(a, dtype=dtype, device=dev)
@@ -230,25 +427,47 @@ def k2_inputs(dev, dtype, B, seed):
                        lam=t(0.05 * rng.standard_normal(
                            (B, spec.p, spec.T, spec.n))))
     gc = al_state(prob.gc, B, rng, dev, dtype)
+    if half_duals:
+        gc = map_blocks(gc, lambda b: dataclasses.replace(b, lam=b.lam * t(
+            rng.random(tuple(b.lam.shape)) < 0.5)))
     alpha = t(0.5 ** rng.integers(0, 6, size=B))
     reg = t(1e-3 * (1.0 + rng.integers(0, 20, size=B)) ** 4)
     return prob, spec, gc, traj, dtraj, alpha, reg
 
 
-def phase_k2(dev):
+def k2_inputs(dev, dtype):
+    """Flagship trial inputs around the perturbed start."""
+    from algames_tpu_torch.presets import flagship_unicycle
+    return trial_inputs(flagship_unicycle, random_iterates, False, dev,
+                        dtype, seed=7)
+
+
+def k4_inputs(dev, dtype):
+    """Roundabout trial inputs with the players crowded near the island."""
+    from algames_tpu_torch.presets import roundabout
+    return trial_inputs(roundabout, lambda prob, *a: crowded_iterates(*a),
+                        True, dev, dtype, seed=11)
+
+
+def phase_trial(tag, inputs, dev):
+    """The fused trial (K2 or K4) against its plain version on
+    ``inputs(dev, dtype)``: tn and every carried leaf, f64 <= 1e-12 and f32 <=
+    1e-5 relative; then its times and bound in f32."""
     import torch
-    from algames_tpu_torch.ops.trial import trial_eval, trial_eval_plain
+    from algames_tpu_torch.ops.trial import (trial_eval, trial_eval_plain,
+                                             trial_supported)
     from algames_tpu_torch.utils import tree_leaves
 
     max_abs32 = 0.0
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        prob, spec, gc, traj, dtraj, alpha, reg = k2_inputs(dev, dtype,
-                                                            B_KERNEL, 7)
+        prob, spec, gc, traj, dtraj, alpha, reg = inputs(dev, dtype)
+        if not trial_supported(prob.model, spec, prob.obj, gc):
+            raise SystemExit(f"the {tag} inputs lie outside the fused trial")
         args = (prob.model, spec, prob.obj, gc, traj, dtraj, alpha, reg)
         launches = trial_eval.launches
         tn_k, lite_k = trial_eval(*args)
         if trial_eval.launches != launches + 1:
-            raise SystemExit("the K2 wrapper did not launch its kernel")
+            raise SystemExit(f"the {tag} wrapper did not launch its kernel")
         tn_p, lite_p = trial_eval_plain(*args)
         torch.cuda.synchronize()
         errs = [float(rel_err(tn_k[:, None], tn_p[:, None]).max())]
@@ -257,50 +476,82 @@ def phase_k2(dev):
             errs.append(float(rel_err(a, r).max()))
             abs_errs.append(float((a - r).abs().max()))
         name = str(dtype).split(".")[-1]
-        log(f"[K2] {name}: worst relative error over tn and "
+        log(f"[{tag}] {name}: worst relative error over tn and "
             f"{len(errs) - 1} carried leaves {max(errs):.3e} (<= {tol:g}), "
             f"max abs {max(abs_errs):.3e}")
         if not max(errs) <= tol:
-            raise SystemExit(f"K2 disagrees with its plain version in {name}")
+            raise SystemExit(f"{tag} disagrees with its plain version in "
+                             f"{name}")
         if dtype == torch.float32:
             max_abs32 = max(abs_errs)
             ms = cuda_ms(lambda: trial_eval(*args), 20)
             plain_ms = cuda_ms(lambda: trial_eval_plain(*args), 5)
             dev_ms = kernel_device_ms(lambda: trial_eval(*args), 20,
                                       ("trial_unicycle_",))
-            log(f"[K2] f32 B={B_KERNEL}: kernel {ms:.4f} ms, plain "
+            bnd = trial_bound(*args, lite_k, tn_k)
+            log(f"[{tag}] f32 B={B_KERNEL}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms (per call, CUDA events); kernel device "
-                f"time {dev_ms:.4f} ms (profiler)")
-    return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms}
+                f"time {dev_ms:.4f} ms (profiler); bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); no single "
+                f"PyTorch call computes the trial")
+    return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev_ms, **bnd, "library_ms": None}
 
 
-def phase_golden(dev):
+def trial_bound(model, spec, obj, gc, traj, dtraj, alpha, reg, lite, tn):
+    """Bound of one fused trial: iterate, step, per-lane scalars and the AL
+    state read once (a state bound's only at its finite rows, the others
+    being masked out), the carried point and tn written once."""
+    from algames_tpu_torch.constraints.kernels import BoundParams
+    from algames_tpu_torch.utils import tree_leaves
+    nbytes = tensor_bytes(tree_leaves((traj, dtraj)) + [alpha, reg])
+    for b in gc.state_blocks + gc.control_blocks:
+        share = 1.0
+        if b.is_state and isinstance(b.params, BoundParams):
+            share = sum(b.params.mask) / len(b.params.mask)
+        nbytes += share * tensor_bytes([b.lam, b.mu])
+    nbytes += tensor_bytes(tree_leaves(lite) + [tn])
+    return bound(nbytes, trial_flops(spec, obj, gc, alpha.shape[0]))
+
+
+def phase_golden(tag, preset, golden, kernels, dev):
+    """One f64 solve of ``preset`` through the kernels against
+    ``tests/golden/<golden>.npz``: the same iteration count, x and u within
+    1e-8, and only the game's own kernels (``kernels`` = (KKT wrapper,
+    other KKT wrapper)) launched, with the fused trial."""
     import torch
     import algames_tpu_torch as agt
-    from algames_tpu_torch.presets import flagship_unicycle
+    from algames_tpu_torch.ops.trial import trial_eval
 
-    gold = np.load(HERE / "tests" / "golden" / "uni3_N20.npz")
-    prob, _ = flagship_unicycle(dev, torch.float64)
+    kkt, other = kernels
+    gold = np.load(HERE / "tests" / "golden" / f"{golden}.npz")
+    prob, _ = preset(dev, torch.float64)
     prob = dataclasses.replace(
         prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
+    counters = (kkt, trial_eval, other)
+    before = [c.launches for c in counters]
     t0 = time.perf_counter()
     res = agt.newton_solve(prob)
     torch.cuda.synchronize()
     el = time.perf_counter() - t0
+    ran = [c.launches - b for c, b in zip(counters, before)]
     it = int(res.stats.iter[0])
     dx = float(np.abs(res.traj.x[0].cpu().numpy() - gold["x"]).max())
     du = float(np.abs(res.traj.u[0].cpu().numpy() - gold["u"]).max())
-    log(f"[golden] f64 kernel path: iter {it} (golden {int(gold['iter'])}), "
-        f"max |dx| {dx:.3e}, max |du| {du:.3e} (<= 1e-8), {el:.2f} s")
-    if not (it == int(gold["iter"]) and dx <= 1e-8 and du <= 1e-8):
-        raise SystemExit("the f64 kernel-path solve misses the golden "
-                         "trajectory")
+    log(f"[{tag}] f64 kernel path: iter {it} (golden {int(gold['iter'])}), "
+        f"max |dx| {dx:.3e}, max |du| {du:.3e} (<= 1e-8), {el:.2f} s; "
+        f"launches: KKT {ran[0]}, trial {ran[1]}, the other KKT kernel "
+        f"{ran[2]}")
+    if not (it == int(gold["iter"]) and dx <= 1e-8 and du <= 1e-8
+            and ran[0] > 0 and ran[1] > 0 and ran[2] == 0):
+        raise SystemExit(f"the f64 kernel-path solve misses {golden}")
 
 
-def sweep_problem(dev):
+def sweep_problem(preset, dev, **budget):
+    """An f32 sweep of ``preset`` with the fused trial: N_SWEEP scenarios,
+    x0 + 0.05 N(0, 1) from numpy seed 0."""
     import torch
-    from algames_tpu_torch.presets import flagship_unicycle
-    prob, spec = flagship_unicycle(dev, torch.float32, outer=3, inner=8)
+    prob, spec = preset(dev, torch.float32, **budget)
     prob = dataclasses.replace(
         prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
     rng = np.random.default_rng(0)
@@ -322,17 +573,20 @@ def timed_sweep(prob, x0s, method):
 def phase_sweep(dev):
     import torch
     from algames_tpu_torch import parallel
-    from algames_tpu_torch.ops.thomas import (solve_thomas_structured,
+    from algames_tpu_torch.ops.thomas import (solve_thomas,
+                                              solve_thomas_structured,
                                               solve_thomas_structured_plain)
     from algames_tpu_torch.ops.trial import trial_eval
+    from algames_tpu_torch.presets import flagship_unicycle
 
-    prob, x0s = sweep_problem(dev)
+    prob, x0s = sweep_problem(flagship_unicycle, dev, outer=3, inner=8)
     parallel.solve_batch(prob, x0s[:64])             # warm-up, untimed
     solve_thomas_structured.launches = 0
     trial_eval.launches = 0
+    solve_thomas.launches = 0
     out, el = timed_sweep(prob, x0s, "thomas")
     launches = {"K1": solve_thomas_structured.launches,
-                "K2": trial_eval.launches}
+                "K2": trial_eval.launches, "K3": solve_thomas.launches}
     sps = N_SWEEP / el
     iters = out.stats.iter.cpu().numpy()
     cap = prob.opts.outer_iter * prob.opts.inner_iter
@@ -347,7 +601,8 @@ def phase_sweep(dev):
     log("[sweep] iteration histogram (stats rows per lane): "
         + " ".join(f"{i}:{c}" for i, c in enumerate(hist) if c))
     if not (finite and frac >= 0.99 and div == 0.0
-            and launches["K1"] > 0 and launches["K2"] > 0):
+            and launches["K1"] > 0 and launches["K2"] > 0
+            and launches["K3"] == 0):
         raise SystemExit("the flagship sweep failed its gates")
 
     plain = dataclasses.replace(
@@ -358,30 +613,242 @@ def phase_sweep(dev):
     log(f"[sweep] same sweep with the plain versions on the card: "
         f"{el_p:.3f} s, {N_SWEEP / el_p:.1f} solves/s, converged {frac_p:.4f}")
 
-    # Host/launch overhead of the eager per-iteration loop: device time of
-    # one chunk against its wall time, under the profiler.  Only device-side
-    # events count: a CPU op's own device time repeats its kernels' time.
+    profile_chunk("profile", prob, x0s[:CHUNK], ("thomas_sq_",
+                                                 "trial_unicycle_"))
+    return launches
+
+
+def profile_chunk(tag, prob, x0s, names):
+    """Host/launch overhead of the eager per-iteration loop: device time of
+    one chunk against its wall time, under the profiler.  Only device-side
+    events count: a CPU op's own device time repeats its kernels' time."""
+    import torch
+    from algames_tpu_torch import parallel
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        parallel.solve_batch(prob, x0s[:CHUNK])
+        parallel.solve_batch(prob, x0s)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     evs = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     dev_us = sum(e.self_device_time_total for e in evs)
     n_kern = sum(e.count for e in evs)
-    log(f"[profile] one {CHUNK}-lane chunk: wall {wall * 1e3:.1f} ms under "
-        f"the profiler, device busy {dev_us / 1e3:.1f} ms "
+    log(f"[{tag}] one {x0s.shape[0]}-lane chunk at outer "
+        f"{prob.opts.outer_iter} x {prob.opts.inner_iter}: wall "
+        f"{wall * 1e3:.1f} ms "
+        f"under the profiler, device busy {dev_us / 1e3:.1f} ms "
         f"({100 * dev_us / 1e6 / wall:.1f}%), {n_kern} device kernels and "
         f"copies")
     top = sorted(evs, key=lambda e: -e.self_device_time_total)
-    for e in top[:6] + [e for e in top[6:] if "thomas_sq_" in e.key
-                        or "trial_unicycle_" in e.key]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
+    for e in top[:6] + [e for e in top[6:] if any(n in e.key for n in names)]:
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"x{e.count:6d}  {e.key[:70]}")
+
+
+def crowded_iterates(spec, B, rng, dev, dtype, v_band=(0.3, 1.5)):
+    """Roundabout iterates: controls around the golden trajectory's, every
+    player's position drawn near the island (so that the collision
+    constraints and costs and the island circle are active in many lanes)
+    and speeds drawn uniformly from ``v_band`` (default: from the entry
+    speeds up to the speed limit).  Near zero speed a unicycle loses its
+    heading's controllability and the KKT systems become ill-conditioned:
+    the K3 phase reports that band ungated."""
+    import torch
+    from algames_tpu_torch.core.traj import PrimalDual
+    gold = np.load(HERE / "tests" / "golden" / "round4_N40.npz")
+    x = gold["x"][None] + 0.1 * rng.standard_normal((B, spec.N, spec.n))
+    pos = [i for ix in spec.px for i in ix]
+    x[:, :, pos] = 0.3 * rng.standard_normal((B, spec.N, len(pos)))
+    speed = [spec.pz[i][3] for i in range(spec.p)]
+    x[:, :, speed] = rng.uniform(*v_band, (B, spec.N, spec.p))
+    u = gold["u"][None] + 0.3 * rng.standard_normal((B, spec.T, spec.m))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    return PrimalDual(x=t(x), u=t(u), lam=t(0.3 * rng.standard_normal(
+        (B, spec.p, spec.T, spec.n))))
+
+
+def k3_system(dev, B, mu, seed, penalize_rows=False, v_band=(0.3, 1.5)):
+    """Roundabout KKT systems (f64) assembled by the port's dense assembly
+    from crowded roundabout points; mu enters as for K1 (Qblk += mu I on
+    the statx diagonals, or every constraint row penalized at mu)."""
+    import torch
+    from algames_tpu_torch.constraints.sets import reset_constraints
+    from algames_tpu_torch.presets import roundabout
+    from algames_tpu_torch.problem import residual as R
+    from algames_tpu_torch.utils import tree_map
+
+    prob, spec = roundabout(dev, torch.float64)
+    rng = np.random.default_rng(seed)
+    traj = crowded_iterates(spec, B, rng, dev, torch.float64, v_band)
+    gc = (al_state(prob.gc, B, rng, dev, torch.float64, mu=mu)
+          if penalize_rows else reset_constraints(prob.gc, B))
+    pd = R.point_data(prob.model, spec, prob.obj, gc, traj)
+    res, jb, _, _ = R.assemble_from_point(
+        spec, prob.obj, gc, traj, pd,
+        reg=torch.full((B,), 1e-3, dtype=torch.float64, device=dev))
+    if not penalize_rows:
+        eye = torch.eye(spec.n, dtype=torch.float64, device=dev)
+        jb = dataclasses.replace(jb, Qblk=jb.Qblk + mu * eye)
+    b = -R.residual_knot_blocks(spec, res)
+    return spec, tree_map(lambda a: a.contiguous(), jb), b.contiguous()
+
+
+def phase_k3(dev):
+    import torch
+    from algames_tpu_torch.ops.thomas import (solve_thomas, solve_thomas_plain,
+                                              solve_thomas_structured,
+                                              structured_to_dense)
+    from algames_tpu_torch.problem.linear_solver import JacBlocks
+    from algames_tpu_torch.utils import tree_map
+
+    def compare(mu, seed, penalize_rows, v_band=(0.3, 1.5), plain32=False):
+        spec, jb, b = k3_system(dev, B_KERNEL, mu, seed, penalize_rows,
+                                v_band)
+        ref = solve_thomas_plain(spec, jb, b)
+        y64 = solve_thomas(spec, jb, b)
+        jb32, b32 = tree_map(lambda a: a.float(), jb), b.float()
+        y32 = solve_thomas(spec, jb32, b32)
+        torch.cuda.synchronize()
+        out = (float(rel_err(y64, ref).max()), float(rel_err(y32, ref).max()),
+               float((y32.double() - ref).abs().max()))
+        if plain32:
+            out += (float(rel_err(solve_thomas_plain(spec, jb32, b32), ref)
+                          .max()),)
+        return out
+
+    worst64 = worst32 = max_abs32 = 0.0
+    launches = solve_thomas.launches
+    for i, mu in enumerate(MUS):
+        e64, e32, a32 = compare(mu, 100 + i, False)
+        log(f"[K3] mu={mu:.0e}: f64 kernel vs f64 plain {e64:.3e} (<= 1e-9), "
+            f"f32 kernel vs f64 plain {e32:.3e} (<= 1e-3), f32 max abs "
+            f"{a32:.3e}")
+        if not (e64 <= 1e-9 and e32 <= 1e-3):
+            raise SystemExit(f"K3 disagrees with its plain version at mu={mu}")
+        worst64, worst32 = max(worst64, e64), max(worst32, e32)
+        max_abs32 = max(max_abs32, a32)
+    if solve_thomas.launches != launches + 2 * len(MUS):
+        raise SystemExit("the K3 wrapper did not launch its kernel")
+    for mu in (1e3, 1e7):
+        e64, e32, _, p32 = compare(mu, 150, True, plain32=True)
+        log(f"[K3] every constraint row penalized at mu={mu:.0e} (reported, "
+            f"not gated): f64 {e64:.3e}, f32 {e32:.3e} (f32 plain "
+            f"{p32:.3e})")
+    for mu in (1.0, 1e7):
+        # Near zero speed the systems are ill-conditioned and f32 itself
+        # loses digits: the kernel is held to the f32 plain version's own
+        # error there.
+        e64, e32, _, p32 = compare(mu, 160, False, v_band=(-0.2, 1.5),
+                                   plain32=True)
+        log(f"[K3] speeds over the whole band [-0.2, 1.5] at mu={mu:.0e}: "
+            f"f64 kernel {e64:.3e} (<= 1e-9), f32 kernel {e32:.3e} against "
+            f"f32 plain {p32:.3e} (<= max(1e-3, 10 x plain))")
+        if not (e64 <= 1e-9 and e32 <= max(1e-3, 10 * p32)):
+            raise SystemExit(f"K3 disagrees with its plain version over the "
+                             f"whole speed band at mu={mu}")
+    # K3 against K1 on the same flagship systems, the Q blocks turned dense.
+    worst_k1 = 0.0
+    for i, mu in enumerate((1.0, 1e3, 1e7)):
+        fspec, sq, fb, w_owner = k1_system(dev, B_KERNEL, mu, 200 + i)
+        jb = JacBlocks(Qblk=structured_to_dense(sq, w_owner, fspec.p)
+                       .contiguous(), Ublk=sq.Ublk, A=sq.A, B=sq.B)
+        e = float(rel_err(solve_thomas(fspec, jb, fb),
+                          solve_thomas_structured(fspec, sq, fb, w_owner))
+                  .max())
+        worst_k1 = max(worst_k1, e)
+    log(f"[K3] K3 vs K1 on flagship systems turned dense, f64, mu = 1, 1e3, "
+        f"1e7: {worst_k1:.3e} (<= 1e-9)")
+    if not worst_k1 <= 1e-9:
+        raise SystemExit("K3 disagrees with K1 on the flagship systems")
+
+    spec, jb, b = k3_system(dev, B_KERNEL, 1e3, seed=199)
+    jb32, b32 = tree_map(lambda a: a.float(), jb), b.float()
+    ms = cuda_ms(lambda: solve_thomas(spec, jb32, b32), 20)
+    plain_ms = cuda_ms(lambda: solve_thomas_plain(spec, jb32, b32), 5)
+    dev_ms = kernel_device_ms(lambda: solve_thomas(spec, jb32, b32), 20,
+                              ("thomas_dense_",))
+    y = solve_thomas(spec, jb32, b32)
+    bnd = bound(tensor_bytes([jb32.Qblk, jb32.Ublk, jb32.A, jb32.B, b32])
+                + tensor_bytes([y]), thomas_flops(spec, B_KERNEL, dense=True))
+    log(f"[K3] worst over mu: f64 {worst64:.3e}, f32 {worst32:.3e} relative; "
+        f"f32 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at B={B_KERNEL} "
+        f"(per call, CUDA events); kernel device time {dev_ms:.4f} ms "
+        f"(profiler, fwd + bwd); bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']})")
+    # The B dense [S, S] matrices (48 GB in f32) do not fit twice on an
+    # 80 GB card: the library solves them 128 lanes per call.
+    lanes = min(128, B_KERNEL)
+    lib_ms, y_lib = library_solve_ms(spec, jb32, b32, lanes)
+    log(f"[K3] library: torch.linalg.solve on the dense [{B_KERNEL}, "
+        f"{spec.S}, {spec.S}] KKT matrices, f32, {B_KERNEL // lanes} calls "
+        f"of {lanes} lanes: {lib_ms:.4f} ms; worst relative deviation from "
+        f"K3 {float(rel_err(y_lib, y).max()):.3e} (not gated)")
+    return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev_ms, **bnd, "library_ms": lib_ms}
+
+
+def phase_sweep4(dev):
+    import torch
+    from algames_tpu_torch import parallel
+    from algames_tpu_torch.ops.thomas import (kkt_solve_plain, solve_thomas,
+                                              solve_thomas_structured)
+    from algames_tpu_torch.ops.trial import trial_eval
+    from algames_tpu_torch.presets import roundabout
+
+    prob, x0s = sweep_problem(roundabout, dev)
+    opts = prob.opts
+    parallel.solve_batch(
+        dataclasses.replace(prob, opts=dataclasses.replace(
+            opts, outer_iter=1, inner_iter=2)), x0s[:64])   # warm-up
+    solve_thomas.launches = 0
+    trial_eval.launches = 0
+    solve_thomas_structured.launches = 0
+    out, el = timed_sweep(prob, x0s, "thomas")
+    launches = {"K3": solve_thomas.launches, "K4": trial_eval.launches,
+                "K1": solve_thomas_structured.launches}
+    iters = out.stats.iter.cpu().numpy()
+    cap = opts.outer_iter * opts.inner_iter
+    hist = np.bincount(iters, minlength=cap + 2)
+    frac = float(parallel.convergence_fraction(out, opts))
+    div = float(parallel.divergence_mask(out).float().mean())
+    finite = bool(torch.isfinite(out.traj.x).all())
+    first = float(parallel.convergence_fraction(
+        dataclasses.replace(out, stats=tree_slice(out.stats, 256),
+                            traj=tree_slice(out.traj, 256)), opts))
+    log(f"[sweep4] f32 {N_SWEEP} scenarios, chunk {CHUNK}, outer "
+        f"{opts.outer_iter} x {opts.inner_iter}, kernels: {el:.3f} s, "
+        f"{N_SWEEP / el:.1f} solves/s")
+    log(f"[sweep4] converged {frac:.4f} (>= {REF_CONVERGED_ROUND4 - 0.01:.4f}"
+        f"), first 256 lanes {first:.4f} (reference "
+        f"{REF_CONVERGED_ROUND4:.4f}), diverged {div:.4f}, finite {finite}, "
+        f"launches {launches}")
+    log("[sweep4] iteration histogram (stats rows per lane): "
+        + " ".join(f"{i}:{c}" for i, c in enumerate(hist) if c))
+    if not (finite and frac >= REF_CONVERGED_ROUND4 - 0.01 and div == 0.0
+            and launches["K3"] > 0 and launches["K4"] > 0
+            and launches["K1"] == 0):
+        raise SystemExit("the roundabout sweep failed its gates")
+
+    plain = dataclasses.replace(prob, opts=dataclasses.replace(
+        opts, ls_fused=False))
+    out_p, el_p = timed_sweep(plain, x0s[:CHUNK], kkt_solve_plain)
+    it_p = out_p.stats.iter.cpu().numpy()
+    log(f"[sweep4] one {CHUNK}-lane chunk with the plain versions on the "
+        f"card: {el_p:.3f} s, {CHUNK / el_p:.1f} solves/s, converged "
+        f"{float(parallel.convergence_fraction(out_p, opts)):.4f}, per-lane "
+        f"iteration counts equal to the kernels' on "
+        f"{int((it_p == iters[:CHUNK]).sum())} of {CHUNK} lanes")
+    # The profile covers the first two outer iterations (up to 32 trips):
+    # the profiler's own processing of a whole chunk's ~450k device
+    # events takes minutes of host time.
+    profile_chunk("profile4", dataclasses.replace(prob, opts=dataclasses.
+                                                  replace(opts, outer_iter=2)),
+                  x0s[:CHUNK], ("thomas_dense_", "trial_unicycle_"))
     return launches
 
 
@@ -390,7 +857,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    import algames_tpu_torch  # noqa: F401  (fails without the package)
+    from algames_tpu_torch.ops.thomas import (solve_thomas,
+                                              solve_thomas_structured)
+    from algames_tpu_torch.presets import flagship_unicycle, roundabout
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -401,11 +870,26 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    phase_build()
-    k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
-    phase_golden(dev)
-    launches = phase_sweep(dev)
+    t_start = time.perf_counter()
+
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {label}: {time.perf_counter() - t0:.1f} s "
+            f"({time.perf_counter() - t_start:.1f} s so far)")
+        return out
+    flag_kkt = (solve_thomas_structured, solve_thomas)
+    phase("build", phase_build)
+    k1 = phase("K1", phase_k1, dev)
+    k2 = phase("K2", phase_trial, "K2", k2_inputs, dev)
+    phase("golden", phase_golden, "golden", flagship_unicycle, "uni3_N20",
+          flag_kkt, dev)
+    launches = phase("sweep", phase_sweep, dev)
+    k3 = phase("K3", phase_k3, dev)
+    k4 = phase("K4", phase_trial, "K4", k4_inputs, dev)
+    phase("golden4", phase_golden, "golden4", roundabout, "round4_N40",
+          flag_kkt[::-1], dev)
+    launches4 = phase("sweep4", phase_sweep4, dev)
     kernels = [
         {"name": "K1 structured block-Thomas KKT sweep", "route": "cuda",
          "source": "algames_tpu_torch/csrc/thomas_sq.cu",
@@ -415,6 +899,14 @@ def main():
          "source": "algames_tpu_torch/csrc/trial_unicycle.cu",
          "replaces": "algames_tpu/ops/trial_kernel.py:367",
          "launches": launches["K2"], **k2},
+        {"name": "K3 dense-Q block-Thomas KKT sweep", "route": "cuda",
+         "source": "algames_tpu_torch/csrc/thomas_dense.cu",
+         "replaces": "algames_tpu/ops/thomas_pallas.py:424",
+         "launches": launches4["K3"], **k3},
+        {"name": "K4 generic fused trial (unicycle family)", "route": "cuda",
+         "source": "algames_tpu_torch/csrc/trial_unicycle.cu",
+         "replaces": "algames_tpu/ops/trial_pallas.py:167",
+         "launches": launches4["K4"], **k4},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

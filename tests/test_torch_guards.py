@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it never imports JAX, it has no CPU fallback
 for its kernels, and ``chip_smoke.py`` refuses to report without a card."""
 import dataclasses
+import inspect
 import os
 import pkgutil
 import re
@@ -12,9 +13,9 @@ import pytest
 import torch
 
 import algames_tpu_torch as agt
-from algames_tpu_torch.ops.thomas import solve_thomas_structured
-from algames_tpu_torch.ops.trial import trial_eval
-from algames_tpu_torch.presets import flagship_unicycle
+from algames_tpu_torch.ops.thomas import solve_thomas, solve_thomas_structured
+from algames_tpu_torch.ops.trial import trial_eval, trial_supported
+from algames_tpu_torch.presets import flagship_unicycle, roundabout
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,15 +68,29 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
 
 
 def test_cpu_solve_launches_no_kernel():
-    """A CPU solve with the fused trial runs both plain versions: neither
-    kernel's launch counter moves."""
+    """CPU solves with the fused trial run the plain versions: no kernel's
+    launch counter moves, neither on the flagship (K1, K2) nor on the
+    roundabout (K3, K4: dense Hessians, the widened trial)."""
     prob, spec = flagship_unicycle(torch.device("cpu"), torch.float64,
                                    outer=1, inner=2, p=2, N=5)
     prob = dataclasses.replace(prob, opts=dataclasses.replace(prob.opts,
                                                               ls_fused=True))
-    k1, k2 = solve_thomas_structured.launches, trial_eval.launches
-    out = agt.newton_solve(prob, prob.x0[None].repeat(2, 1))
-    assert out.traj.x.shape == (2, spec.N, spec.n)
-    assert bool(torch.isfinite(out.traj.x).all())
-    assert (solve_thomas_structured.launches, trial_eval.launches) == (k1, k2)
-    assert k1 == 0 and k2 == 0
+    rprob, rspec = roundabout(torch.device("cpu"), torch.float64, outer=1,
+                              inner=2)
+    rprob = dataclasses.replace(rprob, opts=dataclasses.replace(
+        rprob.opts, ls_fused=True))
+    counters = (solve_thomas_structured, solve_thomas, trial_eval)
+    before = [c.launches for c in counters]
+    for pr, sp in ((prob, spec), (rprob, rspec)):
+        assert trial_supported(pr.model, sp, pr.obj, pr.gc)
+        out = agt.newton_solve(pr, pr.x0[None].repeat(2, 1))
+        assert out.traj.x.shape == (2, sp.N, sp.n)
+        assert bool(torch.isfinite(out.traj.x).all())
+    assert [c.launches for c in counters] == before == [0, 0, 0]
+
+
+def test_presets_default_to_the_card():
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: the presets' device defaults to CUDA."""
+    for fn in (flagship_unicycle, roundabout):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

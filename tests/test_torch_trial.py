@@ -136,18 +136,26 @@ def test_wrapper_cpu_contract(case):
 
 def test_specialization_predicate(case):
     tprob, tgc = case["tprob"], case["tgc"]
-    assert trial.trial_supported(tprob.model, tprob.spec, tgc)
-    # A state bound is outside the specialization: the solver then takes
-    # the eager trial by an explicit branch.
-    from algames_tpu_torch.constraints.kernels import make_bound
-    spec = tprob.spec
-    blk = tsets.ConBlock(params=make_bound(np.ones(spec.n), -np.ones(spec.n),
-                                           torch.float64, torch.device("cpu")),
-                         lam=torch.zeros(spec.T, 2 * spec.n),
-                         mu=torch.ones(spec.T, 2 * spec.n), owner=0,
-                         is_state=True)
-    gc_b = dataclasses.replace(tgc, state_blocks=tgc.state_blocks + (blk,))
-    assert not trial.trial_supported(tprob.model, spec, gc_b)
+    spec, obj = tprob.spec, tprob.obj
+    assert trial.trial_supported(tprob.model, spec, obj, tgc)
+    # A state bound lies inside the widened specialization ...
+    from algames_tpu_torch.constraints.kernels import (CollisionParams,
+                                                       make_bound)
+    bound = tsets.ConBlock(
+        params=make_bound(np.ones(spec.n), -np.ones(spec.n), torch.float64,
+                          torch.device("cpu")),
+        lam=torch.zeros(spec.T, 2 * spec.n), mu=torch.ones(spec.T, 2 * spec.n),
+        owner=0, is_state=True)
+    gc_b = dataclasses.replace(tgc, state_blocks=tgc.state_blocks + (bound,))
+    assert trial.trial_supported(tprob.model, spec, obj, gc_b)
+    # ... a collision block on three coordinates does not: the solver then
+    # takes the eager trial by an explicit branch.
+    coll3 = tsets.ConBlock(
+        params=CollisionParams(radius=torch.tensor(0.1, dtype=torch.float64),
+                               pxi=(0, 1, 2), pxj=(3, 4, 5)),
+        lam=torch.zeros(spec.T, 1), mu=torch.ones(spec.T, 1), owner=0,
+        is_state=True)
+    gc_c = dataclasses.replace(tgc, state_blocks=tgc.state_blocks + (coll3,))
+    assert not trial.trial_supported(tprob.model, spec, obj, gc_c)
     with pytest.raises(ValueError, match="specialization"):
-        trial.trial_eval(tprob.model, spec, tprob.obj, gc_b,
-                         *case["targs"][4:])
+        trial.trial_eval(tprob.model, spec, obj, gc_c, *case["targs"][4:])
