@@ -1,6 +1,6 @@
 """Game constraint container, AL state and its updates (counterpart of
-``algames_tpu/constraints/sets.py``: collision, circle, state/velocity and
-control bound families).
+``algames_tpu/constraints/sets.py``: planar and spherical collision, circle,
+wall, 3D wall, cylinder, state/velocity and control bound families).
 
 A ``ConBlock`` pairs a family-parameter record (shared by every lane) with
 the AL state ``lam``/``mu`` [B, K, C] (K = applied knots, C = rows).  A
@@ -25,7 +25,8 @@ import torch
 
 from ..core.spec import ProblemSpec
 from . import kernels
-from .kernels import CircleParams, CollisionParams, make_bound
+from .kernels import (CircleParams, CollisionParams, CylinderParams,
+                      Wall2DParams, Wall3DParams, make_bound)
 
 
 @dataclasses.dataclass
@@ -121,6 +122,25 @@ def add_collision_avoidance(spec: ProblemSpec, gc: GameConstraints, radius,
     return gc
 
 
+def add_spherical_collision_avoidance(spec: ProblemSpec, gc: GameConstraints,
+                                      radius) -> GameConstraints:
+    """3D collision avoidance on the first three state components of each
+    player: one block per ordered pair with radius ``radius[i] +
+    radius[j]`` (a scalar radius is broadcast)."""
+    dtype, device = gc.alpha_dual.dtype, gc.alpha_dual.device
+    radius = np.broadcast_to(np.asarray(radius, np.float64), (spec.p,))
+    for a in range(spec.p):
+        for b in range(spec.p):
+            if a != b:
+                par = CollisionParams(
+                    radius=torch.as_tensor(float(radius[a] + radius[b]),
+                                           dtype=dtype, device=device),
+                    pxi=spec.pz[a][:3], pxj=spec.pz[b][:3])
+                gc = _push_state(gc, _new_block(spec, par, a, True, dtype,
+                                                device))
+    return gc
+
+
 def _promote_bound(z, dim):
     """A scalar bound is broadcast to the full dimension."""
     z = np.asarray(z, np.float64)
@@ -167,6 +187,75 @@ def add_circle_constraint(spec: ProblemSpec, gc: GameConstraints, xc, yc,
                                device=device)
     par = CircleParams(xc=vec(xc), yc=vec(yc), radius=vec(radius),
                        xi=spec.px[i][0], yi=spec.px[i][1])
+    return _push_state(gc, _new_block(spec, par, i, True, dtype, device))
+
+
+class Wall:
+    """2D wall segment from p1 to p2 with normal-like direction v."""
+
+    def __init__(self, p1, p2, v):
+        self.p1, self.p2, self.v = (np.asarray(p1), np.asarray(p2),
+                                    np.asarray(v))
+
+
+class Wall3D:
+    """3D parallelepiped facet with corners p1, p2, p3 and direction v."""
+
+    def __init__(self, p1, p2, p3, v):
+        self.p1, self.p2 = np.asarray(p1), np.asarray(p2)
+        self.p3, self.v = np.asarray(p3), np.asarray(v)
+
+
+class CylinderWall:
+    """Axis-aligned finite cylinder: base point p, axis v in ('x', 'y',
+    'z'), length l, radius r."""
+
+    def __init__(self, p, v, l, r):
+        self.p, self.v, self.l, self.r = np.asarray(p), v, float(l), float(r)
+
+
+def add_wall_constraint(spec: ProblemSpec, gc: GameConstraints, walls,
+                        i: int | None = None) -> GameConstraints:
+    """One block of ``walls`` (all of one kind: :class:`Wall`,
+    :class:`Wall3D` or :class:`CylinderWall`) on player i's position, or one
+    block per player when ``i`` is None."""
+    dtype, device = gc.alpha_dual.dtype, gc.alpha_dual.device
+    if i is None:
+        for a in range(spec.p):
+            gc = add_wall_constraint(spec, gc, walls, a)
+        return gc
+    kinds = {type(w) for w in walls}
+    if len(kinds) != 1:
+        raise ValueError("one call takes walls of one kind")
+    kind = kinds.pop()
+
+    def arr(vals):
+        return torch.as_tensor(np.asarray(vals, np.float64), dtype=dtype,
+                               device=device)
+
+    def coord(attr, k):
+        return arr([getattr(w, attr)[k] for w in walls])
+    if kind is Wall:
+        par = Wall2DParams(x1=coord("p1", 0), y1=coord("p1", 1),
+                           x2=coord("p2", 0), y2=coord("p2", 1),
+                           xv=coord("v", 0), yv=coord("v", 1),
+                           xi=spec.px[i][0], yi=spec.px[i][1])
+    elif kind is Wall3D:
+        par = Wall3DParams(
+            x1=coord("p1", 0), y1=coord("p1", 1), z1=coord("p1", 2),
+            x2=coord("p2", 0), y2=coord("p2", 1), z2=coord("p2", 2),
+            x3=coord("p3", 0), y3=coord("p3", 1), z3=coord("p3", 2),
+            xv=coord("v", 0), yv=coord("v", 1), zv=coord("v", 2),
+            xi=spec.pz[i][0], yi=spec.pz[i][1], zi=spec.pz[i][2])
+    elif kind is CylinderWall:
+        axis_of = {"x": 0, "y": 1, "z": 2}
+        par = CylinderParams(
+            p1=coord("p", 0), p2=coord("p", 1), p3=coord("p", 2),
+            l=arr([w.l for w in walls]), r=arr([w.r for w in walls]),
+            axis=tuple(axis_of[w.v] for w in walls),
+            xi=spec.pz[i][0], yi=spec.pz[i][1], zi=spec.pz[i][2])
+    else:
+        raise TypeError(kind)
     return _push_state(gc, _new_block(spec, par, i, True, dtype, device))
 
 

@@ -1,13 +1,14 @@
 """Carry a reference ``GameProblem`` over into the port.
 
 ``problem_from_reference`` reads the attributes of the reference package's
-``GameProblem`` / ``GameObjective`` (with its CollisionCost pairs) /
-``GameConstraints`` / ``ConBlock`` / ``CollisionParams`` / ``CircleParams``
-/ ``BoundParams`` by name and converts each array leaf with ``np.asarray``
-(which works on the reference's arrays without importing its framework).
-The static ``ProblemSpec`` is rebuilt field by field.  It raises on anything
-the port does not carry: other models or constraint families, and options
-the port has not ported.
+``GameProblem`` / model (unicycle, double integrator, bicycle, quadrotor,
+with their physical constants) / ``GameObjective`` (with its CollisionCost
+pairs) / ``GameConstraints`` / ``ConBlock`` and every constraint family's
+parameters by name, and converts each array leaf with ``np.asarray`` (which
+works on the reference's arrays without importing its framework).  The
+static ``ProblemSpec`` is rebuilt field by field.  It raises on anything the
+port does not carry: the heterogeneous model, non-inequality blocks, and
+options the port has not ported.
 """
 from __future__ import annotations
 
@@ -16,19 +17,37 @@ import dataclasses
 import numpy as np
 import torch
 
-from .constraints.kernels import BoundParams, CircleParams, CollisionParams
+from .constraints import kernels as K
 from .constraints.sets import ConBlock, GameConstraints
 from .core.spec import ProblemSpec
+from .models.bicycle import BicycleGame
+from .models.double_integrator import DoubleIntegratorGame
+from .models.quadrotor import QuadrotorGame
 from .models.unicycle import UnicycleGame
 from .objective.objective import GameObjective
 from .problem.options import Options
 from .problem.problem import GameProblem
 
-_MODELS = {"UnicycleGame": UnicycleGame}
+_MODELS = {cls.__name__: cls for cls in (UnicycleGame, DoubleIntegratorGame,
+                                         BicycleGame, QuadrotorGame)}
+_FAMILIES = {cls.__name__: cls for cls in (
+    K.CollisionParams, K.CircleParams, K.Wall2DParams, K.Wall3DParams,
+    K.CylinderParams, K.BoundParams)}
 
 
 def _fields(cls):
     return [f.name for f in dataclasses.fields(cls)]
+
+
+def _static(v):
+    """A static field (int, float, index or flag tuple) as plain Python."""
+    if isinstance(v, (tuple, list)):
+        return tuple(_static(a) for a in v)
+    if isinstance(v, (bool, np.bool_)):
+        return bool(v)
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    return float(v)
 
 
 def problem_from_reference(prob, device, dtype) -> GameProblem:
@@ -40,9 +59,8 @@ def problem_from_reference(prob, device, dtype) -> GameProblem:
     name = type(prob.model).__name__
     if name not in _MODELS:
         raise NotImplementedError(f"model {name} is not ported")
-    model = _MODELS[name](**{f: getattr(prob.model, f)
-                             for f in ("n", "m", "p", "ni", "mi", "pu", "px",
-                                       "pz")})
+    model = _MODELS[name](**{f: _static(getattr(prob.model, f))
+                             for f in _fields(_MODELS[name])})
     ro = prob.opts
     if (ro.ls_parallel > 1 or ro.adaptive_penalty or not ro.regularize
             or not ro.dual_reset):
@@ -62,20 +80,12 @@ def problem_from_reference(prob, device, dtype) -> GameProblem:
         if getattr(b, "sense", "ineq") != "ineq":
             raise NotImplementedError("only inequality blocks are ported")
         kind = type(b.params).__name__
-        if kind == "CollisionParams":
-            par = CollisionParams(radius=t(b.params.radius),
-                                  pxi=tuple(b.params.pxi),
-                                  pxj=tuple(b.params.pxj))
-        elif kind == "CircleParams":
-            par = CircleParams(xc=t(b.params.xc), yc=t(b.params.yc),
-                               radius=t(b.params.radius), xi=int(b.params.xi),
-                               yi=int(b.params.yi))
-        elif kind == "BoundParams":
-            par = BoundParams(z_max=t(b.params.z_max), z_min=t(b.params.z_min),
-                              mask=tuple(bool(v) for v in b.params.mask))
-        else:
+        if kind not in _FAMILIES:
             raise NotImplementedError(f"constraint family {kind} is not "
                                       "ported")
+        cls = _FAMILIES[kind]
+        par = cls(**{f.name: (t if f.type == "torch.Tensor" else _static)(
+            getattr(b.params, f.name)) for f in dataclasses.fields(cls)})
         return ConBlock(params=par, lam=t(b.lam), mu=t(b.mu),
                         owner=int(b.owner), is_state=bool(b.is_state))
 

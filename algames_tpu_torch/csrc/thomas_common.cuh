@@ -159,26 +159,25 @@ __device__ __forceinline__ void fill_in(const Fwd<T>& S) {
 
 // Column of the first u and of the first x unknown in the reduced system.
 // The elimination visits the columns in order, so the order decides the
-// pivot sequence: u first is the TPU kernel's order (kept by K1), x first the
-// plain version's.  With dense Q and a large AL penalty the x columns carry
-// the largest entries, and eliminating the small u pivots first loses up to
-// ~1e-2 relative in f32 at mu = 1e7; x first stays near 1e-5 (K3).
-template <bool XFirst>
+// pivot sequence.  Both K1 and K3 take the x columns first, the plain
+// version's order; the TPU kernel takes u first.  With a large AL penalty
+// the x columns carry the largest entries, and eliminating the small u
+// pivots first loses up to ~1e-2 relative in f32 at mu = 1e7 on dense-Q
+// systems, where x first stays near 1e-5.
 struct ColumnOrder {
   int u0, x0;
-  __device__ ColumnOrder(int n, int m)
-      : u0(XFirst ? n : 0), x0(XFirst ? 0 : m) {}
+  __device__ ColumnOrder(int n, int) : u0(n), x0(0) {}
 };
 
 // Augmented reduced system M = [K | RHS], rows [statu (m) | dyn (n)],
-// columns [u (m) | x (n)] or [x (n) | u (m)], then [G rhs (pn) | y rhs (1)].
+// columns [x (n) | u (m)], then [G rhs (pn) | y rhs (1)].
 // ``owner[r]`` is the player owning control row r.
-template <bool XFirst, typename T, typename QForm>
+template <typename T, typename QForm>
 __device__ __forceinline__ void build_system(const Fwd<T>& S,
                                              const int* owner,
                                              const QForm& qf) {
   const int n = S.n, m = S.m, pn = S.pn, d = S.d, C = S.C;
-  const ColumnOrder<XFirst> col(n, m);
+  const ColumnOrder col(n, m);
   for (int idx = threadIdx.x; idx < d * C; idx += kThreads) {
     const int r = idx / C, c = idx % C;
     const bool ucol = c >= col.u0 && c < col.u0 + m;
@@ -232,11 +231,11 @@ __device__ __forceinline__ void build_system(const Fwd<T>& S,
 // Gaussian elimination of M with virtual row partial pivoting, back
 // substitution, the knot's outputs G_t [d, pn] and y_t [d] in (x, u) row
 // order, and the new carry (the x rows).  Ends with a block barrier.
-template <bool XFirst, typename T>
+template <typename T>
 __device__ __forceinline__ void solve_and_store(const Fwd<T>& S, T* G_out,
                                                 T* y_out, size_t kt) {
   const int m = S.m, n = S.n, pn = S.pn, d = S.d, R = S.R, C = S.C;
-  const ColumnOrder<XFirst> col(n, m);
+  const ColumnOrder col(n, m);
   const int tid = threadIdx.x, nth = kThreads;
   T* M = S.M;
   for (int i = 0; i < d; ++i) {

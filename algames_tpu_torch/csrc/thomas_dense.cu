@@ -8,8 +8,8 @@
 // thomas_common.cuh), with the statx Hessian blocks given densely,
 // Qblk [B, T, p, n, n]: collision-cost pairs make them full cross-player
 // blocks, so B^T Q_owner, sum_i F_i Q_i and Q_i x are dense n x n products.
-// The reduced system's columns are eliminated x first (the plain version's
-// order; the TPU kernel and K1 take u first): see ColumnOrder in the header.
+// The reduced system's columns are eliminated x first, as in K1 (the TPU
+// kernel takes u first): see ColumnOrder in the header.
 //
 // What bounds it on the card: the latency of the dependent chain, as for
 // K1.  At the 4-player roundabout's shapes (n=16, m=8, p=4, T=39: d=24,
@@ -93,9 +93,9 @@ __global__ void __launch_bounds__(kThreads) thomas_dense_fwd_kernel(
     __syncthreads();
     thomas::fill_in(S);
     __syncthreads();
-    thomas::build_system<true>(S, meta.owner, qf);
+    thomas::build_system(S, meta.owner, qf);
     __syncthreads();
-    thomas::solve_and_store<true>(S, G_out, y_out, kt);
+    thomas::solve_and_store(S, G_out, y_out, kt);
   }
 }
 

@@ -5,6 +5,9 @@
 //
 // Q_i is given as diag(q_i) + sum_k w_k w_k^T (k owned by player i); the
 // sweep itself, shared with the dense-Q kernel K3, is in thomas_common.cuh.
+// Its reduced systems are eliminated x first, as K3's (the TPU kernel takes
+// u first): the quadrotor's KKT systems lose up to 2.95e3 relative in f32
+// at mu = 1e7 with u first, against 4.16 x first (PERF.md).
 //
 // What bounds it on the card: neither bytes nor flops.  A lane moves ~160 KB
 // (f32, both launches, G and y_hat included) and does ~1.2 MFLOP; the sweep
@@ -109,9 +112,9 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_fwd_kernel(
       S.Fw[idx] = s;
     }
     __syncthreads();
-    thomas::build_system<false>(S, meta.owner, qf);
+    thomas::build_system(S, meta.owner, qf);
     __syncthreads();
-    thomas::solve_and_store<false>(S, G_out, y_out, kt);
+    thomas::solve_and_store(S, G_out, y_out, kt);
   }
 }
 

@@ -1,0 +1,886 @@
+// Fused line-search trial (kernels K2 and K4) for every model and constraint
+// family of the port.
+//
+// Replaces algames_tpu/ops/trial_kernel.py::_trial_eval_handwritten
+// (_make_kernel_h, the whole-horizon variant; the per-knot variant
+// _make_kernel computes the same function) for the unicycle games, and
+// algames_tpu/ops/trial_pallas.py::trial_eval_pallas as driven by
+// fused_trial_for_spec (the generic fused trial) for the unicycle, double
+// integrator, bicycle and quadrotor models with collision-cost pairs in the
+// objective and collision (planar or spherical), circle, 2D wall, 3D wall,
+// cylinder and state-bound blocks.
+//
+// One trial of the backtracking line search, per scenario lane: the trial
+// point z + alpha dz, the RK2 defects, the RK2 dual pulls A^T lam / B^T lam,
+// the cost gradients (collision-cost pairs included) with dt / terminal
+// scaling, the state- and control-constraint values with their AL
+// gradients, the Tikhonov pull toward the current iterate, and the mean
+// 1-norm of the residual.  It writes the carried point (rx0, ru0, rd,
+// constraint values) and tn.
+//
+// The model is a template parameter: a device functor per model gives one
+// player's vector field f(x_i, u_i) (ni states, mi controls, component c of
+// player i at index c p + i of the full vectors) and its VJP
+// (J_x^T g, J_u^T g), one cotangent at a time.  One generic routine builds
+// the midpoint step F = x + dt f(x + dt/2 f(x, u), u) and its pulls: with
+// g = dt lam and (gx, gu) the VJP of f at (mid, u),
+//   A^T lam = lam + gx + dt/2 J_x f(x, u)^T gx
+//   B^T lam = gu + dt/2 J_u f(x, u)^T gx.
+// The unicycle's VJP has J_x f^T gx = 0 (gx has no x, y parts), so its pulls
+// are the closed form A^T lam = lam + g, B^T lam = dt lam_{th,v} +
+// dt/2 g_{th,v}.  The unicycle, double-integrator and bicycle VJPs are
+// derived by hand; the quadrotor's comes from forward-mode dual numbers over
+// the player's attitude, rate and rotor inputs (see Quadrotor).  Player i
+// owns controls c p + i, and the pull of player i's multiplier is picked
+// for those rows.  One compiled kernel per (model, type); the model's
+// constants are kernel arguments.
+//
+// What bounds it on the card: latency.  The trial reads the iterate and the
+// step (x, u, lam: a few KB per lane in f32, twice) plus the AL state and
+// writes the carried point, at a few flops per byte, so at full occupancy
+// it would be bound by device-memory bytes; but a batch of 1,024 lanes
+// gives about eight warps per SM, too few to hide the per-knot loads and
+// the transcendental chains.  The design is a single pass: one warp per
+// lane, one thread per knot (a loop over knots when T > 32), every
+// intermediate in registers, thread-local or shared memory, and one
+// warp-shuffle sum for the norm.  The static structure (block kinds,
+// owners, indices, bound masks, cylinder axes, collision-cost pairs)
+// travels as a by-value parameter table, so one compiled kernel serves any
+// player count and block list; the family parameters (radii, centres, wall
+// corners, bounds, pair weights) are small device arrays.  State bounds
+// read their AL state only at finite rows and write 0 at the others, as the
+// masked bound evaluation does; gated rows (walls, cylinders) use the
+// reference's strict comparisons and are exactly 0 outside their gates.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 32;
+constexpr int kMaxSB = 64;    // state blocks
+constexpr int kMaxCB = 4;     // control-bound blocks
+constexpr int kMaxM = 32;     // control dimension
+constexpr int kMaxN = 32;     // state dimension (2n bound rows in a 64-bit mask)
+constexpr int kMaxPair = 64;  // collision-cost pairs
+constexpr int kMaxCyl = 32;   // cylinders per block (2 axis bits each)
+constexpr int kMaxConst = 12; // model constants
+
+enum : unsigned char {
+  kCollision = 0, kCircle = 1, kBound = 2, kWall2D = 3, kWall3D = 4,
+  kCylinder = 5
+};
+
+// One state block.  ``cnt``: collision dimension (2 or 3), or the number of
+// circles / walls / cylinders.  a[]: collision pxi then pxj (three slots
+// each); circle and 2D wall x, y index; 3D wall and cylinder x, y, z index.
+// ``row`` is the block's first row in the stacked [Csum] rows of the AL
+// state and the values; ``par`` its first entry in the parameter array
+// (collision r^2; per circle (xc, yc, r); per 2D wall (x1, y1, x2, y2, xv,
+// yv); per 3D wall (x1, y1, z1, x2, y2, z2, x3, y3, z3, xv, yv, zv); per
+// cylinder (p1, p2, p3, l, r); bound z_max [n] then z_min [n]).  ``mask``:
+// a bound's finite rows (bit j: upper bound of state j, bit n+j: lower
+// bound), or a cylinder block's axes (bits 2j, 2j+1: axis of cylinder j).
+struct SBlock {
+  unsigned long long mask;
+  int row, par;
+  unsigned char kind, owner, cnt;
+  unsigned char a[6];
+};
+
+struct TrialMeta {
+  SBlock sb[kMaxSB];
+  unsigned char pair[kMaxPair][8];  // owner, dim, pxi[3], pxj[3]
+  unsigned char c_mask[kMaxCB][2 * kMaxM];
+};
+
+struct ModelConst {
+  double c[kMaxConst];
+};
+
+template <typename T> __device__ __forceinline__ T dsin(T v);
+template <typename T> __device__ __forceinline__ T dcos(T v);
+template <typename T> __device__ __forceinline__ T dtan(T v);
+template <typename T> __device__ __forceinline__ T datan2(T y, T x);
+template <typename T> __device__ __forceinline__ T dexp(T v);
+template <typename T> __device__ __forceinline__ T dlog1p(T v);
+template <typename T> __device__ __forceinline__ T dsqrt(T v);
+template <> __device__ __forceinline__ float dsin(float v) { return sinf(v); }
+template <> __device__ __forceinline__ float dcos(float v) { return cosf(v); }
+template <> __device__ __forceinline__ float dtan(float v) { return tanf(v); }
+template <> __device__ __forceinline__ float datan2(float y, float x) {
+  return atan2f(y, x);
+}
+template <> __device__ __forceinline__ float dexp(float v) { return expf(v); }
+template <> __device__ __forceinline__ float dlog1p(float v) {
+  return log1pf(v);
+}
+template <> __device__ __forceinline__ float dsqrt(float v) { return sqrtf(v); }
+template <> __device__ __forceinline__ double dsin(double v) { return sin(v); }
+template <> __device__ __forceinline__ double dcos(double v) { return cos(v); }
+template <> __device__ __forceinline__ double dtan(double v) { return tan(v); }
+template <> __device__ __forceinline__ double datan2(double y, double x) {
+  return atan2(y, x);
+}
+template <> __device__ __forceinline__ double dexp(double v) { return exp(v); }
+template <> __device__ __forceinline__ double dlog1p(double v) {
+  return log1p(v);
+}
+template <> __device__ __forceinline__ double dsqrt(double v) {
+  return sqrt(v);
+}
+template <typename T> __device__ __forceinline__ T absval(T v) {
+  return v < T(0) ? -v : v;
+}
+
+// ---------------------------------------------------------------------------
+// Models: one player's vector field f, and its VJP at a point (x, u) for one
+// cotangent g [NI]: gx [NI] = J_x^T g and gu [MI] = J_u^T g, each written
+// when not null.  ``lin(x, u)`` holds what the VJP needs of the point (the
+// trigonometric factors), computed once for the p cotangents pulled through
+// it.  Every thread-local array of a model or the trial is indexed by
+// compile-time constants once the loops over NI, MI and the three
+// coordinates unroll, so that it stays in registers (a run-time index puts
+// it in local memory, which doubled K2's device time).
+// ---------------------------------------------------------------------------
+
+// Unicycle: x = [px, py, th, v], u = [om, a], f = [cos(th) v, sin(th) v, om,
+// a].
+template <typename T>
+struct Unicycle {
+  static constexpr int NI = 4, MI = 2;
+  struct Lin {
+    T s, c, v;
+  };
+  __device__ explicit Unicycle(const ModelConst&) {}
+  __device__ void f(const T* x, const T* u, T* out) const {
+    out[0] = dcos(x[2]) * x[3];
+    out[1] = dsin(x[2]) * x[3];
+    out[2] = u[0];
+    out[3] = u[1];
+  }
+  __device__ Lin lin(const T* x, const T*) const {
+    return {dsin(x[2]), dcos(x[2]), x[3]};
+  }
+  __device__ void vjp(const Lin& l, const T* g, T* gx, T* gu) const {
+    if (gx) {
+      gx[0] = T(0);
+      gx[1] = T(0);
+      gx[2] = -l.s * l.v * g[0] + l.c * l.v * g[1];
+      gx[3] = l.c * g[0] + l.s * g[1];
+    }
+    if (gu) {
+      gu[0] = g[2];
+      gu[1] = g[3];
+    }
+  }
+};
+
+// Double integrator in D dimensions: x = [pos (D); vel (D)], u = acc (D),
+// f = [vel; u].
+template <typename T, int D>
+struct DoubleIntegrator {
+  static constexpr int NI = 2 * D, MI = D;
+  struct Lin {};
+  __device__ explicit DoubleIntegrator(const ModelConst&) {}
+  __device__ void f(const T* x, const T* u, T* out) const {
+    #pragma unroll
+    for (int j = 0; j < D; ++j) {
+      out[j] = x[D + j];
+      out[D + j] = u[j];
+    }
+  }
+  __device__ Lin lin(const T*, const T*) const { return {}; }
+  __device__ void vjp(const Lin&, const T* g, T* gx, T* gu) const {
+    #pragma unroll
+    for (int j = 0; j < D; ++j) {
+      if (gx) {
+        gx[j] = T(0);
+        gx[D + j] = g[j];
+      }
+      if (gu) gu[j] = g[D + j];
+    }
+  }
+};
+
+// Kinematic bicycle: x = [px, py, v, psi], u = [a, delta], slip angle
+// beta = atan2(lr tan(delta), lr + lf), f = [v cos(beta + psi),
+// v sin(beta + psi), a, v sin(beta) / lr].  Constants: lf, lr.
+template <typename T>
+struct Bicycle {
+  static constexpr int NI = 4, MI = 2;
+  struct Lin {
+    T v, sh, ch, sb, cb, db;
+  };
+  T lf, lr;
+  __device__ explicit Bicycle(const ModelConst& c)
+      : lf(T(c.c[0])), lr(T(c.c[1])) {}
+  __device__ T beta(T delta) const {
+    return datan2(lr * dtan(delta), lr + lf);
+  }
+  __device__ void f(const T* x, const T* u, T* out) const {
+    const T b = beta(u[1]), v = x[2], h = b + x[3];
+    out[0] = v * dcos(h);
+    out[1] = v * dsin(h);
+    out[2] = u[0];
+    out[3] = v * dsin(b) / lr;
+  }
+  // d beta / d delta = (lr + lf) lr (1 + tan^2) / ((lr + lf)^2 + (lr tan)^2).
+  __device__ Lin lin(const T* x, const T* u) const {
+    const T tn = dtan(u[1]), L = lr + lf, y = lr * tn;
+    const T b = datan2(y, L), h = b + x[3];
+    return {x[2], dsin(h), dcos(h), dsin(b), dcos(b),
+            L * lr * (T(1) + tn * tn) / (L * L + y * y)};
+  }
+  __device__ void vjp(const Lin& l, const T* g, T* gx, T* gu) const {
+    const T v = l.v;
+    const T dh = -v * l.sh * g[0] + v * l.ch * g[1];
+    if (gx) {
+      gx[0] = T(0);
+      gx[1] = T(0);
+      gx[2] = l.ch * g[0] + l.sh * g[1] + l.sb / lr * g[3];
+      gx[3] = dh;
+    }
+    if (gu) {
+      gu[0] = g[2];
+      gu[1] = l.db * (dh + v * l.cb / lr * g[3]);
+    }
+  }
+};
+
+// Forward-mode dual number (value, derivative along one seed).
+template <typename T>
+struct Dual {
+  T v, d;
+  Dual() = default;
+  __device__ Dual(T a, T b = T(0)) : v(a), d(b) {}
+};
+template <typename T>
+__device__ __forceinline__ Dual<T> operator+(Dual<T> a, Dual<T> b) {
+  return {a.v + b.v, a.d + b.d};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator-(Dual<T> a, Dual<T> b) {
+  return {a.v - b.v, a.d - b.d};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator-(Dual<T> a) {
+  return {-a.v, -a.d};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator*(Dual<T> a, Dual<T> b) {
+  return {a.v * b.v, a.v * b.d + a.d * b.v};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator/(Dual<T> a, Dual<T> b) {
+  return {a.v / b.v, (a.d * b.v - a.v * b.d) / (b.v * b.v)};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator+(T a, Dual<T> b) {
+  return {a + b.v, b.d};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator-(T a, Dual<T> b) {
+  return {a - b.v, -b.d};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator*(T a, Dual<T> b) {
+  return {a * b.v, a * b.d};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator/(Dual<T> a, T b) {
+  return {a.v / b, a.d / b};
+}
+// Rotor thrust: max(0, z), whose derivative at z == 0 is 1/2 (the two
+// branches tie, as in the reference package and the plain version), or
+// softplus(beta z) / beta with smoothing beta > 0.
+template <typename T>
+__device__ __forceinline__ T softplus(T z) {
+  return (z > T(0) ? z : T(0)) + dlog1p(dexp(-absval(z)));
+}
+template <typename T>
+__device__ __forceinline__ T thrust(T z, T beta) {
+  if (beta > T(0)) return softplus(beta * z) / beta;
+  return z > T(0) ? z : T(0);
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> thrust(Dual<T> z, T beta) {
+  if (beta > T(0)) {
+    const T s = T(1) / (T(1) + dexp(-beta * z.v));
+    return {softplus(beta * z.v) / beta, s * z.d};
+  }
+  if (z.v > T(0)) return z;
+  if (z.v < T(0)) return {T(0), T(0)};
+  return {T(0), T(0.5) * z.d};
+}
+
+// Quadrotor with MRP attitude: x = [p (3), q (3), v (3), w (3)], u = four
+// rotor speeds; F_k = thrust(kf u_k), body force [0, 0, sum F],
+// tau = [L (F1 - F3), L (F2 - F0), km (u0 - u1 + u2 - u3)],
+//   pdot = v,  qdot = 1/4 ((1 - q'q) w + 2 q x w + 2 q (q'w)),
+//   vdot = g + R(q) e3 sum F / mass  (R(q) e3 = e3 + (8 S^2 e3 +
+//          4 (1 - q'q) S e3) / (1 + q'q)^2, S = skew(q)),
+//   wdot = (tau - w x (J w)) / J.
+// Constants: mass, J (3), gravity (3), motor distance L, kf, km, smoothing.
+//
+// The VJP comes from forward-mode dual numbers: one evaluation of the same
+// routine per seeded input gives a Jacobian column, dotted with the
+// cotangent.  A hand-derived VJP of the rotation column and the MRP
+// kinematics has several dozen terms, each a chance to disagree with the
+// reference; the duals derive it from the forward routine itself, exactly,
+// and cost 6 evaluations for J_x^T (the attitude and rate inputs; f never
+// reads the position, and the velocity enters only pdot = v) and 4 for
+// J_u^T.  The trial stays bound by latency, not by these operations.
+template <typename T>
+struct Quadrotor {
+  static constexpr int NI = 12, MI = 4;
+  struct Lin {
+    const T *x, *u;
+  };
+  T mass, J[3], mg[3], L, kf, km, beta;
+  __device__ explicit Quadrotor(const ModelConst& c)
+      : mass(T(c.c[0])), L(T(c.c[7])), kf(T(c.c[8])), km(T(c.c[9])),
+        beta(T(c.c[10])) {
+    for (int k = 0; k < 3; ++k) {
+      J[k] = T(c.c[1 + k]);
+      mg[k] = mass * T(c.c[4 + k]);
+    }
+  }
+
+  template <typename S>
+  __device__ void eval(const S* x, const S* u, S* out) const {
+    S F[4];
+    for (int k = 0; k < 4; ++k) F[k] = thrust(kf * u[k], beta);
+    const S Fs = ((F[0] + F[1]) + F[2]) + F[3];
+    const S* q = x + 3;
+    const S* v = x + 6;
+    const S* w = x + 9;
+    const S n2 = (q[0] * q[0] + q[1] * q[1]) + q[2] * q[2];
+    const S D = T(1) + n2;
+    const S om = T(1) - n2;
+    const S D2 = D * D;
+    const S s2e3[3] = {q[2] * q[0], q[2] * q[1],
+                       -(q[0] * q[0] + q[1] * q[1])};
+    const S se3[3] = {q[1], -q[0], S(T(0))};
+    const S qw = (q[0] * w[0] + q[1] * w[1]) + q[2] * w[2];
+    const S qxw[3] = {q[1] * w[2] - q[2] * w[1], q[2] * w[0] - q[0] * w[2],
+                      q[0] * w[1] - q[1] * w[0]};
+    const S tau[3] = {L * (F[1] - F[3]), L * (F[2] - F[0]),
+                      ((km * u[0] - km * u[1]) + km * u[2]) - km * u[3]};
+    const S Jw[3] = {J[0] * w[0], J[1] * w[1], J[2] * w[2]};
+    const S wxJw[3] = {w[1] * Jw[2] - w[2] * Jw[1],
+                       w[2] * Jw[0] - w[0] * Jw[2],
+                       w[0] * Jw[1] - w[1] * Jw[0]};
+    for (int k = 0; k < 3; ++k) {
+      const S col = (T(8) * s2e3[k] + T(4) * om * se3[k]) / D2;
+      const S c = (k == 2) ? T(1) + col : col;
+      out[k] = v[k];
+      out[3 + k] = T(0.25) * ((om * w[k] + T(2) * qxw[k])
+                              + T(2) * q[k] * qw);
+      out[6 + k] = (mg[k] + c * Fs) / mass;
+      out[9 + k] = (tau[k] - wxJw[k]) / J[k];
+    }
+  }
+  __device__ void f(const T* x, const T* u, T* out) const { eval(x, u, out); }
+  __device__ Lin lin(const T* x, const T* u) const { return {x, u}; }
+
+  __device__ void vjp(const Lin& l, const T* g, T* gx, T* gu) const {
+    if (gx) {
+      #pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        gx[j] = T(0);
+        gx[6 + j] = g[j];
+      }
+    }
+    #pragma unroll
+    for (int s = 3; s < NI + MI; ++s) {
+      const bool xin = s < NI;
+      if (xin ? (!gx || (s >= 6 && s < 9)) : !gu) continue;
+      Dual<T> xd[NI], ud[MI], od[NI];
+      #pragma unroll
+      for (int j = 0; j < NI; ++j) xd[j] = Dual<T>(l.x[j], T(j == s ? 1 : 0));
+      #pragma unroll
+      for (int j = 0; j < MI; ++j)
+        ud[j] = Dual<T>(l.u[j], T(NI + j == s ? 1 : 0));
+      eval(xd, ud, od);
+      T acc = T(0);
+      #pragma unroll
+      for (int r = 0; r < NI; ++r) acc += od[r].d * g[r];
+      if (xin)
+        gx[s] = acc;
+      else
+        gu[s - NI] = acc;
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The per-lane trial
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct TrialArgs {
+  const T *x, *u, *lam, *dx, *du, *dlam, *alpha, *reg, *Qd, *xf, *Rdp, *ufp,
+      *spar, *slam, *smu, *zmax, *zmin, *clam, *cmu, *pmr;
+  T *rx0, *ru0, *rd, *sc, *cc, *tn;
+  int N, p, nsb, csum, ncb, npair, S;
+  T dt, eps_n;
+};
+
+template <typename T>
+struct Lane {
+  const T *x, *u, *lam, *dx, *du, *dlam;
+  T al;
+  int Tn, n, m;
+  __device__ T X(int k, int c) const {
+    const int o = k * n + c;
+    return x[o] + al * dx[o];
+  }
+  __device__ T U(int k, int c) const {
+    const int o = k * m + c;
+    return u[o] + al * du[o];
+  }
+  __device__ T Lm(int i, int k, int c) const {
+    const int o = (i * Tn + k) * n + c;
+    return lam[o] + al * dlam[o];
+  }
+  // The current iterate (the Tikhonov pull's anchor).
+  __device__ T X0(int k, int c) const { return x[k * n + c]; }
+  __device__ T U0(int k, int c) const { return u[k * m + c]; }
+};
+
+// AL weight of one row: lam + Irho c with Irho = mu where c >= 0 or lam > 0.
+template <typename T>
+__device__ __forceinline__ T al_weight(T cv, T lc, T mu) {
+  return lc + ((cv >= T(0) || lc > T(0)) ? mu : T(0)) * cv;
+}
+
+// |x_a - x_b|^2 over ``dim`` (2 or 3) coordinate pairs at knot k, with the
+// differences in d [3] (d[2] = 0 in the plane).  The planar sum is one
+// expression, d0^2 + d1^2, so that its rounding (and the compiler's
+// contraction into fused multiply-adds) stays that of the unicycle kernel
+// this one grew from.
+template <typename T>
+__device__ __forceinline__ T sqdist(const Lane<T>& L, int k,
+                                    const unsigned char* a,
+                                    const unsigned char* b, int dim, T* d) {
+  #pragma unroll
+  for (int j = 0; j < 3; ++j)
+    d[j] = j < dim ? L.X(k, a[j]) - L.X(k, b[j]) : T(0);
+  const T dd = d[0] * d[0] + d[1] * d[1];
+  return dim == 3 ? dd + d[2] * d[2] : dd;
+}
+
+// State blocks at knot t+1: values into sc, AL gradients into alx [p n].
+template <typename T>
+__device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
+                             const Lane<T>& L, int b, int t, T* alx) {
+  const int n = L.n, Tn = L.Tn;
+  for (int k = 0; k < A.nsb; ++k) {
+    const SBlock& sb = meta.sb[k];
+    T* g = alx + sb.owner * n;
+    const size_t o0 = ((size_t)b * A.csum + sb.row) * Tn + t;
+    const T* par = A.spar + sb.par;
+    if (sb.kind == kCollision) {          // c = r^2 - |x_i - x_j|^2
+      T d[3];
+      const T cv = par[0] - sqdist(L, t + 1, sb.a, sb.a + 3, sb.cnt, d);
+      const T w = al_weight(cv, A.slam[o0], A.smu[o0]);
+      #pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        if (j >= sb.cnt) break;
+        g[sb.a[j]] += (T(-2) * d[j]) * w;
+        g[sb.a[3 + j]] += (T(2) * d[j]) * w;
+      }
+      A.sc[o0] = cv;
+    } else if (sb.kind == kCircle) {      // c_j = r_j^2 - |(x, y) - c_j|^2
+      const T px = L.X(t + 1, sb.a[0]), py = L.X(t + 1, sb.a[1]);
+      for (int j = 0; j < sb.cnt; ++j) {
+        const T* pc = par + 3 * j;
+        const T ex = px - pc[0], ey = py - pc[1];
+        const T cv = pc[2] * pc[2] - ex * ex - ey * ey;
+        const size_t o = o0 + (size_t)j * Tn;
+        const T w = al_weight(cv, A.slam[o], A.smu[o]);
+        g[sb.a[0]] += (T(-2) * ex) * w;
+        g[sb.a[1]] += (T(-2) * ey) * w;
+        A.sc[o] = cv;
+      }
+    } else if (sb.kind == kWall2D) {      // c_j = (p - p1_j) . v_j, gated
+      const T px = L.X(t + 1, sb.a[0]), py = L.X(t + 1, sb.a[1]);
+      for (int j = 0; j < sb.cnt; ++j) {
+        const T* pw = par + 6 * j;
+        const T x1 = pw[0], y1 = pw[1], x2 = pw[2], y2 = pw[3];
+        const bool gate =
+            ((px - x1) * (x2 - x1) + (py - y1) * (y2 - y1)) > T(0) &&
+            ((px - x2) * (x1 - x2) + (py - y2) * (y1 - y2)) > T(0);
+        const T cv = gate ? (px - x1) * pw[4] + (py - y1) * pw[5] : T(0);
+        const size_t o = o0 + (size_t)j * Tn;
+        const T w = al_weight(cv, A.slam[o], A.smu[o]);
+        if (gate) {
+          g[sb.a[0]] += pw[4] * w;
+          g[sb.a[1]] += pw[5] * w;
+        }
+        A.sc[o] = cv;
+      }
+    } else if (sb.kind == kWall3D) {      // c_j = (p - p1_j) . v_j, gated
+      const T pp[3] = {L.X(t + 1, sb.a[0]), L.X(t + 1, sb.a[1]),
+                       L.X(t + 1, sb.a[2])};
+      for (int j = 0; j < sb.cnt; ++j) {
+        const T* pw = par + 12 * j;
+        const T* p1 = pw;
+        const T* p2 = pw + 3;
+        const T* p3 = pw + 6;
+        // (p - a) . (c - a) > 0 for the facet's four edges.
+        T e[4] = {T(0), T(0), T(0), T(0)};
+        for (int r = 0; r < 3; ++r) {
+          e[0] += (pp[r] - p1[r]) * (p2[r] - p1[r]);
+          e[1] += (pp[r] - p2[r]) * (p1[r] - p2[r]);
+          e[2] += (pp[r] - p3[r]) * (p2[r] - p3[r]);
+          e[3] += (pp[r] - p2[r]) * (p3[r] - p2[r]);
+        }
+        const bool gate = e[0] > T(0) && e[1] > T(0) && e[2] > T(0) &&
+                          e[3] > T(0);
+        const T cv = gate ? ((pp[0] - p1[0]) * pw[9]
+                             + (pp[1] - p1[1]) * pw[10])
+                                + (pp[2] - p1[2]) * pw[11]
+                          : T(0);
+        const size_t o = o0 + (size_t)j * Tn;
+        const T w = al_weight(cv, A.slam[o], A.smu[o]);
+        if (gate)
+          for (int r = 0; r < 3; ++r) g[sb.a[r]] += pw[9 + r] * w;
+        A.sc[o] = cv;
+      }
+    } else if (sb.kind == kCylinder) {    // r^2 - distance^2 to the axis
+      const T pp[3] = {L.X(t + 1, sb.a[0]), L.X(t + 1, sb.a[1]),
+                       L.X(t + 1, sb.a[2])};
+      for (int j = 0; j < sb.cnt; ++j) {
+        const T* pc = par + 5 * j;
+        const int ax = (int)((sb.mask >> (2 * j)) & 3ull);
+        const T t0[3] = {pp[0] - pc[0], pp[1] - pc[1], pp[2] - pc[2]};
+        const T ta = ax == 0 ? t0[0] : (ax == 1 ? t0[1] : t0[2]);
+        const bool valid = ta > T(0) && ta < pc[3];
+        T out = pc[4] * pc[4] - t0[0] * t0[0] - t0[1] * t0[1] - t0[2] * t0[2];
+        out = out + ta * ta;
+        const T cv = valid ? out : T(0);
+        const size_t o = o0 + (size_t)j * Tn;
+        const T w = al_weight(cv, A.slam[o], A.smu[o]);
+        if (valid) {
+          #pragma unroll
+          for (int r = 0; r < 3; ++r)
+            if (r != ax) g[sb.a[r]] += (T(-2) * t0[r]) * w;
+        }
+        A.sc[o] = cv;
+      }
+    } else {                              // c = [x - z_max; z_min - x], masked
+      const T* zx = par;
+      for (int j = 0; j < n; ++j) {
+        const bool mu_ = (sb.mask >> j) & 1ull;
+        const bool ml_ = (sb.mask >> (n + j)) & 1ull;
+        const size_t ou = o0 + (size_t)j * Tn, ol = o0 + (size_t)(n + j) * Tn;
+        T cu = T(0), cl = T(0), gj = T(0);
+        if (mu_) {
+          cu = L.X(t + 1, j) - zx[j];
+          gj = al_weight(cu, A.slam[ou], A.smu[ou]);
+        }
+        if (ml_) {
+          cl = zx[n + j] - L.X(t + 1, j);
+          gj -= al_weight(cl, A.slam[ol], A.smu[ol]);
+        }
+        if (mu_ || ml_) g[j] += gj;
+        A.sc[ou] = cu;
+        A.sc[ol] = cl;
+      }
+    }
+  }
+}
+
+// The RK2 step of one player: defects F(x, u) - x_next into rd, and
+// returns mid = x + dt/2 f(x, u).
+template <typename T, class Model>
+__device__ void rk2_mid(const Model& mdl, const T* x, const T* u, T dt,
+                        T* mid) {
+  T f0[Model::NI];
+  mdl.f(x, u, f0);
+  #pragma unroll
+  for (int c = 0; c < Model::NI; ++c) mid[c] = x[c] + T(0.5) * (f0[c] * dt);
+}
+
+// One knot of the trial: returns ``part`` plus the knot's terms of the
+// 1-norm, added in the order (and grouping) of the unicycle kernel this one
+// grew from: per player its dynamics rows as one sum, then its control rows
+// as one sum; then every statx row, one at a time.
+template <typename T, class Model>
+__device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
+                        const TrialMeta& meta, const Lane<T>& L, int b, int t,
+                        T* alx, T* alu, T* cgx, T part) {
+  constexpr int NI = Model::NI, MI = Model::MI;
+  const Model mdl(mc);
+  const int p = A.p, n = L.n, m = L.m, N = A.N, Tn = L.Tn;
+  const T dt = A.dt, half = T(0.5), halfdt = half * dt;
+  const T rg = A.reg[b];
+  for (int c = 0; c < p * n; ++c) alx[c] = T(0);
+  for (int c = 0; c < m; ++c) alu[c] = T(0);
+  const T scale = (t + 1 < N - 1) ? dt : T(1);
+
+  state_blocks(A, meta, L, b, t, alx);
+  // Control-bound blocks: c = [u - z_max; z_min - u] (masked rows 0).
+  for (int k = 0; k < A.ncb; ++k) {
+    const size_t o = (((size_t)b * A.ncb + k) * Tn + t) * 2 * m;
+    for (int j = 0; j < m; ++j) {
+      const T uj = L.U(t, j);
+      const bool mu_ = meta.c_mask[k][j], ml_ = meta.c_mask[k][m + j];
+      const T cu = mu_ ? uj - A.zmax[k * m + j] : T(0);
+      const T cl = ml_ ? A.zmin[k * m + j] - uj : T(0);
+      const T wu = al_weight(cu, A.clam[o + j], A.cmu[o + j]);
+      const T wl = al_weight(cl, A.clam[o + m + j], A.cmu[o + m + j]);
+      alu[j] += wu * (mu_ ? T(1) : T(0)) - wl * (ml_ ? T(1) : T(0));
+      A.cc[o + j] = cu;
+      A.cc[o + m + j] = cl;
+    }
+  }
+  // Collision-cost pairs at knot t+1 (scaled like the cost): player i is
+  // pushed off player j while |delta| < r,
+  //   g = mu (r (eps + delta) / (eps_n + |delta|) - delta).
+  if (A.npair) {
+    for (int c = 0; c < p * n; ++c) cgx[c] = T(0);
+    for (int k = 0; k < A.npair; ++k) {
+      const unsigned char* pr = meta.pair[k];
+      const int dim = pr[1];
+      T d[3];
+      const T dn = dsqrt(sqdist(L, t + 1, pr + 2, pr + 5, dim, d));
+      const T mu = A.pmr[2 * k], r = A.pmr[2 * k + 1];
+      if (!(r - dn > T(0))) continue;
+      const T eps = T(1e-10);
+      T* cg = cgx + pr[0] * n;
+      #pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        if (j >= dim) break;
+        const T gj = mu * (r * (eps + d[j]) / (A.eps_n + dn) - d[j]) * scale;
+        cg[pr[2 + j]] -= gj;
+        cg[pr[5 + j]] += gj;
+      }
+    }
+  }
+
+  // Dynamics rows and control rows: player j's RK2 step at knot t and the
+  // pull of its own multiplier onto its controls.
+  for (int j = 0; j < p; ++j) {
+    T xj[NI], uj[MI], mid[NI], fm[NI], g[NI], gx[NI], gu[MI], hu[MI];
+    #pragma unroll
+    for (int c = 0; c < NI; ++c) xj[c] = L.X(t, c * p + j);
+    #pragma unroll
+    for (int c = 0; c < MI; ++c) uj[c] = L.U(t, c * p + j);
+    rk2_mid<T>(mdl, xj, uj, dt, mid);
+    mdl.f(mid, uj, fm);
+    T* rd = A.rd + ((size_t)b * Tn + t) * n;
+    T sd = T(0), su = T(0);
+    #pragma unroll
+    for (int c = 0; c < NI; ++c) {
+      const int cc = c * p + j;
+      const T r = (xj[c] + fm[c] * dt) - L.X(t + 1, cc);
+      rd[cc] = r;
+      sd += absval(r);
+      g[c] = dt * L.Lm(j, t, cc);
+    }
+    part += sd;
+    mdl.vjp(mdl.lin(mid, uj), g, gx, gu);
+    mdl.vjp(mdl.lin(xj, uj), gx, (T*)nullptr, hu);
+    T* ru0 = A.ru0 + ((size_t)b * Tn + t) * m;
+    #pragma unroll
+    for (int c = 0; c < MI; ++c) {
+      const int o = c * p + j;
+      const T ru = A.Rdp[o] * (uj[c] - A.ufp[o]) * dt + (gu[c] + halfdt * hu[c]);
+      ru0[o] = ru;
+      su += absval(ru + alu[o] + rg * (uj[c] - L.U0(t, o)));
+    }
+    part += su;
+  }
+
+  // Statx rows: cost gradient at x_{t+1} + A_{t+1}^T lam_{t+1} - lam_t, the
+  // pulls of every player's multiplier through player j's step at t+1, one
+  // multiplier at a time.  At the last knot (no step at t+1) the pulls are
+  // computed on zeros, as every other thread of the warp computes its own,
+  // and dropped.
+  const bool has_next = t + 1 < Tn;
+  for (int j = 0; j < p; ++j) {
+    T x1[NI], u1[MI], mid1[NI];
+    #pragma unroll
+    for (int c = 0; c < NI; ++c) x1[c] = L.X(t + 1, c * p + j);
+    #pragma unroll
+    for (int c = 0; c < MI; ++c)
+      u1[c] = has_next ? L.U(t + 1, c * p + j) : T(0);
+    rk2_mid<T>(mdl, x1, u1, dt, mid1);
+    const typename Model::Lin lin_mid = mdl.lin(mid1, u1);
+    const typename Model::Lin lin_x = mdl.lin(x1, u1);
+    for (int i = 0; i < p; ++i) {
+      T g[NI], gx[NI], hx[NI];
+      #pragma unroll
+      for (int c = 0; c < NI; ++c)
+        g[c] = has_next ? dt * L.Lm(i, t + 1, c * p + j) : T(0);
+      mdl.vjp(lin_mid, g, gx, (T*)nullptr);
+      mdl.vjp(lin_x, gx, hx, (T*)nullptr);
+      T* rx0 = A.rx0 + (((size_t)b * Tn + t) * p + i) * n;
+      #pragma unroll
+      for (int c = 0; c < NI; ++c) {
+        const int cc = c * p + j;
+        const T ax = has_next ? (L.Lm(i, t + 1, cc) + gx[c])
+                                    + halfdt * hx[c]
+                              : T(0);
+        T qx = A.Qd[i * n + cc] * (x1[c] - A.xf[i * n + cc]) * scale;
+        if (A.npair) qx += cgx[i * n + cc];
+        const T r = (qx + ax) - L.Lm(i, t, cc);
+        rx0[cc] = r;
+        part += absval((r + alx[i * n + cc]) + rg * (x1[c] - L.X0(t + 1, cc)));
+      }
+    }
+  }
+  return part;
+}
+
+// Partial 1-norm of thread ``tid``'s knots of lane b.
+template <typename T, class Model>
+__device__ T lane_part(const TrialArgs<T>& A, const ModelConst& mc,
+                       const TrialMeta& meta, int b, int tid, T* smem) {
+  constexpr int NI = Model::NI, MI = Model::MI;
+  const int p = A.p, n = NI * p, m = MI * p, Tn = A.N - 1;
+  const int per = p * n + m + (A.npair ? p * n : 0);
+  T* alx = smem + tid * per;                              // AL grads
+  T* alu = alx + p * n;
+  T* cgx = alu + m;                                        // pair grads
+  Lane<T> L;
+  L.x = A.x + (size_t)b * A.N * n;
+  L.u = A.u + (size_t)b * Tn * m;
+  L.lam = A.lam + (size_t)b * p * Tn * n;
+  L.dx = A.dx + (size_t)b * A.N * n;
+  L.du = A.du + (size_t)b * Tn * m;
+  L.dlam = A.dlam + (size_t)b * p * Tn * n;
+  L.al = A.alpha[b];
+  L.Tn = Tn; L.n = n; L.m = m;
+  T part = T(0);
+  for (int t = tid; t < Tn; t += kThreads)
+    part = knot_trial<T, Model>(A, mc, meta, L, b, t, alx, alu, cgx, part);
+  return part;
+}
+
+template <typename T, class Model>
+size_t smem_bytes(const TrialArgs<T>& A) {
+  const int n = Model::NI * A.p, m = Model::MI * A.p;
+  const int per = A.p * n + m + (A.npair ? A.p * n : 0);
+  return (size_t)kThreads * per * sizeof(T);
+}
+
+// The parameter table from the wrapper's flat int arrays.  s_meta per state
+// block: kind, owner, row, par, cnt, a0..a5; s_mask per block; p_meta per
+// pair: owner, dim, pxi0..2, pxj0..2; c_mask per control block: 2m flags.
+bool make_meta(const int* s_meta, const unsigned long long* s_mask,
+               const int* p_meta, const unsigned char* c_mask, int nsb,
+               int npair, int ncb, int m, TrialMeta* meta) {
+  if (nsb > kMaxSB || ncb > kMaxCB || npair > kMaxPair || m > kMaxM)
+    return false;
+  *meta = TrialMeta{};
+  for (int k = 0; k < nsb; ++k) {
+    const int* s = s_meta + 11 * k;
+    SBlock& sb = meta->sb[k];
+    sb.kind = (unsigned char)s[0];
+    sb.owner = (unsigned char)s[1];
+    sb.row = s[2];
+    sb.par = s[3];
+    sb.cnt = (unsigned char)s[4];
+    for (int j = 0; j < 6; ++j) sb.a[j] = (unsigned char)s[5 + j];
+    sb.mask = s_mask[k];
+    if (sb.kind == kCylinder && sb.cnt > kMaxCyl) return false;
+  }
+  for (int k = 0; k < npair; ++k)
+    for (int j = 0; j < 8; ++j)
+      meta->pair[k][j] = (unsigned char)p_meta[8 * k + j];
+  for (int k = 0; k < ncb; ++k)
+    for (int j = 0; j < 2 * m; ++j) meta->c_mask[k][j] = c_mask[2 * m * k + j];
+  return true;
+}
+
+// --- kernel and launch -------------------------------------------------------
+
+template <typename T, class Model>
+__global__ void __launch_bounds__(kThreads) trial_fused_kernel(
+    const __grid_constant__ TrialArgs<T> A,
+    const __grid_constant__ ModelConst mc,
+    const __grid_constant__ TrialMeta meta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  T part = lane_part<T, Model>(A, mc, meta, b, tid,
+                               reinterpret_cast<T*>(smem_raw));
+  for (int off = 16; off > 0; off >>= 1)
+    part += __shfl_down_sync(0xffffffffu, part, off);
+  if (tid == 0) A.tn[b] = part / T(A.S);
+}
+
+template <typename T, class Model>
+int run_kernel(const TrialArgs<T>& A, const ModelConst& mc,
+               const TrialMeta& meta, int B, void* stream) {
+  const size_t bytes = smem_bytes<T, Model>(A);
+  if (bytes > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        trial_fused_kernel<T, Model>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err) return err;
+  }
+  trial_fused_kernel<T, Model><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
+      A, mc, meta);
+  return (int)cudaGetLastError();
+}
+
+// --- end of kernel and launch ------------------------------------------------
+
+template <typename T, class Model>
+int launch(const void* const* in, void* const* out, const double* mconst,
+           const int* s_meta, const unsigned long long* s_mask,
+           const int* p_meta, const unsigned char* c_mask, int B, int N,
+           int p, int nsb, int csum, int ncb, int npair, int S, double dt,
+           double eps_n, void* stream) {
+  const int n = Model::NI * p, m = Model::MI * p;
+  TrialMeta meta;
+  if (n > kMaxN ||
+      !make_meta(s_meta, s_mask, p_meta, c_mask, nsb, npair, ncb, m, &meta))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  ModelConst mc;
+  for (int k = 0; k < kMaxConst; ++k) mc.c[k] = mconst[k];
+  TrialArgs<T> A;
+  const T** ins[] = {&A.x, &A.u, &A.lam, &A.dx, &A.du, &A.dlam, &A.alpha,
+                     &A.reg, &A.Qd, &A.xf, &A.Rdp, &A.ufp, &A.spar, &A.slam,
+                     &A.smu, &A.zmax, &A.zmin, &A.clam, &A.cmu, &A.pmr};
+  for (int k = 0; k < 20; ++k) *ins[k] = (const T*)in[k];
+  T** outs[] = {&A.rx0, &A.ru0, &A.rd, &A.sc, &A.cc, &A.tn};
+  for (int k = 0; k < 6; ++k) *outs[k] = (T*)out[k];
+  A.N = N; A.p = p; A.nsb = nsb; A.csum = csum; A.ncb = ncb;
+  A.npair = npair; A.S = S; A.dt = (T)dt; A.eps_n = (T)eps_n;
+  return run_kernel<T, Model>(A, mc, meta, B, stream);
+}
+
+}  // namespace
+
+// trial_fused_<model>_<type>(inputs [20], outputs [6], model constants [12],
+// tables, sizes, stream): the operands in the order of TrialArgs.
+#define TRIAL_EXPORT(NAME, SUFFIX, T, MODEL)                                  \
+  extern "C" int trial_fused_##NAME##_##SUFFIX(                               \
+      const void* const* in, void* const* out, const double* mconst,          \
+      const int* s_meta, const unsigned long long* s_mask, const int* p_meta, \
+      const unsigned char* c_mask, int B, int N, int p, int nsb, int csum,    \
+      int ncb, int npair, int S, double dt, double eps_n, void* stream) {     \
+    return launch<T, MODEL>(in, out, mconst, s_meta, s_mask, p_meta, c_mask,  \
+                            B, N, p, nsb, csum, ncb, npair, S, dt, eps_n,     \
+                            stream);                                          \
+  }
+#define TRIAL_EXPORT_BOTH(NAME, MODEL)                                        \
+  TRIAL_EXPORT(NAME, f32, float, MODEL<float>)                                \
+  TRIAL_EXPORT(NAME, f64, double, MODEL<double>)
+
+template <typename T> using DoubleIntegrator2 = DoubleIntegrator<T, 2>;
+template <typename T> using DoubleIntegrator3 = DoubleIntegrator<T, 3>;
+
+TRIAL_EXPORT_BOTH(unicycle, Unicycle)
+TRIAL_EXPORT_BOTH(di2, DoubleIntegrator2)
+TRIAL_EXPORT_BOTH(di3, DoubleIntegrator3)
+TRIAL_EXPORT_BOTH(bicycle, Bicycle)
+TRIAL_EXPORT_BOTH(quadrotor, Quadrotor)
+
+extern "C" const char* trial_fused_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -1,25 +1,29 @@
-"""Kernels K2 and K4: the fused line-search trial for the unicycle games.
+"""Kernels K2 and K4: the fused line-search trial.
 
 K2 replaces ``algames_tpu/ops/trial_kernel.py::_trial_eval_handwritten``
 (``_make_kernel_h``; the per-knot variant ``_make_kernel`` computes the same
-function).  K4 replaces, for the unicycle family,
+function) for the unicycle games.  K4 replaces
 ``algames_tpu/ops/trial_pallas.py::trial_eval_pallas`` as driven by
-``fused_trial_for_spec``: the generic fused trial that the reference runs
-whenever its hand-written kernel does not cover the problem (collision-cost
-pairs, circle obstacles, state bounds).  Both are one CUDA C++ kernel,
-``csrc/trial_unicycle.cu``, widened from K2 by a block kind per state block
-and a table of collision-cost pairs.  CUDA was chosen over Triton because
-the body is a per-knot scalar program with data-dependent indices
-(collision pairs, owners, bound masks) and loops over players and blocks,
-which maps directly onto one thread per knot; in Triton it would have to be
-recast as padded power-of-two tiles with gathers.
+``fused_trial_for_spec``: the generic fused trial, which the reference runs
+for every model and constraint family its hand-written kernel does not
+cover.  Both are one CUDA C++ source, ``csrc/trial_fused.cu`` (library
+``trial_fused``), compiled once per model (unicycle, double integrator in 2
+or 3 dimensions, bicycle, quadrotor) and type: the model is a template
+parameter of the kernel, its constants are kernel arguments, and the state
+blocks (collision in 2 or 3 dimensions, circle, 2D wall, 3D wall, cylinder,
+state bound), control bounds and collision-cost pairs travel as a by-value
+table.  CUDA was chosen over Triton because the body is a per-knot scalar
+program with data-dependent indices (collision pairs, owners, bound masks,
+gates) and loops over players and blocks, which maps directly onto one
+thread per knot; in Triton it would have to be recast as padded power-of-two
+tiles with gathers.
 
-On the card the trial is bound by latency, not by bytes: at about one flop
-per byte it would be memory-bound at full occupancy, but a batch of 1,024
-lanes gives only about eight warps per SM to hide the per-knot loads and
-the sin/cos chains.  The kernel makes one pass, one warp per lane and one
-thread per knot, with all intermediates in registers and a warp-shuffle sum
-for the norm, so that nothing but the inputs and the carried point touches
+On the card the trial is bound by latency, not by bytes: at a few flops per
+byte it would be memory-bound at full occupancy, but a batch of 1,024 lanes
+gives only about eight warps per SM to hide the per-knot loads and the
+transcendental chains.  The kernel makes one pass, one warp per lane and one
+thread per knot, with all intermediates on chip and a warp-shuffle sum for
+the norm, so that nothing but the inputs and the carried point touches
 device memory.
 
 ``trial_eval`` takes the plain PyTorch version (``trial_eval_plain``: the
@@ -28,47 +32,93 @@ tensors only; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
-from ..constraints.kernels import (BoundParams, CircleParams,
-                                   CollisionParams, num_rows)
+from ..constraints.kernels import (BoundParams, CircleParams, CollisionParams,
+                                   CylinderParams, Wall2DParams, Wall3DParams,
+                                   num_rows)
 from ..core.spec import owner_map_u
 from ..core.traj import PrimalDual, update_traj
 from ..models.base import interleaved_indices
+from ..models.bicycle import BicycleGame
+from ..models.double_integrator import DoubleIntegratorGame
+from ..models.quadrotor import QuadrotorGame
 from ..models.unicycle import UnicycleGame
 from ..problem import residual as R
 from . import build
 
-_LIB = "trial_unicycle"
+_LIB = "trial_fused"
 
-
-_KIND = {CollisionParams: 0, CircleParams: 1, BoundParams: 2}
-_MAX_SB, _MAX_CB, _MAX_PAIR, _MAX_M, _MAX_N = 64, 4, 64, 32, 32
+_KIND = {CollisionParams: 0, CircleParams: 1, BoundParams: 2,
+         Wall2DParams: 3, Wall3DParams: 4, CylinderParams: 5}
+# Per-player state / control dimension of each compiled model.
+_DIMS = {"unicycle": (4, 2), "di2": (4, 2), "di3": (6, 3),
+         "bicycle": (4, 2), "quadrotor": (12, 4)}
+_MAX_SB, _MAX_CB, _MAX_PAIR, _MAX_M, _MAX_N, _MAX_CYL = 64, 4, 64, 32, 32, 32
+_N_CONST = 12
 _PAIR_EPS = 1e-10
+
+
+def model_name(model) -> str | None:
+    """The kernel's compiled model for ``model``, or None."""
+    if isinstance(model, UnicycleGame):
+        return "unicycle"
+    if isinstance(model, DoubleIntegratorGame) and model.d in (2, 3):
+        return f"di{model.d}"
+    if isinstance(model, BicycleGame):
+        return "bicycle"
+    if isinstance(model, QuadrotorGame):
+        return "quadrotor"
+    return None
+
+
+def model_constants(model) -> list:
+    """The model's constants in the kernel's order (zero-padded)."""
+    vals = []
+    if isinstance(model, BicycleGame):
+        vals = [model.lf, model.lr]
+    elif isinstance(model, QuadrotorGame):
+        vals = [model.mass, *model.J, *model.gravity, model.motor_dist,
+                model.kf, model.km, model.thrust_smoothing]
+    return [float(v) for v in vals] + [0.0] * (_N_CONST - len(vals))
 
 
 def _state_block_ok(blk) -> bool:
     par = blk.params
     if isinstance(par, CollisionParams):
-        return len(par.pxi) == 2
-    return isinstance(par, (CircleParams, BoundParams))
+        return len(par.pxi) in (2, 3) and len(par.pxj) == len(par.pxi)
+    if isinstance(par, CylinderParams):
+        return len(par.axis) <= _MAX_CYL
+    return isinstance(par, (CircleParams, Wall2DParams, Wall3DParams,
+                            BoundParams))
 
 
 def trial_supported(model, spec, obj, gc) -> bool:
-    """True iff the problem lies inside the kernel's specialization:
-    unicycle dynamics with the interleaved control layout; state blocks
-    that are planar collision, circle or state-bound blocks; box bounds as
-    the only control blocks; collision-cost pairs on planar positions; all
-    within the kernel's table sizes."""
-    return (isinstance(model, UnicycleGame) and spec.homogeneous
-            and spec.pu == interleaved_indices(spec.p, 2)
+    """True iff the problem lies inside the kernel's specialization: one of
+    the compiled models, homogeneous, with the interleaved layout (component
+    c of player i at c p + i of the state and the control); state blocks of
+    the collision (2 or 3 coordinates), circle, wall, 3D wall, cylinder or
+    state-bound families; box bounds as the only control blocks;
+    collision-cost pairs on 2 or 3 coordinates; all within the kernel's
+    table sizes."""
+    name = model_name(model)
+    if name is None:
+        return False
+    ni, mi = _DIMS[name]
+    p = spec.p
+    return (spec.ni == (ni,) * p and spec.mi == (mi,) * p
+            and spec.pz == interleaved_indices(p, ni)
+            and spec.pu == interleaved_indices(p, mi)
             and all(_state_block_ok(b) for b in gc.state_blocks)
             and all(isinstance(b.params, BoundParams)
                     for b in gc.control_blocks)
-            and all(len(px) == 2 for px in obj.pxi + obj.pxj)
+            and all(len(a) in (2, 3) and len(a) == len(b)
+                    for a, b in zip(obj.pxi, obj.pxj))
             and len(gc.state_blocks) <= _MAX_SB
             and len(gc.control_blocks) <= _MAX_CB
             and len(obj.pair_i) <= _MAX_PAIR
@@ -93,11 +143,12 @@ def _param_shapes(blk, spec):
     par = blk.params
     if isinstance(par, CollisionParams):
         return [(par.radius, ())]
-    if isinstance(par, CircleParams):
-        C = par.xc.shape[0]
-        return [(par.xc, (C,)), (par.yc, (C,)), (par.radius, (C,))]
-    dim = spec.n if blk.is_state else spec.m
-    return [(par.z_max, (dim,)), (par.z_min, (dim,))]
+    if isinstance(par, BoundParams):
+        dim = spec.n if blk.is_state else spec.m
+        return [(par.z_max, (dim,)), (par.z_min, (dim,))]
+    C = num_rows(par)
+    return [(getattr(par, f.name), (C,)) for f in dataclasses.fields(par)
+            if f.type == "torch.Tensor"]
 
 
 def _check(model, spec, obj, gc, traj, dtraj, alpha, reg_eff) -> None:
@@ -131,29 +182,41 @@ def _check(model, spec, obj, gc, traj, dtraj, alpha, reg_eff) -> None:
             raise ValueError("trial operands must be contiguous")
 
 
-def _state_tables(spec, sb, dtype, device):
+def _state_tables(sb, dtype, device):
     """The kernel's state-block table: per block (kind, owner, first row,
-    first parameter, four indices) and its bound mask, plus the parameter
-    array (collision r^2; circle (xc, yc, r) per circle; bound z_max then
-    z_min)."""
+    first parameter, count, six indices) and its mask, plus the parameter
+    array (see ``csrc/trial_fused.cu`` SBlock for the layout)."""
     meta, masks, params = [], [], []
     row = npar = 0
     for blk in sb:
         par = blk.params
         kind = _KIND[type(par)]
-        mask = 0
+        idx, mask, cnt = [0] * 6, 0, 0
         if kind == 0:
-            idx = tuple(par.pxi) + tuple(par.pxj)
+            cnt = len(par.pxi)
+            idx[:cnt], idx[3:3 + cnt] = par.pxi, par.pxj
             vals = [par.radius.reshape(1) ** 2]
-        elif kind == 1:
-            idx = (par.xi, par.yi, par.xc.shape[0], 0)
-            vals = [torch.stack([par.xc, par.yc, par.radius], dim=1)
-                    .reshape(-1)]
-        else:
-            idx = (0, 0, 0, 0)
+        elif kind == 2:
             mask = sum(1 << j for j, f in enumerate(par.mask) if f)
             vals = [par.z_max, par.z_min]
-        meta += [kind, blk.owner, row, npar, *idx]
+        else:
+            cnt = num_rows(par)
+            if kind == 1:
+                idx[:2] = par.xi, par.yi
+                cols = [par.xc, par.yc, par.radius]
+            elif kind == 3:
+                idx[:2] = par.xi, par.yi
+                cols = [par.x1, par.y1, par.x2, par.y2, par.xv, par.yv]
+            else:
+                idx[:3] = par.xi, par.yi, par.zi
+                names = (("x1", "y1", "z1", "x2", "y2", "z2", "x3", "y3",
+                          "z3", "xv", "yv", "zv") if kind == 4
+                         else ("p1", "p2", "p3", "l", "r"))
+                cols = [getattr(par, f) for f in names]
+                if kind == 5:
+                    mask = sum(a << (2 * j) for j, a in enumerate(par.axis))
+            vals = [torch.stack(cols, dim=1).reshape(-1)]
+        meta += [kind, blk.owner, row, npar, cnt, *idx]
         masks.append(mask)
         row += blk.lam.shape[-1]
         npar += sum(int(v.numel()) for v in vals)
@@ -163,30 +226,21 @@ def _state_tables(spec, sb, dtype, device):
     return meta, masks, spar, row
 
 
-def trial_eval(model, spec, obj, gc, traj: PrimalDual, dtraj: PrimalDual,
-               alpha: torch.Tensor, reg_eff: torch.Tensor):
-    """Fused trial: ``(tn [B], PointLite)`` at ``traj + alpha dtraj``, with
-    per-lane ``alpha`` and ``reg_eff`` [B].  Same function as
-    :func:`trial_eval_plain`."""
-    _check(model, spec, obj, gc, traj, dtraj, alpha, reg_eff)
-    if traj.x.device.type == "cpu":
-        return trial_eval_plain(model, spec, obj, gc, traj, dtraj, alpha,
-                                reg_eff)
-    if traj.x.device.type != "cuda":
-        raise ValueError(f"unsupported device {traj.x.device}")
-    lib = build.load(_LIB)
+def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
+    """Pack the operands and tables, run the kernel of ``lib`` on
+    ``stream``, and return ``(tn, PointLite)``."""
     dtype, device = traj.x.dtype, traj.x.device
     sfx = "f32" if dtype == torch.float32 else "f64"
-    P, I, D = build.P, build.I, build.ctypes.c_double
-    fn = build.bind(lib, f"trial_unicycle_{sfx}",
-                    [P] * 30 + [I] * 8 + [D, D, P])
+    P, I, D = build.P, build.I, ctypes.c_double
+    fn = build.bind(lib, f"trial_fused_{model_name(model)}_{sfx}",
+                    [P] * 7 + [I] * 8 + [D, D, P])
     Bsz, T, n, m, p = traj.x.shape[0], spec.T, spec.n, spec.m, spec.p
     sb, cb = gc.state_blocks, gc.control_blocks
     nsb, ncb, npair = len(sb), len(cb), len(obj.pair_i)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
-    s_meta, s_mask, spar, csum = _state_tables(spec, sb, dtype, device)
+    s_meta, s_mask, spar, csum = _state_tables(sb, dtype, device)
     # Stacked state AL state [B, Csum, T]: rows of every block, knots last.
     slam = (torch.cat([b.lam.transpose(1, 2) for b in sb], dim=1) if sb
             else zeros(Bsz, 0, T))
@@ -203,9 +257,11 @@ def trial_eval(model, spec, obj, gc, traj: PrimalDual, dtraj: PrimalDual,
     j = torch.arange(m, device=device)
     Rdp = obj.Rd[own, j].contiguous()
     ufp = obj.uf[own, j].contiguous()
-    p_meta = build.int_table(
-        [v for k, i in enumerate(obj.pair_i)
-         for v in (i,) + tuple(obj.pxi[k]) + tuple(obj.pxj[k])])
+    p_meta = []
+    for k, i in enumerate(obj.pair_i):
+        a, b = tuple(obj.pxi[k]), tuple(obj.pxj[k])
+        p_meta += [i, len(a), *(a + (0,) * (3 - len(a))),
+                   *(b + (0,) * (3 - len(b)))]
     c_mask = build.byte_table([v for b in cb for v in b.params.mask])
 
     rx0 = torch.empty((Bsz, T, p, n), dtype=dtype, device=device)
@@ -217,15 +273,15 @@ def trial_eval(model, spec, obj, gc, traj: PrimalDual, dtraj: PrimalDual,
     ins = [traj.x, traj.u, traj.lam, dtraj.x, dtraj.u, dtraj.lam, alpha,
            reg_eff, obj.Qd.contiguous(), obj.xf.contiguous(), Rdp, ufp, spar,
            slam, smu, zmax, zmin, clam, cmu, pmr]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        build.check(lib, _LIB, fn(
-            *[a.data_ptr() for a in ins], build.int_table(s_meta),
-            (build.ctypes.c_ulonglong * max(1, nsb))(*s_mask), p_meta,
-            c_mask, *[a.data_ptr() for a in (rx0, ru0, rd, sc, cc, tn)],
-            Bsz, spec.N, p, nsb, csum, ncb, npair, spec.S, float(spec.dt),
-            _PAIR_EPS * math.sqrt(n), stream))
-    trial_eval.launches += 1
+    outs = [rx0, ru0, rd, sc, cc, tn]
+    build.check(lib, _LIB, fn(
+        (ctypes.c_void_p * len(ins))(*[a.data_ptr() for a in ins]),
+        (ctypes.c_void_p * len(outs))(*[a.data_ptr() for a in outs]),
+        (ctypes.c_double * _N_CONST)(*model_constants(model)),
+        build.int_table(s_meta),
+        (ctypes.c_ulonglong * max(1, nsb))(*s_mask),
+        build.int_table(p_meta), c_mask, Bsz, spec.N, p, nsb, csum, ncb,
+        npair, spec.S, float(spec.dt), _PAIR_EPS * math.sqrt(n), stream))
     rows = np.cumsum([0] + [b.lam.shape[-1] for b in sb])
     lite = R.PointLite(
         rx0=rx0, ru0=ru0, rd=rd,
@@ -233,6 +289,25 @@ def trial_eval(model, spec, obj, gc, traj: PrimalDual, dtraj: PrimalDual,
                       for k in range(nsb)),
         control_c=tuple(cc[:, k] for k in range(ncb)))
     return tn, lite
+
+
+def trial_eval(model, spec, obj, gc, traj: PrimalDual, dtraj: PrimalDual,
+               alpha: torch.Tensor, reg_eff: torch.Tensor):
+    """Fused trial: ``(tn [B], PointLite)`` at ``traj + alpha dtraj``, with
+    per-lane ``alpha`` and ``reg_eff`` [B].  Same function as
+    :func:`trial_eval_plain`."""
+    _check(model, spec, obj, gc, traj, dtraj, alpha, reg_eff)
+    if traj.x.device.type == "cpu":
+        return trial_eval_plain(model, spec, obj, gc, traj, dtraj, alpha,
+                                reg_eff)
+    if traj.x.device.type != "cuda":
+        raise ValueError(f"unsupported device {traj.x.device}")
+    lib = build.load(_LIB)
+    with torch.cuda.device(traj.x.device):
+        out = _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff,
+                      torch.cuda.current_stream().cuda_stream)
+    trial_eval.launches += 1
+    return out
 
 
 trial_eval.launches = 0

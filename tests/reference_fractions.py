@@ -1,0 +1,172 @@
+"""CPU measurements behind the sweep gates of ``chip_smoke.py`` for the
+double-integrator, bicycle and quadrotor games: the reference package's own
+converged fraction on the sweep's inputs and the port's agreement with it
+lane by lane.  Not a test module (pytest does not collect it); it imports
+both packages, as the tests do.
+
+    JAX_PLATFORMS=cpu python tests/reference_fractions.py subset [KEY ...]
+    JAX_PLATFORMS=cpu python tests/reference_fractions.py full [KEY[@A:B] ...]
+    JAX_PLATFORMS=cpu python tests/reference_fractions.py f64 KEY LANE ...
+
+``subset`` (minutes per game): the first 256 of ``chip_smoke.py``'s 4096
+sweep scenarios of each game (x0 + 0.05 N(0, 1), numpy seed 0), f32 at the
+preset budget, through the reference (``schur``) and through the port's
+plain versions with the fused trial; prints each converged and diverged
+fraction under the sweep's gates (dyn, con, sta 1e-3; opt 1e-2, or 5e-2 for
+the quadrotor, whose thrust clamp holds stationarity near 3e-2), the
+iteration counts, and the lanes whose counts differ.  KEY is one of
+di2_N10, bike3_N20, quad2_N15 (default: all three).
+
+``full``: the reference alone over all 4096 sweep scenarios (or lanes A
+to B of them), in chunks of 256, printing the running converged and
+diverged counts; its final fraction is the sweep gate's reference.  KEY
+may also be round4_N40.  Tens of minutes for di2 and bike3; over half an
+hour per 256 lanes for the quadrotor and the roundabout, and far longer
+when several JAX processes share the CPU's cores.  Where many lanes sit
+near the gates, f32 rounding flips a few per cent of them between two
+implementations, so a fraction over 256 lanes is a coarse reference (one
+lane is 0.004 of it).
+
+``f64 KEY LANE ...``: the named subset lanes in f64 through both packages
+(to tell rounding from a fault where the f32 iteration counts differ).
+"""
+import dataclasses
+import os
+import sys
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+CPU = torch.device("cpu")
+N_SUBSET = 256
+N_SWEEP = 4096
+KEYS = ("di2_N10", "bike3_N20", "quad2_N15")
+OPT_GATE = {"quad2_N15": 5e-2}
+
+
+def sweep_inputs(x0, n, lanes=N_SUBSET):
+    rng = np.random.default_rng(0)
+    x0s = np.asarray(x0, np.float64)[None] + 0.05 * rng.standard_normal(
+        (N_SWEEP, n))
+    return x0s[:lanes]
+
+
+def converged(key, opts, it, dyn, con, sta, opt):
+    """Lanes whose final record meets the sweep's gates."""
+    last = np.maximum(np.asarray(it) - 1, 0)
+
+    def final(col):
+        return np.asarray(col)[np.arange(len(last)), last]
+    return ((final(dyn) < opts.eps_dyn) & (final(con) < opts.eps_con)
+            & (final(sta) < opts.eps_sta)
+            & (final(opt) < OPT_GATE.get(key, opts.eps_opt)))
+
+
+def subset(keys):
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    from algames_tpu.parallel import batch as jbatch
+    from algames_tpu.presets import PRESETS as JAX_PRESETS
+
+    from algames_tpu_torch import parallel
+    from algames_tpu_torch.presets import PRESETS
+
+    for key in keys:
+        prob, spec = JAX_PRESETS[key](dtype=jnp.float32)
+        x0s = sweep_inputs(prob.x0, spec.n)
+        out = jax.jit(lambda x: jbatch.solve_batch(prob, x, method="schur"))(
+            jnp.asarray(x0s, jnp.float32))
+        s = out.stats
+        it_ref = np.asarray(s.iter)
+        conv_ref = converged(key, prob.opts, it_ref, s.dyn_vio, s.con_vio,
+                             s.sta_vio, s.opt_vio)
+        print(f"{key} reference: converged {conv_ref.mean()} "
+              f"({int(conv_ref.sum())}/{N_SUBSET}), diverged "
+              f"{float(np.asarray(jbatch.divergence_mask(out)).mean())}, "
+              f"unconverged lanes {np.nonzero(~conv_ref)[0].tolist()}, "
+              f"iterations {it_ref.min()}..{it_ref.max()} (mean "
+              f"{it_ref.mean():.2f})", flush=True)
+
+        tprob, _ = PRESETS[key](CPU, torch.float32)
+        tprob = dataclasses.replace(tprob, opts=dataclasses.replace(
+            tprob.opts, ls_fused=True))
+        tout = parallel.solve_many(
+            tprob, torch.as_tensor(x0s, dtype=torch.float32),
+            method="thomas", chunk=N_SUBSET)
+        t = tout.stats
+        it = t.iter.numpy()
+        conv = converged(key, tprob.opts, it, t.dyn_vio.numpy(),
+                         t.con_vio.numpy(), t.sta_vio.numpy(),
+                         t.opt_vio.numpy())
+        diff = np.nonzero(it != it_ref)[0]
+        print(f"{key} port (plain versions): converged {conv.mean()} "
+              f"({int(conv.sum())}/{N_SUBSET}), diverged "
+              f"{float(parallel.divergence_mask(tout).float().mean())}, "
+              f"unconverged lanes {np.nonzero(~conv)[0].tolist()}; "
+              f"iteration counts equal on {N_SUBSET - len(diff)} of "
+              f"{N_SUBSET}; differing lanes (port, reference): "
+              f"{[(int(k), int(it[k]), int(it_ref[k])) for k in diff]}",
+              flush=True)
+
+
+def full(keys):
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    from algames_tpu.parallel import batch as jbatch
+    from algames_tpu.presets import PRESETS as JAX_PRESETS
+
+    for arg in keys:
+        key, _, lanes = arg.partition("@")
+        a, b = map(int, lanes.split(":")) if lanes else (0, N_SWEEP)
+        prob, spec = JAX_PRESETS[key](dtype=jnp.float32)
+        x0s = sweep_inputs(prob.x0, spec.n, N_SWEEP)
+        solve = jax.jit(lambda x: jbatch.solve_batch(prob, x, method="schur"))
+        conv = div = 0
+        for s in range(a, b, N_SUBSET):
+            out = solve(jnp.asarray(x0s[s:s + N_SUBSET], jnp.float32))
+            st = out.stats
+            conv += int(converged(key, prob.opts, np.asarray(st.iter),
+                                  st.dyn_vio, st.con_vio, st.sta_vio,
+                                  st.opt_vio).sum())
+            div += int(np.asarray(jbatch.divergence_mask(out)).sum())
+            n = s + N_SUBSET - a
+            print(f"{key} reference, lanes {a}..{s + N_SUBSET}: converged "
+                  f"{conv}/{n} = {conv / n}, diverged {div}", flush=True)
+
+
+def f64_lanes(key, lanes):
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    from algames_tpu.parallel import batch as jbatch
+    from algames_tpu.presets import PRESETS as JAX_PRESETS
+
+    import algames_tpu_torch as agt
+    from algames_tpu_torch.convert import problem_from_reference
+
+    prob, spec = JAX_PRESETS[key](dtype=jnp.float64)
+    x0s = sweep_inputs(prob.x0, spec.n)[lanes]
+    ref = jax.jit(lambda x: jbatch.solve_batch(prob, x, method="schur"))(
+        jnp.asarray(x0s))
+    tprob = problem_from_reference(prob, CPU, torch.float64)
+    tprob = dataclasses.replace(tprob, opts=dataclasses.replace(
+        tprob.opts, ls_fused=True))
+    out = agt.parallel.solve_batch(tprob, torch.as_tensor(x0s))
+    dx = np.abs(out.traj.x.numpy() - np.asarray(ref.traj.x)).max()
+    print(f"{key} f64 lanes {lanes}: iterations reference "
+          f"{np.asarray(ref.stats.iter).tolist()}, port "
+          f"{out.stats.iter.tolist()}; max |x - x_ref| {dx:.3e}")
+
+
+if __name__ == "__main__":
+    torch.set_num_threads(4)
+    if sys.argv[1] == "f64":
+        f64_lanes(sys.argv[2], [int(k) for k in sys.argv[3:]])
+    elif sys.argv[1] == "full":
+        full(sys.argv[2:] or KEYS)
+    else:
+        subset(sys.argv[2:] or KEYS)

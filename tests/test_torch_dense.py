@@ -178,18 +178,26 @@ def test_specialization_predicate(case):
     for keep in (slice(0, 12), slice(12, 16), slice(16, 32)):
         g = dataclasses.replace(gc, state_blocks=gc.state_blocks[keep])
         assert trial.trial_supported(model, spec, obj, g)
-    # Outside: a collision block or a collision-cost pair on three
-    # coordinates, a state block of another shape used as a control block,
-    # another model, a heterogeneous layout, too many state blocks.
-    coll3 = tsets.ConBlock(
+    # A collision block and a collision-cost pair on three coordinates are
+    # inside; outside: both on four coordinates, a state block of another
+    # shape used as a control block, another model, a heterogeneous layout,
+    # too many state blocks.
+    coll3, coll4 = (tsets.ConBlock(
         params=CollisionParams(radius=torch.tensor(0.1, dtype=torch.float64),
-                               pxi=(0, 1, 2), pxj=(3, 4, 5)),
+                               pxi=tuple(range(k)),
+                               pxj=tuple(range(k, 2 * k))),
         lam=torch.zeros(spec.T, 1), mu=torch.ones(spec.T, 1), owner=0,
-        is_state=True)
-    assert not trial.trial_supported(model, spec, obj, dataclasses.replace(
+        is_state=True) for k in (3, 4))
+    assert trial.trial_supported(model, spec, obj, dataclasses.replace(
         gc, state_blocks=gc.state_blocks + (coll3,)))
-    obj3 = dataclasses.replace(obj, pxi=obj.pxi[:-1] + ((0, 4, 8),))
-    assert not trial.trial_supported(model, spec, obj3, gc)
+    assert not trial.trial_supported(model, spec, obj, dataclasses.replace(
+        gc, state_blocks=gc.state_blocks + (coll4,)))
+    obj3 = dataclasses.replace(obj, pxi=obj.pxi[:-1] + ((0, 4, 8),),
+                               pxj=obj.pxj[:-1] + ((1, 5, 9),))
+    assert trial.trial_supported(model, spec, obj3, gc)
+    obj4 = dataclasses.replace(obj, pxi=obj.pxi[:-1] + ((0, 4, 8, 12),),
+                               pxj=obj.pxj[:-1] + ((1, 5, 9, 13),))
+    assert not trial.trial_supported(model, spec, obj4, gc)
     circ_u = dataclasses.replace(gc.state_blocks[12], is_state=False,
                                  owner=-1)
     assert not trial.trial_supported(model, spec, obj, dataclasses.replace(

@@ -15,7 +15,8 @@ import torch
 import algames_tpu_torch as agt
 from algames_tpu_torch.ops.thomas import solve_thomas, solve_thomas_structured
 from algames_tpu_torch.ops.trial import trial_eval, trial_supported
-from algames_tpu_torch.presets import flagship_unicycle, roundabout
+from algames_tpu_torch.ops import build
+from algames_tpu_torch.presets import PRESETS, flagship_unicycle
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,19 +70,19 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
 
 def test_cpu_solve_launches_no_kernel():
     """CPU solves with the fused trial run the plain versions: no kernel's
-    launch counter moves, neither on the flagship (K1, K2) nor on the
-    roundabout (K3, K4: dense Hessians, the widened trial)."""
-    prob, spec = flagship_unicycle(torch.device("cpu"), torch.float64,
-                                   outer=1, inner=2, p=2, N=5)
-    prob = dataclasses.replace(prob, opts=dataclasses.replace(prob.opts,
-                                                              ls_fused=True))
-    rprob, rspec = roundabout(torch.device("cpu"), torch.float64, outer=1,
-                              inner=2)
-    rprob = dataclasses.replace(rprob, opts=dataclasses.replace(
-        rprob.opts, ls_fused=True))
+    launch counter moves, on any preset (the flagship and the double
+    integrator and quadrotor: K1, K2/K4; the roundabout and the bicycle: K3,
+    K4)."""
+    cpu = torch.device("cpu")
+    problems = [flagship_unicycle(cpu, torch.float64, outer=1, inner=2, p=2,
+                                  N=5)]
+    problems += [PRESETS[k](cpu, torch.float64, outer=1, inner=2)
+                 for k in ("round4_N40", "di2_N10", "bike3_N20", "quad2_N15")]
     counters = (solve_thomas_structured, solve_thomas, trial_eval)
     before = [c.launches for c in counters]
-    for pr, sp in ((prob, spec), (rprob, rspec)):
+    for pr, sp in problems:
+        pr = dataclasses.replace(pr, opts=dataclasses.replace(pr.opts,
+                                                              ls_fused=True))
         assert trial_supported(pr.model, sp, pr.obj, pr.gc)
         out = agt.newton_solve(pr, pr.x0[None].repeat(2, 1))
         assert out.traj.x.shape == (2, sp.N, sp.n)
@@ -91,6 +92,21 @@ def test_cpu_solve_launches_no_kernel():
 
 def test_presets_default_to_the_card():
     """The port's entry points run on the card unless the caller asks for
-    the CPU: the presets' device defaults to CUDA."""
-    for fn in (flagship_unicycle, roundabout):
+    the CPU: every preset's device defaults to CUDA."""
+    assert sorted(PRESETS) == ["bike3_N20", "di2_N10", "quad2_N15",
+                               "round4_N40", "uni3_N20"]
+    for fn in PRESETS.values():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_kernel_libraries_have_sources():
+    """Every library a wrapper loads is a source of ``csrc/`` with its own
+    error-string export, and every source is loaded by some wrapper."""
+    from algames_tpu_torch.ops import thomas, trial
+    libs = {trial._LIB, *(v for k, v in vars(thomas).items()
+                          if k.startswith("_LIB"))}
+    sources = {p.stem for p in build.CSRC_DIR.glob("*.cu")}
+    assert libs == sources == {"thomas_sq", "thomas_dense", "trial_fused"}
+    for name in sources:
+        text = (build.CSRC_DIR / f"{name}.cu").read_text()
+        assert f'extern "C" const char* {name}_error_string' in text

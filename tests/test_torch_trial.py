@@ -148,14 +148,17 @@ def test_specialization_predicate(case):
         owner=0, is_state=True)
     gc_b = dataclasses.replace(tgc, state_blocks=tgc.state_blocks + (bound,))
     assert trial.trial_supported(tprob.model, spec, obj, gc_b)
-    # ... a collision block on three coordinates does not: the solver then
-    # takes the eager trial by an explicit branch.
-    coll3 = tsets.ConBlock(
+    # ... and so does a collision block on three coordinates; one on four
+    # does not: the solver then takes the eager trial by an explicit branch.
+    coll3, coll4 = (tsets.ConBlock(
         params=CollisionParams(radius=torch.tensor(0.1, dtype=torch.float64),
-                               pxi=(0, 1, 2), pxj=(3, 4, 5)),
+                               pxi=tuple(range(k)),
+                               pxj=tuple(range(k, 2 * k))),
         lam=torch.zeros(spec.T, 1), mu=torch.ones(spec.T, 1), owner=0,
-        is_state=True)
-    gc_c = dataclasses.replace(tgc, state_blocks=tgc.state_blocks + (coll3,))
+        is_state=True) for k in (3, 4))
+    gc_3 = dataclasses.replace(tgc, state_blocks=tgc.state_blocks + (coll3,))
+    assert trial.trial_supported(tprob.model, spec, obj, gc_3)
+    gc_c = dataclasses.replace(tgc, state_blocks=tgc.state_blocks + (coll4,))
     assert not trial.trial_supported(tprob.model, spec, obj, gc_c)
     with pytest.raises(ValueError, match="specialization"):
         trial.trial_eval(tprob.model, spec, obj, gc_c, *case["targs"][4:])

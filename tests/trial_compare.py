@@ -1,0 +1,81 @@
+"""The fused trial kernel (K2 / K4) of two source trees on the same inputs,
+on one CUDA card: outputs bitwise and device times.  Not a test module
+(pytest does not collect it).
+
+    python3 tests/trial_compare.py dump TREE NAME DIR
+    python3 tests/trial_compare.py compare DIR NAME_A NAME_B
+
+``dump`` imports ``chip_smoke.py`` and the port from TREE (a checkout, e.g.
+``git archive`` of another commit unpacked in a git-ignored directory), runs
+its fused trial on ``chip_smoke.py``'s trial inputs at B=1024 (K2's and the
+roundabout K4's, and, where TREE's ``chip_smoke.py`` has them, those of the
+double-integrator, bicycle and quadrotor games and the 3D double
+integrator), in f32 and f64, prints each f32 call's time (CUDA events) and
+device time (profiler), and saves the outputs to DIR/NAME.pt.  ``compare``
+counts the unequal output elements of two dumps, input set by input set.
+Run each ``dump`` in its own process: the two trees' packages share a name.
+"""
+import sys
+from pathlib import Path
+
+import torch
+
+
+def dump(tree, name, out_dir):
+    sys.path.insert(0, str(tree))
+    import chip_smoke as cs
+    from algames_tpu_torch.ops.trial import trial_eval
+    from algames_tpu_torch.utils import tree_leaves
+    if Path(cs.__file__).resolve().parent != tree:
+        raise SystemExit(f"chip_smoke.py was not imported from {tree}")
+    dev = torch.device("cuda:0")
+    cases = [("K2", cs.k2_inputs), ("K4", cs.k4_inputs)]
+    if hasattr(cs, "game_trial_inputs"):
+        from algames_tpu_torch.presets import (intro_bicycle, intro_di,
+                                               quadrotor3d)
+        cases += [
+            ("di2", cs.game_trial_inputs(intro_di, "di2_N10", 13)),
+            ("bike3", cs.game_trial_inputs(intro_bicycle, "bike3_N20", 17)),
+            ("quad2", cs.game_trial_inputs(quadrotor3d, "quad2_N15", 19,
+                                           zero_u=True)),
+            ("quad2-smooth", cs.game_trial_inputs(
+                quadrotor3d, "quad2_N15", 23, zero_u=True, smoothing=100.0)),
+            ("di3", lambda d, t: cs.trial_inputs(
+                cs.di3_game, cs.random_iterates, True, d, t, seed=29))]
+    res = {}
+    for tag, inputs in cases:
+        for dtype in (torch.float32, torch.float64):
+            prob, spec, gc, traj, dtraj, alpha, reg = inputs(dev, dtype)
+            args = (prob.model, spec, prob.obj, gc, traj, dtraj, alpha, reg)
+            tn, lite = trial_eval(*args)
+            res[f"{tag} {str(dtype)[-7:]}"] = [
+                a.cpu() for a in [tn] + tree_leaves(lite)]
+            if dtype == torch.float32:
+                call = cs.cuda_ms(lambda: trial_eval(*args), 20)
+                device = cs.kernel_device_ms(lambda: trial_eval(*args), 50,
+                                             ("trial_",))
+                print(f"{name} {tag} f32 B={cs.B_KERNEL}: call {call:.4f} "
+                      f"ms, device {device:.4f} ms", flush=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.save(res, out_dir / f"{name}.pt")
+
+
+def compare(out_dir, a_name, b_name):
+    a = torch.load(out_dir / f"{a_name}.pt")
+    b = torch.load(out_dir / f"{b_name}.pt")
+    for key in a:
+        if key not in b:
+            continue
+        unequal = sum(int((x != y).sum()) for x, y in zip(a[key], b[key]))
+        worst = max(float((x.double() - y.double()).abs().max())
+                    for x, y in zip(a[key], b[key]))
+        print(f"{a_name} vs {b_name}, {key}: {unequal} unequal elements of "
+              f"{sum(x.numel() for x in a[key])}, max |diff| {worst:.3e}",
+              flush=True)
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "dump":
+        dump(Path(sys.argv[2]).resolve(), sys.argv[3], Path(sys.argv[4]))
+    else:
+        compare(Path(sys.argv[2]), sys.argv[3], sys.argv[4])
