@@ -1,14 +1,15 @@
 """Carry a reference ``GameProblem`` over into the port.
 
 ``problem_from_reference`` reads the attributes of the reference package's
-``GameProblem`` / model (unicycle, double integrator, bicycle, quadrotor,
-with their physical constants) / ``GameObjective`` (with its CollisionCost
+``GameProblem`` / model (unicycle, double integrator, heterogeneous double
+integrator, bicycle, quadrotor, with their physical constants and index
+tuples) / ``GameObjective`` (with its CollisionCost
 pairs) / ``GameConstraints`` / ``ConBlock`` and every constraint family's
 parameters by name, and converts each array leaf with ``np.asarray`` (which
 works on the reference's arrays without importing its framework).  The
 static ``ProblemSpec`` is rebuilt field by field.  It raises on anything the
-port does not carry: the heterogeneous model, non-inequality blocks, and
-options the port has not ported.
+port does not carry: non-inequality blocks and the options the port has not
+ported.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from .constraints.sets import ConBlock, GameConstraints
 from .core.spec import ProblemSpec
 from .models.bicycle import BicycleGame
 from .models.double_integrator import DoubleIntegratorGame
+from .models.hetero import HeteroDoubleIntegratorGame
 from .models.quadrotor import QuadrotorGame
 from .models.unicycle import UnicycleGame
 from .objective.objective import GameObjective
@@ -29,6 +31,7 @@ from .problem.options import Options
 from .problem.problem import GameProblem
 
 _MODELS = {cls.__name__: cls for cls in (UnicycleGame, DoubleIntegratorGame,
+                                         HeteroDoubleIntegratorGame,
                                          BicycleGame, QuadrotorGame)}
 _FAMILIES = {cls.__name__: cls for cls in (
     K.CollisionParams, K.CircleParams, K.Wall2DParams, K.Wall3DParams,

@@ -6,7 +6,8 @@
 // _make_kernel computes the same function) for the unicycle games, and
 // algames_tpu/ops/trial_pallas.py::trial_eval_pallas as driven by
 // fused_trial_for_spec (the generic fused trial) for the unicycle, double
-// integrator, bicycle and quadrotor models with collision-cost pairs in the
+// integrator (homogeneous, or planar heterogeneous with player-blocked
+// ragged controls), bicycle and quadrotor models with collision-cost pairs in the
 // objective and collision (planar or spherical), circle, 2D wall, 3D wall,
 // cylinder and state-bound blocks.
 //
@@ -19,9 +20,10 @@
 // constraint values) and tn.
 //
 // The model is a template parameter: a device functor per model gives one
-// player's vector field f(x_i, u_i) (ni states, mi controls, component c of
-// player i at index c p + i of the full vectors) and its VJP
-// (J_x^T g, J_u^T g), one cotangent at a time.  One generic routine builds
+// player's vector field f(x_i, u_i) (ni states, mi controls) and its VJP
+// (J_x^T g, J_u^T g), one cotangent at a time, and names its layout policy:
+// where component c of player i sits in the full vectors (Interleaved:
+// c p + i; Blocked: player-major, with ragged controls).  One generic routine builds
 // the midpoint step F = x + dt f(x + dt/2 f(x, u), u) and its pulls: with
 // g = dt lam and (gx, gu) the VJP of f at (mid, u),
 //   A^T lam = lam + gx + dt/2 J_x f(x, u)^T gx
@@ -30,10 +32,10 @@
 // are the closed form A^T lam = lam + g, B^T lam = dt lam_{th,v} +
 // dt/2 g_{th,v}.  The unicycle, double-integrator and bicycle VJPs are
 // derived by hand; the quadrotor's comes from forward-mode dual numbers over
-// the player's attitude, rate and rotor inputs (see Quadrotor).  Player i
-// owns controls c p + i, and the pull of player i's multiplier is picked
-// for those rows.  One compiled kernel per (model, type); the model's
-// constants are kernel arguments.
+// the player's attitude, rate and rotor inputs (see Quadrotor).  The pull of
+// player i's multiplier is picked for player i's own control rows.  One
+// compiled kernel per (model, type); the model's constants are kernel
+// arguments.
 //
 // What bounds it on the card: latency.  The trial reads the iterate and the
 // step (x, u, lam: a few KB per lane in f32, twice) plus the AL state and
@@ -132,6 +134,67 @@ template <typename T> __device__ __forceinline__ T absval(T v) {
 }
 
 // ---------------------------------------------------------------------------
+// Layout policies: where component c of player j sits in the full state and
+// control vectors, the control dimension m, and control c of player j at a
+// knot of the lane's trial point (``u_at``).  A model names its policy, so
+// the index arithmetic is fixed when the kernel is compiled.  Everything is
+// forced inline: after inlining, an interleaved instance is the same code
+// as before the policies existed (its outputs stay bitwise equal).
+// ---------------------------------------------------------------------------
+
+// Interleaved (every model but the heterogeneous one): c p + j in both
+// vectors, MI controls per player, every control present.
+template <int MI>
+struct Interleaved {
+  static constexpr bool kRagged = false;
+  __host__ __device__ __forceinline__ static int x(int c, int j, int p) {
+    return c * p + j;
+  }
+  __device__ __forceinline__ static int u(const ModelConst&, int c, int j,
+                                          int p) {
+    return c * p + j;
+  }
+  template <typename T, class LaneT>
+  __device__ __forceinline__ static T u_at(const LaneT& L, const ModelConst&,
+                                           int t, int c, int j, int p) {
+    return L.U(t, c * p + j);
+  }
+  __host__ __device__ __forceinline__ static int m(const ModelConst&, int p) {
+    return MI * p;
+  }
+};
+
+// Player-blocked with ragged controls (the heterogeneous double integrator):
+// state j NI + c; control off[j] + c for c < mi[j] = off[j+1] - off[j], and
+// absent (zero, never written) for mi[j] <= c < MI.  The offsets are the
+// model constants c[0..p] (off[p] = m), read from the kernel's parameter
+// space at run time; they index device memory only, never a thread-local
+// array.
+template <int NI>
+struct Blocked {
+  static constexpr bool kRagged = true;
+  __host__ __device__ __forceinline__ static int x(int c, int j, int) {
+    return j * NI + c;
+  }
+  __device__ __forceinline__ static bool has_u(const ModelConst& k, int c,
+                                               int j) {
+    return c < (int)k.c[j + 1] - (int)k.c[j];
+  }
+  __device__ __forceinline__ static int u(const ModelConst& k, int c, int j,
+                                          int) {
+    return (int)k.c[j] + c;
+  }
+  template <typename T, class LaneT>
+  __device__ __forceinline__ static T u_at(const LaneT& L, const ModelConst& k,
+                                           int t, int c, int j, int p) {
+    return has_u(k, c, j) ? L.U(t, u(k, c, j, p)) : T(0);
+  }
+  __host__ __device__ __forceinline__ static int m(const ModelConst& k, int p) {
+    return (int)k.c[p];
+  }
+};
+
+// ---------------------------------------------------------------------------
 // Models: one player's vector field f, and its VJP at a point (x, u) for one
 // cotangent g [NI]: gx [NI] = J_x^T g and gu [MI] = J_u^T g, each written
 // when not null.  ``lin(x, u)`` holds what the VJP needs of the point (the
@@ -147,6 +210,7 @@ template <typename T> __device__ __forceinline__ T absval(T v) {
 template <typename T>
 struct Unicycle {
   static constexpr int NI = 4, MI = 2;
+  using Layout = Interleaved<MI>;
   struct Lin {
     T s, c, v;
   };
@@ -179,6 +243,7 @@ struct Unicycle {
 template <typename T, int D>
 struct DoubleIntegrator {
   static constexpr int NI = 2 * D, MI = D;
+  using Layout = Interleaved<MI>;
   struct Lin {};
   __device__ explicit DoubleIntegrator(const ModelConst&) {}
   __device__ void f(const T* x, const T* u, T* out) const {
@@ -201,12 +266,25 @@ struct DoubleIntegrator {
   }
 };
 
+// Heterogeneous double integrator in D dimensions: player j actuates its
+// first mi[j] <= D acceleration components and the others coast, so the
+// vector field and its VJP are the double integrator's with the absent
+// controls held at zero; the layout is player-blocked.  Constants: the
+// control offsets off[0..p].
+template <typename T, int D>
+struct HeteroDoubleIntegrator : DoubleIntegrator<T, D> {
+  using Layout = Blocked<2 * D>;
+  __device__ explicit HeteroDoubleIntegrator(const ModelConst& c)
+      : DoubleIntegrator<T, D>(c) {}
+};
+
 // Kinematic bicycle: x = [px, py, v, psi], u = [a, delta], slip angle
 // beta = atan2(lr tan(delta), lr + lf), f = [v cos(beta + psi),
 // v sin(beta + psi), a, v sin(beta) / lr].  Constants: lf, lr.
 template <typename T>
 struct Bicycle {
   static constexpr int NI = 4, MI = 2;
+  using Layout = Interleaved<MI>;
   struct Lin {
     T v, sh, ch, sb, cb, db;
   };
@@ -332,6 +410,7 @@ __device__ __forceinline__ Dual<T> thrust(Dual<T> z, T beta) {
 template <typename T>
 struct Quadrotor {
   static constexpr int NI = 12, MI = 4;
+  using Layout = Interleaved<MI>;
   struct Lin {
     const T *x, *u;
   };
@@ -611,6 +690,7 @@ __device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
                         const TrialMeta& meta, const Lane<T>& L, int b, int t,
                         T* alx, T* alu, T* cgx, T part) {
   constexpr int NI = Model::NI, MI = Model::MI;
+  using Lay = typename Model::Layout;
   const Model mdl(mc);
   const int p = A.p, n = L.n, m = L.m, N = A.N, Tn = L.Tn;
   const T dt = A.dt, half = T(0.5), halfdt = half * dt;
@@ -664,16 +744,17 @@ __device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
   for (int j = 0; j < p; ++j) {
     T xj[NI], uj[MI], mid[NI], fm[NI], g[NI], gx[NI], gu[MI], hu[MI];
     #pragma unroll
-    for (int c = 0; c < NI; ++c) xj[c] = L.X(t, c * p + j);
+    for (int c = 0; c < NI; ++c) xj[c] = L.X(t, Lay::x(c, j, p));
     #pragma unroll
-    for (int c = 0; c < MI; ++c) uj[c] = L.U(t, c * p + j);
+    for (int c = 0; c < MI; ++c)
+      uj[c] = Lay::template u_at<T>(L, mc, t, c, j, p);
     rk2_mid<T>(mdl, xj, uj, dt, mid);
     mdl.f(mid, uj, fm);
     T* rd = A.rd + ((size_t)b * Tn + t) * n;
     T sd = T(0), su = T(0);
     #pragma unroll
     for (int c = 0; c < NI; ++c) {
-      const int cc = c * p + j;
+      const int cc = Lay::x(c, j, p);
       const T r = (xj[c] + fm[c] * dt) - L.X(t + 1, cc);
       rd[cc] = r;
       sd += absval(r);
@@ -685,7 +766,10 @@ __device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
     T* ru0 = A.ru0 + ((size_t)b * Tn + t) * m;
     #pragma unroll
     for (int c = 0; c < MI; ++c) {
-      const int o = c * p + j;
+      if constexpr (Lay::kRagged) {
+        if (!Lay::has_u(mc, c, j)) continue;
+      }
+      const int o = Lay::u(mc, c, j, p);
       const T ru = A.Rdp[o] * (uj[c] - A.ufp[o]) * dt + (gu[c] + halfdt * hu[c]);
       ru0[o] = ru;
       su += absval(ru + alu[o] + rg * (uj[c] - L.U0(t, o)));
@@ -702,10 +786,10 @@ __device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
   for (int j = 0; j < p; ++j) {
     T x1[NI], u1[MI], mid1[NI];
     #pragma unroll
-    for (int c = 0; c < NI; ++c) x1[c] = L.X(t + 1, c * p + j);
+    for (int c = 0; c < NI; ++c) x1[c] = L.X(t + 1, Lay::x(c, j, p));
     #pragma unroll
     for (int c = 0; c < MI; ++c)
-      u1[c] = has_next ? L.U(t + 1, c * p + j) : T(0);
+      u1[c] = has_next ? Lay::template u_at<T>(L, mc, t + 1, c, j, p) : T(0);
     rk2_mid<T>(mdl, x1, u1, dt, mid1);
     const typename Model::Lin lin_mid = mdl.lin(mid1, u1);
     const typename Model::Lin lin_x = mdl.lin(x1, u1);
@@ -713,13 +797,13 @@ __device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
       T g[NI], gx[NI], hx[NI];
       #pragma unroll
       for (int c = 0; c < NI; ++c)
-        g[c] = has_next ? dt * L.Lm(i, t + 1, c * p + j) : T(0);
+        g[c] = has_next ? dt * L.Lm(i, t + 1, Lay::x(c, j, p)) : T(0);
       mdl.vjp(lin_mid, g, gx, (T*)nullptr);
       mdl.vjp(lin_x, gx, hx, (T*)nullptr);
       T* rx0 = A.rx0 + (((size_t)b * Tn + t) * p + i) * n;
       #pragma unroll
       for (int c = 0; c < NI; ++c) {
-        const int cc = c * p + j;
+        const int cc = Lay::x(c, j, p);
         const T ax = has_next ? (L.Lm(i, t + 1, cc) + gx[c])
                                     + halfdt * hx[c]
                               : T(0);
@@ -738,8 +822,8 @@ __device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
 template <typename T, class Model>
 __device__ T lane_part(const TrialArgs<T>& A, const ModelConst& mc,
                        const TrialMeta& meta, int b, int tid, T* smem) {
-  constexpr int NI = Model::NI, MI = Model::MI;
-  const int p = A.p, n = NI * p, m = MI * p, Tn = A.N - 1;
+  constexpr int NI = Model::NI;
+  const int p = A.p, n = NI * p, m = Model::Layout::m(mc, p), Tn = A.N - 1;
   const int per = p * n + m + (A.npair ? p * n : 0);
   T* alx = smem + tid * per;                              // AL grads
   T* alu = alx + p * n;
@@ -761,6 +845,7 @@ __device__ T lane_part(const TrialArgs<T>& A, const ModelConst& mc,
 
 template <typename T, class Model>
 size_t smem_bytes(const TrialArgs<T>& A) {
+  // Room for MI p controls, at least the model's m.
   const int n = Model::NI * A.p, m = Model::MI * A.p;
   const int per = A.p * n + m + (A.npair ? A.p * n : 0);
   return (size_t)kThreads * per * sizeof(T);
@@ -834,14 +919,14 @@ int launch(const void* const* in, void* const* out, const double* mconst,
            const int* p_meta, const unsigned char* c_mask, int B, int N,
            int p, int nsb, int csum, int ncb, int npair, int S, double dt,
            double eps_n, void* stream) {
-  const int n = Model::NI * p, m = Model::MI * p;
+  ModelConst mc;
+  for (int k = 0; k < kMaxConst; ++k) mc.c[k] = mconst[k];
+  const int n = Model::NI * p, m = Model::Layout::m(mc, p);
   TrialMeta meta;
   if (n > kMaxN ||
       !make_meta(s_meta, s_mask, p_meta, c_mask, nsb, npair, ncb, m, &meta))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  ModelConst mc;
-  for (int k = 0; k < kMaxConst; ++k) mc.c[k] = mconst[k];
   TrialArgs<T> A;
   const T** ins[] = {&A.x, &A.u, &A.lam, &A.dx, &A.du, &A.dlam, &A.alpha,
                      &A.reg, &A.Qd, &A.xf, &A.Rdp, &A.ufp, &A.spar, &A.slam,
@@ -874,10 +959,13 @@ int launch(const void* const* in, void* const* out, const double* mconst,
 
 template <typename T> using DoubleIntegrator2 = DoubleIntegrator<T, 2>;
 template <typename T> using DoubleIntegrator3 = DoubleIntegrator<T, 3>;
+template <typename T> using HeteroDoubleIntegrator2 =
+    HeteroDoubleIntegrator<T, 2>;
 
 TRIAL_EXPORT_BOTH(unicycle, Unicycle)
 TRIAL_EXPORT_BOTH(di2, DoubleIntegrator2)
 TRIAL_EXPORT_BOTH(di3, DoubleIntegrator3)
+TRIAL_EXPORT_BOTH(hdi2, HeteroDoubleIntegrator2)
 TRIAL_EXPORT_BOTH(bicycle, Bicycle)
 TRIAL_EXPORT_BOTH(quadrotor, Quadrotor)
 

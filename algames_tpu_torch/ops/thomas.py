@@ -3,11 +3,19 @@ statx Hessian blocks in structured (K1) or dense (K3) form.
 
 K1 replaces ``algames_tpu/ops/thomas_pallas.py::solve_thomas_pallas_structured``
 (forward ``_make_fwd_kernel_sq``, backward ``_make_bwd_kernel_sq``, pivoted
-``_reduced_solve``); K3 replaces ``solve_thomas_pallas`` (``_make_fwd_kernel``,
-``_make_bwd_kernel``) for homogeneous specs.  Both are CUDA C++
-(``csrc/thomas_sq.cu``, ``csrc/thomas_dense.cu``, sharing
+``_reduced_solve``) for homogeneous specs; K3 replaces ``solve_thomas_pallas``
+(``_make_fwd_kernel``, ``_make_bwd_kernel``) for every spec.  Both are CUDA
+C++ (``csrc/thomas_sq.cu``, ``csrc/thomas_dense.cu``, sharing
 ``csrc/thomas_common.cuh``): two launches, forward and backward, one thread
 block per scenario lane with the knot recursion as a loop inside the block.
+
+A heterogeneous spec (unequal per-player control widths) reaches K3 padded,
+as in the reference (``thomas_pallas.py:449-467, 553-561``): the wrapper
+pads every player's controls to ``max(mi)`` in player-major order with
+identity rows of a virtual zero column of B, launches the unchanged kernel
+with ``m = p max(mi)`` and ``owner[r] = r // max(mi)``, and gathers the
+solution back to natural control order.  The padded unknowns solve
+``1 * u_pad = 0`` exactly.  K1 stays homogeneous, as in the reference.
 
 On the card the sweep is bound by the latency of its dependent chain (T
 knots x d pivot steps, one block barrier each), not by bytes or flops: at
@@ -28,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from ..core.spec import owner_map_u
-from ..problem.linear_solver import JacBlocks, solve_tridiagonal_schur
+from ..problem.linear_solver import (JacBlocks, pad_operands,
+                                     solve_tridiagonal_schur, unpad_columns)
 from ..problem.residual import StructuredQ
 from . import build
 
@@ -54,11 +63,9 @@ def solve_thomas_structured_plain(spec, sq: StructuredQ, b: torch.Tensor,
 
 
 def _check_operands(spec, blocks, b: torch.Tensor, want) -> None:
-    """Raise unless the spec is homogeneous and ``b`` and every named
-    operand of ``blocks`` has its shape, ``b``'s type and device, and is
-    contiguous."""
-    if not spec.homogeneous:
-        raise ValueError("the Thomas sweep kernels need a homogeneous spec")
+    """Raise unless ``b`` and every named operand of ``blocks`` has its
+    shape, ``b``'s type and device, and is contiguous, and the (padded)
+    control rows fit the kernels' 32."""
     Bsz, T = b.shape[0], spec.T
     if tuple(b.shape) != (Bsz, T, spec.W):
         raise ValueError(f"b has shape {tuple(b.shape)}, want "
@@ -77,11 +84,23 @@ def _check_operands(spec, blocks, b: torch.Tensor, want) -> None:
             raise ValueError(f"{name} must be contiguous")
     if not b.is_contiguous():
         raise ValueError("b must be contiguous")
-    if spec.m > 32:
-        raise ValueError("the kernels take m <= 32")
+    if spec.p * max(spec.mi) > 32:
+        raise ValueError("the kernels take at most 32 (padded) control rows")
+
+
+def _route(b: torch.Tensor) -> str:
+    """``"plain"`` for a CPU tensor, ``"kernel"`` for a CUDA tensor."""
+    if b.device.type == "cpu":
+        return "plain"
+    if b.device.type != "cuda":
+        raise ValueError(f"unsupported device {b.device}")
+    return "kernel"
 
 
 def _check(spec, sq: StructuredQ, b: torch.Tensor, w_owner) -> None:
+    if not spec.homogeneous:
+        raise ValueError("the Thomas sweep kernel K1 needs a homogeneous "
+                         "spec")
     Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
     NW = len(w_owner)
     _check_operands(spec, sq, b, {
@@ -97,10 +116,8 @@ def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
     for the Newton step); ``sq`` leaves are [B, T, ...] and contiguous.
     Returns the flat [B, S] solution in per-knot column order."""
     _check(spec, sq, b, w_owner)
-    if b.device.type == "cpu":
+    if _route(b) == "plain":
         return solve_thomas_structured_plain(spec, sq, b, w_owner)
-    if b.device.type != "cuda":
-        raise ValueError(f"unsupported device {b.device}")
     lib = build.load(_LIB)
     sfx = "f32" if b.dtype == torch.float32 else "f64"
     P, I = build.P, build.I
@@ -135,38 +152,50 @@ def solve_thomas_plain(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
     return solve_tridiagonal_schur(spec, jb, b)
 
 
-def solve_thomas(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
-    """Solve the KKT system with dense Hessian blocks (kernel K3) for ``b``
-    [B, T, W]; ``jb`` leaves are [B, T, ...] and contiguous.  Returns the
-    flat [B, S] solution in per-knot column order."""
-    Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
-    _check_operands(spec, jb, b, {
-        "Qblk": (Bsz, T, p, n, n), "Ublk": (Bsz, T, m, m),
-        "A": (Bsz, T, n, n), "B": (Bsz, T, n, m)})
-    if b.device.type == "cpu":
-        return solve_thomas_plain(spec, jb, b)
-    if b.device.type != "cuda":
-        raise ValueError(f"unsupported device {b.device}")
+def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p) -> torch.Tensor:
+    """Run K3's forward and backward kernels on [B, T, ...] operands with
+    ``m`` control rows owned per ``owner``; returns y [B, T, n + m + p n]."""
     lib = build.load(_LIB_DENSE)
     sfx = "f32" if b.dtype == torch.float32 else "f64"
     P, I = build.P, build.I
     fwd = build.bind(lib, f"thomas_dense_fwd_{sfx}", [P] * 8 + [I] * 5 + [P])
     bwd = build.bind(lib, f"thomas_dense_bwd_{sfx}", [P] * 6 + [I] * 5 + [P])
+    Bsz, T = b.shape[:2]
     d, pn = n + m, p * n
-    owner = build.int_table(owner_map_u(spec))
+    own = build.int_table(owner)
     G = torch.empty((Bsz, T, d, pn), dtype=b.dtype, device=b.device)
     yhat = torch.empty((Bsz, T, d), dtype=b.dtype, device=b.device)
-    y = torch.empty((Bsz, T, spec.W), dtype=b.dtype, device=b.device)
+    y = torch.empty((Bsz, T, d + pn), dtype=b.dtype, device=b.device)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib, _LIB_DENSE, fwd(
-            jb.Qblk.data_ptr(), jb.Ublk.data_ptr(), jb.B.data_ptr(),
-            jb.A.data_ptr(), b.data_ptr(), owner, G.data_ptr(),
-            yhat.data_ptr(), Bsz, T, n, m, p, stream))
+            Q.data_ptr(), Ub.data_ptr(), Bm.data_ptr(), A.data_ptr(),
+            b.data_ptr(), own, G.data_ptr(), yhat.data_ptr(), Bsz, T, n, m,
+            p, stream))
         build.check(lib, _LIB_DENSE, bwd(
-            G.data_ptr(), yhat.data_ptr(), jb.Qblk.data_ptr(),
-            jb.A.data_ptr(), b.data_ptr(), y.data_ptr(), Bsz, T, n, m, p,
-            stream))
+            G.data_ptr(), yhat.data_ptr(), Q.data_ptr(), A.data_ptr(),
+            b.data_ptr(), y.data_ptr(), Bsz, T, n, m, p, stream))
+    return y
+
+
+def solve_thomas(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
+    """Solve the KKT system with dense Hessian blocks (kernel K3) for ``b``
+    [B, T, W]; ``jb`` leaves are [B, T, ...] and contiguous.  Returns the
+    flat [B, S] solution in per-knot column order.  A heterogeneous spec
+    is solved padded (see the module's docstring)."""
+    Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
+    _check_operands(spec, jb, b, {
+        "Qblk": (Bsz, T, p, n, n), "Ublk": (Bsz, T, m, m),
+        "A": (Bsz, T, n, n), "B": (Bsz, T, n, m)})
+    if _route(b) == "plain":
+        return solve_thomas_plain(spec, jb, b)
+    if spec.homogeneous:
+        y = _launch_dense(jb.Qblk, jb.Ublk, jb.B, jb.A, b, owner_map_u(spec),
+                          n, m, p)
+    else:
+        Ub, Bm, bk, owner = pad_operands(spec, jb, b)
+        y = _launch_dense(jb.Qblk, Ub, Bm, jb.A, bk, owner, n, len(owner), p)
+        y = y[..., unpad_columns(spec, len(owner))]
     solve_thomas.launches += 1
     return y.reshape(Bsz, -1)
 

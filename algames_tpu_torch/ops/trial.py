@@ -8,8 +8,11 @@ function) for the unicycle games.  K4 replaces
 for every model and constraint family its hand-written kernel does not
 cover.  Both are one CUDA C++ source, ``csrc/trial_fused.cu`` (library
 ``trial_fused``), compiled once per model (unicycle, double integrator in 2
-or 3 dimensions, bicycle, quadrotor) and type: the model is a template
-parameter of the kernel, its constants are kernel arguments, and the state
+or 3 dimensions, the planar heterogeneous double integrator, bicycle,
+quadrotor) and type: the model is a template parameter of the
+kernel, with its layout (interleaved, or player-blocked with ragged
+controls) as a compile-time policy; its constants are kernel arguments, and
+the state
 blocks (collision in 2 or 3 dimensions, circle, 2D wall, 3D wall, cylinder,
 state bound), control bounds and collision-cost pairs travel as a by-value
 table.  CUDA was chosen over Triton because the body is a per-knot scalar
@@ -47,6 +50,7 @@ from ..core.traj import PrimalDual, update_traj
 from ..models.base import interleaved_indices
 from ..models.bicycle import BicycleGame
 from ..models.double_integrator import DoubleIntegratorGame
+from ..models.hetero import HeteroDoubleIntegratorGame
 from ..models.quadrotor import QuadrotorGame
 from ..models.unicycle import UnicycleGame
 from ..problem import residual as R
@@ -58,7 +62,7 @@ _KIND = {CollisionParams: 0, CircleParams: 1, BoundParams: 2,
          Wall2DParams: 3, Wall3DParams: 4, CylinderParams: 5}
 # Per-player state / control dimension of each compiled model.
 _DIMS = {"unicycle": (4, 2), "di2": (4, 2), "di3": (6, 3),
-         "bicycle": (4, 2), "quadrotor": (12, 4)}
+         "hdi2": (4, 2), "bicycle": (4, 2), "quadrotor": (12, 4)}
 _MAX_SB, _MAX_CB, _MAX_PAIR, _MAX_M, _MAX_N, _MAX_CYL = 64, 4, 64, 32, 32, 32
 _N_CONST = 12
 _PAIR_EPS = 1e-10
@@ -70,6 +74,8 @@ def model_name(model) -> str | None:
         return "unicycle"
     if isinstance(model, DoubleIntegratorGame) and model.d in (2, 3):
         return f"di{model.d}"
+    if isinstance(model, HeteroDoubleIntegratorGame) and model.d == 2:
+        return "hdi2"
     if isinstance(model, BicycleGame):
         return "bicycle"
     if isinstance(model, QuadrotorGame):
@@ -85,6 +91,8 @@ def model_constants(model) -> list:
     elif isinstance(model, QuadrotorGame):
         vals = [model.mass, *model.J, *model.gravity, model.motor_dist,
                 model.kf, model.km, model.thrust_smoothing]
+    elif isinstance(model, HeteroDoubleIntegratorGame):
+        vals = [sum(model.mi[:i]) for i in range(model.p + 1)]
     return [float(v) for v in vals] + [0.0] * (_N_CONST - len(vals))
 
 
@@ -98,22 +106,38 @@ def _state_block_ok(blk) -> bool:
                             BoundParams))
 
 
+def _layout_ok(name, spec) -> bool:
+    """The spec has the compiled model's layout: interleaved and homogeneous
+    (component c of player i at c p + i of the state and the control), or,
+    for the heterogeneous double integrator, player-blocked (player i's
+    state at ni i .., its controls packed after player i-1's, 1 <= mi <= d)
+    with the control offsets in the model constants."""
+    ni, mi = _DIMS[name]
+    p = spec.p
+    if spec.ni != (ni,) * p:
+        return False
+    if name.startswith("hdi"):
+        offs = [sum(spec.mi[:i]) for i in range(p + 1)]
+        return (all(1 <= k <= mi for k in spec.mi) and p + 1 <= _N_CONST
+                and spec.pz == tuple(tuple(range(ni * i, ni * (i + 1)))
+                                     for i in range(p))
+                and spec.pu == tuple(tuple(range(offs[i], offs[i + 1]))
+                                     for i in range(p)))
+    return (spec.mi == (mi,) * p and spec.pz == interleaved_indices(p, ni)
+            and spec.pu == interleaved_indices(p, mi))
+
+
 def trial_supported(model, spec, obj, gc) -> bool:
     """True iff the problem lies inside the kernel's specialization: one of
-    the compiled models, homogeneous, with the interleaved layout (component
-    c of player i at c p + i of the state and the control); state blocks of
+    the compiled models with its layout (``_layout_ok``); state blocks of
     the collision (2 or 3 coordinates), circle, wall, 3D wall, cylinder or
     state-bound families; box bounds as the only control blocks;
     collision-cost pairs on 2 or 3 coordinates; all within the kernel's
     table sizes."""
     name = model_name(model)
-    if name is None:
+    if name is None or spec.mi != model.mi:
         return False
-    ni, mi = _DIMS[name]
-    p = spec.p
-    return (spec.ni == (ni,) * p and spec.mi == (mi,) * p
-            and spec.pz == interleaved_indices(p, ni)
-            and spec.pu == interleaved_indices(p, mi)
+    return (_layout_ok(name, spec)
             and all(_state_block_ok(b) for b in gc.state_blocks)
             and all(isinstance(b.params, BoundParams)
                     for b in gc.control_blocks)

@@ -45,3 +45,14 @@ class Options:
     # Iteration caps.
     outer_iter: int = 7
     inner_iter: int = 20
+
+
+@dataclasses.dataclass(frozen=True)
+class IBROptions:
+    """Iterative-best-response options: at most ``ibr_iter`` Gauss-Seidel
+    rounds over the players in ``ordering`` (indices >= p are dropped), a
+    lane stopping once no player's latest solve moved by ``delta_min`` or
+    more."""
+    ibr_iter: int = 100
+    ordering: Tuple[int, ...] = tuple(range(100))
+    delta_min: float = 1e-9

@@ -14,8 +14,9 @@ Iterate-level control flow:
   outer k = 0..outer_iter-1
     inner l = 0..inner_iter-1 with reg = reg_0 * (l+1)^4
       rebuild residual + Jacobian from the carried point data (structured
-      Hessians for diagonal objectives, dense ones with collision-cost
-      pairs), record stats, stop on opt_vio < eps_opt
+      Hessians for diagonal objectives of homogeneous specs, dense ones
+      with collision-cost pairs or unequal per-player control widths),
+      record stats, stop on opt_vio < eps_opt
       KKT step (kernel K1 on structured, K3 on dense Hessians),
       backtracking line search (the fused trial kernel when
       ``opts.ls_fused``), update; stop on a failed line search or a step
@@ -144,7 +145,7 @@ def _iteration(prob: GameProblem, kkt, w_owner, c: _Carry, active):
     gc, traj, pd = c.gc, c.traj, c.pd
     dtype = traj.x.dtype
     reg = opts.reg_0 * (c.l + 1).to(dtype) ** 4       # reference l^4 schedule
-    if R.structured_q_supported(spec, obj, gc):
+    if spec.homogeneous and R.structured_q_supported(spec, obj, gc):
         res, blocks, sta_v, con_v = R.assemble_structured_from_point(
             spec, obj, gc, traj, pd, reg=reg)
     else:
@@ -267,8 +268,6 @@ def newton_solve(prob: GameProblem, x0s: torch.Tensor | None = None,
     """Full ALGAMES solve of one game per row of ``x0s`` [B, n] (default:
     ``prob.x0`` as a batch of one).  Returns a batched SolveResult."""
     spec, opts = prob.spec, prob.opts
-    if not spec.homogeneous:
-        raise NotImplementedError("the KKT kernels need a homogeneous spec")
     if x0s is None:
         x0s = prob.x0[None]
     kkt = _kkt_solver(method)

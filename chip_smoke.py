@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's five main paths through ``parallel.solve_many`` ->
-``newton_solve`` with ``method="thomas"`` and ``ls_fused=True`` on the card,
+Drives the port's main paths on the card (the five presets and the
+heterogeneous game through ``parallel.solve_many`` -> ``newton_solve`` with
+``method="thomas"`` and ``ls_fused=True``, and iterative best response
+through ``ibr_newton_solve``),
 through its hand-written CUDA kernels, after checking each kernel against
 its plain PyTorch version:
 
@@ -15,7 +17,11 @@ its plain PyTorch version:
 - the 3-player bicycle (N=20, collision cost, walls, circles, state and
   control bounds): K3 and K4;
 - the 2-player quadrotor (N=15, spherical collision, a floor facet, a
-  cylinder, thrust bounds [0, 3]): K1 and K4.
+  cylinder, thrust bounds [0, 3]): K1 and K4;
+- the heterogeneous double integrator (mi = (2, 1), player-blocked, N=8):
+  K3 on controls padded to p max(mi) and K4's player-blocked instance;
+- iterative best response on the flagship (``ibr_newton_solve``): K3 on
+  each player's p=1 subproblem.
 
 Phases:
 
@@ -75,7 +81,23 @@ Phases:
    6 x 12, stationarity gate 5e-2 as ``tests/test_golden.py`` uses: the
    thrust clamp holds stationarity near 3e-2; the first 256 lanes gated
    as in 10, the reference's fraction over all 4096 not being measured;
-   K1 and K4, not K3).
+   K1 and K4, not K3);
+13. the heterogeneous game: K3 on its padded KKT systems as in 11
+   (``K3-hetero``), K4 on its trial inputs (``K4-hetero``), the f64 solve
+   through K3 and K4 against ``tests/golden_torch/hetero2_N8.npz`` (the
+   reference's dense-oracle solution: iteration 23, x and u within 1e-8),
+   and its sweep (outer 7 x 20, gated as in 10 on the reference's own
+   fractions; K3 and K4, not K1);
+14. iterative best response: K3 on the flagship's player sub-KKT systems
+   (p=1, every player in every batch) as in 11 (``K3-ibr``), the f64 IBR
+   solve of the flagship (outer 3 x 8 per player solve, 10 rounds) against
+   ``tests/golden_torch/ibr_uni3_N20.npz`` (the reference's ``schur``
+   solution: stats rows equal, x and u within 1e-8; K3 only), and the
+   512-scenario f32 sweep of ``benchmarks/bench_ibr.py`` as one chunk: on
+   its first 128 lanes the share stopped before 10 rounds within 0.02 of
+   the reference's and the mean final residual within 1.1 x; K3 launched,
+   neither K1 nor a trial kernel; the same chunk with the plain versions,
+   and a profile of one Gauss-Seidel round.
 
 Kernel times are per wrapper call (CUDA events) and the kernels' own device
 time (profiler).  Each kernel's bound is the larger of its bytes (inputs
@@ -123,8 +145,16 @@ PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
 REF_CONVERGED = {"round4_N40": (253 / 256, 253 / 256),
                  "di2_N10": (161 / 256, 2639 / 4096),
                  "bike3_N20": (104 / 256, 1846 / 4096),
-                 "quad2_N15": (147 / 256, None)}
+                 "quad2_N15": (147 / 256, None),
+                 "hetero2_N8": (241 / 256, 3891 / 4096)}
 QUAD_OPT_GATE = 5e-2
+# Iterative best response on the flagship as benchmarks/bench_ibr.py runs
+# it: N_IBR scenarios, ibr_iter rounds.  The reference package's f32
+# `schur` run of the first IBR_LANES of them (`tests/reference_fractions.py
+# ibr`): the share of lanes whose Gauss-Seidel loop stopped before
+# IBR_ITER rounds, and the mean final residual.
+N_IBR, IBR_LANES, IBR_ITER = 512, 128, 10
+REF_IBR = (0 / 128, 0.0071520789206260815)
 # The f64 bicycle solve through the kernels against the same solve through
 # the plain versions on the card (measured 2.4e-15 on an H100, PERF.md).
 BIKE3_PLAIN_TOL = 1e-10
@@ -369,6 +399,18 @@ def library_solve_ms(spec, jb, b, lanes):
     return ms, torch.cat(ys)
 
 
+def load_golden(name):
+    """A frozen solution: ``tests/golden/<name>.npz`` (the reference
+    package's equilibria) or ``tests/golden_torch/<name>.npz`` (frozen from
+    the reference package for the port's checks by
+    ``tests/torch_goldens.py``)."""
+    for folder in ("golden", "golden_torch"):
+        path = HERE / "tests" / folder / f"{name}.npz"
+        if path.exists():
+            return np.load(path)
+    raise SystemExit(f"no frozen solution {name}")
+
+
 def tree_slice(tree, stop, start=0):
     """Lanes ``start:stop`` of every leaf."""
     from algames_tpu_torch.utils import tree_map
@@ -376,12 +418,12 @@ def tree_slice(tree, stop, start=0):
 
 
 def golden_iterates(golden):
-    """Iterates around a frozen equilibrium ``tests/golden/<golden>.npz``:
+    """Iterates around a frozen equilibrium (``load_golden``):
     states and controls perturbed per knot, random multipliers."""
     def make(prob, spec, B, rng, dev, dtype):
         import torch
         from algames_tpu_torch.core.traj import PrimalDual
-        gold = np.load(HERE / "tests" / "golden" / f"{golden}.npz")
+        gold = load_golden(golden)
         x = gold["x"][None] + 0.1 * rng.standard_normal((B, spec.N, spec.n))
         u = gold["u"][None] + 0.3 * rng.standard_normal((B, spec.T, spec.m))
 
@@ -641,6 +683,38 @@ def di3_game(dev, dtype):
     return game_problem(10, 0.1, x0, model, Options(), obj, gc), spec
 
 
+def hetero_game(dev, dtype, outer=7, inner=20):
+    """The heterogeneous double-integrator game ``hetero2_N8`` of the
+    reference package's tests (``tests/test_hetero.py``): two planar
+    players, the first actuating both axes and the second only x
+    (mi = (2, 1)), player-blocked layout, N=8, pairwise collision avoidance
+    (r = 0.15) and control bounds of +-2; stationarity gate 1e-2 in f32,
+    1e-3 in f64."""
+    import torch
+    from algames_tpu_torch.constraints import sets as S
+    from algames_tpu_torch.core.spec import spec_from_model
+    from algames_tpu_torch.models.hetero import hetero_double_integrator_game
+    from algames_tpu_torch.objective.objective import game_objective
+    from algames_tpu_torch.problem.options import Options
+    from algames_tpu_torch.problem.problem import game_problem
+    model = hetero_double_integrator_game(mi=(2, 1))
+    N, p = 8, 2
+    spec = spec_from_model(model, N, 0.1)
+    obj = game_objective(
+        spec, Q=[np.ones(4)] * p, R=[0.1 * np.ones(k) for k in spec.mi],
+        xf=[np.asarray([1.0, 0.4 * (p - 1 - i), 0.0, 0.0]) for i in range(p)],
+        uf=[np.zeros(k) for k in spec.mi], dtype=dtype, device=dev)
+    gc = S.game_constraints(spec, dtype=dtype, device=dev)
+    gc = S.add_collision_avoidance(spec, gc, 0.15)
+    gc = S.add_control_bound(spec, gc, 2 * np.ones(spec.m),
+                             -2 * np.ones(spec.m))
+    x0 = torch.as_tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.4, 0.0, 0.0],
+                         dtype=dtype, device=dev)
+    opts = Options(outer_iter=outer, inner_iter=inner,
+                   eps_opt=1e-2 if dtype == torch.float32 else 1e-3)
+    return game_problem(N, 0.1, x0, model, opts, obj, gc), spec
+
+
 def phase_trial(tag, inputs, dev):
     """The fused trial (K2 or K4) against its plain version on
     ``inputs(dev, dtype)``: tn and every carried leaf, f64 <= 1e-12 and f32 <=
@@ -708,8 +782,9 @@ def trial_bound(model, spec, obj, gc, traj, dtraj, alpha, reg, lite, tn):
 
 def phase_golden(tag, preset, golden, kernels, dev, atol=(1e-8, 1e-8),
                  plain_tol=None):
-    """One f64 solve of ``preset`` through the kernels against
-    ``tests/golden/<golden>.npz``: the same iteration count, x and u within
+    """One f64 solve of ``preset`` through the kernels against the frozen
+    solution ``golden`` (``load_golden``): the same iteration count, x and u
+    within
     ``atol``, and only the game's own kernels (``kernels`` = (KKT wrapper,
     other KKT wrapper)) launched, with the fused trial.  With ``plain_tol``,
     the same solve through the plain versions on the card too: the same
@@ -720,7 +795,7 @@ def phase_golden(tag, preset, golden, kernels, dev, atol=(1e-8, 1e-8),
     from algames_tpu_torch.ops.trial import trial_eval
 
     kkt, other = kernels
-    gold = np.load(HERE / "tests" / "golden" / f"{golden}.npz")
+    gold = load_golden(golden)
     prob, _ = preset(dev, torch.float64)
     prob = dataclasses.replace(
         prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
@@ -829,10 +904,11 @@ def phase_sweep(dev):
     return launches
 
 
-def profile_chunk(tag, prob, x0s, names):
+def profile_chunk(tag, prob, x0s, names, solve=None):
     """Host/launch overhead of the eager per-iteration loop: device time of
-    one chunk against its wall time, under the profiler.  Only device-side
-    events count: a CPU op's own device time repeats its kernels' time."""
+    one chunk (``solve()``, default ``parallel.solve_batch(prob, x0s)``)
+    against its wall time, under the profiler.  Only device-side events
+    count: a CPU op's own device time repeats its kernels' time."""
     import torch
     from algames_tpu_torch import parallel
     from torch.autograd import DeviceType
@@ -840,7 +916,10 @@ def profile_chunk(tag, prob, x0s, names):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        parallel.solve_batch(prob, x0s)
+        if solve is None:
+            parallel.solve_batch(prob, x0s)
+        else:
+            solve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     evs = [e for e in prof.key_averages()
@@ -914,19 +993,49 @@ def k3_system(dev, B, mu, seed, penalize_rows=False, v_band=(0.3, 1.5),
     return spec, tree_map(lambda a: a.contiguous(), jb), b.contiguous()
 
 
+def ibr_player_system(dev, B, mu, seed, penalize_rows=False, v_band=None,
+                      preset=None, iterates=None):
+    """The flagship's player sub-KKT systems of iterative best response
+    (p=1, W = 2n + mi; f64): :func:`k3_system` on flagship points, lane b
+    sliced to player b mod p (the players share their widths), so that every
+    player's systems are in every batch."""
+    import torch
+    from algames_tpu_torch.presets import flagship_unicycle
+    from algames_tpu_torch.problem import ibr
+    from algames_tpu_torch.problem.linear_solver import JacBlocks
+    from algames_tpu_torch.utils import tree_map
+    spec, jb, b = k3_system(dev, B, mu, seed, penalize_rows,
+                            preset=preset or flagship_unicycle,
+                            iterates=iterates or flagship_iterates)
+    n, m, pn = spec.n, spec.m, spec.p * spec.n
+    parts = []
+    for i in range(spec.p):
+        ix = torch.arange(i, B, spec.p, device=dev)
+        rows = (list(range(i * n, (i + 1) * n)) + [pn + j for j in spec.pu[i]]
+                + list(range(pn + m, pn + m + n)))
+        parts.append((ix, ibr.player_jac_blocks(
+            spec, tree_map(lambda a: a[ix], jb), i), b[ix][..., rows]))
+    order = torch.argsort(torch.cat([ix for ix, _, _ in parts]))
+    jbi = JacBlocks(*[torch.cat([getattr(pj, f) for _, pj, _ in parts])[order]
+                      .contiguous() for f in ("Qblk", "Ublk", "A", "B")])
+    bi = torch.cat([pb for _, _, pb in parts])[order].contiguous()
+    return ibr.player_spec(spec, 0), jbi, bi
+
+
 def phase_k3(dev, tag="K3", preset=None, iterates=None, seed0=100,
-             lib_lanes=128):
+             lib_lanes=128, system=k3_system):
     """K3 against its plain version on ``preset``'s KKT systems (default:
     the roundabout, with its speed-band and K3-vs-K1 checks), B=1024, over
     mu = 1 .. 1e7; then its times, bound and library call in f32, the
-    library solving ``lib_lanes`` systems per call."""
+    library solving ``lib_lanes`` systems per call.  ``system`` builds the
+    systems (default :func:`k3_system`)."""
     import torch
     from algames_tpu_torch.ops.thomas import solve_thomas, solve_thomas_plain
     from algames_tpu_torch.utils import tree_map
 
     def compare(mu, seed, penalize_rows, v_band=(0.3, 1.5), plain32=False):
-        spec, jb, b = k3_system(dev, B_KERNEL, mu, seed0 + seed, penalize_rows,
-                                v_band, preset, iterates)
+        spec, jb, b = system(dev, B_KERNEL, mu, seed0 + seed, penalize_rows,
+                             v_band, preset, iterates)
         ref = solve_thomas_plain(spec, jb, b)
         y64 = solve_thomas(spec, jb, b)
         jb32, b32 = tree_map(lambda a: a.float(), jb), b.float()
@@ -961,8 +1070,8 @@ def phase_k3(dev, tag="K3", preset=None, iterates=None, seed0=100,
     if preset is None:
         roundabout_k3_checks(dev, compare)
 
-    spec, jb, b = k3_system(dev, B_KERNEL, 1e3, seed0 + 99, False, (0.3, 1.5),
-                            preset, iterates)
+    spec, jb, b = system(dev, B_KERNEL, 1e3, seed0 + 99, False, (0.3, 1.5),
+                         preset, iterates)
     jb32, b32 = tree_map(lambda a: a.float(), jb), b.float()
     ms = cuda_ms(lambda: solve_thomas(spec, jb32, b32), 20)
     plain_ms = cuda_ms(lambda: solve_thomas_plain(spec, jb32, b32), 5)
@@ -1094,6 +1203,120 @@ def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None):
     return launches
 
 
+def phase_golden_ibr(dev):
+    """One f64 IBR solve of the flagship (outer 3 x 8 per player solve,
+    ``ibr_iter`` 10) through K3 against the reference package's frozen
+    ``schur`` solution ``ibr_uni3_N20``: the same number of stats rows, x
+    and u within 1e-8; K3 launched, neither K1 nor the trial kernel."""
+    import torch
+    from algames_tpu_torch import IBROptions, ibr_newton_solve
+    from algames_tpu_torch.ops.thomas import (solve_thomas,
+                                              solve_thomas_structured)
+    from algames_tpu_torch.ops.trial import trial_eval
+    from algames_tpu_torch.presets import flagship_unicycle
+
+    gold = load_golden("ibr_uni3_N20")
+    prob, _ = flagship_unicycle(dev, torch.float64, outer=3, inner=8)
+    counters = (solve_thomas, solve_thomas_structured, trial_eval)
+    before = [c.launches for c in counters]
+    t0 = time.perf_counter()
+    res = ibr_newton_solve(prob, IBROptions(ibr_iter=IBR_ITER))
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t0
+    ran = [c.launches - b for c, b in zip(counters, before)]
+    it = int(res.stats.iter[0])
+    q = int(res.stats.outer[0, it - 1])
+    dx = float(np.abs(res.traj.x[0].cpu().numpy() - gold["x"]).max())
+    du = float(np.abs(res.traj.u[0].cpu().numpy() - gold["u"]).max())
+    log(f"[golden-ibr] f64 K3 path: {it} stats rows (golden "
+        f"{int(gold['iter'])}), {q} rounds (golden {int(gold['q'])}), max "
+        f"|dx| {dx:.3e}, max |du| {du:.3e} (<= 1e-8), {el:.2f} s; launches: "
+        f"K3 {ran[0]}, K1 {ran[1]}, trial {ran[2]}")
+    if not (it == int(gold["iter"]) and dx <= 1e-8 and du <= 1e-8
+            and ran[0] > 0 and ran[1] == 0 and ran[2] == 0):
+        raise SystemExit("the f64 IBR solve misses ibr_uni3_N20")
+
+
+def ibr_finals(out, lanes):
+    """Per lane of the first ``lanes``: the round count (the final record's
+    outer column) and the final residual."""
+    import torch
+    it = out.stats.iter[:lanes].long() - 1
+    ix = torch.arange(lanes, device=it.device)
+    return (out.stats.outer[:lanes][ix, it].cpu().numpy(),
+            out.stats.res[:lanes][ix, it].double().cpu().numpy())
+
+
+def phase_sweep_ibr(dev):
+    """The IBR sweep of ``benchmarks/bench_ibr.py`` in f32: N_IBR flagship
+    scenarios (x0 + 0.05 N(0, 1), numpy seed 0) as one chunk, outer 3 x 8
+    per player solve, ``ibr_iter`` 10, through K3.  Gates: every trajectory
+    finite; on the first IBR_LANES lanes, the share whose Gauss-Seidel loop
+    stopped before ``ibr_iter`` rounds within 0.02 of the reference
+    package's own and the mean final residual at most 1.1 x its own
+    (``tests/reference_fractions.py ibr``); K3 launched, neither K1 nor the
+    trial kernel.  Then the same chunk through the plain versions on the
+    card, and a profile of one Gauss-Seidel round."""
+    import torch
+    from algames_tpu_torch import IBROptions, ibr_newton_solve
+    from algames_tpu_torch.ops.thomas import (kkt_solve_plain, solve_thomas,
+                                              solve_thomas_structured)
+    from algames_tpu_torch.ops.trial import trial_eval
+    from algames_tpu_torch.presets import flagship_unicycle
+
+    prob, spec = flagship_unicycle(dev, torch.float32, outer=3, inner=8)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(
+        np.asarray(prob.x0.cpu(), np.float64)[None]
+        + 0.05 * rng.standard_normal((N_IBR, spec.n)), dtype=torch.float32,
+        device=dev)
+    opts = IBROptions(ibr_iter=IBR_ITER)
+    ibr_newton_solve(prob, IBROptions(ibr_iter=1), x0s=x0s[:64])  # warm-up
+    solve_thomas.launches = 0
+    solve_thomas_structured.launches = 0
+    trial_eval.launches = 0
+
+    def run(method):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ibr_newton_solve(prob, opts, x0s=x0s, method=method)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    out, el = run("thomas")
+    launches = {"K3": solve_thomas.launches,
+                "K1": solve_thomas_structured.launches,
+                "trial": trial_eval.launches}
+    q, res = ibr_finals(out, IBR_LANES)
+    stopped = float((q < IBR_ITER).mean())
+    mean_res = float(res.mean())
+    finite = bool(torch.isfinite(out.traj.x).all())
+    q_all, _ = ibr_finals(out, N_IBR)
+    ref_stop, ref_res = REF_IBR
+    log(f"[sweep-ibr] f32 {N_IBR} scenarios as one chunk, outer 3 x 8 per "
+        f"player solve, ibr_iter {IBR_ITER}, K3: {el:.3f} s, "
+        f"{N_IBR / el:.1f} solves/s")
+    log(f"[sweep-ibr] first {IBR_LANES} lanes: stopped before {IBR_ITER} "
+        f"rounds {stopped:.4f} (reference {ref_stop:.4f}; within 0.02), "
+        f"mean final residual {mean_res:.6g} (reference {ref_res:.6g}; <= "
+        f"1.1 x); all lanes: rounds histogram "
+        f"{np.bincount(q_all, minlength=IBR_ITER + 1).tolist()}; finite "
+        f"{finite}, launches {launches}")
+    if not (finite and abs(stopped - ref_stop) <= 0.02
+            and mean_res <= 1.1 * ref_res and launches["K3"] > 0
+            and launches["K1"] == 0 and launches["trial"] == 0):
+        raise SystemExit("the IBR sweep failed its gates")
+
+    out_p, el_p = run(kkt_solve_plain)
+    it, it_p = out.stats.iter.cpu().numpy(), out_p.stats.iter.cpu().numpy()
+    log(f"[sweep-ibr] the same chunk with the plain versions on the card: "
+        f"{el_p:.3f} s, {N_IBR / el_p:.1f} solves/s; stats rows equal to "
+        f"the kernel's on {int((it == it_p).sum())} of {N_IBR} lanes")
+    profile_chunk("profile-ibr", prob, x0s, ("thomas_dense_",),
+                  solve=lambda: ibr_newton_solve(
+                      prob, IBROptions(ibr_iter=1), x0s=x0s))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1169,6 +1392,21 @@ def main():
                           quadrotor3d, REF_CONVERGED["quad2_N15"], dev, False,
                           QUAD_OPT_GATE)
 
+    # The heterogeneous double integrator (K3 padded + K4's player-blocked
+    # instance) and iterative best response (K3 at p=1).
+    k3_het = phase("K3-hetero", phase_k3, dev, "K3-hetero", hetero_game,
+                   golden_iterates("hetero2_N8"), 600, B_KERNEL)
+    k4_het = phase("K4-hetero", phase_trial, "K4-hetero",
+                   game_trial_inputs(hetero_game, "hetero2_N8", 37), dev)
+    phase("golden-hetero", phase_golden, "golden-hetero", hetero_game,
+          "hetero2_N8", flag_kkt[::-1], dev)
+    launches_het = phase("sweep-hetero", phase_game_sweep, "sweep-hetero",
+                         hetero_game, REF_CONVERGED["hetero2_N8"], dev, True)
+    k3_ibr = phase("K3-ibr", phase_k3, dev, "K3-ibr", flagship_unicycle,
+                   flagship_iterates, 700, B_KERNEL, ibr_player_system)
+    phase("golden-ibr", phase_golden_ibr, dev)
+    launches_ibr = phase("sweep-ibr", phase_sweep_ibr, dev)
+
     def entry(kernel, game, launches, numbers):
         name, source, replaces = KERNELS[kernel]
         return {"name": f"{kernel} {name} ({game})", "route": "cuda",
@@ -1181,10 +1419,14 @@ def main():
         entry("K2", "uni3_N20", launches["K2"], k2),
         entry("K3", "round4_N40", launches4["K3"], k3),
         entry("K3", "bike3_N20", launches_bike["K3"], k3_bike),
+        entry("K3", "hetero2_N8, padded", launches_het["K3"], k3_het),
+        entry("K3", "ibr_uni3_N20, p=1 player systems", launches_ibr["K3"],
+              k3_ibr),
         entry("K4", "round4_N40", launches4["K4"], k4),
         entry("K4", "di2_N10", launches_di["K4"], k4_di),
         entry("K4", "bike3_N20", launches_bike["K4"], k4_bike),
         entry("K4", "quad2_N15", launches_quad["K4"], k4_quad),
+        entry("K4", "hetero2_N8", launches_het["K4"], k4_het),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
 """CPU measurements behind the sweep gates of ``chip_smoke.py`` for the
-double-integrator, bicycle and quadrotor games: the reference package's own
-converged fraction on the sweep's inputs and the port's agreement with it
-lane by lane.  Not a test module (pytest does not collect it); it imports
-both packages, as the tests do.
+double-integrator, bicycle, quadrotor and heterogeneous double-integrator
+games and for the iterative-best-response sweep: the reference package's
+own converged fraction (or IBR stopping share and final residual) on the
+sweep's inputs and the port's agreement with it lane by lane.  Not a test
+module (pytest does not collect it); it imports both packages, as the tests
+do.
 
     JAX_PLATFORMS=cpu python tests/reference_fractions.py subset [KEY ...]
     JAX_PLATFORMS=cpu python tests/reference_fractions.py full [KEY[@A:B] ...]
     JAX_PLATFORMS=cpu python tests/reference_fractions.py f64 KEY LANE ...
+    JAX_PLATFORMS=cpu python tests/reference_fractions.py ibr
 
 ``subset`` (minutes per game): the first 256 of ``chip_smoke.py``'s 4096
 sweep scenarios of each game (x0 + 0.05 N(0, 1), numpy seed 0), f32 at the
@@ -15,7 +18,9 @@ plain versions with the fused trial; prints each converged and diverged
 fraction under the sweep's gates (dyn, con, sta 1e-3; opt 1e-2, or 5e-2 for
 the quadrotor, whose thrust clamp holds stationarity near 3e-2), the
 iteration counts, and the lanes whose counts differ.  KEY is one of
-di2_N10, bike3_N20, quad2_N15 (default: all three).
+di2_N10, bike3_N20, quad2_N15 (default: all three) and hetero2_N8 (the
+heterogeneous game of ``tests/test_hetero.py`` at outer 7 x 20, as
+``chip_smoke.py`` builds it).
 
 ``full``: the reference alone over all 4096 sweep scenarios (or lanes A
 to B of them), in chunks of 256, printing the running converged and
@@ -29,6 +34,13 @@ lane is 0.004 of it).
 
 ``f64 KEY LANE ...``: the named subset lanes in f64 through both packages
 (to tell rounding from a fault where the f32 iteration counts differ).
+
+``ibr``: iterative best response on the flagship as ``chip_smoke.py``'s
+IBR sweep runs it (outer 3 x inner 8 per player solve, ``ibr_iter=10``, f32)
+on the first 128 of its 512 scenarios, through the reference
+(``method="schur"``) and the port's plain versions: the share of lanes
+whose Gauss-Seidel loop stopped before ``ibr_iter`` rounds and the mean
+final residual (the quantity of ``benchmarks/bench_ibr.py``).
 """
 import dataclasses
 import os
@@ -44,6 +56,45 @@ N_SUBSET = 256
 N_SWEEP = 4096
 KEYS = ("di2_N10", "bike3_N20", "quad2_N15")
 OPT_GATE = {"quad2_N15": 5e-2}
+N_IBR, IBR_LANES, IBR_ITER = 512, 128, 10
+
+
+def jax_problem(key, dtype):
+    """The reference package's problem of ``key``: a preset, or the
+    heterogeneous game (``tests/test_hetero.py``'s, with the f32 gates of
+    the presets)."""
+    import jax.numpy as jnp
+    from algames_tpu.presets import PRESETS as JAX_PRESETS
+    if key != "hetero2_N8":
+        return JAX_PRESETS[key](dtype=dtype)
+    import algames_tpu as ag
+    model = ag.hetero_double_integrator_game(mi=(2, 1))
+    N, p = 8, 2
+    spec = ag.spec_from_model(model, N, 0.1)
+    obj = ag.game_objective(
+        spec, Q=[jnp.ones(4, dtype)] * p,
+        R=[0.1 * jnp.ones(k, dtype) for k in spec.mi],
+        xf=[jnp.asarray([1.0, 0.4 * (p - 1 - i), 0.0, 0.0], dtype)
+            for i in range(p)],
+        uf=[jnp.zeros(k, dtype) for k in spec.mi], dtype=dtype)
+    gc = ag.add_collision_avoidance(
+        spec, ag.game_constraints(spec, dtype=dtype), 0.15)
+    gc = ag.add_control_bound(spec, gc, 2 * jnp.ones(spec.m, dtype),
+                              -2 * jnp.ones(spec.m, dtype))
+    x0 = jnp.asarray([0.0, 0.0, 0.0, 0.0, 0.0, 0.4, 0.0, 0.0], dtype)
+    opts = ag.Options(outer_iter=7, inner_iter=20,
+                      eps_opt=1e-2 if dtype == jnp.float32 else 1e-3)
+    return ag.game_problem(N, 0.1, x0, model, opts, obj, gc), spec
+
+
+def port_problem(key, prob, dtype):
+    """The port's problem of ``key`` on the CPU: its preset, or the
+    reference's heterogeneous game carried over."""
+    from algames_tpu_torch.convert import problem_from_reference
+    from algames_tpu_torch.presets import PRESETS
+    if key == "hetero2_N8":
+        return problem_from_reference(prob, CPU, dtype)
+    return PRESETS[key](CPU, dtype)[0]
 
 
 def sweep_inputs(x0, n, lanes=N_SUBSET):
@@ -69,13 +120,11 @@ def subset(keys):
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     from algames_tpu.parallel import batch as jbatch
-    from algames_tpu.presets import PRESETS as JAX_PRESETS
 
     from algames_tpu_torch import parallel
-    from algames_tpu_torch.presets import PRESETS
 
     for key in keys:
-        prob, spec = JAX_PRESETS[key](dtype=jnp.float32)
+        prob, spec = jax_problem(key, jnp.float32)
         x0s = sweep_inputs(prob.x0, spec.n)
         out = jax.jit(lambda x: jbatch.solve_batch(prob, x, method="schur"))(
             jnp.asarray(x0s, jnp.float32))
@@ -90,7 +139,7 @@ def subset(keys):
               f"iterations {it_ref.min()}..{it_ref.max()} (mean "
               f"{it_ref.mean():.2f})", flush=True)
 
-        tprob, _ = PRESETS[key](CPU, torch.float32)
+        tprob = port_problem(key, prob, torch.float32)
         tprob = dataclasses.replace(tprob, opts=dataclasses.replace(
             tprob.opts, ls_fused=True))
         tout = parallel.solve_many(
@@ -117,12 +166,11 @@ def full(keys):
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     from algames_tpu.parallel import batch as jbatch
-    from algames_tpu.presets import PRESETS as JAX_PRESETS
 
     for arg in keys:
         key, _, lanes = arg.partition("@")
         a, b = map(int, lanes.split(":")) if lanes else (0, N_SWEEP)
-        prob, spec = JAX_PRESETS[key](dtype=jnp.float32)
+        prob, spec = jax_problem(key, jnp.float32)
         x0s = sweep_inputs(prob.x0, spec.n, N_SWEEP)
         solve = jax.jit(lambda x: jbatch.solve_batch(prob, x, method="schur"))
         conv = div = 0
@@ -143,12 +191,11 @@ def f64_lanes(key, lanes):
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     from algames_tpu.parallel import batch as jbatch
-    from algames_tpu.presets import PRESETS as JAX_PRESETS
 
     import algames_tpu_torch as agt
     from algames_tpu_torch.convert import problem_from_reference
 
-    prob, spec = JAX_PRESETS[key](dtype=jnp.float64)
+    prob, spec = jax_problem(key, jnp.float64)
     x0s = sweep_inputs(prob.x0, spec.n)[lanes]
     ref = jax.jit(lambda x: jbatch.solve_batch(prob, x, method="schur"))(
         jnp.asarray(x0s))
@@ -162,9 +209,57 @@ def f64_lanes(key, lanes):
           f"{out.stats.iter.tolist()}; max |x - x_ref| {dx:.3e}")
 
 
+def ibr():
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    from algames_tpu.presets import flagship_unicycle
+    from algames_tpu.problem.ibr import ibr_newton_solve
+    from algames_tpu.problem.options import IBROptions
+
+    import algames_tpu_torch as agt
+    from algames_tpu_torch.presets import flagship_unicycle as t_flagship
+
+    prob, spec = flagship_unicycle(dtype=jnp.float32, outer=3, inner=8)
+    rng = np.random.default_rng(0)
+    x0s = (np.asarray(prob.x0, np.float64)[None]
+           + 0.05 * rng.standard_normal((N_IBR, spec.n)))[:IBR_LANES]
+
+    def one(x0):
+        return ibr_newton_solve(dataclasses.replace(prob, x0=x0),
+                                IBROptions(ibr_iter=IBR_ITER),
+                                method="schur")
+    out = jax.jit(jax.vmap(one))(jnp.asarray(x0s, jnp.float32))
+    tprob, _ = t_flagship(CPU, torch.float32, outer=3, inner=8)
+    tout = agt.ibr_newton_solve(tprob, agt.IBROptions(ibr_iter=IBR_ITER),
+                                x0s=torch.as_tensor(x0s, dtype=torch.float32))
+    rows = {}
+    for name, it, q, res in (
+            ("reference", np.asarray(out.stats.iter), out.stats.outer,
+             out.stats.res),
+            ("port (plain versions)", tout.stats.iter.numpy(),
+             tout.stats.outer.numpy(), tout.stats.res.numpy())):
+        last = np.arange(IBR_LANES), it - 1
+        q_fin = np.asarray(q)[last]
+        res_fin = np.asarray(res, np.float64)[last]
+        rows[name] = it
+        print(f"ibr_uni3_N20 {name}: stopped before {IBR_ITER} rounds "
+              f"{float((q_fin < IBR_ITER).mean())} "
+              f"({int((q_fin < IBR_ITER).sum())}/{IBR_LANES}), mean final "
+              f"residual {float(res_fin.mean())}, finite "
+              f"{bool(np.isfinite(res_fin).all())}, rounds "
+              f"{np.bincount(q_fin, minlength=IBR_ITER + 1).tolist()}",
+              flush=True)
+    it_ref, it = rows["reference"], rows["port (plain versions)"]
+    print(f"ibr_uni3_N20: stats rows equal on {int((it == it_ref).sum())} of "
+          f"{IBR_LANES} lanes", flush=True)
+
+
 if __name__ == "__main__":
     torch.set_num_threads(4)
-    if sys.argv[1] == "f64":
+    if sys.argv[1] == "ibr":
+        ibr()
+    elif sys.argv[1] == "f64":
         f64_lanes(sys.argv[2], [int(k) for k in sys.argv[3:]])
     elif sys.argv[1] == "full":
         full(sys.argv[2:] or KEYS)

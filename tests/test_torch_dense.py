@@ -101,7 +101,8 @@ def test_plain_matches_pallas_and_schur(case, mu):
 
 def test_wrapper_cpu_contract(case):
     """CPU tensors take the plain version (the launch counter stays put);
-    a heterogeneous spec, wrong shapes, types or layouts raise."""
+    a heterogeneous spec is solved padded by K3's plain version and refused
+    by K1; wrong shapes, types or layouts raise."""
     tspec = case["tprob"].spec
     jb, b = _port_jb(case["jb"]), torch.as_tensor(np.array(case["b"]))
     before = thomas.solve_thomas.launches
@@ -113,8 +114,12 @@ def test_wrapper_cpu_contract(case):
         y.numpy(), thomas.kkt_solve(tspec, jb, b, ()).numpy())
     hetero = dataclasses.replace(tspec, ni=(4, 4, 4, 4), mi=(1, 3, 2, 2),
                                  pu=((0,), (1, 2, 3), (4, 5), (6, 7)))
+    np.testing.assert_array_equal(
+        thomas.solve_thomas(hetero, jb, b).numpy(),
+        thomas.solve_thomas_plain(hetero, jb, b).numpy())
+    assert thomas.solve_thomas.launches == 0
     with pytest.raises(ValueError, match="homogeneous"):
-        thomas.solve_thomas(hetero, jb, b)
+        thomas.solve_thomas_structured(hetero, None, b, ())
     with pytest.raises(ValueError, match="shape"):
         thomas.solve_thomas(tspec, dataclasses.replace(
             jb, Qblk=jb.Qblk[:, :, :3].contiguous()), b)

@@ -41,15 +41,20 @@ def test_imports_with_jax_blocked():
 
 
 def test_no_jax_import_in_sources():
-    pat = re.compile(r"^\s*(import\s+jax|from\s+jax)\b")
-    offenders = []
+    """No source of the package, nor ``chip_smoke.py``, imports JAX or the
+    JAX package."""
+    pat = re.compile(r"^\s*(import\s+(jax|algames_tpu)\b"
+                     r"|from\s+(jax|algames_tpu)[\s.])")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                path = os.path.join(root, f)
-                with open(path) as fh:
-                    offenders += [f"{path}:{i}" for i, line in enumerate(fh, 1)
-                                  if pat.match(line)]
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert os.path.join(PKG, "problem", "ibr.py") in paths
+    assert os.path.join(PKG, "models", "hetero.py") in paths
+    offenders = []
+    for path in paths:
+        with open(path) as fh:
+            offenders += [f"{path}:{i}" for i, line in enumerate(fh, 1)
+                          if pat.match(line)]
     assert not offenders, offenders
 
 
@@ -88,6 +93,88 @@ def test_cpu_solve_launches_no_kernel():
         assert out.traj.x.shape == (2, sp.N, sp.n)
         assert bool(torch.isfinite(out.traj.x).all())
     assert [c.launches for c in counters] == before == [0, 0, 0]
+
+
+def test_cpu_hetero_and_ibr_solves_launch_no_kernel():
+    """A CPU solve of the heterogeneous game (padded K3 and the fused
+    trial's player-blocked instance, both as plain versions) and a CPU IBR
+    solve (K3 at p=1) move no kernel's launch counter."""
+    from chip_smoke import hetero_game
+    cpu = torch.device("cpu")
+    counters = (solve_thomas_structured, solve_thomas, trial_eval)
+    before = [c.launches for c in counters]
+    prob, spec = hetero_game(cpu, torch.float64, outer=1, inner=3)
+    prob = dataclasses.replace(prob, opts=dataclasses.replace(prob.opts,
+                                                              ls_fused=True))
+    assert trial_supported(prob.model, spec, prob.obj, prob.gc)
+    out = agt.newton_solve(prob, prob.x0[None].repeat(2, 1))
+    assert bool(torch.isfinite(out.traj.x).all())
+    prob, spec = flagship_unicycle(cpu, torch.float64, outer=1, inner=2, p=2,
+                                   N=5)
+    out = agt.ibr_newton_solve(prob, agt.IBROptions(ibr_iter=2),
+                               x0s=prob.x0[None].repeat(2, 1))
+    assert out.traj.x.shape == (2, spec.N, spec.n)
+    assert bool(torch.isfinite(out.traj.x).all())
+    assert [c.launches for c in counters] == before == [0, 0, 0]
+
+
+def test_hetero_spec_takes_the_kernel_route(monkeypatch):
+    """On a card tensor, K3's wrapper sends a heterogeneous spec to the
+    kernel padded and never to its plain version.  Checked statically: the
+    device route is forced to the kernel, the launch is replaced by the
+    plain solver on the padded system (the unchanged kernel's contract:
+    m = p max(mi) control rows owned r // max(mi)), and the plain version
+    raises if called.  The wrapper's gathered result equals the plain
+    version's padded solve of the original system."""
+    from chip_smoke import hetero_game
+    from algames_tpu_torch.constraints.sets import reset_constraints
+    from algames_tpu_torch.core.spec import ProblemSpec
+    from algames_tpu_torch.ops import thomas
+    from algames_tpu_torch.problem import residual as R
+    from algames_tpu_torch.problem.linear_solver import (
+        JacBlocks, solve_tridiagonal_schur)
+    cpu = torch.device("cpu")
+    prob, spec = hetero_game(cpu, torch.float64)
+    gen = torch.Generator().manual_seed(3)
+    x = 0.3 * torch.randn((2, spec.N, spec.n), generator=gen,
+                          dtype=torch.float64)
+    traj = agt.PrimalDual(x=x, u=0.3 * torch.randn(
+        (2, spec.T, spec.m), generator=gen, dtype=torch.float64),
+        lam=0.3 * torch.randn((2, spec.p, spec.T, spec.n), generator=gen,
+                              dtype=torch.float64))
+    gc = reset_constraints(prob.gc, 2)
+    pd = R.point_data(prob.model, spec, prob.obj, gc, traj)
+    res, jb, _, _ = R.assemble_from_point(spec, prob.obj, gc, traj, pd, 1e-3)
+    jb = JacBlocks(*[getattr(jb, f).contiguous()
+                     for f in ("Qblk", "Ublk", "A", "B")])
+    b = (-R.residual_knot_blocks(spec, res)).contiguous()
+    want = solve_tridiagonal_schur(spec, jb, b)
+    launched = []
+
+    def fake_launch(Q, Ub, Bm, A, bk, owner, n, m, p):
+        mm = m // p
+        assert (m, list(owner)) == (4, [0, 0, 1, 1])
+        assert Ub.shape[-1] == Bm.shape[-1] == m and bk.is_contiguous()
+        padded = ProblemSpec(N=spec.N, n=n, m=m, p=p, ni=spec.ni,
+                             mi=(mm,) * p, pu=((0, 1), (2, 3)), px=spec.px,
+                             pz=spec.pz, dt=spec.dt)
+        launched.append(m)
+        return solve_tridiagonal_schur(padded, JacBlocks(Q, Ub, A, Bm),
+                                       bk).reshape(bk.shape[0], spec.T, -1)
+
+    def plain(*_):
+        raise AssertionError("the plain version ran for a card tensor")
+    monkeypatch.setattr(thomas, "_route", lambda t: "kernel")
+    monkeypatch.setattr(thomas, "_launch_dense", fake_launch)
+    monkeypatch.setattr(thomas, "solve_thomas_plain", plain)
+    monkeypatch.setattr(thomas, "solve_tridiagonal_schur", plain)
+    before = solve_thomas.launches
+    y = thomas.solve_thomas(spec, jb, b)
+    assert launched == [4] and solve_thomas.launches == before + 1
+    torch.testing.assert_close(y, want, rtol=0, atol=1e-12)
+    with pytest.raises(ValueError, match="homogeneous"):
+        thomas.solve_thomas_structured(spec, None, b, ())
+    solve_thomas.launches = before
 
 
 def test_presets_default_to_the_card():

@@ -64,12 +64,14 @@ def test_native_preset_matches_reference(key):
 
 
 def test_converter_carries_model_constants_and_refuses():
-    """Non-default physical constants survive the converter; the
-    heterogeneous model is refused."""
+    """Non-default physical constants and the heterogeneous model's ragged
+    index tuples survive the converter; options the port has not ported
+    are refused."""
     cases = [
         ag.double_integrator_game(p=3, d=3),
         ag.bicycle_game(p=2, lf=0.07, lr=0.03),
         ag.quadrotor_game(p=2, mass=0.8, thrust_smoothing=50.0),
+        ag.hetero_double_integrator_game(mi=(3, 1, 2), d=3),
     ]
     def problem(jm):
         spec = ag.spec_from_model(jm, 5, 0.1)
@@ -84,9 +86,11 @@ def test_converter_carries_model_constants_and_refuses():
         assert type(tm).__name__ == type(jm).__name__
         for f in dataclasses.fields(jm):
             assert getattr(tm, f.name) == getattr(jm, f.name), f.name
-    hetero = problem(ag.hetero_double_integrator_game(mi=(2, 1)))
+    parallel_ls = problem(ag.hetero_double_integrator_game(mi=(2, 1)))
+    parallel_ls = dataclasses.replace(parallel_ls, opts=dataclasses.replace(
+        parallel_ls.opts, ls_parallel=2))
     with pytest.raises(NotImplementedError, match="not ported"):
-        problem_from_reference(hetero, CPU, F64)
+        problem_from_reference(parallel_ls, CPU, F64)
 
 
 def _rel(a, ref):

@@ -1,0 +1,79 @@
+"""Frozen reference solutions for the PyTorch port's chip checks, computed
+by the JAX package in f64 on the CPU.  Not a test module (pytest does not
+collect it); ``chip_smoke.py`` reads its files and never imports JAX.
+
+    JAX_PLATFORMS=cpu python tests/torch_goldens.py [hetero] [ibr]
+
+writes, under ``tests/golden_torch/``:
+
+- ``hetero2_N8.npz``: the heterogeneous double-integrator game of
+  ``tests/test_hetero.py`` (``_prob``: mi = (2, 1), N=8, outer 7 x 20)
+  solved by the dense oracle (``method="dense"``): x, u, the iteration
+  count ``iter`` and the final violations;
+- ``ibr_uni3_N20.npz``: iterative best response on the flagship
+  (``flagship_unicycle``, outer 3 x inner 8 per player solve,
+  ``IBROptions(ibr_iter=10)``, the configuration of
+  ``benchmarks/bench_ibr.py``) through ``method="schur"``: x, u, ``iter``
+  (stats rows) and the Gauss-Seidel round count ``q``.
+
+``test_torch_hetero.py`` and ``test_torch_ibr.py`` check that the files
+still match the JAX package.
+"""
+import os
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
+sys.path.insert(0, HERE)
+OUT = os.path.join(HERE, "golden_torch")
+IBR_ITER = 10
+
+
+def hetero_solution():
+    """The dense-oracle solve of ``test_hetero._prob`` (f64)."""
+    import algames_tpu as ag
+    from test_hetero import _prob
+    prob, _ = _prob()
+    res = ag.newton_solve_jit(prob, method="dense")
+    it = int(res.stats.iter)
+    out = {"x": np.asarray(res.traj.x), "u": np.asarray(res.traj.u),
+           "iter": np.asarray(it)}
+    for k in ("dyn_vio", "con_vio", "sta_vio", "opt_vio"):
+        out[k] = np.asarray(getattr(res.stats, k)[it - 1])
+    return out
+
+
+def ibr_solution():
+    """The flagship's f64 IBR solve through ``schur``."""
+    import jax
+    import jax.numpy as jnp
+    from algames_tpu.presets import flagship_unicycle
+    from algames_tpu.problem.ibr import ibr_newton_solve
+    from algames_tpu.problem.options import IBROptions
+    prob, _ = flagship_unicycle(dtype=jnp.float64, outer=3, inner=8)
+    res = jax.jit(lambda pr: ibr_newton_solve(
+        pr, IBROptions(ibr_iter=IBR_ITER), method="schur"))(prob)
+    it = int(res.stats.iter)
+    return {"x": np.asarray(res.traj.x), "u": np.asarray(res.traj.u),
+            "iter": np.asarray(it),
+            "q": np.asarray(int(res.stats.outer[it - 1])),
+            "res": np.asarray(res.stats.res[it - 1])}
+
+
+GOLDENS = {"hetero": ("hetero2_N8", hetero_solution),
+           "ibr": ("ibr_uni3_N20", ibr_solution)}
+
+
+if __name__ == "__main__":
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    os.makedirs(OUT, exist_ok=True)
+    for key in sys.argv[1:] or list(GOLDENS):
+        name, fn = GOLDENS[key]
+        sol = fn()
+        np.savez(os.path.join(OUT, f"{name}.npz"), **sol)
+        print(name, {k: (v.tolist() if v.ndim == 0 else v.shape)
+                     for k, v in sol.items()}, flush=True)

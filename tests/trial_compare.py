@@ -9,8 +9,8 @@ on one CUDA card: outputs bitwise and device times.  Not a test module
 ``git archive`` of another commit unpacked in a git-ignored directory), runs
 its fused trial on ``chip_smoke.py``'s trial inputs at B=1024 (K2's and the
 roundabout K4's, and, where TREE's ``chip_smoke.py`` has them, those of the
-double-integrator, bicycle and quadrotor games and the 3D double
-integrator), in f32 and f64, prints each f32 call's time (CUDA events) and
+double-integrator, bicycle and quadrotor games, the 3D double
+integrator and the heterogeneous double integrator), in f32 and f64, prints each f32 call's time (CUDA events) and
 device time (profiler), and saves the outputs to DIR/NAME.pt.  ``compare``
 counts the unequal output elements of two dumps, input set by input set.
 Run each ``dump`` in its own process: the two trees' packages share a name.
@@ -42,6 +42,9 @@ def dump(tree, name, out_dir):
                 quadrotor3d, "quad2_N15", 23, zero_u=True, smoothing=100.0)),
             ("di3", lambda d, t: cs.trial_inputs(
                 cs.di3_game, cs.random_iterates, True, d, t, seed=29))]
+    if hasattr(cs, "hetero_game"):
+        cases += [("hetero", cs.game_trial_inputs(cs.hetero_game,
+                                                  "hetero2_N8", 37))]
     res = {}
     for tag, inputs in cases:
         for dtype in (torch.float32, torch.float64):
