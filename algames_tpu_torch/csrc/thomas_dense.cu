@@ -5,23 +5,37 @@
 // homogeneous specs.
 //
 // The same sweep as K1 (thomas_sq.cu; the shared parts are in
-// thomas_common.cuh), with the statx Hessian blocks given densely,
+// thomas_common.cuh, the register-tiled forward sweep in
+// thomas_dense_core.cuh), with the statx Hessian blocks given densely,
 // Qblk [B, T, p, n, n]: collision-cost pairs make them full cross-player
 // blocks, so B^T Q_owner, sum_i F_i Q_i and Q_i x are dense n x n products.
 // The reduced system's columns are eliminated x first, as in K1 (the TPU
 // kernel takes u first): see ColumnOrder in the header.
 //
-// What bounds it on the card: the latency of the dependent chain, as for
-// K1.  At the 4-player roundabout's shapes (n=16, m=8, p=4, T=39: d=24,
-// R=65) a lane reads Q (160 KB in f32, the largest input) and moves about
-// 0.65 MB over both launches, and does about 6 MFLOP; the sweep is T knots
-// of d pivot steps with a block barrier each.  The design keeps K1's: one
-// 128-thread block per lane, the knot's Q blocks staged in shared memory
-// next to the carry and the 24 x 89 augmented system (about 30 KB per block
-// in f32 and 61 KB in f64, which opts in above the 48 KB default), so the
-// dense products read shared memory and only G and y_hat go back to device
-// memory for the backward launch.
+// What bounds it on the card (H100 80GB HBM3 at 700 W, f32, the
+// roundabout's shapes n=16, m=8, p=4, T=39: d=24, R=65; tests/
+// thomas_compare.py and tests/k3_phase_clocks.py): the instruction stream
+// of one lane's dependent chain, not bytes (0.65 MB a lane over both
+// launches) or FMAs (0.12 ms for 1,024 lanes).  The shared-memory forward
+// kernel of thomas_common.cuh spends most of its instructions, by a count
+// from its code, on runtime division and modulo in its flat index loops,
+// with three barriers per pivot step and a serial back substitution per
+// right-hand side: 4.07 ms
+// for B=132 (one lane per SM), 6.34 ms for B=924 (seven lanes per SM, one
+// wave) and 9.39 ms for B=1024 (a second wave of 100 lanes costs three
+// quarters of a lane's chain).  Its replacement, thomas_dense_core.cuh,
+// holds each thread's tile of the augmented system in registers with
+// compile-time strides, eliminates Gauss-Jordan with one barrier per pivot
+// step, and copies the next knot's operands in while a knot is eliminated;
+// 23 KB of shared memory and 64 registers a thread put 8 lanes on an SM,
+// so B=1024 runs in one wave: 1.19 / 1.91 / 2.12 ms at the same batches.
+// Of a knot's ~89,700 SM cycles at B=1024, the elimination takes ~44,000
+// (24 steps of barrier, shuffles and a pivot search) and the build of the
+// augmented system ~30,000.  Systems wider than the largest size class
+// (d > 24 or d + R > 96) keep the shared-memory forward kernel; the
+// backward kernel (0.46 ms of the roundabout's 2.57 ms) is unchanged.
 #include "thomas_common.cuh"
+#include "thomas_dense_core.cuh"
 
 namespace {
 
@@ -99,6 +113,23 @@ __global__ void __launch_bounds__(kThreads) thomas_dense_fwd_kernel(
   }
 }
 
+// The forward sweep with the augmented system in registers
+// (thomas_dense_core.cuh), one instance per size class: TR x 8 rows and
+// TC x 16 columns of the augmented system.  8 lanes per SM in f32 (at most
+// 64 registers a thread), 4 in f64.
+template <typename T, int TR, int TC>
+__global__ void
+__launch_bounds__(thomas_core::kThreads, sizeof(T) == 4 ? 8 : 4)
+thomas_dense_tiled_kernel(const T* __restrict__ Qg, const T* __restrict__ Ub,
+                          const T* __restrict__ Bm, const T* __restrict__ A,
+                          const T* __restrict__ bk, T* __restrict__ G_out,
+                          T* __restrict__ y_out, int Tn, int n, int m, int p,
+                          const __grid_constant__ DenseMeta meta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  thomas_core::forward_sweep<T, TR, TC>(Qg, Ub, Bm, A, bk, G_out, y_out, Tn,
+                                        n, m, p, meta.owner, smem_raw);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) thomas_dense_bwd_kernel(
     const T* __restrict__ G, const T* __restrict__ yhat,
@@ -125,21 +156,82 @@ __global__ void __launch_bounds__(kThreads) thomas_dense_bwd_kernel(
   }
 }
 
+void pack_owner(const int* owner, int m, DenseMeta* meta) {
+  *meta = DenseMeta{};
+  for (int r = 0; r < m; ++r) meta->owner[r] = owner[r];
+}
+
+// The shared-memory kernel of thomas_common.cuh, for systems beyond the
+// largest size class.
 template <typename T>
-int launch_fwd(const void* Q, const void* Ub, const void* Bm, const void* A,
-               const void* b, const int* owner, void* G, void* yhat, int B,
-               int Tn, int n, int m, int p, void* stream) {
+int launch_fwd_big(const void* Q, const void* Ub, const void* Bm,
+                   const void* A, const void* b, const int* owner, void* G,
+                   void* yhat, int B, int Tn, int n, int m, int p,
+                   void* stream) {
   if (m > kMaxM) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const size_t bytes = thomas::fwd_smem_bytes<T>(n, m, p, p * n * n, 0);
   int err = thomas::set_smem((const void*)thomas_dense_fwd_kernel<T>, bytes);
   if (err) return err;
-  DenseMeta meta = {};
-  for (int r = 0; r < m; ++r) meta.owner[r] = owner[r];
+  DenseMeta meta;
+  pack_owner(owner, m, &meta);
   thomas_dense_fwd_kernel<T><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       (const T*)Q, (const T*)Ub, (const T*)Bm, (const T*)A, (const T*)b,
       (T*)G, (T*)yhat, Tn, n, m, p, meta);
   return (int)cudaGetLastError();
+}
+
+// The size classes, smallest first: (TR, TC) holds d <= 8 TR and
+// C = d + p n + 1 <= 16 TC.  The wrapper routes the systems that fit none
+// to launch_fwd_big (thomas_dense_tiled_fits).
+template <typename T>
+const void* tiled_kernel(int n, int m, int p) {
+  const int d = n + m, C = d + p * n + 1;
+  if (d <= 16 && C <= 32)
+    return (const void*)thomas_dense_tiled_kernel<T, 2, 2>;
+  if (d <= 24 && C <= 64)
+    return (const void*)thomas_dense_tiled_kernel<T, 3, 4>;
+  if (d <= 24 && C <= 96)
+    return (const void*)thomas_dense_tiled_kernel<T, 3, 6>;
+  return nullptr;
+}
+
+template <typename T>
+int launch_fwd(const void* Q, const void* Ub, const void* Bm, const void* A,
+               const void* b, const int* owner, void* G, void* yhat, int B,
+               int Tn, int n, int m, int p, void* stream) {
+  const void* kernel = tiled_kernel<T>(n, m, p);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const size_t bytes = thomas_core::CoreLayout<T>::bytes(n, m, p);
+  int err = thomas::set_smem(kernel, bytes);
+  if (err) return err;
+  DenseMeta meta;
+  pack_owner(owner, m, &meta);
+  const T *Qp = (const T*)Q, *Ubp = (const T*)Ub, *Bp = (const T*)Bm,
+          *Ap = (const T*)A, *bp = (const T*)b;
+  T *Gp = (T*)G, *yp = (T*)yhat;
+  void* args[] = {&Qp, &Ubp, &Bp, &Ap, &bp, &Gp, &yp, &Tn, &n, &m, &p, &meta};
+  return (int)cudaLaunchKernel(kernel, dim3(B), dim3(thomas_core::kThreads),
+                               args, bytes, (cudaStream_t)stream);
+}
+
+// Lanes per SM of the forward kernel that launch_fwd (or, with ``big``,
+// launch_fwd_big) runs for these widths; -1 if there is none.
+template <typename T>
+int occupancy(int n, int m, int p, bool big) {
+  const void* kernel = big ? (const void*)thomas_dense_fwd_kernel<T>
+                           : tiled_kernel<T>(n, m, p);
+  if (kernel == nullptr) return -1;
+  const size_t bytes =
+      big ? thomas::fwd_smem_bytes<T>(n, m, p, p * n * n, 0)
+          : thomas_core::CoreLayout<T>::bytes(n, m, p);
+  if (thomas::set_smem(kernel, bytes)) return -1;
+  int lanes = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&lanes, kernel, kThreads,
+                                                    bytes))
+    return -1;
+  return lanes;
 }
 
 template <typename T>
@@ -167,11 +259,27 @@ int launch_bwd(const void* G, const void* yhat, const void* Q, const void* A,
     return launch_fwd<T>(Q, Ub, Bm, A, b, owner, G, yhat, B, Tn, n, m, p,     \
                          stream);                                             \
   }                                                                           \
+  extern "C" int thomas_dense_fwd_big_##SUFFIX(                               \
+      const void* Q, const void* Ub, const void* Bm, const void* A,           \
+      const void* b, const int* owner, void* G, void* yhat, int B, int Tn,    \
+      int n, int m, int p, void* stream) {                                    \
+    return launch_fwd_big<T>(Q, Ub, Bm, A, b, owner, G, yhat, B, Tn, n, m, p, \
+                             stream);                                         \
+  }                                                                           \
   extern "C" int thomas_dense_bwd_##SUFFIX(                                   \
       const void* G, const void* yhat, const void* Q, const void* A,          \
       const void* b, void* y, int B, int Tn, int n, int m, int p,             \
       void* stream) {                                                         \
     return launch_bwd<T>(G, yhat, Q, A, b, y, B, Tn, n, m, p, stream);        \
+  }                                                                           \
+  extern "C" int thomas_dense_tiled_fits_##SUFFIX(int n, int m, int p) {      \
+    return tiled_kernel<T>(n, m, p) != nullptr;                               \
+  }                                                                           \
+  extern "C" int thomas_dense_occupancy_##SUFFIX(int n, int m, int p) {       \
+    return occupancy<T>(n, m, p, false);                                      \
+  }                                                                           \
+  extern "C" int thomas_dense_occupancy_big_##SUFFIX(int n, int m, int p) {   \
+    return occupancy<T>(n, m, p, true);                                       \
   }
 
 THOMAS_DENSE_EXPORT(f32, float)

@@ -1,0 +1,476 @@
+// The forward sweep of the dense-Q block-Thomas KKT solve (kernel K3) with
+// the knot's augmented system in registers: the core of thomas_dense.cu.
+//
+// Per scenario lane and knot t the forward sweep eliminates the p*n
+// multipliers in closed form and solves one pivoted d x d system (d = n+m)
+// with R = p*n+1 right-hand sides,
+//   M = [K | RHS], rows [statu (m) | dyn (n)], columns [x (n) | u (m) |
+//        G rhs (p n) | y rhs (1)],
+// the x columns eliminated first, with virtual row partial pivoting (the
+// unused row of largest magnitude, the lowest index on ties), as the
+// shared-memory kernel of thomas_common.cuh does.
+//
+// One 128-thread block per lane.  Thread (rg, cg) = (tid % 8, tid / 8) owns
+// the fixed tile of M with rows rg + 8 i (i < TR) and columns cg + 16 j
+// (j < TC) in registers; TR and TC are the instance's size class, so every
+// stride and trip count is a compile-time constant and the actual d and C
+// = d + R only mask.  The eight owners of a column (one per row group) are
+// eight neighbouring lanes of one warp, and the eight owners of a row's
+// entries within one column group are the same eight lanes, so:
+//   - column s's pivot is found by an eight-lane shuffle reduction among
+//     its owners, who publish the pivot row, 1 / piv and the multipliers
+//     M[r, s] / piv of every row in a slot of shared memory (two slots,
+//     used in turn): one block barrier per pivot step;
+//   - every thread takes the pivot row's entries of its own columns by a
+//     shuffle from the lane of its column group that owns that row, and
+//     updates its tile with one FMA per owned entry;
+//   - the elimination is Gauss-Jordan: every row but the pivot row is
+//     updated, rows pivoted before as well, so that no back substitution
+//     follows: each pivot row's right-hand sides times 1 / piv are the
+//     unknowns, where they sit.  (A column-by-column back substitution took
+//     as long as the elimination, one dependent chain of d steps;
+//     tests/test_torch_k3_order.py emulates this order and holds it to the
+//     plain version at mu up to 1e7.)
+// The per-knot products (the fill-in F = -A_t G_{t-1}, B^T Q_owner,
+// sum_i F_i Q_i, F_i A_{t+1}^T, B^T A_{t+1}^T) are FMA chains from shared
+// memory straight into the owned registers, in the order of the
+// shared-memory kernel; rows of F and A are padded in shared memory so
+// that the eight row groups of a warp read eight different banks.  Knot
+// t+1's operands (Q, Ublk, B, b, and A_{t+2}: A is a ring of three knots,
+// since knot t reads A_t and A_{t+1}) are copied by cp.async into a second
+// buffer while knot t is eliminated.
+//
+// Shared memory per lane in f32 at the roundabout's shapes (n=16, m=8,
+// p=4): about 23.5 KB, so 8 lanes fit on an SM and B=1024 runs in one wave.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace thomas_core {
+
+constexpr int kThreads = 128;
+constexpr int kRG = 8;    // row groups
+constexpr int kCG = 16;   // column groups
+
+template <typename T>
+__host__ __device__ __forceinline__ int vec() { return 16 / (int)sizeof(T); }
+
+// Smallest x' >= x that is a multiple of 16 bytes of T.
+template <typename T>
+__host__ __device__ __forceinline__ int round16(int x) {
+  const int v = vec<T>();
+  return (x + v - 1) / v * v;
+}
+
+// A row stride >= x whose rows start on 16 bytes and put eight consecutive
+// rows in eight different pairs of banks (stride * sizeof(T) = 16 mod 32).
+template <typename T>
+__host__ __device__ __forceinline__ int row_pad(int x) {
+  int ld = round16<T>(x);
+  if ((ld * (int)sizeof(T)) % 32 == 0) ld += vec<T>();
+  return ld;
+}
+
+// Shared-memory layout, in elements of T (then ints).
+template <typename T>
+struct CoreLayout {
+  int ldA, ldF, q, ub, bm, bk, buf, a, gx, yx, fs, rinv, words;
+  __host__ __device__ CoreLayout(int n, int m, int p) {
+    const int pn = p * n, d = n + m, W = n + m + pn;
+    ldA = row_pad<T>(n);
+    ldF = row_pad<T>(pn);
+    int o = 0;
+    q = o;  o += round16<T>(p * n * n);
+    ub = o; o += round16<T>(m * m);
+    bm = o; o += round16<T>(n * m);
+    bk = o; o += round16<T>(W);
+    buf = o;                          // one knot's operands; two buffers
+    o = 2 * buf;
+    a = o;  o += 3 * n * ldA;         // A ring: A_t, A_{t+1}, A_{t+2}
+    gx = o; o += n * ldF;             // carry G_{t-1}, x rows
+    yx = o; o += round16<T>(n);       // carry y_{t-1}, x rows
+    fs = o;                           // F [n, ldF], then the step slots [2, d]
+    o += round16<T>(n * ldF > 2 * d ? n * ldF : 2 * d);
+    rinv = o; o += round16<T>(d);     // 1 / piv per step
+    words = o;
+  }
+  // ints after the T arrays: the G-column table [pn], the pivot rows [d]
+  __host__ __device__ static size_t bytes(int n, int m, int p) {
+    const CoreLayout L(n, m, p);
+    return L.words * sizeof(T) + (size_t)(p * n + n + m) * sizeof(int);
+  }
+};
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy ``rows`` rows of ``len`` contiguous elements (global row stride
+// ``len``) into shared memory at row stride ``ld``, by cp.async: 16-byte
+// pieces where both sides allow, else one element per copy.  Eight threads
+// share a row, sixteen rows per pass: no division.
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, int rows,
+                                          int len, int ld) {
+  const bool v16 = ((reinterpret_cast<uintptr_t>(src) & 15) == 0) &&
+                   ((len * (int)sizeof(T)) % 16 == 0) &&
+                   ((ld * (int)sizeof(T)) % 16 == 0);
+  const int per = v16 ? vec<T>() : 1;
+  const int pieces = len / per;        // exact: len is a multiple when v16
+  const int bytes = per * (int)sizeof(T);
+  for (int r = threadIdx.x >> 3; r < rows; r += kThreads / 8)
+    for (int c = threadIdx.x & 7; c < pieces; c += 8)
+      cp_async(dst + r * ld + c * per, src + (size_t)r * len + c * per, bytes);
+}
+
+// One contiguous run of ``len`` elements.
+template <typename T>
+__device__ __forceinline__ void copy_flat(T* dst, const T* src, int len) {
+  const bool v16 = ((reinterpret_cast<uintptr_t>(src) & 15) == 0) &&
+                   ((len * (int)sizeof(T)) % 16 == 0);
+  const int per = v16 ? vec<T>() : 1;
+  const int bytes = per * (int)sizeof(T);
+  for (int c = threadIdx.x; c < len / per; c += kThreads)
+    cp_async(dst + c * per, src + c * per, bytes);
+}
+
+template <typename T>
+__device__ __forceinline__ T absval(T v) { return v < T(0) ? -v : v; }
+
+template <typename T, int TR, int TC>
+__device__ __forceinline__ void forward_sweep(
+    const T* __restrict__ Qg, const T* __restrict__ Ubg,
+    const T* __restrict__ Bg, const T* __restrict__ Ag,
+    const T* __restrict__ bg, T* __restrict__ G_out, T* __restrict__ y_out,
+    int Tn, int n, int m, int p, const int* owner, unsigned char* raw) {
+  const int pn = p * n, d = n + m, C = d + pn + 1, W = n + m + pn;
+  const CoreLayout<T> L(n, m, p);
+  T* sm = reinterpret_cast<T*>(raw);
+  int* gcol = reinterpret_cast<int*>(sm + L.words);  // (i << 16) | cc
+  int* pivrow = gcol + pn;
+  T* Gx = sm + L.gx;
+  T* yx = sm + L.yx;
+  T* Fs = sm + L.fs;
+  T* rinvs = sm + L.rinv;
+  const int tid = threadIdx.x, rg = tid & (kRG - 1), cg = tid >> 3;
+  const int gbase = (tid & 31) & ~(kRG - 1);
+  const unsigned gmask = 0xffu << gbase;
+  const size_t lane0 = (size_t)blockIdx.x * Tn;
+  const int ldA = L.ldA, ldF = L.ldF;
+
+  for (int i = 0; i < p; ++i)
+    for (int cc = tid; cc < n; cc += kThreads)
+      gcol[i * n + cc] = (i << 16) | cc;
+  for (int k = tid; k < n * ldF; k += kThreads) Gx[k] = T(0);
+  for (int k = tid; k < n; k += kThreads) yx[k] = T(0);
+
+  // Knot k's operands other than A into buffer k & 1; A_k into ring slot
+  // ``slot`` (zeros where A_k does not exist: k == Tn).
+  auto issue = [&](int k) {
+    T* buf = sm + (k & 1) * L.buf;
+    const size_t kt = lane0 + k;
+    copy_flat(buf + L.q, Qg + kt * pn * n, pn * n);
+    copy_flat(buf + L.ub, Ubg + kt * m * m, m * m);
+    copy_flat(buf + L.bm, Bg + kt * n * m, n * m);
+    copy_flat(buf + L.bk, bg + kt * W, W);
+  };
+  auto issue_A = [&](int k, int slot) {
+    T* dst = sm + L.a + slot * n * ldA;
+    if (k < Tn)
+      copy_rows(dst, Ag + (lane0 + k) * n * n, n, n, ldA);
+    else
+      for (int e = tid; e < n * ldA; e += kThreads) dst[e] = T(0);
+  };
+  issue(0);
+  issue_A(0, 0);
+  issue_A(1, 1);
+  cp_async_commit();
+
+  // The owner of each owned control row, read once.
+  int own[TR];
+  #pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int r = rg + kRG * i;
+    own[i] = r < m ? owner[r] : -1;
+  }
+
+  T tile[TR][TC];
+  int slot = 0;                        // ring slot of A_t
+  for (int t = 0; t < Tn; ++t) {
+    const size_t kt = lane0 + t;
+    cp_async_wait_all();
+    __syncthreads();                   // knot t's operands and the carry
+    const T* buf = sm + (t & 1) * L.buf;
+    const T* Q = buf + L.q;
+    const T* Ub = buf + L.ub;
+    const T* Bs = buf + L.bm;
+    const T* bs = buf + L.bk;
+    const T* At = sm + L.a + slot * n * ldA;
+    const int slot1 = slot == 2 ? 0 : slot + 1;
+    const int slot2 = slot1 == 2 ? 0 : slot1 + 1;
+    const T* A1 = sm + L.a + slot1 * n * ldA;     // A_{t+1}, rows [cc][k]
+    if (t + 1 < Tn) {
+      issue(t + 1);
+      issue_A(t + 2, slot2);
+      cp_async_commit();
+    }
+
+    // Fill-in F = -A_t G_{t-1} [n, pn], register-tiled.
+    {
+      T acc[TR][TC];
+      #pragma unroll
+      for (int i = 0; i < TR; ++i)
+        #pragma unroll
+        for (int j = 0; j < TC; ++j) acc[i][j] = T(0);
+      #pragma unroll 2
+      for (int k = 0; k < n; ++k) {
+        T av[TR], gv[TC];
+        #pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const int a = rg + kRG * i;
+          av[i] = a < n ? At[a * ldA + k] : T(0);
+        }
+        #pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const int c = cg + kCG * j;
+          gv[j] = c < pn ? Gx[k * ldF + c] : T(0);
+        }
+        #pragma unroll
+        for (int i = 0; i < TR; ++i)
+          #pragma unroll
+          for (int j = 0; j < TC; ++j) acc[i][j] += av[i] * gv[j];
+      }
+      #pragma unroll
+      for (int i = 0; i < TR; ++i)
+        #pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const int a = rg + kRG * i, c = cg + kCG * j;
+          if (a < n && c < pn) Fs[a * ldF + c] = -acc[i][j];
+        }
+    }
+    __syncthreads();                   // F
+
+    // The augmented system, each owned entry an FMA chain from shared
+    // memory.
+    #pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const int c = cg + kCG * j;
+      T acc[TR];
+      #pragma unroll
+      for (int i = 0; i < TR; ++i) acc[i] = T(0);
+      if (c < n) {                     // x columns
+        #pragma unroll 1
+        for (int i2 = 0; i2 < p; ++i2) {
+          #pragma unroll 4
+          for (int k = 0; k < n; ++k) {
+            const T qv = Q[(i2 * n + k) * n + c];
+            #pragma unroll
+            for (int i = 0; i < TR; ++i) {
+              const int a = rg + kRG * i - m;
+              if (a >= 0 && a < n) acc[i] += Fs[a * ldF + i2 * n + k] * qv;
+            }
+          }
+        }
+        #pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const int r = rg + kRG * i;
+          if (r < m) {                 // B^T Q_owner
+            const T* Qo = Q + own[i] * n * n;
+            T v = T(0);
+            #pragma unroll 4
+            for (int k = 0; k < n; ++k) v += Bs[k * m + r] * Qo[k * n + c];
+            acc[i] = v;
+          } else if (r < d) {          // -I + sum_i F_i Q_i
+            acc[i] += (r - m == c) ? T(-1) : T(0);
+          }
+        }
+      } else if (c < d) {              // u columns
+        #pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const int r = rg + kRG * i;
+          if (r < m)
+            acc[i] = Ub[r * m + c - n];
+          else if (r < d)
+            acc[i] = Bs[(r - m) * m + c - n];
+        }
+      } else if (c < d + pn) {         // G right-hand sides
+        const int code = gcol[c - d], blk = code >> 16, cc = code & 0xffff;
+        const T* a1 = A1 + cc * ldA;
+        #pragma unroll 4
+        for (int k = 0; k < n; ++k) {
+          const T av = a1[k];
+          #pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            const int r = rg + kRG * i;
+            if (r < m) {               // owner-embedded B^T A_{t+1}^T
+              if (own[i] == blk) acc[i] += Bs[k * m + r] * av;
+            } else if (r < d) {        // F_i A_{t+1}^T
+              acc[i] += Fs[(r - m) * ldF + blk * n + k] * av;
+            }
+          }
+        }
+      } else if (c < C) {              // y right-hand side
+        #pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const int r = rg + kRG * i;
+          if (r < m) {                 // c + B^T a_owner
+            const int o = own[i];
+            T v = bs[pn + r];
+            #pragma unroll 4
+            for (int k = 0; k < n; ++k) v += Bs[k * m + r] * bs[o * n + k];
+            acc[i] = v;
+          } else if (r < d) {          // d0 - A_t y_{t-1} + F a
+            const int a = r - m;
+            T s1 = T(0), s2 = T(0);
+            #pragma unroll 4
+            for (int k = 0; k < n; ++k) s1 += At[a * ldA + k] * yx[k];
+            #pragma unroll 4
+            for (int k = 0; k < pn; ++k) s2 += Fs[a * ldF + k] * bs[k];
+            acc[i] = bs[pn + m + a] - s1 + s2;
+          }
+        }
+      }
+      #pragma unroll
+      for (int i = 0; i < TR; ++i) tile[i][j] = acc[i];
+    }
+    __syncthreads();                   // F is dead: the step slots reuse it
+
+    // Gauss-Jordan elimination: step s publishes the multipliers
+    // M[r, s] / piv of every row in slot s & 1 (double-buffered: one
+    // barrier per step), the pivot row and 1 / piv; every row but the
+    // pivot row is updated, so that each pivot row ends with only its pivot
+    // among the unknowns' columns.
+    unsigned used = 0u;
+    int step_of[TR];
+    #pragma unroll
+    for (int i = 0; i < TR; ++i) step_of[i] = -1;
+    #pragma unroll 1
+    for (int s = 0; s < d; ++s) {
+      const int js = s >> 4;           // s / kCG
+      T* Ss = Fs + (s & 1) * d;
+      if (cg == (s & (kCG - 1))) {
+        T col[TR];
+        #pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          T v = tile[i][0];
+          #pragma unroll
+          for (int j = 1; j < TC; ++j) v = (js == j) ? tile[i][j] : v;
+          col[i] = v;
+        }
+        T best = T(-1);
+        int bi = d;
+        #pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const int r = rg + kRG * i;
+          if (r < d && !((used >> r) & 1u)) {
+            const T a = absval(col[i]);
+            if (bi == d || a > best) { best = a; bi = r; }
+          }
+        }
+        #pragma unroll
+        for (int off = kRG / 2; off > 0; off >>= 1) {
+          const T ob = __shfl_xor_sync(gmask, best, off);
+          const int oi = __shfl_xor_sync(gmask, bi, off);
+          // An empty lane (oi == d) never wins, so a column of NaNs still
+          // yields a valid pivot row.
+          if (oi != d && (bi == d || ob > best || (ob == best && oi < bi))) {
+            best = ob;
+            bi = oi;
+          }
+        }
+        const int pr = __shfl_sync(gmask, bi, gbase);
+        T mine = col[0];
+        #pragma unroll
+        for (int i = 1; i < TR; ++i) mine = ((pr >> 3) == i) ? col[i] : mine;
+        const T rinv =
+            T(1) / __shfl_sync(gmask, mine, gbase | (pr & (kRG - 1)));
+        #pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const int r = rg + kRG * i;
+          if (r < d) Ss[r] = col[i] * rinv;
+        }
+        if (rg == 0) {
+          pivrow[s] = pr;
+          rinvs[s] = rinv;
+        }
+      }
+      __syncthreads();                 // slot s
+      const int pr = pivrow[s];
+      const int src = gbase | (pr & (kRG - 1)), ipr = pr >> 3;
+      T prow[TC];
+      #pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        T v = tile[0][j];
+        #pragma unroll
+        for (int i = 1; i < TR; ++i) v = (ipr == i) ? tile[i][j] : v;
+        prow[j] = __shfl_sync(0xffffffffu, v, src);
+      }
+      #pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int r = rg + kRG * i;
+        if (r < d && r != pr) {
+          const T l = Ss[r];
+          #pragma unroll
+          for (int j = 0; j < TC; ++j) tile[i][j] -= l * prow[j];
+        }
+        if (r == pr) step_of[i] = s;
+      }
+      used |= 1u << pr;
+    }
+
+    // The unknowns: each pivot row's right-hand sides times 1 / piv.
+    #pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int r = rg + kRG * i;
+      if (r >= d) continue;
+      const T rinv = rinvs[step_of[i]];
+      #pragma unroll
+      for (int j = 0; j < TC; ++j)
+        if (cg + kCG * j >= d) tile[i][j] *= rinv;
+    }
+
+    // Outputs in (x, u) row order = step order (x columns first); the
+    // carry keeps the x rows.
+    #pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int r = rg + kRG * i;
+      if (r >= d) continue;
+      const int var = step_of[i];
+      #pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const int c = cg + kCG * j - d;
+        if (c < 0 || c > pn) continue;
+        const T v = tile[i][j];
+        if (c < pn) {
+          G_out[(kt * d + var) * pn + c] = v;
+          if (var < n) Gx[var * ldF + c] = v;
+        } else {
+          y_out[kt * d + var] = v;
+          if (var < n) yx[var] = v;
+        }
+      }
+    }
+    slot = slot1;
+  }
+}
+
+}  // namespace thomas_core

@@ -34,30 +34,43 @@
 // derived by hand; the quadrotor's comes from forward-mode dual numbers over
 // the player's attitude, rate and rotor inputs (see Quadrotor).  The pull of
 // player i's multiplier is picked for player i's own control rows.  One
-// compiled kernel per (model, type); the model's constants are kernel
-// arguments.
+// compiled kernel per (model, threads per knot, type); the model's
+// constants are kernel arguments.
 //
-// What bounds it on the card: latency.  The trial reads the iterate and the
-// step (x, u, lam: a few KB per lane in f32, twice) plus the AL state and
-// writes the carried point, at a few flops per byte, so at full occupancy
-// it would be bound by device-memory bytes; but a batch of 1,024 lanes
-// gives about eight warps per SM, too few to hide the per-knot loads and
-// the transcendental chains.  The design is a single pass: one warp per
-// lane, one thread per knot (a loop over knots when T > 32), every
-// intermediate in registers, thread-local or shared memory, and one
-// warp-shuffle sum for the norm.  The static structure (block kinds,
-// owners, indices, bound masks, cylinder axes, collision-cost pairs)
-// travels as a by-value parameter table, so one compiled kernel serves any
-// player count and block list; the family parameters (radii, centres, wall
-// corners, bounds, pair weights) are small device arrays.  State bounds
-// read their AL state only at finite rows and write 0 at the others, as the
-// masked bound evaluation does; gated rows (walls, cylinders) use the
-// reference's strict comparisons and are exactly 0 outside their gates.
+// What bounds it on the card: the latency of each knot's chain of loads,
+// transcendentals and VJPs, not bytes (on the roundabout 0.0447 ms of
+// device-memory traffic for 1,024 lanes, against 0.31 ms for the earlier
+// one-warp kernel and 0.20 ms for this one; H100 80GB HBM3 at 700 W, f32,
+// tests/trial_compare.py).  That kernel gave a lane one warp, one thread
+// per knot, so the roundabout's 39 knots ran as two passes, the second on 7
+// of 32 threads, each thread reading its knot's strided rows of x, u and
+// lam from device memory.  This one gives a lane ceil(T TPK / 32) warps and
+// makes one pass: TPK threads per knot, a compile-time policy of the
+// instance (two for the unicycle games of four or more players, one
+// elsewhere), split the knot's state blocks, collision-cost pairs and
+// control-bound rows by owner and then its players, meeting at one warp
+// barrier; the instances whose knots read many values (unicycle, bicycle,
+// quadrotor) first stage the lane's trial point, iterate and trial
+// multipliers in shared memory with 16-byte loads, so that neighbouring
+// threads read neighbouring addresses.  The roundabout's lane then holds
+// ~40 KB of shared memory: 5 lanes per SM, two waves at B=1024.  The
+// double integrators read device memory directly, as before: their knots
+// read few values and staging cost more than it saved.  Every intermediate
+// stays in registers, thread-local or shared memory; the norm is summed by
+// warp shuffles, then over the warps in order.  The static structure
+// (block kinds, owners, indices, bound masks, cylinder axes, collision-cost
+// pairs) travels as a by-value parameter table, so one compiled kernel
+// serves any player count and block list; the family parameters (radii,
+// centres, wall corners, bounds, pair weights) are small device arrays.
+// State bounds read their AL state only at finite rows and write 0 at the
+// others, as the masked bound evaluation does; gated rows (walls,
+// cylinders) use the reference's strict comparisons and are exactly 0
+// outside their gates.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kMaxThreads = 256;  // threads per lane: ceil(T TPK / 32) warps
 constexpr int kMaxSB = 64;    // state blocks
 constexpr int kMaxCB = 4;     // control-bound blocks
 constexpr int kMaxM = 32;     // control dimension
@@ -210,6 +223,7 @@ struct Blocked {
 template <typename T>
 struct Unicycle {
   static constexpr int NI = 4, MI = 2;
+  static constexpr bool kStage = true;
   using Layout = Interleaved<MI>;
   struct Lin {
     T s, c, v;
@@ -243,6 +257,7 @@ struct Unicycle {
 template <typename T, int D>
 struct DoubleIntegrator {
   static constexpr int NI = 2 * D, MI = D;
+  static constexpr bool kStage = false;
   using Layout = Interleaved<MI>;
   struct Lin {};
   __device__ explicit DoubleIntegrator(const ModelConst&) {}
@@ -284,6 +299,7 @@ struct HeteroDoubleIntegrator : DoubleIntegrator<T, D> {
 template <typename T>
 struct Bicycle {
   static constexpr int NI = 4, MI = 2;
+  static constexpr bool kStage = true;
   using Layout = Interleaved<MI>;
   struct Lin {
     T v, sh, ch, sb, cb, db;
@@ -410,6 +426,7 @@ __device__ __forceinline__ Dual<T> thrust(Dual<T> z, T beta) {
 template <typename T>
 struct Quadrotor {
   static constexpr int NI = 12, MI = 4;
+  static constexpr bool kStage = true;
   using Layout = Interleaved<MI>;
   struct Lin {
     const T *x, *u;
@@ -504,27 +521,99 @@ struct TrialArgs {
   T dt, eps_n;
 };
 
+// The lane's trial point and current iterate, staged in shared memory
+// (rows at an odd stride, so that the knots of a warp read different
+// banks): trial x [N], current x [N], trial u [T], current u [T], trial
+// lam [p, T], each row of n (or m) values.
 template <typename T>
 struct Lane {
+  const T *xt, *x0, *ut, *u0, *lt;
+  int Tn, n, m, ldx, ldu;
+  __device__ T X(int k, int c) const { return xt[k * ldx + c]; }
+  __device__ T U(int k, int c) const { return ut[k * ldu + c]; }
+  __device__ T Lm(int i, int k, int c) const {
+    return lt[(i * Tn + k) * ldx + c];
+  }
+  // The current iterate (the Tikhonov pull's anchor).
+  __device__ T X0(int k, int c) const { return x0[k * ldx + c]; }
+  __device__ T U0(int k, int c) const { return u0[k * ldu + c]; }
+};
+
+// 16 bytes of T, and component k (a compile-time constant once unrolled:
+// no address is taken, so the vector stays in registers).
+// The same accessors reading device memory directly, for instances that
+// do not stage (the double integrators, whose knots read few values),
+// through the read-only data path: the compiler may then issue them ahead
+// of the knot's stores (with plain loads these µs-long trials ran 4-6%
+// longer than the one-warp kernel's on an H100; with __ldg they match it,
+// tests/trial_compare.py).
+template <typename T>
+struct GlobalLane {
   const T *x, *u, *lam, *dx, *du, *dlam;
   T al;
   int Tn, n, m;
   __device__ T X(int k, int c) const {
     const int o = k * n + c;
-    return x[o] + al * dx[o];
+    return __ldg(x + o) + al * __ldg(dx + o);
   }
   __device__ T U(int k, int c) const {
     const int o = k * m + c;
-    return u[o] + al * du[o];
+    return __ldg(u + o) + al * __ldg(du + o);
   }
   __device__ T Lm(int i, int k, int c) const {
     const int o = (i * Tn + k) * n + c;
-    return lam[o] + al * dlam[o];
+    return __ldg(lam + o) + al * __ldg(dlam + o);
   }
-  // The current iterate (the Tikhonov pull's anchor).
-  __device__ T X0(int k, int c) const { return x[k * n + c]; }
-  __device__ T U0(int k, int c) const { return u[k * m + c]; }
+  __device__ T X0(int k, int c) const { return __ldg(x + k * n + c); }
+  __device__ T U0(int k, int c) const { return __ldg(u + k * m + c); }
 };
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+__device__ __forceinline__ float comp(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ double comp(const double2& v, int k) {
+  return k == 0 ? v.x : v.y;
+}
+
+// Stage ``rows`` rows of ``len`` values (contiguous in device memory):
+// trial = cur + al del at row stride ``ld``, and ``cur`` itself where
+// ``keep`` is not null.  Neighbouring threads read neighbouring 16-byte
+// pieces where the lane's rows start on 16 bytes, else neighbouring values.
+template <typename T>
+__device__ __forceinline__ void stage(T* trial, T* keep, const T* cur,
+                                      const T* del, T al, int rows, int len,
+                                      int ld) {
+  using V = typename Vec16<T>::type;
+  constexpr int per = 16 / (int)sizeof(T);
+  const int total = rows * len, tid = threadIdx.x, nth = blockDim.x;
+  const bool v16 = ((reinterpret_cast<size_t>(cur) |
+                     reinterpret_cast<size_t>(del)) & 15) == 0 &&
+                   total % per == 0;
+  if (v16) {
+    const V* cv = reinterpret_cast<const V*>(cur);
+    const V* dv = reinterpret_cast<const V*>(del);
+    for (int e = tid; e < total / per; e += nth) {
+      const V c4 = cv[e], d4 = dv[e];
+      #pragma unroll
+      for (int k = 0; k < per; ++k) {
+        const int f = e * per + k, r = f / len, c = f - r * len;
+        const T v = comp(c4, k);
+        trial[r * ld + c] = v + al * comp(d4, k);
+        if (keep) keep[r * ld + c] = v;
+      }
+    }
+  } else {
+    for (int f = tid; f < total; f += nth) {
+      const int r = f / len, c = f - r * len;
+      const T v = cur[f];
+      trial[r * ld + c] = v + al * del[f];
+      if (keep) keep[r * ld + c] = v;
+    }
+  }
+}
 
 // AL weight of one row: lam + Irho c with Irho = mu where c >= 0 or lam > 0.
 template <typename T>
@@ -537,8 +626,8 @@ __device__ __forceinline__ T al_weight(T cv, T lc, T mu) {
 // expression, d0^2 + d1^2, so that its rounding (and the compiler's
 // contraction into fused multiply-adds) stays that of the unicycle kernel
 // this one grew from.
-template <typename T>
-__device__ __forceinline__ T sqdist(const Lane<T>& L, int k,
+template <typename T, class LaneT>
+__device__ __forceinline__ T sqdist(const LaneT& L, int k,
                                     const unsigned char* a,
                                     const unsigned char* b, int dim, T* d) {
   #pragma unroll
@@ -549,12 +638,17 @@ __device__ __forceinline__ T sqdist(const Lane<T>& L, int k,
 }
 
 // State blocks at knot t+1: values into sc, AL gradients into alx [p n].
-template <typename T>
+// Thread q of the knot's TPK takes the blocks whose owner is q mod TPK, so
+// each owner's gradient is summed by one thread in block order.
+template <typename T, int TPK, class LaneT>
 __device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
-                             const Lane<T>& L, int b, int t, T* alx) {
+                             const LaneT& L, int b, int t, T* alx, int q) {
   const int n = L.n, Tn = L.Tn;
   for (int k = 0; k < A.nsb; ++k) {
     const SBlock& sb = meta.sb[k];
+    if constexpr (TPK > 1) {
+      if ((sb.owner & (TPK - 1)) != q) continue;
+    }
     T* g = alx + sb.owner * n;
     const size_t o0 = ((size_t)b * A.csum + sb.row) * Tn + t;
     const T* par = A.spar + sb.par;
@@ -681,29 +775,32 @@ __device__ void rk2_mid(const Model& mdl, const T* x, const T* u, T dt,
   for (int c = 0; c < Model::NI; ++c) mid[c] = x[c] + T(0.5) * (f0[c] * dt);
 }
 
-// One knot of the trial: returns ``part`` plus the knot's terms of the
-// 1-norm, added in the order (and grouping) of the unicycle kernel this one
-// grew from: per player its dynamics rows as one sum, then its control rows
-// as one sum; then every statx row, one at a time.
-template <typename T, class Model>
-__device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
-                        const TrialMeta& meta, const Lane<T>& L, int b, int t,
-                        T* alx, T* alu, T* cgx, T part) {
-  constexpr int NI = Model::NI, MI = Model::MI;
-  using Lay = typename Model::Layout;
-  const Model mdl(mc);
-  const int p = A.p, n = L.n, m = L.m, N = A.N, Tn = L.Tn;
-  const T dt = A.dt, half = T(0.5), halfdt = half * dt;
-  const T rg = A.reg[b];
-  for (int c = 0; c < p * n; ++c) alx[c] = T(0);
-  for (int c = 0; c < m; ++c) alu[c] = T(0);
-  const T scale = (t + 1 < N - 1) ? dt : T(1);
+// One knot of the trial is shared by its TPK threads (q = 0 .. TPK-1,
+// neighbouring lanes of one warp; TPK = 1: one thread per knot).  First
+// (knot_blocks) thread q evaluates the state blocks and collision-cost
+// pairs owned by the players q mod TPK and the control-bound rows q mod
+// TPK into the knot's shared alx [p n], alu [m], cgx [p n]: each owner's
+// gradient is summed by one thread, in block order.  Then, after a warp
+// barrier, knot_rows adds the dynamics, control and statx rows of the
+// players q mod TPK to the thread's part of the 1-norm.
 
-  state_blocks(A, meta, L, b, t, alx);
+// The knot's constraint and collision-cost terms (see above).
+template <typename T, int TPK, class LaneT>
+__device__ void knot_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
+                            const LaneT& L, int b, int t, int q, T* alx,
+                            T* alu, T* cgx) {
+  const int p = A.p, n = L.n, m = L.m, N = A.N, Tn = L.Tn;
+  const T dt = A.dt;
+  const T scale = (t + 1 < N - 1) ? dt : T(1);
+  for (int o = q; o < p; o += TPK)
+    for (int c = 0; c < n; ++c) alx[o * n + c] = T(0);
+  for (int c = q; c < m; c += TPK) alu[c] = T(0);
+
+  state_blocks<T, TPK>(A, meta, L, b, t, alx, q);
   // Control-bound blocks: c = [u - z_max; z_min - u] (masked rows 0).
   for (int k = 0; k < A.ncb; ++k) {
     const size_t o = (((size_t)b * A.ncb + k) * Tn + t) * 2 * m;
-    for (int j = 0; j < m; ++j) {
+    for (int j = q; j < m; j += TPK) {
       const T uj = L.U(t, j);
       const bool mu_ = meta.c_mask[k][j], ml_ = meta.c_mask[k][m + j];
       const T cu = mu_ ? uj - A.zmax[k * m + j] : T(0);
@@ -719,9 +816,13 @@ __device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
   // pushed off player j while |delta| < r,
   //   g = mu (r (eps + delta) / (eps_n + |delta|) - delta).
   if (A.npair) {
-    for (int c = 0; c < p * n; ++c) cgx[c] = T(0);
+    for (int o = q; o < p; o += TPK)
+      for (int c = 0; c < n; ++c) cgx[o * n + c] = T(0);
     for (int k = 0; k < A.npair; ++k) {
       const unsigned char* pr = meta.pair[k];
+      if constexpr (TPK > 1) {
+        if ((pr[0] & (TPK - 1)) != q) continue;
+      }
       const int dim = pr[1];
       T d[3];
       const T dn = dsqrt(sqdist(L, t + 1, pr + 2, pr + 5, dim, d));
@@ -738,10 +839,27 @@ __device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
       }
     }
   }
+}
+
+// The knot's dynamics, control and statx rows of the players q mod TPK:
+// returns ``part`` plus their terms of the 1-norm, added in the order (and
+// grouping) of the unicycle kernel this one grew from: per player its
+// dynamics rows as one sum, then its control rows as one sum; then every
+// statx row, one at a time.
+template <typename T, class Model, int TPK, class LaneT>
+__device__ T knot_rows(const TrialArgs<T>& A, const ModelConst& mc,
+                       const LaneT& L, int b, int t, int q, T rg,
+                       const T* alx, const T* alu, const T* cgx, T part) {
+  constexpr int NI = Model::NI, MI = Model::MI;
+  using Lay = typename Model::Layout;
+  const Model mdl(mc);
+  const int p = A.p, n = L.n, m = L.m, N = A.N, Tn = L.Tn;
+  const T dt = A.dt, half = T(0.5), halfdt = half * dt;
+  const T scale = (t + 1 < N - 1) ? dt : T(1);
 
   // Dynamics rows and control rows: player j's RK2 step at knot t and the
   // pull of its own multiplier onto its controls.
-  for (int j = 0; j < p; ++j) {
+  for (int j = q; j < p; j += TPK) {
     T xj[NI], uj[MI], mid[NI], fm[NI], g[NI], gx[NI], gu[MI], hu[MI];
     #pragma unroll
     for (int c = 0; c < NI; ++c) xj[c] = L.X(t, Lay::x(c, j, p));
@@ -783,7 +901,7 @@ __device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
   // computed on zeros, as every other thread of the warp computes its own,
   // and dropped.
   const bool has_next = t + 1 < Tn;
-  for (int j = 0; j < p; ++j) {
+  for (int j = q; j < p; j += TPK) {
     T x1[NI], u1[MI], mid1[NI];
     #pragma unroll
     for (int c = 0; c < NI; ++c) x1[c] = L.X(t + 1, Lay::x(c, j, p));
@@ -818,38 +936,35 @@ __device__ T knot_trial(const TrialArgs<T>& A, const ModelConst& mc,
   return part;
 }
 
-// Partial 1-norm of thread ``tid``'s knots of lane b.
-template <typename T, class Model>
-__device__ T lane_part(const TrialArgs<T>& A, const ModelConst& mc,
-                       const TrialMeta& meta, int b, int tid, T* smem) {
-  constexpr int NI = Model::NI;
-  const int p = A.p, n = NI * p, m = Model::Layout::m(mc, p), Tn = A.N - 1;
-  const int per = p * n + m + (A.npair ? p * n : 0);
-  T* alx = smem + tid * per;                              // AL grads
-  T* alu = alx + p * n;
-  T* cgx = alu + m;                                        // pair grads
-  Lane<T> L;
-  L.x = A.x + (size_t)b * A.N * n;
-  L.u = A.u + (size_t)b * Tn * m;
-  L.lam = A.lam + (size_t)b * p * Tn * n;
-  L.dx = A.dx + (size_t)b * A.N * n;
-  L.du = A.du + (size_t)b * Tn * m;
-  L.dlam = A.dlam + (size_t)b * p * Tn * n;
-  L.al = A.alpha[b];
-  L.Tn = Tn; L.n = n; L.m = m;
-  T part = T(0);
-  for (int t = tid; t < Tn; t += kThreads)
-    part = knot_trial<T, Model>(A, mc, meta, L, b, t, alx, alu, cgx, part);
-  return part;
+// Threads of a lane: ceil(T TPK / 32) warps, at most kMaxThreads (longer
+// horizons loop over the knots).
+template <int TPK>
+int lane_threads(int Tn) {
+  const int want = (Tn * TPK + 31) / 32 * 32;
+  return want < kMaxThreads ? want : kMaxThreads;
 }
 
-template <typename T, class Model>
-size_t smem_bytes(const TrialArgs<T>& A) {
-  // Room for MI p controls, at least the model's m.
-  const int n = Model::NI * A.p, m = Model::MI * A.p;
-  const int per = A.p * n + m + (A.npair ? A.p * n : 0);
-  return (size_t)kThreads * per * sizeof(T);
-}
+// Shared memory of a lane, in scalars: the staged trial point and iterate
+// (see Lane; none without ``stage``), then per knot group (the TPK threads
+// of one knot) its alx, alu and, with collision-cost pairs, cgx.
+struct LaneLayout {
+  int ldx, ldu, xt, x0, ut, u0, lt, work, per, total;
+  __host__ __device__ LaneLayout(int N, int n, int m, int p, int npair,
+                                 int groups, bool stage) {
+    const int Tn = N - 1, rows = stage ? 1 : 0;
+    ldx = n | 1;
+    ldu = m | 1;
+    int o = 0;
+    xt = o; o += rows * N * ldx;
+    x0 = o; o += rows * N * ldx;
+    ut = o; o += rows * Tn * ldu;
+    u0 = o; o += rows * Tn * ldu;
+    lt = o; o += rows * p * Tn * ldx;
+    per = p * n + m + (npair ? p * n : 0);
+    work = o; o += groups * per;
+    total = o;
+  }
+};
 
 // The parameter table from the wrapper's flat int arrays.  s_meta per state
 // block: kind, owner, row, par, cnt, a0..a5; s_mask per block; p_meta per
@@ -882,38 +997,138 @@ bool make_meta(const int* s_meta, const unsigned long long* s_mask,
 
 // --- kernel and launch -------------------------------------------------------
 
-template <typename T, class Model>
-__global__ void __launch_bounds__(kThreads) trial_fused_kernel(
-    const __grid_constant__ TrialArgs<T> A,
-    const __grid_constant__ ModelConst mc,
-    const __grid_constant__ TrialMeta meta) {
+// Knot groups (TPK threads each) that hold work arrays: one per knot of a
+// pass.
+__host__ __device__ __forceinline__ int work_groups(int nth, int tpk,
+                                                   int Tn) {
+  return nth / tpk < Tn ? nth / tpk : Tn;
+}
+
+// The thread's part of the lane's 1-norm: one pass over the knots (a loop
+// past kMaxThreads), TPK threads each, with the knot group's alx, alu and
+// cgx at ``work``.  The lane's Tikhonov weight is read before the knots'
+// stores, which the compiler may not move a later read across.
+template <typename T, class Model, int TPK, class LaneT>
+__device__ T lane_part(const TrialArgs<T>& A, const ModelConst& mc,
+                       const TrialMeta& meta, const LaneT& L, int b, T* work,
+                       int per) {
+  const int tid = threadIdx.x, groups = blockDim.x / TPK;
+  const int g = tid / TPK, q = tid & (TPK - 1);
+  T* alx = work + g * per;                                 // AL grads
+  T* alu = alx + A.p * L.n;
+  T* cgx = alu + L.m;                                      // pair grads
+  const T rg = A.reg[b];
+  T part = T(0);
+  for (int t0 = 0; t0 < L.Tn; t0 += groups) {
+    const int t = t0 + g;
+    if (t < L.Tn) knot_blocks<T, TPK>(A, meta, L, b, t, q, alx, alu, cgx);
+    if constexpr (TPK > 1) __syncwarp();
+    if (t < L.Tn)
+      part = knot_rows<T, Model, TPK>(A, mc, L, b, t, q, rg, alx, alu, cgx,
+                                      part);
+    if constexpr (TPK > 1) __syncwarp();   // the group's alx, alu, cgx free
+  }
+  return part;
+}
+
+// One lane's trial, in one block: the lane's inputs staged in shared memory
+// (models with Model::kStage), one pass over the knots, the 1-norm summed
+// by warp shuffles and then over the warps in order.
+template <typename T, class Model, int TPK>
+__device__ __forceinline__ void trial_lane(const TrialArgs<T>& A,
+                                           const ModelConst& mc,
+                                           const TrialMeta& meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.x, tid = threadIdx.x;
-  T part = lane_part<T, Model>(A, mc, meta, b, tid,
-                               reinterpret_cast<T*>(smem_raw));
+  __shared__ T warp_part[kMaxThreads / 32];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int b = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
+  const int p = A.p, n = Model::NI * p, m = Model::Layout::m(mc, p);
+  const int N = A.N, Tn = N - 1;
+  const LaneLayout S(N, n, m, p, A.npair, work_groups(nth, TPK, Tn),
+                     Model::kStage);
+  const T al = A.alpha[b];
+  const size_t ox = (size_t)b * N * n, ou = (size_t)b * Tn * m,
+               ol = (size_t)b * p * Tn * n;
+  T part;
+  if constexpr (Model::kStage) {
+    stage(sm + S.xt, sm + S.x0, A.x + ox, A.dx + ox, al, N, n, S.ldx);
+    stage(sm + S.ut, sm + S.u0, A.u + ou, A.du + ou, al, Tn, m, S.ldu);
+    stage(sm + S.lt, (T*)nullptr, A.lam + ol, A.dlam + ol, al, p * Tn, n,
+          S.ldx);
+    __syncthreads();
+    const Lane<T> L{sm + S.xt, sm + S.x0, sm + S.ut, sm + S.u0, sm + S.lt,
+                    Tn, n, m, S.ldx, S.ldu};
+    part = lane_part<T, Model, TPK>(A, mc, meta, L, b, sm + S.work, S.per);
+  } else {
+    const GlobalLane<T> L{A.x + ox, A.u + ou, A.lam + ol, A.dx + ox,
+                          A.du + ou, A.dlam + ol, al, Tn, n, m};
+    part = lane_part<T, Model, TPK>(A, mc, meta, L, b, sm + S.work, S.per);
+  }
   for (int off = 16; off > 0; off >>= 1)
     part += __shfl_down_sync(0xffffffffu, part, off);
+  if (nth > 32) {
+    if ((tid & 31) == 0) warp_part[tid >> 5] = part;
+    __syncthreads();
+    if (tid == 0)
+      for (int w = 1; w < nth / 32; ++w) part += warp_part[w];
+  }
   if (tid == 0) A.tn[b] = part / T(A.S);
 }
 
-template <typename T, class Model>
+// One block per lane.  No __launch_bounds__: with one (of 32 to 256
+// threads) ptxas kept several f32 instances near 64 registers and spilled
+// (CUDA 12.9, -Xptxas -v); without, none spills and every stack frame is at
+// most the earlier one-warp kernel's.
+template <typename T, class Model, int TPK>
+__global__ void trial_fused_kernel(const __grid_constant__ TrialArgs<T> A,
+                                   const __grid_constant__ ModelConst mc,
+                                   const __grid_constant__ TrialMeta meta) {
+  trial_lane<T, Model, TPK>(A, mc, meta);
+}
+
+// Lanes per SM of an instance for a game of horizon N - 1 knots, p
+// players and (with npair) collision-cost pairs; -1 on error.
+template <typename T, class Model, int TPK>
+int occupancy(const double* mconst, int N, int p, int npair) {
+  ModelConst mc;
+  for (int k = 0; k < kMaxConst; ++k) mc.c[k] = mconst[k];
+  const int nth = lane_threads<TPK>(N - 1);
+  const LaneLayout S(N, Model::NI * p, Model::Layout::m(mc, p), p, npair,
+                     work_groups(nth, TPK, N - 1), Model::kStage);
+  const size_t bytes = (size_t)S.total * sizeof(T);
+  const auto kernel = trial_fused_kernel<T, Model, TPK>;
+  if (bytes > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes))
+    return -1;
+  int lanes = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&lanes, kernel, nth,
+                                                    bytes))
+    return -1;
+  return lanes;
+}
+
+template <typename T, class Model, int TPK>
 int run_kernel(const TrialArgs<T>& A, const ModelConst& mc,
                const TrialMeta& meta, int B, void* stream) {
-  const size_t bytes = smem_bytes<T, Model>(A);
+  const int nth = lane_threads<TPK>(A.N - 1);
+  const LaneLayout S(A.N, Model::NI * A.p, Model::Layout::m(mc, A.p), A.p,
+                     A.npair, work_groups(nth, TPK, A.N - 1), Model::kStage);
+  const size_t bytes = (size_t)S.total * sizeof(T);
+  const auto kernel = trial_fused_kernel<T, Model, TPK>;
   if (bytes > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
-        trial_fused_kernel<T, Model>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err) return err;
   }
-  trial_fused_kernel<T, Model><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
-      A, mc, meta);
+  kernel<<<B, nth, bytes, (cudaStream_t)stream>>>(A, mc, meta);
   return (int)cudaGetLastError();
 }
 
 // --- end of kernel and launch ------------------------------------------------
 
-template <typename T, class Model>
+template <typename T, class Model, int TPK>
 int launch(const void* const* in, void* const* out, const double* mconst,
            const int* s_meta, const unsigned long long* s_mask,
            const int* p_meta, const unsigned char* c_mask, int B, int N,
@@ -936,38 +1151,48 @@ int launch(const void* const* in, void* const* out, const double* mconst,
   for (int k = 0; k < 6; ++k) *outs[k] = (T*)out[k];
   A.N = N; A.p = p; A.nsb = nsb; A.csum = csum; A.ncb = ncb;
   A.npair = npair; A.S = S; A.dt = (T)dt; A.eps_n = (T)eps_n;
-  return run_kernel<T, Model>(A, mc, meta, B, stream);
+  return run_kernel<T, Model, TPK>(A, mc, meta, B, stream);
 }
 
 }  // namespace
 
-// trial_fused_<model>_<type>(inputs [20], outputs [6], model constants [12],
-// tables, sizes, stream): the operands in the order of TrialArgs.
-#define TRIAL_EXPORT(NAME, SUFFIX, T, MODEL)                                  \
+// trial_fused_<instance>_<type>(inputs [20], outputs [6], model constants
+// [12], tables, sizes, stream): the operands in the order of TrialArgs;
+// trial_fused_<instance>_<type>_occupancy: its lanes per SM.
+// An instance is a model with its threads per knot (TPK): one, or two for
+// the unicycle games of four or more players ("unicycle_spread"), whose
+// knots carry the most blocks and pairs (on the roundabout's trials two
+// threads per knot ran faster than one or four on an H100).
+#define TRIAL_EXPORT(NAME, SUFFIX, T, MODEL, TPK)                             \
   extern "C" int trial_fused_##NAME##_##SUFFIX(                               \
       const void* const* in, void* const* out, const double* mconst,          \
       const int* s_meta, const unsigned long long* s_mask, const int* p_meta, \
       const unsigned char* c_mask, int B, int N, int p, int nsb, int csum,    \
       int ncb, int npair, int S, double dt, double eps_n, void* stream) {     \
-    return launch<T, MODEL>(in, out, mconst, s_meta, s_mask, p_meta, c_mask,  \
-                            B, N, p, nsb, csum, ncb, npair, S, dt, eps_n,     \
-                            stream);                                          \
+    return launch<T, MODEL, TPK>(in, out, mconst, s_meta, s_mask, p_meta,     \
+                                 c_mask, B, N, p, nsb, csum, ncb, npair, S,   \
+                                 dt, eps_n, stream);                          \
+  }                                                                           \
+  extern "C" int trial_fused_##NAME##_##SUFFIX##_occupancy(                   \
+      const double* mconst, int N, int p, int npair) {                        \
+    return occupancy<T, MODEL, TPK>(mconst, N, p, npair);                     \
   }
-#define TRIAL_EXPORT_BOTH(NAME, MODEL)                                        \
-  TRIAL_EXPORT(NAME, f32, float, MODEL<float>)                                \
-  TRIAL_EXPORT(NAME, f64, double, MODEL<double>)
+#define TRIAL_EXPORT_BOTH(NAME, MODEL, TPK)                                   \
+  TRIAL_EXPORT(NAME, f32, float, MODEL<float>, TPK)                           \
+  TRIAL_EXPORT(NAME, f64, double, MODEL<double>, TPK)
 
 template <typename T> using DoubleIntegrator2 = DoubleIntegrator<T, 2>;
 template <typename T> using DoubleIntegrator3 = DoubleIntegrator<T, 3>;
 template <typename T> using HeteroDoubleIntegrator2 =
     HeteroDoubleIntegrator<T, 2>;
 
-TRIAL_EXPORT_BOTH(unicycle, Unicycle)
-TRIAL_EXPORT_BOTH(di2, DoubleIntegrator2)
-TRIAL_EXPORT_BOTH(di3, DoubleIntegrator3)
-TRIAL_EXPORT_BOTH(hdi2, HeteroDoubleIntegrator2)
-TRIAL_EXPORT_BOTH(bicycle, Bicycle)
-TRIAL_EXPORT_BOTH(quadrotor, Quadrotor)
+TRIAL_EXPORT_BOTH(unicycle, Unicycle, 1)
+TRIAL_EXPORT_BOTH(unicycle_spread, Unicycle, 2)
+TRIAL_EXPORT_BOTH(di2, DoubleIntegrator2, 1)
+TRIAL_EXPORT_BOTH(di3, DoubleIntegrator3, 1)
+TRIAL_EXPORT_BOTH(hdi2, HeteroDoubleIntegrator2, 1)
+TRIAL_EXPORT_BOTH(bicycle, Bicycle, 1)
+TRIAL_EXPORT_BOTH(quadrotor, Quadrotor, 1)
 
 extern "C" const char* trial_fused_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

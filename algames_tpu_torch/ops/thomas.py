@@ -17,13 +17,16 @@ with ``m = p max(mi)`` and ``owner[r] = r // max(mi)``, and gathers the
 solution back to natural control order.  The padded unknowns solve
 ``1 * u_pad = 0`` exactly.  K1 stays homogeneous, as in the reference.
 
-On the card the sweep is bound by the latency of its dependent chain (T
-knots x d pivot steps, one block barrier each), not by bytes or flops: at
-flagship shapes a lane moves ~160 KB over both launches and does ~1.2 MFLOP.
-The design keeps the whole per-knot working set (operands, the (G, y) carry,
-the augmented d x (d+R) system) in shared memory and runs one independent
-lane per block, so the batch fills the SMs with independent chains.  See the
-sources for the details.
+K1 keeps the whole per-knot working set (operands, the (G, y) carry, the
+augmented d x (d+R) system) in shared memory, one lane per 128-thread
+block.  K3's forward kernel holds the augmented system in registers, one
+fixed tile per thread, with one block barrier per pivot step and the next
+knot's operands copied in while a knot is eliminated
+(``csrc/thomas_dense_core.cuh``); its size classes cover d = n + m <= 24
+and d + p n + 1 <= 96 (the library's ``thomas_dense_tiled_fits``), and
+wider systems take the shared-memory forward kernel of K1's design, counted
+apart in ``solve_thomas.big_launches``.  See the sources for what bounds
+each on the card.
 
 Each wrapper takes its plain PyTorch version (``problem.linear_solver
 .solve_tridiagonal_schur``, after densifying Q for K1) for CPU tensors only;
@@ -32,6 +35,8 @@ or K3 by the form of the Hessian blocks, ``kkt_solve_plain`` their plain
 versions.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -152,13 +157,28 @@ def solve_thomas_plain(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
     return solve_tridiagonal_schur(spec, jb, b)
 
 
+@functools.lru_cache(maxsize=None)
+def _dense_route(lib, n: int, m: int, p: int, dtype) -> str:
+    """K3's forward route at these widths: ``""`` for the register-tiled
+    kernel where one of its size classes fits (``csrc/thomas_dense.cu::
+    tiled_kernel``), else ``"big_"`` for the shared-memory kernel.  Asked
+    once per shape, so that a call binds only its two launchers."""
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    fits = build.bind(lib, f"thomas_dense_tiled_fits_{sfx}", [build.I] * 3)
+    return "" if fits(n, m, p) else "big_"
+
+
 def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p) -> torch.Tensor:
     """Run K3's forward and backward kernels on [B, T, ...] operands with
-    ``m`` control rows owned per ``owner``; returns y [B, T, n + m + p n]."""
+    ``m`` control rows owned per ``owner``; returns y [B, T, n + m + p n].
+    The forward kernel is the register-tiled one where a size class fits,
+    else the shared-memory one (counted by ``solve_thomas.big_launches``)."""
     lib = build.load(_LIB_DENSE)
     sfx = "f32" if b.dtype == torch.float32 else "f64"
+    route = _dense_route(lib, n, m, p, b.dtype)
     P, I = build.P, build.I
-    fwd = build.bind(lib, f"thomas_dense_fwd_{sfx}", [P] * 8 + [I] * 5 + [P])
+    fwd = build.bind(lib, f"thomas_dense_fwd_{route}{sfx}",
+                     [P] * 8 + [I] * 5 + [P])
     bwd = build.bind(lib, f"thomas_dense_bwd_{sfx}", [P] * 6 + [I] * 5 + [P])
     Bsz, T = b.shape[:2]
     d, pn = n + m, p * n
@@ -175,7 +195,21 @@ def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p) -> torch.Tensor:
         build.check(lib, _LIB_DENSE, bwd(
             G.data_ptr(), yhat.data_ptr(), Q.data_ptr(), A.data_ptr(),
             b.data_ptr(), y.data_ptr(), Bsz, T, n, m, p, stream))
+    if route:
+        solve_thomas.big_launches += 1
     return y
+
+
+def dense_forward(n: int, m: int, p: int, dtype):
+    """The forward kernel that K3 runs at these widths (``m``: the padded
+    control rows): ``(register-tiled or not, lanes per SM from the CUDA
+    runtime)``; needs a card."""
+    lib = build.load(_LIB_DENSE)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    route = _dense_route(lib, n, m, p, dtype)
+    fn = build.bind(lib, f"thomas_dense_occupancy_{route}{sfx}",
+                    [build.I] * 3)
+    return not route, fn(n, m, p)
 
 
 def solve_thomas(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
@@ -201,6 +235,7 @@ def solve_thomas(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
 
 
 solve_thomas.launches = 0
+solve_thomas.big_launches = 0
 
 
 def kkt_solve(spec, blocks, b: torch.Tensor, w_owner) -> torch.Tensor:

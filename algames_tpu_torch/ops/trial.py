@@ -9,8 +9,8 @@ for every model and constraint family its hand-written kernel does not
 cover.  Both are one CUDA C++ source, ``csrc/trial_fused.cu`` (library
 ``trial_fused``), compiled once per model (unicycle, double integrator in 2
 or 3 dimensions, the planar heterogeneous double integrator, bicycle,
-quadrotor) and type: the model is a template parameter of the
-kernel, with its layout (interleaved, or player-blocked with ragged
+quadrotor), threads per knot and type: the model is a template parameter
+of the kernel, with its layout (interleaved, or player-blocked with ragged
 controls) as a compile-time policy; its constants are kernel arguments, and
 the state
 blocks (collision in 2 or 3 dimensions, circle, 2D wall, 3D wall, cylinder,
@@ -21,13 +21,14 @@ gates) and loops over players and blocks, which maps directly onto one
 thread per knot; in Triton it would have to be recast as padded power-of-two
 tiles with gathers.
 
-On the card the trial is bound by latency, not by bytes: at a few flops per
-byte it would be memory-bound at full occupancy, but a batch of 1,024 lanes
-gives only about eight warps per SM to hide the per-knot loads and the
-transcendental chains.  The kernel makes one pass, one warp per lane and one
-thread per knot, with all intermediates on chip and a warp-shuffle sum for
-the norm, so that nothing but the inputs and the carried point touches
-device memory.
+On the card the trial is bound by the latency of each knot's chain, not by
+bytes.  One block per lane makes one pass over the knots: ceil(T TPK / 32)
+warps, TPK threads per knot (two for the unicycle games of four or more
+players, :func:`instance_name`; one elsewhere) splitting a knot's blocks,
+collision-cost pairs and players, with the lane's trial point staged in
+shared memory for the unicycle, bicycle and quadrotor; nothing but the
+inputs and the carried point touches device memory.  See the source for
+the measured numbers.
 
 ``trial_eval`` takes the plain PyTorch version (``trial_eval_plain``: the
 eager ``point_lite_res`` + the Tikhonov pull + ``residual_norm``) for CPU
@@ -81,6 +82,15 @@ def model_name(model) -> str | None:
     if isinstance(model, QuadrotorGame):
         return "quadrotor"
     return None
+
+
+def instance_name(model, spec) -> str:
+    """The compiled kernel instance for ``model``: the model's name, with
+    ``_spread`` (two threads per knot, which split the knot's blocks,
+    collision-cost pairs and players) for unicycle games of four or more
+    players, whose knots carry the most blocks and pairs."""
+    name = model_name(model)
+    return f"{name}_spread" if name == "unicycle" and spec.p >= 4 else name
 
 
 def model_constants(model) -> list:
@@ -256,7 +266,7 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
     dtype, device = traj.x.dtype, traj.x.device
     sfx = "f32" if dtype == torch.float32 else "f64"
     P, I, D = build.P, build.I, ctypes.c_double
-    fn = build.bind(lib, f"trial_fused_{model_name(model)}_{sfx}",
+    fn = build.bind(lib, f"trial_fused_{instance_name(model, spec)}_{sfx}",
                     [P] * 7 + [I] * 8 + [D, D, P])
     Bsz, T, n, m, p = traj.x.shape[0], spec.T, spec.n, spec.m, spec.p
     sb, cb = gc.state_blocks, gc.control_blocks
@@ -313,6 +323,17 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
                       for k in range(nsb)),
         control_c=tuple(cc[:, k] for k in range(ncb)))
     return tn, lite
+
+
+def trial_occupancy(model, spec, obj, dtype) -> int:
+    """Lanes per SM of the kernel instance that runs ``model``'s trials
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a card."""
+    lib = build.load(_LIB)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    fn = build.bind(lib, f"trial_fused_{instance_name(model, spec)}_{sfx}"
+                    "_occupancy", [build.P] + [build.I] * 3)
+    return fn((ctypes.c_double * _N_CONST)(*model_constants(model)), spec.N,
+              spec.p, len(obj.pair_i))
 
 
 def trial_eval(model, spec, obj, gc, traj: PrimalDual, dtraj: PrimalDual,

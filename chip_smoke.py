@@ -81,7 +81,11 @@ Phases:
    6 x 12, stationarity gate 5e-2 as ``tests/test_golden.py`` uses: the
    thrust clamp holds stationarity near 3e-2; the first 256 lanes gated
    as in 10, the reference's fraction over all 4096 not being measured;
-   K1 and K4, not K3);
+   K1 and K4, not K3); then K3 on the quadrotor's KKT systems turned
+   dense (``K3-big``: d=32 lies beyond K3's largest size class, so they
+   take its shared-memory forward kernel), gated as K1's phase on them,
+   and the f64 quadrotor solve with that route as its KKT step
+   (``golden-big``: iteration 52, within 1e-8 of ``quad2_N15.npz``);
 13. the heterogeneous game: K3 on its padded KKT systems as in 11
    (``K3-hetero``), K4 on its trial inputs (``K4-hetero``), the f64 solve
    through K3 and K4 against ``tests/golden_torch/hetero2_N8.npz`` (the
@@ -99,10 +103,13 @@ Phases:
    neither K1 nor a trial kernel; the same chunk with the plain versions,
    and a profile of one Gauss-Seidel round.
 
-Kernel times are per wrapper call (CUDA events) and the kernels' own device
-time (profiler).  Each kernel's bound is the larger of its bytes (inputs
-read once, outputs written once) over 3.35 TB/s and its operations over 67
-TFLOP/s (f32), counted from this run's shapes.
+Kernel times are per wrapper call (CUDA events, host work included) and
+the kernels' device time (``device_ms``: CUDA events around each kernel
+launch, queued behind a short sleep kernel, so no host time; the
+profiler's launch count and time are printed beside it as a cross-check).
+Each kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its operations over 67 TFLOP/s (f32),
+counted from this run's shapes.
 
 It needs one CUDA card and exits non-zero, printing no result, without one
 or when any check fails.  The last two lines are a JSON object describing
@@ -112,6 +119,7 @@ Run from the repository root:  python3 chip_smoke.py
 """
 import concurrent.futures
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -199,22 +207,104 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def kernel_device_ms(fn, reps, names):
-    """Device time per call of the kernels whose names contain one of
-    ``names``, from the profiler: the wrapper's host work is excluded.
-    0.0 when the profiler records no device time."""
+@functools.lru_cache(maxsize=None)
+def _sleep_ms_per_cycle():
+    """Device ms per cycle of ``torch.cuda._sleep``, measured once."""
     import torch
+    cycles = 20_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(cycles)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / cycles
+
+
+def _bracketed_launches(fn, reps, sleep_ms):
+    """Run ``fn`` ``reps`` times with every kernel launch of the port's
+    wrappers (each goes through ``ops.build.bind``) bracketed by CUDA
+    events and queued behind a ``torch.cuda._sleep`` of ``sleep_ms``:
+    (per launch, the ms between its events; whether the device was still
+    asleep when every launch had been queued)."""
+    import torch
+    from algames_tpu_torch.ops import build
+    bind, pairs = build.bind, []
+    cycles = max(1, int(sleep_ms / _sleep_ms_per_cycle()))
+
+    def timed_bind(lib, name, argtypes):
+        launch = bind(lib, name, argtypes)
+
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            start.record()
+            err = launch(*args)
+            stop.record()
+            pairs.append((start, stop, not start.query()))
+            return err
+        return call
+    build.bind = timed_bind
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        build.bind = bind
+    torch.cuda.synchronize()
+    return ([a.elapsed_time(b) for a, b, _ in pairs],
+            all(ok for _, _, ok in pairs))
+
+
+def device_ms(fn, reps, names, per_call, tag="time"):
+    """Device time per call of the kernels that ``fn`` launches (ms): each
+    launch bracketed by CUDA events and queued behind a short
+    ``torch.cuda._sleep`` that outlasts the host's queueing of the launch
+    (checked; doubled until it does), so the gap between its events is the
+    kernel's own device time, whatever host work and synchronisation the
+    wrapper does around it (the K2/K4 and padded-K3 wrappers synchronise
+    the stream once per call).  Never 0: it raises unless it saw ``reps`` x
+    ``per_call`` launches.  Cross-check, printed: the profiler over the same
+    run, its launches of the kernels whose names contain one of ``names``
+    and their device time; a note when it is short of launches or differs
+    from the event reading by more than 10%."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    want = reps * per_call
+    sleep_ms = 0.2
+    while True:
+        times, asleep = _bracketed_launches(fn, reps, sleep_ms)
+        if len(times) != want:
+            raise SystemExit(f"[{tag}] {len(times)} launches, want {want}")
+        if asleep:
+            break
+        if sleep_ms > 1000:
+            raise SystemExit(f"[{tag}] the host never got ahead of the card")
+        sleep_ms *= 2
+    ev_ms = sum(times) / reps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages() if any(n in e.key for n in names))
-    return us / 1e3 / reps
+        _bracketed_launches(fn, reps, sleep_ms)
+    named = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and any(n in e.key for n in names)]
+    launches = sum(e.count for e in named)
+    prof_ms = sum(e.self_device_time_total for e in named) / 1e3 / reps
+    log(f"[{tag}] device time {ev_ms:.4f} ms per call (CUDA events around "
+        f"each of {want} launches, each behind a {sleep_ms:g} ms sleep); "
+        f"profiler cross-check: {launches} of {want} launches of "
+        f"{'/'.join(names)} recorded, {prof_ms:.4f} ms per call")
+    if launches < want:
+        log(f"[{tag}] note: the profiler recorded {launches} of {want} "
+            f"launches")
+    if abs(prof_ms - ev_ms) > 0.1 * ev_ms:
+        log(f"[{tag}] note: the profiler's {prof_ms:.4f} ms and the event "
+            f"reading's {ev_ms:.4f} ms differ by more than 10%")
+    return ev_ms
 
 
 def random_iterates(prob, spec, B, rng, dev, dtype, noise=0.3):
@@ -279,14 +369,18 @@ def ptxas_report(text):
     out, kern, spills = [], None, ""
     for line in text.splitlines():
         m = re.search(r"Function properties for \S*?([a-z][a-z_]*_kernel)"
-                      r"I([fd])(?:NS_\d+([A-Za-z]+)I[fd](?:Li(\d)E)?E)?E",
-                      line)
+                      r"I([fd])(?:Li(\d+)ELi(\d+)E)?"
+                      r"(?:NS_\d+([A-Za-z]+)I[fd](?:Li(\d)E)?E)?E"
+                      r"(?:Li(\d+)E)?", line)
         if m:
             spills = ""
-            model = (f", {m.group(3)}{m.group(4) or ''}" if m.group(3)
+            model = (f", {m.group(5)}{m.group(6) or ''}" if m.group(5)
                      else "")
+            tile = f", {m.group(3)}, {m.group(4)}" if m.group(3) else ""
+            tpk = f", {m.group(7)}" if m.group(7) else ""
             kern = (f"{m.group(1)}"
-                    f"<{'float' if m.group(2) == 'f' else 'double'}{model}>")
+                    f"<{'float' if m.group(2) == 'f' else 'double'}{tile}"
+                    f"{model}{tpk}>")
         elif "spill" in line:
             spills = line.strip()
         m = re.search(r"Used (\d+) registers", line)
@@ -572,12 +666,12 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
     ms = cuda_ms(lambda: solve(sq32, b32, w_owner), 20)
     plain_ms = cuda_ms(
         lambda: solve_thomas_structured_plain(spec, sq32, b32, w_owner), 5)
-    dev_ms = kernel_device_ms(lambda: solve(sq32, b32, w_owner), 20,
-                              ("thomas_sq_",))
+    dev_ms = device_ms(lambda: solve(sq32, b32, w_owner), 20,
+                       ("thomas_sq_",), 2, tag)
     log(f"[{tag}] worst over mu: f64 {worst64:.3e}, f32 {worst32:.3e} "
         f"relative; f32 kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms at B={B_KERNEL} (per call, CUDA events); kernel "
-        f"device time {dev_ms:.4f} ms (profiler, fwd + bwd)")
+        f"device time {dev_ms:.4f} ms (events, fwd + bwd)")
     jb32 = JacBlocks(Qblk=structured_to_dense(sq32, w_owner, spec.p),
                      Ublk=sq32.Ublk, A=sq32.A, B=sq32.B)
     lib_ms, y_lib = library_solve_ms(spec, jb32, b32, B_KERNEL)
@@ -720,7 +814,9 @@ def phase_trial(tag, inputs, dev):
     ``inputs(dev, dtype)``: tn and every carried leaf, f64 <= 1e-12 and f32 <=
     1e-5 relative; then its times and bound in f32."""
     import torch
-    from algames_tpu_torch.ops.trial import (trial_eval, trial_eval_plain,
+    from algames_tpu_torch.ops.trial import (instance_name, trial_eval,
+                                             trial_eval_plain,
+                                             trial_occupancy,
                                              trial_supported)
     from algames_tpu_torch.utils import tree_leaves
 
@@ -752,12 +848,17 @@ def phase_trial(tag, inputs, dev):
             max_abs32 = max(abs_errs)
             ms = cuda_ms(lambda: trial_eval(*args), 20)
             plain_ms = cuda_ms(lambda: trial_eval_plain(*args), 5)
-            dev_ms = kernel_device_ms(lambda: trial_eval(*args), 20,
-                                      ("trial_fused_",))
+            dev_ms = device_ms(lambda: trial_eval(*args), 20,
+                               ("trial_fused_",), 1, tag)
             bnd = trial_bound(*args, lite_k, tn_k)
+            lanes = trial_occupancy(prob.model, spec, prob.obj, dtype)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            log(f"[{tag}] kernel instance {instance_name(prob.model, spec)}: "
+                f"{lanes} lanes per SM in f32, "
+                f"{-(-B_KERNEL // (sms * lanes))} wave(s) at B={B_KERNEL}")
             log(f"[{tag}] f32 B={B_KERNEL}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms (per call, CUDA events); kernel device "
-                f"time {dev_ms:.4f} ms (profiler); bound "
+                f"time {dev_ms:.4f} ms (events); bound "
                 f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); no single "
                 f"PyTorch call computes the trial")
     return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
@@ -1075,16 +1176,17 @@ def phase_k3(dev, tag="K3", preset=None, iterates=None, seed0=100,
     jb32, b32 = tree_map(lambda a: a.float(), jb), b.float()
     ms = cuda_ms(lambda: solve_thomas(spec, jb32, b32), 20)
     plain_ms = cuda_ms(lambda: solve_thomas_plain(spec, jb32, b32), 5)
-    dev_ms = kernel_device_ms(lambda: solve_thomas(spec, jb32, b32), 20,
-                              ("thomas_dense_",))
+    dev_ms = device_ms(lambda: solve_thomas(spec, jb32, b32), 20,
+                       ("thomas_dense_",), 2, tag)
     y = solve_thomas(spec, jb32, b32)
     bnd = bound(tensor_bytes([jb32.Qblk, jb32.Ublk, jb32.A, jb32.B, b32])
                 + tensor_bytes([y]), thomas_flops(spec, B_KERNEL, dense=True))
     log(f"[{tag}] worst over mu: f64 {worst64:.3e}, f32 {worst32:.3e} "
         f"relative; f32 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at "
         f"B={B_KERNEL} (per call, CUDA events); kernel device time "
-        f"{dev_ms:.4f} ms (profiler, fwd + bwd); bound {bnd['bound_ms']:.4f} "
+        f"{dev_ms:.4f} ms (events, fwd + bwd); bound {bnd['bound_ms']:.4f} "
         f"ms ({bnd['bound_by']})")
+    occupancy_note(tag, spec)
     # The roundabout's B dense [S, S] matrices (48 GB in f32) do not fit
     # twice on an 80 GB card: the library solves them 128 lanes per call.
     lanes = min(lib_lanes, B_KERNEL)
@@ -1095,6 +1197,24 @@ def phase_k3(dev, tag="K3", preset=None, iterates=None, seed0=100,
         f"K3 {float(rel_err(y_lib, y).max()):.3e} (not gated)")
     return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
             "device_ms": dev_ms, **bnd, "library_ms": lib_ms}
+
+
+def occupancy_note(tag, spec):
+    """Print which forward kernel K3 runs at ``spec``'s widths and its lanes
+    per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import math
+    import torch
+    from algames_tpu_torch.ops.thomas import dense_forward
+    ms = spec.p * max(spec.mi)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fwd = {dt: dense_forward(spec.n, ms, spec.p, dt)
+           for dt in (torch.float32, torch.float64)}
+    lanes = {dt: f[1] for dt, f in fwd.items()}
+    kind = ("register-tiled" if fwd[torch.float32][0] else "shared-memory")
+    log(f"[{tag}] forward kernel: {kind} (d={spec.n + ms}, R="
+        f"{spec.p * spec.n + 1}); lanes per SM {lanes[torch.float32]} in f32 "
+        f"({math.ceil(B_KERNEL / (sms * lanes[torch.float32]))} wave(s) at "
+        f"B={B_KERNEL} on {sms} SMs), {lanes[torch.float64]} in f64")
 
 
 def roundabout_k3_checks(dev, compare):
@@ -1128,6 +1248,110 @@ def roundabout_k3_checks(dev, compare):
         f"1e7: {worst_k1:.3e} (<= 1e-9)")
     if not worst_k1 <= 1e-9:
         raise SystemExit("K3 disagrees with K1 on the flagship systems")
+
+
+def dense_of(spec, sq, w_owner):
+    """Structured KKT blocks turned dense (JacBlocks), contiguous."""
+    from algames_tpu_torch.ops.thomas import structured_to_dense
+    from algames_tpu_torch.problem.linear_solver import JacBlocks
+    return JacBlocks(Qblk=structured_to_dense(sq, w_owner, spec.p)
+                     .contiguous(), Ublk=sq.Ublk, A=sq.A, B=sq.B)
+
+
+def phase_k3_big(dev):
+    """K3 on systems wider than its largest size class, which take its
+    shared-memory forward kernel: the quadrotor's KKT systems turned dense
+    (d=32, R=49), B=1024, mu = 1 .. 1e7, gated as K1's phase on the same
+    systems is (normwise backward error f64 <= 1e-15 and f32 <= 1e-7, each
+    <= 10 x the plain version's own; f32 forward error <= 30 x the f32
+    plain version's); then its times, bound and library call in f32."""
+    import torch
+    from algames_tpu_torch.ops.thomas import solve_thomas, solve_thomas_plain
+    from algames_tpu_torch.presets import quadrotor3d
+    from algames_tpu_torch.utils import tree_map
+
+    iterates = golden_iterates("quad2_N15")
+    worst64 = worst32 = max_abs32 = 0.0
+    big = solve_thomas.big_launches
+    for i, mu in enumerate(MUS):
+        spec, sq, b, w_owner = k1_system(dev, B_KERNEL, mu, 800 + i, False,
+                                         quadrotor3d, iterates)
+        jb = dense_of(spec, sq, w_owner)
+        jb32, b32 = tree_map(lambda a: a.float(), jb), b.float()
+        ref = solve_thomas_plain(spec, jb, b)
+        y64 = solve_thomas(spec, jb, b)
+        y32 = solve_thomas(spec, jb32, b32)
+        p32 = solve_thomas_plain(spec, jb32, b32)
+        torch.cuda.synchronize()
+        e64 = float(rel_err(y64, ref).max())
+        e32 = float(rel_err(y32, ref).max())
+        ep32 = float(rel_err(p32, ref).max())
+        b64, bp64, bw32, bp32 = (float(e.max()) for e in backward_errors(
+            spec, sq, w_owner, b, (y64, ref, y32, p32)))
+        log(f"[K3-big] mu={mu:.0e}: backward error f64 kernel {b64:.3e} "
+            f"(plain {bp64:.3e}; <= 1e-15 and 10 x plain), f32 kernel "
+            f"{bw32:.3e} (plain {bp32:.3e}; <= 1e-7 and 10 x plain); forward "
+            f"vs f64 plain: f32 kernel {e32:.3e} against f32 plain {ep32:.3e} "
+            f"(<= 30 x plain), f64 kernel {e64:.3e} (reported)")
+        if not (b64 <= 1e-15 and b64 <= 10 * bp64 and bw32 <= 1e-7
+                and bw32 <= 10 * bp32 and e32 <= 30 * ep32):
+            raise SystemExit(f"K3's wide-system route disagrees with its "
+                             f"plain version at mu={mu}")
+        worst64, worst32 = max(worst64, e64), max(worst32, e32)
+        max_abs32 = max(max_abs32, float((y32.double() - ref).abs().max()))
+    if solve_thomas.big_launches != big + 2 * len(MUS):
+        raise SystemExit("the K3 wrapper did not take its wide-system route")
+    ms = cuda_ms(lambda: solve_thomas(spec, jb32, b32), 20)
+    plain_ms = cuda_ms(lambda: solve_thomas_plain(spec, jb32, b32), 5)
+    dev_ms = device_ms(lambda: solve_thomas(spec, jb32, b32), 20,
+                       ("thomas_dense_",), 2, "K3-big")
+    y = solve_thomas(spec, jb32, b32)
+    bnd = bound(tensor_bytes([jb32.Qblk, jb32.Ublk, jb32.A, jb32.B, b32])
+                + tensor_bytes([y]), thomas_flops(spec, B_KERNEL, dense=True))
+    occupancy_note("K3-big", spec)
+    lib_ms, y_lib = library_solve_ms(spec, jb32, b32, B_KERNEL)
+    log(f"[K3-big] worst over mu: f64 {worst64:.3e}, f32 {worst32:.3e} "
+        f"relative; f32 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at "
+        f"B={B_KERNEL} (per call, CUDA events); device time {dev_ms:.4f} ms "
+        f"(events, fwd + bwd); bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}); library {lib_ms:.4f} ms (worst relative "
+        f"deviation from K3 {float(rel_err(y_lib, y).max()):.3e}, not gated)")
+    return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev_ms, **bnd, "library_ms": lib_ms}
+
+
+def phase_golden_big(dev):
+    """The f64 quadrotor solve (``newton_solve`` with the KKT step passed as
+    a method: its structured blocks turned dense and solved by K3, which
+    takes its wide-system route at d=32) against ``quad2_N15.npz``:
+    iteration 52, x and u within 1e-8; returns K3's wide-route launches."""
+    import torch
+    import algames_tpu_torch as agt
+    from algames_tpu_torch.ops.thomas import solve_thomas
+    from algames_tpu_torch.presets import quadrotor3d
+
+    gold = load_golden("quad2_N15")
+    prob, _ = quadrotor3d(dev, torch.float64)
+    prob = dataclasses.replace(
+        prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
+
+    def dense_k3(spec, blocks, b, w_owner):
+        return solve_thomas(spec, dense_of(spec, blocks, w_owner), b)
+    solve_thomas.big_launches = 0
+    res = agt.newton_solve(prob, method=dense_k3)
+    torch.cuda.synchronize()
+    launches = solve_thomas.big_launches
+    it = int(res.stats.iter[0])
+    dx = float(np.abs(res.traj.x[0].cpu().numpy() - gold["x"]).max())
+    du = float(np.abs(res.traj.u[0].cpu().numpy() - gold["u"]).max())
+    log(f"[golden-big] f64 quadrotor through K3's wide-system route: iter "
+        f"{it} (golden {int(gold['iter'])}), max |dx| {dx:.3e}, max |du| "
+        f"{du:.3e} (<= 1e-8); wide-route launches {launches}")
+    if not (it == int(gold["iter"]) and dx <= 1e-8 and du <= 1e-8
+            and launches > 0):
+        raise SystemExit("the quadrotor solve through K3's wide-system "
+                         "route misses quad2_N15")
+    return launches
 
 
 def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None):
@@ -1388,6 +1612,8 @@ def main():
         di3_game, random_iterates, True, d, t, seed=29), dev)
     phase("golden-quad2", phase_golden, "golden-quad2", quadrotor3d,
           "quad2_N15", flag_kkt, dev)
+    k3_big = phase("K3-big", phase_k3_big, dev)
+    launches_big = phase("golden-big", phase_golden_big, dev)
     launches_quad = phase("sweep-quad2", phase_game_sweep, "sweep-quad2",
                           quadrotor3d, REF_CONVERGED["quad2_N15"], dev, False,
                           QUAD_OPT_GATE)
@@ -1422,6 +1648,8 @@ def main():
         entry("K3", "hetero2_N8, padded", launches_het["K3"], k3_het),
         entry("K3", "ibr_uni3_N20, p=1 player systems", launches_ibr["K3"],
               k3_ibr),
+        entry("K3", "quad2_N15 turned dense, d=32: the wide-system "
+              "shared-memory route", launches_big, k3_big),
         entry("K4", "round4_N40", launches4["K4"], k4),
         entry("K4", "di2_N10", launches_di["K4"], k4_di),
         entry("K4", "bike3_N20", launches_bike["K4"], k4_bike),

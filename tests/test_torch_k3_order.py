@@ -1,0 +1,191 @@
+"""The arithmetic of K3's register-tiled forward kernel
+(``algames_tpu_torch/csrc/thomas_dense_core.cuh``), emulated in numpy on
+full-size roundabout and bicycle KKT systems built by the port on the CPU,
+against the plain version (``ops.thomas.solve_thomas_plain``) and the JAX
+package's reference solve (``algames_tpu/problem/linear_solver.py::
+solve_tridiagonal_schur``).
+
+The emulation follows the CUDA source step by step: the products of the
+augmented system M = [K | RHS] as sequential sums in the kernel's order;
+the x columns eliminated first; the pivot of column s the unused row of
+largest magnitude, the lowest index on ties; Gauss-Jordan elimination with
+the reciprocal pivot: the multipliers M[r, s] (1 / piv) of every row but
+the pivot row, each such row updated over every column by
+M[r, :] -= l_r M[pr, :], rows pivoted earlier included; then each pivot
+row's right-hand sides times its 1 / piv are the unknowns.  Only the
+kernel's fused multiply-adds round once where numpy rounds twice.  The
+backward sweep is the unchanged kernel's recursion.
+
+Tolerances: f64 <= 1e-10 relative to the f64 plain version (worst lane,
+max |a - ref| / max |ref|); f32 within ``chip_smoke.py``'s K3 gate of 1e-3
+against the f64 plain version, the worst value printed.
+"""
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from algames_tpu.presets import PRESETS as JAX_PRESETS
+from algames_tpu.problem.linear_solver import solve_tridiagonal_schur
+from algames_tpu.problem.residual import JacBlocks as JaxJacBlocks
+
+import chip_smoke
+from algames_tpu_torch.core.spec import owner_map_u
+from algames_tpu_torch.ops import thomas
+from algames_tpu_torch.presets import intro_bicycle
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+B = 4
+GAMES = {"round4_N40": {},
+         "bike3_N20": dict(preset=intro_bicycle,
+                           iterates=chip_smoke.golden_iterates("bike3_N20"))}
+
+
+@functools.lru_cache(maxsize=None)
+def system(game, mu):
+    """B lanes of ``game``'s KKT systems (f64), as ``chip_smoke.py``'s K3
+    phases build them: mu on the statx diagonals."""
+    kw = GAMES[game]
+    return chip_smoke.k3_system(CPU, B, mu, 7, False, (0.3, 1.5),
+                                kw.get("preset"), kw.get("iterates"))
+
+
+def forward_knot(Q, Ub, Bm, At, A1, bk, Gx, yx, owner, n, m, p):
+    """One knot of the forward sweep, as the kernel computes it: returns
+    the solution [B, d, R] (rows in (x, u) order, columns [G | y])."""
+    dt = Q.dtype
+    pn, d = p * n, n + m
+    C = d + pn + 1
+    Bsz = Q.shape[0]
+    F = np.zeros((Bsz, n, pn), dt)
+    for k in range(n):                           # F = -A_t G_{t-1}
+        F = F + At[:, :, k, None] * Gx[:, None, k, :]
+    F = -F
+    M = np.zeros((Bsz, d, C), dt)
+    Qo = Q[:, owner]                             # [B, m, n, n]
+    acc = np.zeros((Bsz, m, n), dt)              # B^T Q_owner
+    for k in range(n):
+        acc = acc + Bm[:, k, :, None] * Qo[:, :, k, :]
+    M[:, :m, :n] = acc
+    acc = np.zeros((Bsz, n, n), dt)              # sum_i F_i Q_i
+    for i in range(p):
+        for k in range(n):
+            acc = acc + F[:, :, i * n + k, None] * Q[:, i, k, None, :]
+    M[:, m:, :n] = acc - np.eye(n, dtype=dt)
+    M[:, :m, n:d] = Ub
+    M[:, m:, n:d] = Bm
+    for i in range(p):                           # G right-hand sides
+        cols = slice(d + i * n, d + (i + 1) * n)
+        acc = np.zeros((Bsz, n, n), dt)          # F_i A_{t+1}^T
+        for k in range(n):
+            acc = acc + F[:, :, i * n + k, None] * A1[:, None, :, k]
+        M[:, m:, cols] = acc
+        own = np.asarray(owner) == i
+        acc = np.zeros((Bsz, m, n), dt)          # B^T A_{t+1}^T, owner i
+        for k in range(n):
+            acc = acc + Bm[:, k, :, None] * A1[:, None, :, k]
+        M[:, :m, cols] = np.where(own[None, :, None], acc, dt.type(0))
+    v = bk[:, pn:pn + m].copy()
+    ba = bk[:, :pn].reshape(Bsz, p, n)
+    for k in range(n):                           # c + B^T a_owner
+        v = v + Bm[:, k, :] * ba[:, owner, k]
+    M[:, :m, C - 1] = v
+    s1 = np.zeros((Bsz, n), dt)
+    for k in range(n):
+        s1 = s1 + At[:, :, k] * yx[:, None, k]
+    s2 = np.zeros((Bsz, n), dt)
+    for k in range(pn):
+        s2 = s2 + F[:, :, k] * bk[:, None, k]
+    M[:, m:, C - 1] = bk[:, pn + m:] - s1 + s2
+
+    lanes = np.arange(Bsz)
+    used = np.zeros((Bsz, d), bool)
+    step_of = np.zeros((Bsz, d), int)
+    pivrow = np.zeros((Bsz, d), int)
+    rinvs = np.zeros((Bsz, d), dt)
+    for s in range(d):
+        col = M[:, :, s].copy()
+        mag = np.where(used, -np.inf, np.abs(col))
+        pr = np.argmax(mag, axis=1)              # first maximum: lowest index
+        rinv = (dt.type(1) / col[lanes, pr]).astype(dt)
+        slot = col * rinv[:, None]               # multipliers of every row
+        pivrow[:, s], rinvs[:, s] = pr, rinv
+        upd = np.ones((Bsz, d), bool)
+        upd[lanes, pr] = False                   # every row but the pivot row
+        prow = M[lanes, pr]                      # [B, C]
+        M = np.where(upd[:, :, None],
+                     M - slot[:, :, None] * prow[:, None, :], M)
+        step_of[lanes, pr] = s
+        used[lanes, pr] = True
+    M[:, :, d:] = M[:, :, d:] * rinvs[lanes[:, None], step_of][:, :, None]
+    return M[lanes[:, None], pivrow, d:]         # rows in step order
+
+
+def emulate(spec, jb, b, dtype):
+    """K3 (register-tiled forward, the unchanged backward) on numpy copies
+    of ``jb`` and ``b`` in ``dtype``: the flat [B, S] solution."""
+    Q, Ub, Bm, A = (getattr(jb, f).numpy().astype(dtype)
+                    for f in ("Qblk", "Ublk", "B", "A"))
+    bk = b.numpy().astype(dtype)
+    n, m, p, T = spec.n, spec.m, spec.p, spec.T
+    pn = p * n
+    owner = owner_map_u(spec)
+    Gx = np.zeros((B, n, pn), dtype)
+    yx = np.zeros((B, n), dtype)
+    zero = np.zeros((B, n, n), dtype)
+    sols = []
+    for t in range(T):
+        A1 = A[:, t + 1] if t + 1 < T else zero
+        sol = forward_knot(Q[:, t], Ub[:, t], Bm[:, t], A[:, t], A1,
+                           bk[:, t], Gx, yx, owner, n, m, p)
+        sols.append(sol)
+        Gx, yx = sol[:, :n, :pn], sol[:, :n, pn]
+    lam_next = np.zeros((B, pn), dtype)
+    out = [None] * T
+    for t in range(T - 1, -1, -1):
+        G, yhat = sols[t][:, :, :pn], sols[t][:, :, pn]
+        xu = yhat - np.einsum("zrc,zc->zr", G, lam_next)
+        A1T = (A[:, t + 1] if t + 1 < T else zero).transpose(0, 2, 1)
+        lam = (np.einsum("zpab,zb->zpa", Q[:, t], xu[:, :n])
+               + np.einsum("zab,zpb->zpa", A1T, lam_next.reshape(B, p, n))
+               - bk[:, t, :pn].reshape(B, p, n)).reshape(B, pn)
+        out[t] = np.concatenate([xu, lam], axis=1)
+        lam_next = lam
+    return np.stack(out, axis=1).reshape(B, -1)
+
+
+def rel(a, ref):
+    a = np.asarray(a, np.float64).reshape(B, -1)
+    ref = np.asarray(ref, np.float64).reshape(B, -1)
+    return float((np.abs(a - ref).max(1) / np.abs(ref).max(1)).max())
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("mu", [1.0, 1e3, 1e7])
+@pytest.mark.parametrize("game", sorted(GAMES))
+def test_emulated_elimination_matches_the_plain_version(game, mu, dtype):
+    spec, jb, b = system(game, mu)
+    ref = thomas.solve_thomas_plain(spec, jb, b).numpy()
+    err = rel(emulate(spec, jb, b, dtype), ref)
+    print(f"{game} mu={mu:g} {np.dtype(dtype).name}: worst relative error "
+          f"{err:.3e}")
+    assert err <= (1e-10 if dtype == np.float64 else 1e-3), err
+
+
+@pytest.mark.parametrize("game", sorted(GAMES))
+def test_emulated_elimination_matches_the_jax_reference(game):
+    """The same systems (mu = 1e3, f64) through the JAX package's
+    ``solve_tridiagonal_schur``, lane by lane."""
+    spec, jb, b = system(game, 1e3)
+    _, jspec = JAX_PRESETS[game]()
+    assert (jspec.T, jspec.n, jspec.m, jspec.p, jspec.pu) == (
+        spec.T, spec.n, spec.m, spec.p, spec.pu)
+    jjb = JaxJacBlocks(*[getattr(jb, f).numpy()
+                         for f in ("Qblk", "Ublk", "A", "B")])
+    ref = jax.jit(jax.vmap(lambda j, bb: solve_tridiagonal_schur(
+        jspec, j, bb)))(jjb, b.numpy())
+    err = rel(emulate(spec, jb, b, np.float64), np.asarray(ref))
+    assert err <= 1e-10, err

@@ -1,0 +1,211 @@
+"""The block-Thomas KKT kernels K3 (dense Q) and K1 (structured Q) of two
+source trees on the same inputs, on one CUDA card: device times, outputs
+and occupancy.  Not a test module (pytest does not collect it).
+
+    python3 tests/thomas_compare.py dump TREE NAME DIR
+    python3 tests/thomas_compare.py compare DIR NAME_A NAME_B
+
+``dump`` imports ``chip_smoke.py`` and the port from TREE (a checkout, e.g.
+``git archive`` of another commit unpacked in a git-ignored directory) and
+builds ``chip_smoke.py``'s KKT inputs at B=1024 (mu = 1e3, the timed
+systems of its phases, and mu = 1e7): K3 on the roundabout, the bicycle,
+the padded heterogeneous game and the IBR player systems, K1 on the
+flagship, the double integrator and the quadrotor, in f32 and f64.  It
+prints, per input set, each kernel's worst relative error against the f64
+plain version, and in f32 the device time per call (forward + backward;
+the event reading of this repository's ``chip_smoke.device_ms``, so both
+trees are timed alike); for the roundabout also K3's forward kernel alone at
+B = 132, 924 and 1024, and for every K3 input set the lanes per SM of its
+forward kernel from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (the
+tree's own ``thomas_dense_occupancy_*`` export, or for a tree without one a
+probe library compiled from its source).  The outputs go to
+DIR/NAME-kkt.pt (``tests/trial_compare.py`` writes DIR/NAME.pt).
+``compare`` counts the unequal output elements of two dumps and their
+largest difference, input set by input set.  Run each ``dump`` in its own
+process: the two trees' packages share a name.
+"""
+import ctypes
+import importlib.util
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parent.parent
+FWD_BATCHES = (132, 924, 1024)
+
+
+def _timing():
+    """This repository's ``chip_smoke.py`` as a module of another name: its
+    device timer serves both trees."""
+    spec = importlib.util.spec_from_file_location("smoke_timing",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _occupancy_probe(tree, out_dir):
+    """A library compiled from TREE's ``thomas_dense.cu`` with one more
+    export: its forward kernel's lanes per SM (for trees without
+    ``thomas_dense_occupancy_*``)."""
+    from algames_tpu_torch.ops import build
+    src = out_dir / "occupancy_probe.cu"
+    so = out_dir / "occupancy_probe.so"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    body = "\n".join(
+        f"""extern "C" int probe_occupancy_{sfx}(int n, int m, int p) {{
+  const size_t bytes = thomas::fwd_smem_bytes<{T}>(n, m, p, p * n * n, 0);
+  if (thomas::set_smem((const void*)thomas_dense_fwd_kernel<{T}>, bytes))
+    return -1;
+  int lanes = -1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &lanes, thomas_dense_fwd_kernel<{T}>, thomas::kThreads, bytes);
+  return lanes;
+}}""" for sfx, T in (("f32", "float"), ("f64", "double")))
+    src.write_text(f'#include "{tree}/algames_tpu_torch/csrc/thomas_dense.cu"'
+                   f"\n{body}\n")
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+                    str(src)], check=True, capture_output=True)
+    return ctypes.CDLL(str(so))
+
+
+def _occupancy(lib, probe, n, m, p, sfx):
+    fn = getattr(lib, f"thomas_dense_occupancy_{sfx}", None)
+    if fn is None:
+        fn = getattr(probe, f"probe_occupancy_{sfx}")
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(n, m, p)
+
+
+def _fwd_only(spec, jb, b, lanes):
+    """A closure running K3's forward kernel alone on the first ``lanes``
+    lanes (homogeneous specs); it binds the launcher on every call, as the
+    wrappers do, so that ``device_ms`` sees the launch."""
+    from algames_tpu_torch.core.spec import owner_map_u
+    from algames_tpu_torch.ops import build, thomas
+    lib = build.load(thomas._LIB_DENSE)
+    P, I = build.P, build.I
+    ops = [a[:lanes].contiguous() for a in (jb.Qblk, jb.Ublk, jb.B, jb.A, b)]
+    n, m, p, T = spec.n, spec.m, spec.p, spec.T
+    G = torch.empty((lanes, T, n + m, p * n), device=b.device)
+    yhat = torch.empty((lanes, T, n + m), device=b.device)
+    own = build.int_table(owner_map_u(spec))
+
+    def run():
+        fwd = build.bind(lib, "thomas_dense_fwd_f32",
+                         [P] * 8 + [I] * 5 + [P])
+        build.check(lib, thomas._LIB_DENSE, fwd(
+            *[a.data_ptr() for a in ops], own, G.data_ptr(), yhat.data_ptr(),
+            lanes, T, n, m, p, torch.cuda.current_stream().cuda_stream))
+    return run
+
+
+def dump(tree, name, out_dir):
+    sys.path.insert(0, str(tree))
+    import chip_smoke as cs
+    from algames_tpu_torch.ops import build, thomas
+    from algames_tpu_torch.presets import (flagship_unicycle, intro_bicycle,
+                                           intro_di, quadrotor3d)
+    from algames_tpu_torch.utils import tree_map
+    if Path(cs.__file__).resolve().parent != tree:
+        raise SystemExit(f"chip_smoke.py was not imported from {tree}")
+    tm = _timing()
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k3 = [("round4", {}, 100),
+          ("bike3", dict(preset=intro_bicycle,
+                         iterates=cs.golden_iterates("bike3_N20")), 400),
+          ("hetero", dict(preset=cs.hetero_game,
+                          iterates=cs.golden_iterates("hetero2_N8")), 600),
+          ("ibr", dict(preset=flagship_unicycle,
+                       iterates=cs.flagship_iterates), 700)]
+    k1 = [("K1 uni3", {}, 0),
+          ("K1 di2", dict(preset=intro_di,
+                          iterates=cs.golden_iterates("di2_N10")), 300),
+          ("K1 quad2", dict(preset=quadrotor3d,
+                            iterates=cs.golden_iterates("quad2_N15")), 500)]
+    probe = None
+    lib = build.load(thomas._LIB_DENSE)
+    res = {}
+    t0 = time.perf_counter()
+    for tag, kw, seed0 in k3:
+        print(f"{name} [{time.perf_counter() - t0:.1f} s] K3 {tag}",
+              flush=True)
+        system = cs.ibr_player_system if tag == "ibr" else cs.k3_system
+        for mu, seed in ((1e3, 99), (1e7, 7)):
+            spec, jb, b = system(dev, cs.B_KERNEL, mu, seed0 + seed, False,
+                                 (0.3, 1.5), kw.get("preset"),
+                                 kw.get("iterates"))
+            ref = thomas.solve_thomas_plain(spec, jb, b)
+            for dtype in (torch.float64, torch.float32):
+                jbt, bt = tree_map(lambda a: a.to(dtype), jb), b.to(dtype)
+                y = thomas.solve_thomas(spec, jbt, bt)
+                sfx = "f32" if dtype == torch.float32 else "f64"
+                key = f"K3 {tag} mu={mu:.0e} {sfx}"
+                res[key] = [y.cpu()]
+                err = float(cs.rel_err(y, ref).max())
+                line = f"{name} {key}: worst rel err vs f64 plain {err:.3e}"
+                if mu == 1e3:
+                    if probe is None and not hasattr(
+                            lib, f"thomas_dense_occupancy_{sfx}"):
+                        probe = _occupancy_probe(tree, out_dir)
+                    lanes = _occupancy(lib, probe, spec.n,
+                                       spec.p * max(spec.mi), spec.p, sfx)
+                    line += f"; forward kernel {lanes} lanes per SM"
+                print(line, flush=True)
+                if mu == 1e3 and dtype == torch.float32:
+                    tm.device_ms(lambda: thomas.solve_thomas(spec, jbt, bt),
+                                 20, ("thomas_dense_",), 2,
+                                 f"{name} K3 {tag} f32 B={cs.B_KERNEL}")
+                    if tag == "round4":
+                        for lanes in FWD_BATCHES:
+                            tm.device_ms(_fwd_only(spec, jbt, bt, lanes), 20,
+                                         ("thomas_dense_",), 1,
+                                         f"{name} K3 round4 forward only "
+                                         f"f32 B={lanes}")
+    for tag, kw, seed0 in k1:
+        print(f"{name} [{time.perf_counter() - t0:.1f} s] {tag}", flush=True)
+        spec, sq, b, w_owner = cs.k1_system(dev, cs.B_KERNEL, 1e3, seed0 + 99,
+                                            False, kw.get("preset"),
+                                            kw.get("iterates",
+                                                   cs.flagship_iterates))
+        for dtype in (torch.float64, torch.float32):
+            sqt, bt = tree_map(lambda a: a.to(dtype), sq), b.to(dtype)
+            y = thomas.solve_thomas_structured(spec, sqt, bt, w_owner)
+            res[f"{tag} {str(dtype)[-7:]}"] = [y.cpu()]
+            if dtype == torch.float32:
+                tm.device_ms(lambda: thomas.solve_thomas_structured(
+                    spec, sqt, bt, w_owner), 20, ("thomas_sq_",), 2,
+                    f"{name} {tag} f32 B={cs.B_KERNEL}")
+    for lib_name in ("thomas_sq", "thomas_dense"):
+        log = build.library_path(lib_name).with_suffix(".log")
+        for kern, regs, spills in cs.ptxas_report(log.read_text()):
+            print(f"{name} {lib_name}: {kern}: {regs} registers, {spills}",
+                  flush=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.save(res, out_dir / f"{name}-kkt.pt")
+
+
+def compare(out_dir, a_name, b_name):
+    a = torch.load(out_dir / f"{a_name}-kkt.pt")
+    b = torch.load(out_dir / f"{b_name}-kkt.pt")
+    for key in a:
+        if key not in b:
+            continue
+        unequal = sum(int((x != y).sum()) for x, y in zip(a[key], b[key]))
+        worst = max(float((x.double() - y.double()).abs().max())
+                    for x, y in zip(a[key], b[key]))
+        print(f"{a_name} vs {b_name}, {key}: {unequal} unequal elements of "
+              f"{sum(x.numel() for x in a[key])}, max |diff| {worst:.3e}",
+              flush=True)
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "dump":
+        dump(Path(sys.argv[2]).resolve(), sys.argv[3], Path(sys.argv[4]))
+    else:
+        compare(Path(sys.argv[2]), sys.argv[3], sys.argv[4])

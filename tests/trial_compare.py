@@ -10,8 +10,10 @@ on one CUDA card: outputs bitwise and device times.  Not a test module
 its fused trial on ``chip_smoke.py``'s trial inputs at B=1024 (K2's and the
 roundabout K4's, and, where TREE's ``chip_smoke.py`` has them, those of the
 double-integrator, bicycle and quadrotor games, the 3D double
-integrator and the heterogeneous double integrator), in f32 and f64, prints each f32 call's time (CUDA events) and
-device time (profiler), and saves the outputs to DIR/NAME.pt.  ``compare``
+integrator and the heterogeneous double integrator), in f32 and f64, prints
+each f32 call's time (CUDA events, host work included) and device time (the
+event reading of this repository's ``chip_smoke.device_ms``, so both trees
+are timed alike), and saves the outputs to DIR/NAME.pt.  ``compare``
 counts the unequal output elements of two dumps, input set by input set.
 Run each ``dump`` in its own process: the two trees' packages share a name.
 """
@@ -19,6 +21,8 @@ import sys
 from pathlib import Path
 
 import torch
+
+from thomas_compare import _timing
 
 
 def dump(tree, name, out_dir):
@@ -28,6 +32,7 @@ def dump(tree, name, out_dir):
     from algames_tpu_torch.utils import tree_leaves
     if Path(cs.__file__).resolve().parent != tree:
         raise SystemExit(f"chip_smoke.py was not imported from {tree}")
+    tm = _timing()
     dev = torch.device("cuda:0")
     cases = [("K2", cs.k2_inputs), ("K4", cs.k4_inputs)]
     if hasattr(cs, "game_trial_inputs"):
@@ -55,8 +60,8 @@ def dump(tree, name, out_dir):
                 a.cpu() for a in [tn] + tree_leaves(lite)]
             if dtype == torch.float32:
                 call = cs.cuda_ms(lambda: trial_eval(*args), 20)
-                device = cs.kernel_device_ms(lambda: trial_eval(*args), 50,
-                                             ("trial_",))
+                device = tm.device_ms(lambda: trial_eval(*args), 50,
+                                      ("trial_",), 1, f"{name} {tag}")
                 print(f"{name} {tag} f32 B={cs.B_KERNEL}: call {call:.4f} "
                       f"ms, device {device:.4f} ms", flush=True)
     out_dir.mkdir(parents=True, exist_ok=True)
