@@ -34,6 +34,8 @@
 // augmented system ~30,000.  Systems wider than the largest size class
 // (d > 24 or d + R > 96) keep the shared-memory forward kernel; the
 // backward kernel (0.46 ms of the roundabout's 2.57 ms) is unchanged.
+// The core's Q form here is DenseQ: Q [p, n, n] staged per knot, the x
+// columns as dense products, Gauss-Jordan elimination.
 #include "thomas_common.cuh"
 #include "thomas_dense_core.cuh"
 
@@ -85,6 +87,61 @@ struct DenseBwdForm {
   }
 };
 
+// The register-tiled core's dense Q form: Q_i [n, n] per player staged per
+// knot; the x columns are B^T Q_owner (statu rows) and -I + sum_i F_i Q_i
+// (dyn rows); Gauss-Jordan elimination.
+template <typename T>
+struct DenseQ {
+  static constexpr bool kLU = false;
+  static constexpr bool kProducts = false;
+  const T* Qg;                         // [B, T, p, n, n]
+
+  __host__ __device__ int staged(int n, int p) const {
+    return thomas_core::round16<T>(p * n * n);
+  }
+  __host__ __device__ int extra(int, int) const { return 0; }
+  __device__ __forceinline__ void issue(T* dst, size_t kt, int n,
+                                        int p) const {
+    const int pn = p * n;
+    thomas_core::copy_flat(dst, Qg + kt * pn * n, pn * n);
+  }
+  // acc[i] += column c (< n) of owned row rg + 8 i; acc is zero on entry.
+  template <int TR>
+  __device__ __forceinline__ void x_column(T (&acc)[TR], const T* Q,
+                                           const T* Bs, const T* Fs,
+                                           const T*, int ldF,
+                                           const int (&own)[TR], int rg,
+                                           int c, int n, int m,
+                                           int p) const {
+    constexpr int kRG = thomas_core::kRG;
+    #pragma unroll 1
+    for (int i2 = 0; i2 < p; ++i2) {
+      #pragma unroll 4
+      for (int k = 0; k < n; ++k) {
+        const T qv = Q[(i2 * n + k) * n + c];
+        #pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const int a = rg + kRG * i - m;
+          if (a >= 0 && a < n) acc[i] += Fs[a * ldF + i2 * n + k] * qv;
+        }
+      }
+    }
+    #pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int r = rg + kRG * i;
+      if (r < m) {                     // B^T Q_owner
+        const T* Qo = Q + own[i] * n * n;
+        T v = T(0);
+        #pragma unroll 4
+        for (int k = 0; k < n; ++k) v += Bs[k * m + r] * Qo[k * n + c];
+        acc[i] = v;
+      } else if (r < n + m) {          // -I + sum_i F_i Q_i
+        acc[i] += (r - m == c) ? T(-1) : T(0);
+      }
+    }
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) thomas_dense_fwd_kernel(
     const T* __restrict__ Qg, const T* __restrict__ Ub,
@@ -126,8 +183,9 @@ thomas_dense_tiled_kernel(const T* __restrict__ Qg, const T* __restrict__ Ub,
                           T* __restrict__ y_out, int Tn, int n, int m, int p,
                           const __grid_constant__ DenseMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  thomas_core::forward_sweep<T, TR, TC>(Qg, Ub, Bm, A, bk, G_out, y_out, Tn,
-                                        n, m, p, meta.owner, smem_raw);
+  thomas_core::forward_sweep<T, TR, TC>(DenseQ<T>{Qg}, Ub, Bm, A,
+                                        bk, G_out, y_out, Tn, n, m, p,
+                                        meta.owner, smem_raw);
 }
 
 template <typename T>
@@ -197,13 +255,21 @@ const void* tiled_kernel(int n, int m, int p) {
 }
 
 template <typename T>
+size_t tiled_smem_bytes(int n, int m, int p) {
+  const DenseQ<T> qf{nullptr};
+  return thomas_core::CoreLayout<T>::bytes(n, m, p, qf.staged(n, p),
+                                           qf.extra(n, m),
+                                           DenseQ<T>::kLU);
+}
+
+template <typename T>
 int launch_fwd(const void* Q, const void* Ub, const void* Bm, const void* A,
                const void* b, const int* owner, void* G, void* yhat, int B,
                int Tn, int n, int m, int p, void* stream) {
   const void* kernel = tiled_kernel<T>(n, m, p);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t bytes = thomas_core::CoreLayout<T>::bytes(n, m, p);
+  const size_t bytes = tiled_smem_bytes<T>(n, m, p);
   int err = thomas::set_smem(kernel, bytes);
   if (err) return err;
   DenseMeta meta;
@@ -225,7 +291,7 @@ int occupancy(int n, int m, int p, bool big) {
   if (kernel == nullptr) return -1;
   const size_t bytes =
       big ? thomas::fwd_smem_bytes<T>(n, m, p, p * n * n, 0)
-          : thomas_core::CoreLayout<T>::bytes(n, m, p);
+          : tiled_smem_bytes<T>(n, m, p);
   if (thomas::set_smem(kernel, bytes)) return -1;
   int lanes = -1;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&lanes, kernel, kThreads,

@@ -1,5 +1,7 @@
-// The forward sweep of the dense-Q block-Thomas KKT solve (kernel K3) with
-// the knot's augmented system in registers: the core of thomas_dense.cu.
+// The forward sweep of the block-Thomas KKT solve with the knot's
+// augmented system in registers: the core of the register-tiled forward
+// kernels of K3 (thomas_dense.cu, dense Q) and K1 (thomas_sq.cu, Q as
+// diag + rank-1 terms).
 //
 // Per scenario lane and knot t the forward sweep eliminates the p*n
 // multipliers in closed form and solves one pivoted d x d system (d = n+m)
@@ -10,6 +12,14 @@
 // unused row of largest magnitude, the lowest index on ties), as the
 // shared-memory kernel of thomas_common.cuh does.
 //
+// The Q form is a compile-time policy (QForm), given the widths n, m, p
+// by the core: it stages a knot's Q operands (issue), may form per-knot
+// products once the fill-in F is known (products, behind one more
+// barrier), builds the x columns of the owned rows (x_column), and picks
+// the elimination (kLU).  Everything else -- the
+// fill-in, the u columns, the right-hand sides, the pivoting, the stores --
+// is the core's.
+//
 // One 128-thread block per lane.  Thread (rg, cg) = (tid % 8, tid / 8) owns
 // the fixed tile of M with rows rg + 8 i (i < TR) and columns cg + 16 j
 // (j < TC) in registers; TR and TC are the instance's size class, so every
@@ -19,29 +29,41 @@
 // entries within one column group are the same eight lanes, so:
 //   - column s's pivot is found by an eight-lane shuffle reduction among
 //     its owners, who publish the pivot row, 1 / piv and the multipliers
-//     M[r, s] / piv of every row in a slot of shared memory (two slots,
-//     used in turn): one block barrier per pivot step;
+//     M[r, s] / piv of every row in a slot of shared memory: one block
+//     barrier per pivot step;
 //   - every thread takes the pivot row's entries of its own columns by a
 //     shuffle from the lane of its column group that owns that row, and
 //     updates its tile with one FMA per owned entry;
-//   - the elimination is Gauss-Jordan: every row but the pivot row is
-//     updated, rows pivoted before as well, so that no back substitution
-//     follows: each pivot row's right-hand sides times 1 / piv are the
-//     unknowns, where they sit.  (A column-by-column back substitution took
-//     as long as the elimination, one dependent chain of d steps;
-//     tests/test_torch_k3_order.py emulates this order and holds it to the
-//     plain version at mu up to 1e7.)
-// The per-knot products (the fill-in F = -A_t G_{t-1}, B^T Q_owner,
-// sum_i F_i Q_i, F_i A_{t+1}^T, B^T A_{t+1}^T) are FMA chains from shared
+//   - Gauss-Jordan (K3): every row but the pivot row is updated, rows
+//     pivoted before as well, so that no back substitution follows: each
+//     pivot row's right-hand sides times 1 / piv are the unknowns, where
+//     they sit.  (A column-by-column back substitution took as long as the
+//     elimination, one dependent chain of d steps; tests/
+//     test_torch_k3_order.py emulates this order and holds it to the plain
+//     version at mu up to 1e7.)  Slots are used in turn, two of them;
+//   - LU (K1): only the rows not yet pivoted are updated, and step s's
+//     slot keeps column s of the rows pivoted before unscaled (U[r, s]), so
+//     each step has a slot of its own.  A right-looking back substitution
+//     follows on the right-hand sides: step s's unknowns x_s = (pivot row)
+//     / piv leave every row pivoted before with RHS -= U[r, s] x_s.  A
+//     right-hand-side column's entries all belong to the eight lanes of its
+//     column group, so the back substitution is shuffles within a warp and
+//     no block barrier.  Gauss-Jordan is not backward stable in general:
+//     on the quadrotor's f32 systems its normwise backward error reached
+//     66 x the plain version's at mu = 1e7 where this form stays within 2 x
+//     (tests/test_torch_k1_order.py).
+// The per-knot products (the fill-in F = -A_t G_{t-1}, the Q form's x
+// columns, F_i A_{t+1}^T, B^T A_{t+1}^T) are FMA chains from shared
 // memory straight into the owned registers, in the order of the
 // shared-memory kernel; rows of F and A are padded in shared memory so
 // that the eight row groups of a warp read eight different banks.  Knot
-// t+1's operands (Q, Ublk, B, b, and A_{t+2}: A is a ring of three knots,
-// since knot t reads A_t and A_{t+1}) are copied by cp.async into a second
-// buffer while knot t is eliminated.
+// t+1's operands (the Q form's, Ublk, B, b, and A_{t+2}: A is a ring of
+// three knots, since knot t reads A_t and A_{t+1}) are copied by cp.async
+// into a second buffer while knot t is eliminated.
 //
-// Shared memory per lane in f32 at the roundabout's shapes (n=16, m=8,
-// p=4): about 23.5 KB, so 8 lanes fit on an SM and B=1024 runs in one wave.
+// Shared memory per lane in f32: 23,488 bytes at the roundabout's shapes
+// (K3: n=16, m=8, p=4) and 24,352 at the quadrotor's (K1: n=24, m=8, p=2,
+// 6 w vectors), so 8 lanes fit on an SM and B=1024 runs in one wave.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,16 +96,20 @@ __host__ __device__ __forceinline__ int row_pad(int x) {
   return ld;
 }
 
-// Shared-memory layout, in elements of T (then ints).
+// Shared-memory layout, in elements of T (then ints).  ``qs``: the scalars
+// of one knot's Q operands (QForm::staged, a multiple of 16 bytes);
+// ``exts``: the Q form's per-knot products (QForm::extra); ``lu``: the
+// elimination keeps one slot per step (U's columns, d x d) instead of two.
 template <typename T>
 struct CoreLayout {
-  int ldA, ldF, q, ub, bm, bk, buf, a, gx, yx, fs, rinv, words;
-  __host__ __device__ CoreLayout(int n, int m, int p) {
+  int ldA, ldF, q, ub, bm, bk, buf, a, gx, yx, fs, rinv, ext, words;
+  __host__ __device__ CoreLayout(int n, int m, int p, int qs, int exts,
+                                 bool lu) {
     const int pn = p * n, d = n + m, W = n + m + pn;
     ldA = row_pad<T>(n);
     ldF = row_pad<T>(pn);
     int o = 0;
-    q = o;  o += round16<T>(p * n * n);
+    q = o;  o += qs;
     ub = o; o += round16<T>(m * m);
     bm = o; o += round16<T>(n * m);
     bk = o; o += round16<T>(W);
@@ -92,14 +118,17 @@ struct CoreLayout {
     a = o;  o += 3 * n * ldA;         // A ring: A_t, A_{t+1}, A_{t+2}
     gx = o; o += n * ldF;             // carry G_{t-1}, x rows
     yx = o; o += round16<T>(n);       // carry y_{t-1}, x rows
-    fs = o;                           // F [n, ldF], then the step slots [2, d]
-    o += round16<T>(n * ldF > 2 * d ? n * ldF : 2 * d);
+    fs = o;                           // F [n, ldF], then the step slots
+    const int slots = lu ? d * d : 2 * d;
+    o += round16<T>(n * ldF > slots ? n * ldF : slots);
     rinv = o; o += round16<T>(d);     // 1 / piv per step
+    ext = o; o += round16<T>(exts);   // the Q form's products
     words = o;
   }
   // ints after the T arrays: the G-column table [pn], the pivot rows [d]
-  __host__ __device__ static size_t bytes(int n, int m, int p) {
-    const CoreLayout L(n, m, p);
+  __host__ __device__ static size_t bytes(int n, int m, int p, int qs,
+                                          int exts, bool lu) {
+    const CoreLayout L(n, m, p, qs, exts, lu);
     return L.words * sizeof(T) + (size_t)(p * n + n + m) * sizeof(int);
   }
 };
@@ -156,14 +185,15 @@ __device__ __forceinline__ void copy_flat(T* dst, const T* src, int len) {
 template <typename T>
 __device__ __forceinline__ T absval(T v) { return v < T(0) ? -v : v; }
 
-template <typename T, int TR, int TC>
+template <typename T, int TR, int TC, typename QForm>
 __device__ __forceinline__ void forward_sweep(
-    const T* __restrict__ Qg, const T* __restrict__ Ubg,
-    const T* __restrict__ Bg, const T* __restrict__ Ag,
-    const T* __restrict__ bg, T* __restrict__ G_out, T* __restrict__ y_out,
-    int Tn, int n, int m, int p, const int* owner, unsigned char* raw) {
+    const QForm& qf, const T* __restrict__ Ubg, const T* __restrict__ Bg,
+    const T* __restrict__ Ag, const T* __restrict__ bg,
+    T* __restrict__ G_out, T* __restrict__ y_out, int Tn, int n, int m,
+    int p, const int* owner, unsigned char* raw) {
   const int pn = p * n, d = n + m, C = d + pn + 1, W = n + m + pn;
-  const CoreLayout<T> L(n, m, p);
+  const CoreLayout<T> L(n, m, p, qf.staged(n, p), qf.extra(n, m),
+                        QForm::kLU);
   T* sm = reinterpret_cast<T*>(raw);
   int* gcol = reinterpret_cast<int*>(sm + L.words);  // (i << 16) | cc
   int* pivrow = gcol + pn;
@@ -171,6 +201,7 @@ __device__ __forceinline__ void forward_sweep(
   T* yx = sm + L.yx;
   T* Fs = sm + L.fs;
   T* rinvs = sm + L.rinv;
+  T* ext = sm + L.ext;
   const int tid = threadIdx.x, rg = tid & (kRG - 1), cg = tid >> 3;
   const int gbase = (tid & 31) & ~(kRG - 1);
   const unsigned gmask = 0xffu << gbase;
@@ -188,7 +219,7 @@ __device__ __forceinline__ void forward_sweep(
   auto issue = [&](int k) {
     T* buf = sm + (k & 1) * L.buf;
     const size_t kt = lane0 + k;
-    copy_flat(buf + L.q, Qg + kt * pn * n, pn * n);
+    qf.issue(buf + L.q, kt, n, p);
     copy_flat(buf + L.ub, Ubg + kt * m * m, m * m);
     copy_flat(buf + L.bm, Bg + kt * n * m, n * m);
     copy_flat(buf + L.bk, bg + kt * W, W);
@@ -268,6 +299,10 @@ __device__ __forceinline__ void forward_sweep(
         }
     }
     __syncthreads();                   // F
+    if constexpr (QForm::kProducts) {
+      qf.products(Q, Bs, Fs, ext, ldF, owner, n, m, p);
+      __syncthreads();                 // the Q form's products
+    }
 
     // The augmented system, each owned entry an FMA chain from shared
     // memory.
@@ -278,31 +313,7 @@ __device__ __forceinline__ void forward_sweep(
       #pragma unroll
       for (int i = 0; i < TR; ++i) acc[i] = T(0);
       if (c < n) {                     // x columns
-        #pragma unroll 1
-        for (int i2 = 0; i2 < p; ++i2) {
-          #pragma unroll 4
-          for (int k = 0; k < n; ++k) {
-            const T qv = Q[(i2 * n + k) * n + c];
-            #pragma unroll
-            for (int i = 0; i < TR; ++i) {
-              const int a = rg + kRG * i - m;
-              if (a >= 0 && a < n) acc[i] += Fs[a * ldF + i2 * n + k] * qv;
-            }
-          }
-        }
-        #pragma unroll
-        for (int i = 0; i < TR; ++i) {
-          const int r = rg + kRG * i;
-          if (r < m) {                 // B^T Q_owner
-            const T* Qo = Q + own[i] * n * n;
-            T v = T(0);
-            #pragma unroll 4
-            for (int k = 0; k < n; ++k) v += Bs[k * m + r] * Qo[k * n + c];
-            acc[i] = v;
-          } else if (r < d) {          // -I + sum_i F_i Q_i
-            acc[i] += (r - m == c) ? T(-1) : T(0);
-          }
-        }
+        qf.x_column(acc, Q, Bs, Fs, ext, ldF, own, rg, c, n, m, p);
       } else if (c < d) {              // u columns
         #pragma unroll
         for (int i = 0; i < TR; ++i) {
@@ -354,11 +365,13 @@ __device__ __forceinline__ void forward_sweep(
     }
     __syncthreads();                   // F is dead: the step slots reuse it
 
-    // Gauss-Jordan elimination: step s publishes the multipliers
-    // M[r, s] / piv of every row in slot s & 1 (double-buffered: one
-    // barrier per step), the pivot row and 1 / piv; every row but the
-    // pivot row is updated, so that each pivot row ends with only its pivot
-    // among the unknowns' columns.
+    // The elimination: step s publishes the multipliers M[r, s] / piv of
+    // every row (LU: of the rows not pivoted yet, and U[r, s] of the
+    // others) in its slot, the pivot row and 1 / piv.  Gauss-Jordan uses
+    // slot s & 1 (double-buffered: one barrier per step) and updates every
+    // row but the pivot row, so that each pivot row ends with only its
+    // pivot among the unknowns' columns; LU uses slot s and updates the
+    // rows not pivoted yet.
     unsigned used = 0u;
     int step_of[TR];
     #pragma unroll
@@ -366,7 +379,7 @@ __device__ __forceinline__ void forward_sweep(
     #pragma unroll 1
     for (int s = 0; s < d; ++s) {
       const int js = s >> 4;           // s / kCG
-      T* Ss = Fs + (s & 1) * d;
+      T* Ss = Fs + (QForm::kLU ? s : (s & 1)) * d;
       if (cg == (s & (kCG - 1))) {
         T col[TR];
         #pragma unroll
@@ -406,7 +419,9 @@ __device__ __forceinline__ void forward_sweep(
         #pragma unroll
         for (int i = 0; i < TR; ++i) {
           const int r = rg + kRG * i;
-          if (r < d) Ss[r] = col[i] * rinv;
+          if (r < d)
+            Ss[r] = (QForm::kLU && ((used >> r) & 1u)) ? col[i]
+                                                       : col[i] * rinv;
         }
         if (rg == 0) {
           pivrow[s] = pr;
@@ -427,7 +442,8 @@ __device__ __forceinline__ void forward_sweep(
       #pragma unroll
       for (int i = 0; i < TR; ++i) {
         const int r = rg + kRG * i;
-        if (r < d && r != pr) {
+        const bool pending = !QForm::kLU || !((used >> r) & 1u);
+        if (r < d && r != pr && pending) {
           const T l = Ss[r];
           #pragma unroll
           for (int j = 0; j < TC; ++j) tile[i][j] -= l * prow[j];
@@ -435,6 +451,38 @@ __device__ __forceinline__ void forward_sweep(
         if (r == pr) step_of[i] = s;
       }
       used |= 1u << pr;
+    }
+
+    if constexpr (QForm::kLU) {
+      // Back substitution on the right-hand sides, last step first: x_s =
+      // (pivot row of step s) / piv, taken by shuffle from the lane of each
+      // column group that owns that row; every row pivoted before step s
+      // takes RHS -= U[r, s] x_s.  Shuffles within the warp only.
+      #pragma unroll 1
+      for (int s = d - 1; s > 0; --s) {
+        const int pr = pivrow[s];
+        const T rinv = rinvs[s];
+        const int src = gbase | (pr & (kRG - 1)), ipr = pr >> 3;
+        const T* Us = Fs + s * d;
+        T xs[TC];
+        #pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          T v = tile[0][j];
+          #pragma unroll
+          for (int i = 1; i < TR; ++i) v = (ipr == i) ? tile[i][j] : v;
+          xs[j] = __shfl_sync(0xffffffffu, v, src) * rinv;
+        }
+        #pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          const int r = rg + kRG * i;
+          if (r < d && step_of[i] < s) {
+            const T u = Us[r];
+            #pragma unroll
+            for (int j = 0; j < TC; ++j)
+              if (cg + kCG * j >= d) tile[i][j] -= u * xs[j];
+          }
+        }
+      }
     }
 
     // The unknowns: each pivot row's right-hand sides times 1 / piv.

@@ -3,23 +3,46 @@
 // Replaces algames_tpu/ops/thomas_pallas.py::solve_thomas_pallas_structured
 // (_make_fwd_kernel_sq, _make_bwd_kernel_sq, _reduced_solve(pivot=True)).
 //
-// Q_i is given as diag(q_i) + sum_k w_k w_k^T (k owned by player i); the
-// sweep itself, shared with the dense-Q kernel K3, is in thomas_common.cuh.
-// Its reduced systems are eliminated x first, as K3's (the TPU kernel takes
-// u first): the quadrotor's KKT systems lose up to 2.95e3 relative in f32
-// at mu = 1e7 with u first, against 4.16 x first (PERF.md).
+// Q_i is given as diag(q_i) + sum_k w_k w_k^T (k owned by player i).  Its
+// reduced systems are eliminated x first, as K3's (the TPU kernel takes u
+// first): the quadrotor's KKT systems lose up to 2.95e3 relative in f32 at
+// mu = 1e7 with u first, against 4.16 x first (PERF.md).
 //
 // What bounds it on the card: neither bytes nor flops.  A lane moves ~160 KB
 // (f32, both launches, G and y_hat included) and does ~1.2 MFLOP; the sweep
 // is a chain of T knots, each a chain of d pivot steps, so it is bound by
-// the latency of that dependent chain (one block barrier per pivot step).  The design answers with one thread
-// block per lane so that a whole batch of independent chains is in flight
-// across the SMs (about eight 128-thread blocks per SM at a batch of 1,024
-// lanes), with every per-knot operand, the recursion carry and the
-// augmented system [d x (d+R)] held in shared memory: no intermediate of the
-// sweep touches device memory except G and y_hat, which the backward launch
-// reads back.
+// the latency of that dependent chain and by how many chains an SM holds.
+// The forward kernel is K3's register-tiled core (thomas_dense_core.cuh:
+// one 128-thread block per lane, each thread's tile of the augmented
+// system in registers with compile-time strides, one block barrier per
+// pivot step, the next knot's operands copied in by cp.async while a knot
+// is eliminated) with the Q form StructuredQ below: per knot it stages q
+// [p, n] and w [NW, n] instead of Q [p, n, n], forms Bw = B^T w_k and
+// Fw = F_owner(k) w_k once after the fill-in, and builds each x column
+// from them.  Its elimination is LU with a back substitution inside each
+// warp, not the core's Gauss-Jordan: on the quadrotor's f32 systems
+// Gauss-Jordan's backward error reached 66 x the plain version's at mu =
+// 1e7 (tests/test_torch_k1_order.py).  Size classes (TR, TC) = (2, 2),
+// (3, 4), (4, 6) cover d <= 32 (the core's 32-bit pivot mask) and
+// d + R <= 96: the double integrator, the flagship, the quadrotor (d=32).
+// On an H100 80GB HBM3 (f32, B=1024, forward + backward;
+// tests/thomas_compare.py) it takes 1.68 ms on the quadrotor's systems,
+// 0.98 ms on the flagship's and 0.20 ms on the double integrator's, where
+// the shared-memory forward kernel took 4.84, 1.67 and 0.30 ms: one wave
+// of 8 lanes per SM against 6 (quadrotor), one barrier per pivot step
+// against three.  Of a quadrotor knot's ~173,000 SM cycles the elimination
+// takes ~68,000, the build of the augmented system ~48,000 and the back
+// substitution ~24,000 (tests/k1_phase_clocks.py); its f32 instance holds
+// 64 registers a thread and spills (a 224-byte frame).
+// Wider systems take the shared-memory forward kernel of
+// thomas_common.cuh (the "wide" route: every per-knot operand, the carry
+// and the augmented system in shared memory, three barriers per pivot
+// step, a serial back substitution per right-hand side).  The backward
+// kernel is the shared-memory one of thomas_common.cuh for every width:
+// a knot's multipliers are one matrix-vector product, about 7% of K1's
+// device time in the quadrotor sweep's profile on an H100 (PERF.md).
 #include "thomas_common.cuh"
+#include "thomas_dense_core.cuh"
 
 namespace {
 
@@ -60,6 +83,104 @@ struct SqForm {
     #pragma unroll 1
     for (int k = 0; k < NW; ++k) v += Fw[a * NW + k] * w[k * n + cc];
     return v;
+  }
+};
+
+// The register-tiled core's structured Q form (thomas_dense_core.cuh).
+// Staged per knot: q [p, n], then w [NW, n] at wofs().  Products, after the
+// fill-in F, one row per row of the augmented system:
+//   Pw[r, k] = B[:, r] . w_k if player owner(r) owns w_k, else 0  (r < m)
+//   Pw[r, k] = F[r - m, owner(k) block] . w_k                     (r >= m)
+// and the x columns (c < n):
+//   statu row r: B[c, r] q_owner(r)[c] + sum_k Pw[r, k] w_k[c]
+//   dyn row r:   sum_i F[r - m, i n + c] q_i[c] + sum_k Pw[r, k] w_k[c]
+//                - delta(r - m, c).
+// LU elimination (see the core).
+template <typename T>
+struct StructuredQ {
+  static constexpr bool kLU = true;
+  static constexpr bool kProducts = true;
+  const T* qd;                         // [B, T, p, n]
+  const T* wv;                         // [B, T, NW, n]
+  const int* w_owner;                  // [NW]
+  int NW;
+
+  __host__ __device__ static int wofs(int n, int p) {
+    return thomas_core::round16<T>(p * n);
+  }
+  __host__ __device__ int ldW() const { return thomas_core::row_pad<T>(NW); }
+  __host__ __device__ int staged(int n, int p) const {
+    return wofs(n, p) + thomas_core::round16<T>(NW * n);
+  }
+  __host__ __device__ int extra(int n, int m) const {
+    return (n + m) * ldW();
+  }
+  __device__ __forceinline__ void issue(T* dst, size_t kt, int n,
+                                        int p) const {
+    thomas_core::copy_flat(dst, qd + kt * p * n, p * n);
+    thomas_core::copy_flat(dst + wofs(n, p), wv + kt * NW * n, NW * n);
+  }
+  __device__ __forceinline__ void products(const T* Q, const T* Bs,
+                                           const T* Fs, T* Pw, int ldF,
+                                           const int* owner, int n, int m,
+                                           int p) const {
+    const T* w = Q + wofs(n, p);
+    const int d = n + m, ld = ldW();
+    for (int idx = threadIdx.x; idx < d * NW; idx += thomas_core::kThreads) {
+      const int r = idx / NW, k = idx - r * NW;
+      const int o = w_owner[k];
+      const T* wk = w + k * n;
+      T s = T(0);
+      if (r >= m) {                    // F_owner(k) w_k
+        const T* f = Fs + (r - m) * ldF + o * n;
+        #pragma unroll 4
+        for (int j = 0; j < n; ++j) s += f[j] * wk[j];
+      } else if (owner[r] == o) {      // B^T w_k, owner's rows only
+        #pragma unroll 4
+        for (int j = 0; j < n; ++j) s += Bs[j * m + r] * wk[j];
+      }
+      Pw[r * ld + k] = s;
+    }
+  }
+  // acc[i] += column c (< n) of owned row rg + 8 i; acc is zero on entry.
+  template <int TR>
+  __device__ __forceinline__ void x_column(T (&acc)[TR], const T* Q,
+                                           const T* Bs, const T* Fs,
+                                           const T* Pw, int ldF,
+                                           const int (&own)[TR], int rg,
+                                           int c, int n, int m,
+                                           int p) const {
+    constexpr int kRG = thomas_core::kRG;
+    const T* w = Q + wofs(n, p);
+    const int d = n + m, ld = ldW();
+    #pragma unroll 1
+    for (int i2 = 0; i2 < p; ++i2) {   // sum_i F_i diag(q_i)
+      const T qv = Q[i2 * n + c];
+      #pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int a = rg + kRG * i - m;
+        if (a >= 0 && a < n) acc[i] += Fs[a * ldF + i2 * n + c] * qv;
+      }
+    }
+    #pragma unroll
+    for (int i = 0; i < TR; ++i) {     // B^T diag(q_owner)
+      const int r = rg + kRG * i;
+      if (r < m) acc[i] = Bs[c * m + r] * Q[own[i] * n + c];
+    }
+    #pragma unroll 2
+    for (int k = 0; k < NW; ++k) {     // the rank-1 terms
+      const T wv_c = w[k * n + c];
+      #pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int r = rg + kRG * i;
+        if (r < d) acc[i] += Pw[r * ld + k] * wv_c;
+      }
+    }
+    #pragma unroll
+    for (int i = 0; i < TR; ++i) {     // -I
+      const int r = rg + kRG * i;
+      if (r >= m && r < d) acc[i] += (r - m == c) ? T(-1) : T(0);
+    }
   }
 };
 
@@ -118,6 +239,23 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_fwd_kernel(
   }
 }
 
+// The forward sweep on the register-tiled core, one instance per size
+// class: TR x 8 rows and TC x 16 columns of the augmented system.
+template <typename T, int TR, int TC>
+__global__ void
+__launch_bounds__(thomas_core::kThreads, sizeof(T) == 4 ? 8 : 4)
+thomas_sq_tiled_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
+                       const T* __restrict__ Ub, const T* __restrict__ Bm,
+                       const T* __restrict__ A, const T* __restrict__ bk,
+                       T* __restrict__ G_out, T* __restrict__ y_out, int Tn,
+                       int n, int m, int p, int NW,
+                       const __grid_constant__ SqMeta meta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  thomas_core::forward_sweep<T, TR, TC>(
+      StructuredQ<T>{qd, wv, meta.w_owner, NW}, Ub, Bm, A, bk,
+      G_out, y_out, Tn, n, m, p, meta.owner, smem_raw);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) thomas_sq_bwd_kernel(
     const T* __restrict__ G, const T* __restrict__ yhat,
@@ -162,15 +300,64 @@ SqMeta make_meta(const int* owner, const int* w_owner, int m, int NW) {
 
 bool dims_ok(int m, int NW) { return m <= kMaxM && NW <= kMaxNW; }
 
+// The size classes, smallest first: (TR, TC) holds d <= 8 TR and
+// C = d + p n + 1 <= 16 TC.  The wrapper routes the systems that fit none
+// to launch_fwd_wide (thomas_sq_tiled_fits).
+template <typename T>
+const void* tiled_kernel(int n, int m, int p, int NW) {
+  if (!dims_ok(m, NW)) return nullptr;
+  const int d = n + m, C = d + p * n + 1;
+  if (d <= 16 && C <= 32) return (const void*)thomas_sq_tiled_kernel<T, 2, 2>;
+  if (d <= 24 && C <= 64) return (const void*)thomas_sq_tiled_kernel<T, 3, 4>;
+  if (d <= 32 && C <= 96) return (const void*)thomas_sq_tiled_kernel<T, 4, 6>;
+  return nullptr;
+}
+
+template <typename T>
+size_t tiled_smem_bytes(int n, int m, int p, int NW) {
+  const StructuredQ<T> qf{nullptr, nullptr, nullptr, NW};
+  return thomas_core::CoreLayout<T>::bytes(n, m, p, qf.staged(n, p),
+                                           qf.extra(n, m),
+                                           StructuredQ<T>::kLU);
+}
+
+template <typename T>
+size_t wide_smem_bytes(int n, int m, int p, int NW) {
+  return thomas::fwd_smem_bytes<T>(n, m, p, p * n + NW * n, n * NW);
+}
+
 template <typename T>
 int launch_fwd(const void* qd, const void* wv, const void* Ub, const void* Bm,
                const void* A, const void* b, const int* owner,
                const int* w_owner, void* G, void* yhat, int B, int Tn, int n,
                int m, int p, int NW, void* stream) {
+  const void* kernel = tiled_kernel<T>(n, m, p, NW);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const size_t bytes = tiled_smem_bytes<T>(n, m, p, NW);
+  int err = thomas::set_smem(kernel, bytes);
+  if (err) return err;
+  SqMeta meta = make_meta(owner, w_owner, m, NW);
+  const T *qp = (const T*)qd, *wp = (const T*)wv, *Ubp = (const T*)Ub,
+          *Bp = (const T*)Bm, *Ap = (const T*)A, *bp = (const T*)b;
+  T *Gp = (T*)G, *yp = (T*)yhat;
+  void* args[] = {&qp, &wp, &Ubp, &Bp, &Ap,  &bp, &Gp,
+                  &yp, &Tn, &n,   &m,  &p,   &NW, &meta};
+  return (int)cudaLaunchKernel(kernel, dim3(B), dim3(thomas_core::kThreads),
+                               args, bytes, (cudaStream_t)stream);
+}
+
+// The shared-memory kernel of thomas_common.cuh, for systems beyond the
+// largest size class.
+template <typename T>
+int launch_fwd_wide(const void* qd, const void* wv, const void* Ub,
+                    const void* Bm, const void* A, const void* b,
+                    const int* owner, const int* w_owner, void* G,
+                    void* yhat, int B, int Tn, int n, int m, int p, int NW,
+                    void* stream) {
   if (!dims_ok(m, NW)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t bytes =
-      thomas::fwd_smem_bytes<T>(n, m, p, p * n + NW * n, n * NW);
+  const size_t bytes = wide_smem_bytes<T>(n, m, p, NW);
   int err = thomas::set_smem((const void*)thomas_sq_fwd_kernel<T>, bytes);
   if (err) return err;
   thomas_sq_fwd_kernel<T><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
@@ -178,6 +365,30 @@ int launch_fwd(const void* qd, const void* wv, const void* Ub, const void* Bm,
       (const T*)b, (T*)G, (T*)yhat, Tn, n, m, p, NW,
       make_meta(owner, w_owner, m, NW));
   return (int)cudaGetLastError();
+}
+
+// The forward kernel that launch_fwd (or, with ``wide``, launch_fwd_wide)
+// runs for these widths: out = {lanes per SM, registers a thread, local
+// memory bytes a thread}; non-zero if there is none.
+template <typename T>
+int occupancy(int n, int m, int p, int NW, bool wide, int* out) {
+  const void* kernel = wide ? (dims_ok(m, NW)
+                                   ? (const void*)thomas_sq_fwd_kernel<T>
+                                   : nullptr)
+                            : tiled_kernel<T>(n, m, p, NW);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t bytes = wide ? wide_smem_bytes<T>(n, m, p, NW)
+                            : tiled_smem_bytes<T>(n, m, p, NW);
+  int err = thomas::set_smem(kernel, bytes);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (err) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], kernel, kThreads, bytes);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  return err;
 }
 
 template <typename T>
@@ -206,6 +417,25 @@ int launch_bwd(const void* G, const void* yhat, const void* qd, const void* wv,
       void* stream) {                                                         \
     return launch_fwd<T>(qd, wv, Ub, Bm, A, b, owner, w_owner, G, yhat, B,    \
                          Tn, n, m, p, NW, stream);                            \
+  }                                                                           \
+  extern "C" int thomas_sq_fwd_wide_##SUFFIX(                                 \
+      const void* qd, const void* wv, const void* Ub, const void* Bm,         \
+      const void* A, const void* b, const int* owner, const int* w_owner,     \
+      void* G, void* yhat, int B, int Tn, int n, int m, int p, int NW,        \
+      void* stream) {                                                         \
+    return launch_fwd_wide<T>(qd, wv, Ub, Bm, A, b, owner, w_owner, G, yhat,  \
+                              B, Tn, n, m, p, NW, stream);                    \
+  }                                                                           \
+  extern "C" int thomas_sq_tiled_fits_##SUFFIX(int n, int m, int p, int NW) { \
+    return tiled_kernel<T>(n, m, p, NW) != nullptr;                           \
+  }                                                                           \
+  extern "C" int thomas_sq_occupancy_##SUFFIX(int n, int m, int p, int NW,    \
+                                              int* out) {                     \
+    return occupancy<T>(n, m, p, NW, false, out);                             \
+  }                                                                           \
+  extern "C" int thomas_sq_occupancy_wide_##SUFFIX(int n, int m, int p,       \
+                                                   int NW, int* out) {        \
+    return occupancy<T>(n, m, p, NW, true, out);                              \
   }                                                                           \
   extern "C" int thomas_sq_bwd_##SUFFIX(                                      \
       const void* G, const void* yhat, const void* qd, const void* wv,        \

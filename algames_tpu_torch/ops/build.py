@@ -83,11 +83,29 @@ I = ctypes.c_int
 
 
 def bind(lib: ctypes.CDLL, fn: str, argtypes) -> object:
-    """Declare a launcher's argument types; it returns a CUDA error code."""
+    """Declare an export's argument types; it returns an int (a launcher:
+    a CUDA error code)."""
     f = getattr(lib, fn)
     f.argtypes = list(argtypes)
     f.restype = ctypes.c_int
     return f
+
+
+launch_hook = None
+"""When set, every call of a :func:`launcher` runs ``launch_hook(fn,
+args)`` instead of ``fn(*args)``: a timer's way in (``chip_smoke.py``'s
+``device_ms`` brackets each launch with CUDA events)."""
+
+
+def launcher(lib: ctypes.CDLL, fn: str, argtypes):
+    """A kernel launcher bound with :func:`bind`, called through
+    :data:`launch_hook` when one is set; it may be kept and reused."""
+    f = bind(lib, fn, argtypes)
+
+    def launch(*args):
+        hook = launch_hook
+        return f(*args) if hook is None else hook(f, args)
+    return launch
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -17,16 +17,19 @@ with ``m = p max(mi)`` and ``owner[r] = r // max(mi)``, and gathers the
 solution back to natural control order.  The padded unknowns solve
 ``1 * u_pad = 0`` exactly.  K1 stays homogeneous, as in the reference.
 
-K1 keeps the whole per-knot working set (operands, the (G, y) carry, the
-augmented d x (d+R) system) in shared memory, one lane per 128-thread
-block.  K3's forward kernel holds the augmented system in registers, one
+The forward kernels of both hold the augmented system in registers, one
 fixed tile per thread, with one block barrier per pivot step and the next
 knot's operands copied in while a knot is eliminated
-(``csrc/thomas_dense_core.cuh``); its size classes cover d = n + m <= 24
-and d + p n + 1 <= 96 (the library's ``thomas_dense_tiled_fits``), and
-wider systems take the shared-memory forward kernel of K1's design, counted
-apart in ``solve_thomas.big_launches``.  See the sources for what bounds
-each on the card.
+(``csrc/thomas_dense_core.cuh``, with the Q form a compile-time policy:
+K3 Gauss-Jordan, K1 LU and a back substitution).  K3's size classes cover
+d = n + m <= 24 and d + p n + 1 <= 96 (the library's
+``thomas_dense_tiled_fits``), K1's d <= 32 and d + p n + 1 <= 96
+(``thomas_sq_tiled_fits``).  Wider systems take the shared-memory forward
+kernel of ``csrc/thomas_common.cuh`` (every per-knot operand, the carry
+and the augmented system in shared memory), counted apart in
+``solve_thomas.big_launches`` and ``solve_thomas_structured
+.wide_launches``.  The route is chosen by shape before the launch; a build
+or launch error raises.  See the sources for what bounds each on the card.
 
 Each wrapper takes its plain PyTorch version (``problem.linear_solver
 .solve_tridiagonal_schur``, after densifying Q for K1) for CPU tensors only;
@@ -36,6 +39,7 @@ versions.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -115,23 +119,60 @@ def _check(spec, sq: StructuredQ, b: torch.Tensor, w_owner) -> None:
         raise ValueError("the kernel takes at most 64 w vectors")
 
 
+@functools.lru_cache(maxsize=None)
+def _sq_route(n: int, m: int, p: int, NW: int, dtype) -> str:
+    """K1's forward route at these widths: ``""`` for the register-tiled
+    kernel where one of its size classes fits (``csrc/thomas_sq.cu::
+    tiled_kernel``), else ``"wide_"`` for the shared-memory kernel."""
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    fits = build.bind(build.load(_LIB), f"thomas_sq_tiled_fits_{sfx}",
+                      [build.I] * 4)
+    return "" if fits(n, m, p, NW) else "wide_"
+
+
+@functools.lru_cache(maxsize=None)
+def _sq_launch(spec, w_owner, dtype):
+    """K1 at these widths, once per (shape, dtype): ``(route, library,
+    forward and backward launchers, owner and w_owner tables)``."""
+    lib = build.load(_LIB)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    P, I = build.P, build.I
+    route = _sq_route(spec.n, spec.m, spec.p, len(w_owner), dtype)
+    fwd = build.launcher(lib, f"thomas_sq_fwd_{route}{sfx}",
+                         [P] * 10 + [I] * 6 + [P])
+    bwd = build.launcher(lib, f"thomas_sq_bwd_{sfx}", [P] * 9 + [I] * 6 + [P])
+    return (route, lib, fwd, bwd, build.int_table(owner_map_u(spec)),
+            build.int_table(w_owner))
+
+
+def structured_forward(n: int, m: int, p: int, NW: int, dtype):
+    """The forward kernel that K1 runs at these widths with ``NW`` w
+    vectors: ``(register-tiled or not, lanes per SM, registers a thread,
+    local memory bytes a thread)`` from the CUDA runtime; needs a card."""
+    lib = build.load(_LIB)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    route = _sq_route(n, m, p, NW, dtype)
+    fn = build.bind(lib, f"thomas_sq_occupancy_{route}{sfx}",
+                    [build.I] * 4 + [build.P])
+    out = (ctypes.c_int * 3)()
+    build.check(lib, _LIB, fn(n, m, p, NW, out))
+    return (not route, *out)
+
+
 def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
                             w_owner) -> torch.Tensor:
     """Solve the KKT system for ``b`` [B, T, W] (pass the negated residual
     for the Newton step); ``sq`` leaves are [B, T, ...] and contiguous.
-    Returns the flat [B, S] solution in per-knot column order."""
+    Returns the flat [B, S] solution in per-knot column order.  The
+    forward kernel is the register-tiled one where a size class fits, else
+    the shared-memory one (counted by ``wide_launches``)."""
     _check(spec, sq, b, w_owner)
     if _route(b) == "plain":
         return solve_thomas_structured_plain(spec, sq, b, w_owner)
-    lib = build.load(_LIB)
-    sfx = "f32" if b.dtype == torch.float32 else "f64"
-    P, I = build.P, build.I
-    fwd = build.bind(lib, f"thomas_sq_fwd_{sfx}", [P] * 10 + [I] * 6 + [P])
-    bwd = build.bind(lib, f"thomas_sq_bwd_{sfx}", [P] * 9 + [I] * 6 + [P])
+    route, lib, fwd, bwd, owner, w_own = _sq_launch(spec, tuple(w_owner),
+                                                    b.dtype)
     Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
     d, pn, NW = n + m, p * n, len(w_owner)
-    owner = build.int_table(owner_map_u(spec))
-    w_own = build.int_table(w_owner)
     G = torch.empty((Bsz, T, d, pn), dtype=b.dtype, device=b.device)
     yhat = torch.empty((Bsz, T, d), dtype=b.dtype, device=b.device)
     y = torch.empty((Bsz, T, spec.W), dtype=b.dtype, device=b.device)
@@ -145,11 +186,14 @@ def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
             G.data_ptr(), yhat.data_ptr(), sq.qdiag.data_ptr(),
             sq.wv.data_ptr(), sq.A.data_ptr(), b.data_ptr(), owner, w_own,
             y.data_ptr(), Bsz, T, n, m, p, NW, stream))
+    if route:
+        solve_thomas_structured.wide_launches += 1
     solve_thomas_structured.launches += 1
     return y.reshape(Bsz, -1)
 
 
 solve_thomas_structured.launches = 0
+solve_thomas_structured.wide_launches = 0
 
 
 def solve_thomas_plain(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
@@ -177,9 +221,10 @@ def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p) -> torch.Tensor:
     sfx = "f32" if b.dtype == torch.float32 else "f64"
     route = _dense_route(lib, n, m, p, b.dtype)
     P, I = build.P, build.I
-    fwd = build.bind(lib, f"thomas_dense_fwd_{route}{sfx}",
-                     [P] * 8 + [I] * 5 + [P])
-    bwd = build.bind(lib, f"thomas_dense_bwd_{sfx}", [P] * 6 + [I] * 5 + [P])
+    fwd = build.launcher(lib, f"thomas_dense_fwd_{route}{sfx}",
+                         [P] * 8 + [I] * 5 + [P])
+    bwd = build.launcher(lib, f"thomas_dense_bwd_{sfx}",
+                         [P] * 6 + [I] * 5 + [P])
     Bsz, T = b.shape[:2]
     d, pn = n + m, p * n
     own = build.int_table(owner)

@@ -266,8 +266,8 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
     dtype, device = traj.x.dtype, traj.x.device
     sfx = "f32" if dtype == torch.float32 else "f64"
     P, I, D = build.P, build.I, ctypes.c_double
-    fn = build.bind(lib, f"trial_fused_{instance_name(model, spec)}_{sfx}",
-                    [P] * 7 + [I] * 8 + [D, D, P])
+    fn = build.launcher(lib, f"trial_fused_{instance_name(model, spec)}_"
+                        f"{sfx}", [P] * 7 + [I] * 8 + [D, D, P])
     Bsz, T, n, m, p = traj.x.shape[0], spec.T, spec.n, spec.m, spec.p
     sb, cb = gc.state_blocks, gc.control_blocks
     nsb, ncb, npair = len(sb), len(cb), len(obj.pair_i)

@@ -142,11 +142,13 @@ def roundabout(device="cuda", dtype=torch.float64, outer: int = 10,
 
 
 def quadrotor3d(device="cuda", dtype=torch.float64, outer: int = 6,
-                inner: int = 12):
+                inner: int = 12, p: int = 2):
     """2-player 3D quadrotor game, N=15: spherical collision avoidance (r =
     0.1 each), a floor facet at z = 0.2 and a z-axis cylinder (r = 0.2) per
-    player, and one-sided thrust bounds [0, 3]; targets at hover."""
-    p, N, dt = 2, 15, 0.1
+    player, and one-sided thrust bounds [0, 3]; targets at hover.  With
+    ``p`` = 3 its reduced KKT systems (d = 48) lie beyond K1's register
+    size classes (``chip_smoke.py``'s ``K1-wide``)."""
+    N, dt = 15, 0.1
     model = quadrotor_game(p=p)
     spec = spec_from_model(model, N, dt)
     hover = 0.5 * 9.81 / 4.0 / model.kf
@@ -167,7 +169,7 @@ def quadrotor3d(device="cuda", dtype=torch.float64, outer: int = 6,
     gc = add_control_bound(spec, gc, 3 * np.ones(spec.m), np.zeros(spec.m))
     x0 = np.zeros(spec.n)
     x0[[spec.pz[i][2] for i in range(p)]] = 1.0
-    x0[spec.pz[1][1]] = 0.3
+    x0[[spec.pz[i][1] for i in range(p)]] = 0.3 * np.arange(p)
     return game_problem(N, dt, torch.as_tensor(x0, dtype=dtype, device=device),
                         model, _options(dtype, outer, inner), obj, gc), spec
 

@@ -30,7 +30,10 @@ Phases:
    spills from ``-Xptxas -v``);
 2. K1 vs its plain version at flagship shapes, B=1024, over AL penalties
    mu = 1 .. 1e7: f64 <= 1e-9, f32 (against the f64 plain version) <= 1e-3,
-   worst per-lane relative error;
+   worst per-lane relative error; K1 on its register-tiled forward kernel
+   (every K1 phase, golden and sweep of a preset checks the route; each
+   K1 phase prints its forward kernel's lanes per SM, waves, registers and
+   local memory);
 3. K2 vs its plain version, B=1024: every carried leaf and tn, f64 <= 1e-12
    and f32 <= 1e-5 relative;
 4. one f64 flagship solve (outer 7 x inner 20) through K1 and K2 (not K3)
@@ -85,7 +88,12 @@ Phases:
    dense (``K3-big``: d=32 lies beyond K3's largest size class, so they
    take its shared-memory forward kernel), gated as K1's phase on them,
    and the f64 quadrotor solve with that route as its KKT step
-   (``golden-big``: iteration 52, within 1e-8 of ``quad2_N15.npz``);
+   (``golden-big``: iteration 52, within 1e-8 of ``quad2_N15.npz``); then
+   K1's shared-memory route on the quadrotor preset with 3 players (d=48,
+   beyond K1's size classes): its KKT systems gated as the quadrotor's
+   (``K1-wide``), and an f64 solve of 4 scenarios through it against the
+   same solve through the plain versions on the card (``solve-wide``:
+   iteration counts equal, x and u within 1e-8);
 13. the heterogeneous game: K3 on its padded KKT systems as in 11
    (``K3-hetero``), K4 on its trial inputs (``K4-hetero``), the f64 solve
    through K3 and K4 against ``tests/golden_torch/hetero2_N8.npz`` (the
@@ -166,6 +174,9 @@ REF_IBR = (0 / 128, 0.0071520789206260815)
 # The f64 bicycle solve through the kernels against the same solve through
 # the plain versions on the card (measured 2.4e-15 on an H100, PERF.md).
 BIKE3_PLAIN_TOL = 1e-10
+# The f64 3-player quadrotor solve through K1's shared-memory route against
+# the same solve through the plain versions on the card.
+WIDE_PLAIN_TOL = 1e-8
 # Per kernel: description, source, the TPU kernel it replaces.
 KERNELS = {
     "K1": ("structured block-Thomas KKT sweep", "thomas_sq.cu",
@@ -224,34 +235,42 @@ def _sleep_ms_per_cycle():
 
 def _bracketed_launches(fn, reps, sleep_ms):
     """Run ``fn`` ``reps`` times with every kernel launch of the port's
-    wrappers (each goes through ``ops.build.bind``) bracketed by CUDA
+    wrappers (each goes through ``ops.build.launch_hook``) bracketed by CUDA
     events and queued behind a ``torch.cuda._sleep`` of ``sleep_ms``:
     (per launch, the ms between its events; whether the device was still
-    asleep when every launch had been queued)."""
+    asleep when every launch had been queued).  For a checkout whose
+    wrappers bind their launchers on every call and have no hook
+    (``tests/thomas_compare.py`` times an older tree with this function),
+    ``ops.build.bind`` is wrapped instead."""
     import torch
     from algames_tpu_torch.ops import build
-    bind, pairs = build.bind, []
+    pairs = []
     cycles = max(1, int(sleep_ms / _sleep_ms_per_cycle()))
 
-    def timed_bind(lib, name, argtypes):
-        launch = bind(lib, name, argtypes)
-
-        def call(*args):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(cycles)
-            start.record()
-            err = launch(*args)
-            stop.record()
-            pairs.append((start, stop, not start.query()))
-            return err
-        return call
-    build.bind = timed_bind
+    def timed(launch, args):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        err = launch(*args)
+        stop.record()
+        pairs.append((start, stop, not start.query()))
+        return err
+    bind = build.bind
+    hooked = hasattr(build, "launch_hook")
+    if hooked:
+        build.launch_hook = timed
+    else:
+        build.bind = lambda lib, name, argtypes: functools.partial(
+            lambda f, *args: timed(f, args), bind(lib, name, argtypes))
     try:
         for _ in range(reps):
             fn()
     finally:
-        build.bind = bind
+        if hooked:
+            build.launch_hook = None
+        else:
+            build.bind = bind
     torch.cuda.synchronize()
     return ([a.elapsed_time(b) for a, b, _ in pairs],
             all(ok for _, _, ok in pairs))
@@ -589,15 +608,18 @@ def backward_errors(spec, sq, w_owner, b, ys, lanes=256):
 
 
 def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
-             seed0=0, gate="forward"):
+             seed0=0, gate="forward", wide=False):
     """K1 against its plain version on ``preset``'s KKT systems (default:
-    the flagship), B=1024, over mu = 1 .. 1e7; then its times, bound and
-    library call in f32.  ``gate`` "forward": worst relative error against
-    the f64 plain version, f64 <= 1e-9 and f32 <= 1e-3.  "backward", for
-    systems too ill-conditioned for that in f32 (the f32 plain version
-    itself misses it): the normwise backward error, f64 <= 1e-15 and f32 <=
-    1e-7, each also <= 10 x the plain version's own in the same precision,
-    and the f32 forward error <= 30 x the f32 plain version's own."""
+    the flagship), B=1024, over mu = 1 .. 1e7, on the register-tiled
+    forward kernel (``wide``: on the shared-memory one, for systems beyond
+    its size classes; the other route taken is a failure); then its times,
+    bound, library call and forward kernel (``k1_occupancy``) in f32.
+    ``gate`` "forward": worst relative error against the f64 plain
+    version, f64 <= 1e-9 and f32 <= 1e-3.  "backward", for systems too
+    ill-conditioned for that in f32 (the f32 plain version itself misses
+    it): the normwise backward error, f64 <= 1e-15 and f32 <= 1e-7, each
+    also <= 10 x the plain version's own in the same precision, and the f32
+    forward error <= 30 x the f32 plain version's own."""
     import torch
     from algames_tpu_torch.ops.thomas import (solve_thomas_structured,
                                               solve_thomas_structured_plain,
@@ -630,6 +652,7 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
     spec = None
     worst64 = worst32 = max_abs32 = 0.0
     launches = solve_thomas_structured.launches
+    wide0 = solve_thomas_structured.wide_launches
     for i, mu in enumerate(MUS):
         e = compare(mu, i, False)
         e64, e32, a32 = e[:3]
@@ -655,6 +678,10 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
         max_abs32 = max(max_abs32, a32)
     if solve_thomas_structured.launches != launches + 2 * len(MUS):
         raise SystemExit(f"the {tag} wrapper did not launch its kernel")
+    took_wide = solve_thomas_structured.wide_launches - wide0
+    if took_wide != (2 * len(MUS) if wide else 0):
+        raise SystemExit(f"{tag}: K1 took the wrong forward route ({took_wide}"
+                         f" of {2 * len(MUS)} calls on the wide route)")
     for mu in (1e3, 1e7):
         e64, e32, _ = compare(mu, 50, True)
         log(f"[{tag}] every constraint row penalized at mu={mu:.0e} "
@@ -684,8 +711,40 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
         f"{spec.S}, {spec.S}] KKT matrices, f32, one call: {lib_ms:.4f} ms; "
         f"worst relative deviation from K1 {dev_lib:.3e} (not gated); bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    occ = k1_occupancy(tag, spec, len(w_owner))
     return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
-            "device_ms": dev_ms, **bnd, "library_ms": lib_ms}
+            "device_ms": dev_ms, **bnd, "library_ms": lib_ms,
+            "forward_kernel": occ}
+
+
+def k1_occupancy(tag, spec, NW):
+    """The forward kernel K1 runs at ``spec``'s widths with ``NW`` w
+    vectors, per dtype: its route, lanes per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), waves at
+    B_KERNEL, registers and local memory (frame) a thread
+    (``cudaFuncGetAttributes``), through ``thomas_sq_occupancy_*``;
+    printed and returned."""
+    import math
+    import torch
+    from algames_tpu_torch.ops.thomas import structured_forward
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for dt, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        tiled, lanes, regs, frame = structured_forward(spec.n, spec.m, spec.p,
+                                                       NW, dt)
+        if lanes < 1:
+            raise SystemExit(f"[{tag}] the {name} forward kernel fits no "
+                             f"lane on an SM")
+        out[name] = {"route": "register-tiled" if tiled else "shared-memory",
+                     "lanes_per_sm": lanes,
+                     "waves": math.ceil(B_KERNEL / (sms * lanes)),
+                     "registers": regs, "frame_bytes": frame}
+        log(f"[{tag}] {name} forward kernel: {out[name]['route']} (d="
+            f"{spec.n + spec.m}, R={spec.p * spec.n + 1}, NW={NW}): {lanes} "
+            f"lanes per SM, {out[name]['waves']} wave(s) at B={B_KERNEL} on "
+            f"{sms} SMs, {regs} registers and {frame} bytes of local memory "
+            f"a thread")
+    return out
 
 
 def trial_inputs(preset, iterates, half_duals, dev, dtype, seed,
@@ -775,6 +834,66 @@ def di3_game(dev, dtype):
     gc = S.add_control_bound(spec, gc, 2 * np.ones(6), -2 * np.ones(6))
     x0 = torch.zeros(spec.n, dtype=dtype, device=dev)
     return game_problem(10, 0.1, x0, model, Options(), obj, gc), spec
+
+
+def quad3_game(dev, dtype):
+    """The quadrotor preset with three players, outer 2 x inner 5: n=36,
+    m=12, so its reduced KKT systems (d=48) lie beyond K1's register size
+    classes and take its shared-memory route."""
+    from algames_tpu_torch.presets import quadrotor3d
+    return quadrotor3d(dev, dtype, outer=2, inner=5, p=3)
+
+
+def quad3_iterates(prob, spec, B, rng, dev, dtype):
+    """Iterates of ``quad3_game``: its start and hover thrust perturbed per
+    knot, random multipliers."""
+    import torch
+    from algames_tpu_torch.core.traj import PrimalDual
+    hover = 0.5 * 9.81 / 4.0 / prob.model.kf
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    x = np.asarray(prob.x0.cpu())[None, None] + 0.1 * rng.standard_normal(
+        (B, spec.N, spec.n))
+    return PrimalDual(x=t(x), u=t(hover + 0.3 * rng.standard_normal(
+        (B, spec.T, spec.m))), lam=t(0.3 * rng.standard_normal(
+            (B, spec.p, spec.T, spec.n))))
+
+
+def phase_solve_wide(dev):
+    """The f64 ``quad3_game`` solve (4 scenarios, x0 + 0.05 N(0, 1) from
+    numpy seed 0, outer 2 x inner 5) through K1, which takes its
+    shared-memory route at d=48, against the same solve through the plain
+    versions on the card: per-lane iteration counts equal, x and u within
+    WIDE_PLAIN_TOL; returns K1's wide-route launches."""
+    import torch
+    import algames_tpu_torch as agt
+    from algames_tpu_torch.ops.thomas import (kkt_solve_plain,
+                                              solve_thomas_structured)
+    prob, spec = quad3_game(dev, torch.float64)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(np.asarray(prob.x0.cpu())[None]
+                          + 0.05 * rng.standard_normal((4, spec.n)),
+                          dtype=torch.float64, device=dev)
+    solve_thomas_structured.launches = 0
+    solve_thomas_structured.wide_launches = 0
+    res = agt.newton_solve(prob, x0s)
+    torch.cuda.synchronize()
+    launches = solve_thomas_structured.launches
+    wide = solve_thomas_structured.wide_launches
+    res_p = agt.newton_solve(prob, x0s, method=kkt_solve_plain)
+    it, it_p = res.stats.iter.cpu().numpy(), res_p.stats.iter.cpu().numpy()
+    dx = float((res.traj.x - res_p.traj.x).abs().max())
+    du = float((res.traj.u - res_p.traj.u).abs().max())
+    log(f"[solve-wide] f64 3-player quadrotor (d=48), 4 scenarios: iterations "
+        f"{it.tolist()} (plain versions {it_p.tolist()}), max |dx| {dx:.3e}, "
+        f"max |du| {du:.3e} from the plain versions (<= {WIDE_PLAIN_TOL:g}); "
+        f"K1 launches {launches}, of which on the wide route {wide}")
+    if not ((it == it_p).all() and dx <= WIDE_PLAIN_TOL
+            and du <= WIDE_PLAIN_TOL and wide > 0 and wide == launches):
+        raise SystemExit("the 3-player quadrotor solve through K1's wide "
+                         "route disagrees with the plain versions")
+    return wide
 
 
 def hetero_game(dev, dtype, outer=7, inner=20):
@@ -887,12 +1006,14 @@ def phase_golden(tag, preset, golden, kernels, dev, atol=(1e-8, 1e-8),
     solution ``golden`` (``load_golden``): the same iteration count, x and u
     within
     ``atol``, and only the game's own kernels (``kernels`` = (KKT wrapper,
-    other KKT wrapper)) launched, with the fused trial.  With ``plain_tol``,
+    other KKT wrapper)) launched, with the fused trial, and K1 never on its
+    shared-memory route.  With ``plain_tol``,
     the same solve through the plain versions on the card too: the same
     iteration count, x and u within ``plain_tol`` of the kernels'."""
     import torch
     import algames_tpu_torch as agt
-    from algames_tpu_torch.ops.thomas import kkt_solve_plain
+    from algames_tpu_torch.ops.thomas import (kkt_solve_plain,
+                                              solve_thomas_structured)
     from algames_tpu_torch.ops.trial import trial_eval
 
     kkt, other = kernels
@@ -902,11 +1023,13 @@ def phase_golden(tag, preset, golden, kernels, dev, atol=(1e-8, 1e-8),
         prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
     counters = (kkt, trial_eval, other)
     before = [c.launches for c in counters]
+    wide0 = solve_thomas_structured.wide_launches
     t0 = time.perf_counter()
     res = agt.newton_solve(prob)
     torch.cuda.synchronize()
     el = time.perf_counter() - t0
     ran = [c.launches - b for c, b in zip(counters, before)]
+    wide = solve_thomas_structured.wide_launches - wide0
     it = int(res.stats.iter[0])
     x, u = res.traj.x[0].cpu().numpy(), res.traj.u[0].cpu().numpy()
     dx = float(np.abs(x - gold["x"]).max())
@@ -914,9 +1037,9 @@ def phase_golden(tag, preset, golden, kernels, dev, atol=(1e-8, 1e-8),
     log(f"[{tag}] f64 kernel path: iter {it} (golden {int(gold['iter'])}), "
         f"max |dx| {dx:.3e} (<= {atol[0]:g}), max |du| {du:.3e} (<= "
         f"{atol[1]:g}), {el:.2f} s; launches: KKT {ran[0]}, trial {ran[1]}, "
-        f"the other KKT kernel {ran[2]}")
+        f"the other KKT kernel {ran[2]}, K1 on its wide route {wide}")
     ok = (it == int(gold["iter"]) and dx <= atol[0] and du <= atol[1]
-          and ran[0] > 0 and ran[1] > 0 and ran[2] == 0)
+          and ran[0] > 0 and ran[1] > 0 and ran[2] == 0 and wide == 0)
     if plain_tol is not None:
         plain = dataclasses.replace(
             prob, opts=dataclasses.replace(prob.opts, ls_fused=False))
@@ -967,11 +1090,13 @@ def phase_sweep(dev):
     prob, x0s = sweep_problem(flagship_unicycle, dev, outer=3, inner=8)
     parallel.solve_batch(prob, x0s[:64])             # warm-up, untimed
     solve_thomas_structured.launches = 0
+    solve_thomas_structured.wide_launches = 0
     trial_eval.launches = 0
     solve_thomas.launches = 0
     out, el = timed_sweep(prob, x0s, "thomas")
     launches = {"K1": solve_thomas_structured.launches,
-                "K2": trial_eval.launches, "K3": solve_thomas.launches}
+                "K2": trial_eval.launches, "K3": solve_thomas.launches,
+                "K1 wide route": solve_thomas_structured.wide_launches}
     sps = N_SWEEP / el
     iters = out.stats.iter.cpu().numpy()
     cap = prob.opts.outer_iter * prob.opts.inner_iter
@@ -987,7 +1112,7 @@ def phase_sweep(dev):
         + " ".join(f"{i}:{c}" for i, c in enumerate(hist) if c))
     if not (finite and frac >= 0.99 and div == 0.0
             and launches["K1"] > 0 and launches["K2"] > 0
-            and launches["K3"] == 0):
+            and launches["K3"] == 0 and launches["K1 wide route"] == 0):
         raise SystemExit("the flagship sweep failed its gates")
 
     plain = dataclasses.replace(
@@ -1379,11 +1504,13 @@ def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None):
         dataclasses.replace(prob, opts=dataclasses.replace(
             opts, outer_iter=1, inner_iter=2)), x0s[:64])   # warm-up
     solve_thomas_structured.launches = 0
+    solve_thomas_structured.wide_launches = 0
     solve_thomas.launches = 0
     trial_eval.launches = 0
     out, el = timed_sweep(prob, x0s, "thomas")
     launches = {"K1": solve_thomas_structured.launches,
-                "K3": solve_thomas.launches, "K4": trial_eval.launches}
+                "K3": solve_thomas.launches, "K4": trial_eval.launches,
+                "K1 wide route": solve_thomas_structured.wide_launches}
     kkt, other = ("K3", "K1") if dense else ("K1", "K3")
     iters = out.stats.iter.cpu().numpy()
     hist = np.bincount(iters, minlength=opts.outer_iter * opts.inner_iter + 2)
@@ -1409,7 +1536,7 @@ def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None):
     if not (finite and frac >= gate_all and first >= ref256 - 0.01
             and div == 0.0
             and launches[kkt] > 0 and launches["K4"] > 0
-            and launches[other] == 0):
+            and launches[other] == 0 and launches["K1 wide route"] == 0):
         raise SystemExit(f"the {tag} sweep failed its gates")
 
     plain = dataclasses.replace(prob, opts=dataclasses.replace(
@@ -1617,6 +1744,10 @@ def main():
     launches_quad = phase("sweep-quad2", phase_game_sweep, "sweep-quad2",
                           quadrotor3d, REF_CONVERGED["quad2_N15"], dev, False,
                           QUAD_OPT_GATE)
+    # K1's shared-memory route, on systems beyond its size classes.
+    k1_wide = phase("K1-wide", phase_k1, dev, "K1-wide", quad3_game,
+                    quad3_iterates, 900, "backward", True)
+    launches_wide = phase("solve-wide", phase_solve_wide, dev)
 
     # The heterogeneous double integrator (K3 padded + K4's player-blocked
     # instance) and iterative best response (K3 at p=1).
@@ -1642,6 +1773,8 @@ def main():
         entry("K1", "uni3_N20", launches["K1"], k1),
         entry("K1", "di2_N10", launches_di["K1"], k1_di),
         entry("K1", "quad2_N15", launches_quad["K1"], k1_quad),
+        entry("K1", "K1-wide: quad3 (3-player quadrotor, d=48), the "
+              "wide-system shared-memory route", launches_wide, k1_wide),
         entry("K2", "uni3_N20", launches["K2"], k2),
         entry("K3", "round4_N40", launches4["K3"], k3),
         entry("K3", "bike3_N20", launches_bike["K3"], k3_bike),

@@ -8,7 +8,9 @@ K1 (``csrc/thomas_sq.cu``) eliminates each knot's reduced system x columns
 first.  This script also builds it with the TPU kernel's u-first order (a
 copy of ``thomas_common.cuh`` whose ``ColumnOrder`` puts the u columns
 first, into a temporary directory) and runs the port's wrapper on either
-library.  For mu = 1 .. 1e7 it builds ``chip_smoke.py``'s quadrotor K1
+library, both on K1's shared-memory forward kernel (the wide route, the
+only one with a column order to change; it was every system's route when
+this was measured).  For mu = 1 .. 1e7 it builds ``chip_smoke.py``'s quadrotor K1
 systems (B=1024, around the frozen ``quad2_N15`` equilibrium) and solves them
 in both orders, in f64 and f32, beside the f32 plain version: worst and
 median per-lane relative error against the f64 plain version, and the worst
@@ -38,8 +40,9 @@ U_FIRST = "ColumnOrder(int n, int m) : u0(0), x0(m) {}"
 def build_u_first(tmp):
     """K1's library compiled with the u columns first."""
     from algames_tpu_torch.ops import build
-    for name in ("thomas_sq.cu", "thomas_common.cuh"):
-        shutil.copy(build.CSRC_DIR / name, tmp / name)
+    for path in [build.CSRC_DIR / "thomas_sq.cu",
+                 *build.CSRC_DIR.glob("*.cuh")]:
+        shutil.copy(path, tmp / path.name)
     header = (tmp / "thomas_common.cuh").read_text()
     if X_FIRST not in header:
         raise SystemExit("ColumnOrder is not the expected x-first form")
@@ -56,16 +59,20 @@ def build_u_first(tmp):
 
 @contextlib.contextmanager
 def order(lib_u, name):
-    """K1's wrapper on the u-first library while ``name`` is "u"."""
+    """K1's wrapper on its shared-memory forward kernel, from the u-first
+    library while ``name`` is "u"."""
     from algames_tpu_torch.ops import thomas
-    load = thomas.build.load
+    load, route = thomas.build.load, thomas._sq_route
     if name == "u":
         thomas.build.load = lambda lib: lib_u if lib == "thomas_sq" else \
             load(lib)
+    thomas._sq_route = lambda *shape: "wide_"
+    thomas._sq_launch.cache_clear()
     try:
         yield
     finally:
-        thomas.build.load = load
+        thomas.build.load, thomas._sq_route = load, route
+        thomas._sq_launch.cache_clear()
 
 
 def main():

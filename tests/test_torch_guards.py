@@ -177,6 +177,89 @@ def test_hetero_spec_takes_the_kernel_route(monkeypatch):
     solve_thomas.launches = before
 
 
+def test_k1_route_is_chosen_by_shape(monkeypatch):
+    """On a card tensor, K1's wrapper picks its forward kernel by shape
+    before the launch: the register-tiled one where the library's
+    ``thomas_sq_tiled_fits`` says a size class fits, else the shared-memory
+    one, counted by ``wide_launches``.  It asks once per shape and dtype,
+    keeps its launchers, never takes the plain version, and raises on a
+    launch error.  Checked with a fake library whose launchers record their
+    names and whose backward launcher writes the plain solution."""
+    import contextlib
+    import ctypes
+    import types
+    import chip_smoke
+    from algames_tpu_torch.ops import thomas
+    spec, sq, b, w_owner = chip_smoke.k1_system(torch.device("cpu"), 2, 1e3,
+                                                7)
+    want = {dt: thomas.solve_thomas_structured_plain(
+        spec, type(sq)(*[getattr(sq, f).to(dt) for f in
+                         ("qdiag", "wv", "Ublk", "A", "B")]), b.to(dt),
+        w_owner) for dt in (torch.float64, torch.float32)}
+    calls, state = [], {"fits": 1, "err": 0, "dtype": torch.float64}
+
+    class Export:
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, *args):
+            calls.append(self.name)
+            if "error_string" in self.name:
+                return b"launch refused"
+            if "tiled_fits" in self.name:
+                return state["fits"]
+            if "_bwd_" in self.name:
+                y = want[state["dtype"]]
+                ctypes.memmove(args[8], y.data_ptr(),
+                               y.numel() * y.element_size())
+            return state["err"] if "_fwd_" in self.name else 0
+
+    class Library:
+        def __getattr__(self, name):
+            return Export(name)
+
+    def plain(*_):
+        raise AssertionError("the plain version ran for a card tensor")
+    monkeypatch.setattr(thomas, "_route", lambda t: "kernel")
+    monkeypatch.setattr(thomas.build, "load", lambda name: Library())
+    monkeypatch.setattr(thomas, "solve_thomas_structured_plain", plain)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    thomas._sq_route.cache_clear()
+    thomas._sq_launch.cache_clear()
+    launches = solve_thomas_structured.launches
+    wide = solve_thomas_structured.wide_launches
+    try:
+        for _ in range(2):
+            y = thomas.solve_thomas_structured(spec, sq, b, w_owner)
+            torch.testing.assert_close(y, want[torch.float64], rtol=0,
+                                       atol=0)
+        assert calls == ["thomas_sq_tiled_fits_f64", "thomas_sq_fwd_f64",
+                         "thomas_sq_bwd_f64", "thomas_sq_fwd_f64",
+                         "thomas_sq_bwd_f64"]
+        assert solve_thomas_structured.wide_launches == wide
+        calls.clear()
+        state.update(fits=0, dtype=torch.float32)
+        sq32 = type(sq)(*[getattr(sq, f).float() for f in
+                          ("qdiag", "wv", "Ublk", "A", "B")])
+        y = thomas.solve_thomas_structured(spec, sq32, b.float(), w_owner)
+        torch.testing.assert_close(y, want[torch.float32], rtol=0, atol=0)
+        assert calls == ["thomas_sq_tiled_fits_f32",
+                         "thomas_sq_fwd_wide_f32", "thomas_sq_bwd_f32"]
+        assert solve_thomas_structured.wide_launches == wide + 1
+        assert solve_thomas_structured.launches == launches + 3
+        state["err"] = 700
+        with pytest.raises(RuntimeError, match="launch refused"):
+            thomas.solve_thomas_structured(spec, sq, b, w_owner)
+    finally:
+        thomas._sq_route.cache_clear()
+        thomas._sq_launch.cache_clear()
+        solve_thomas_structured.launches = launches
+        solve_thomas_structured.wide_launches = wide
+
+
 def test_presets_default_to_the_card():
     """The port's entry points run on the card unless the caller asks for
     the CPU: every preset's device defaults to CUDA."""

@@ -53,28 +53,20 @@ def system(game, mu):
                                 kw.get("preset"), kw.get("iterates"))
 
 
-def forward_knot(Q, Ub, Bm, At, A1, bk, Gx, yx, owner, n, m, p):
-    """One knot of the forward sweep, as the kernel computes it: returns
-    the solution [B, d, R] (rows in (x, u) order, columns [G | y])."""
-    dt = Q.dtype
-    pn, d = p * n, n + m
-    C = d + pn + 1
-    Bsz = Q.shape[0]
-    F = np.zeros((Bsz, n, pn), dt)
-    for k in range(n):                           # F = -A_t G_{t-1}
+def fill_in(At, Gx):
+    """The Thomas fill-in F = -A_t G_{t-1} [B, n, pn], summed over k."""
+    F = np.zeros(At.shape[:2] + Gx.shape[2:], At.dtype)
+    for k in range(At.shape[2]):
         F = F + At[:, :, k, None] * Gx[:, None, k, :]
-    F = -F
-    M = np.zeros((Bsz, d, C), dt)
-    Qo = Q[:, owner]                             # [B, m, n, n]
-    acc = np.zeros((Bsz, m, n), dt)              # B^T Q_owner
-    for k in range(n):
-        acc = acc + Bm[:, k, :, None] * Qo[:, :, k, :]
-    M[:, :m, :n] = acc
-    acc = np.zeros((Bsz, n, n), dt)              # sum_i F_i Q_i
-    for i in range(p):
-        for k in range(n):
-            acc = acc + F[:, :, i * n + k, None] * Q[:, i, k, None, :]
-    M[:, m:, :n] = acc - np.eye(n, dtype=dt)
+    return -F
+
+
+def rhs_columns(M, F, Ub, Bm, At, A1, bk, yx, owner, n, m, p):
+    """The u columns and the right-hand sides of the augmented system M
+    (shared by K1 and K3), as the kernel sums them."""
+    dt = M.dtype
+    Bsz, pn, d = M.shape[0], p * n, n + m
+    C = d + pn + 1
     M[:, :m, n:d] = Ub
     M[:, m:, n:d] = Bm
     for i in range(p):                           # G right-hand sides
@@ -101,6 +93,12 @@ def forward_knot(Q, Ub, Bm, At, A1, bk, Gx, yx, owner, n, m, p):
         s2 = s2 + F[:, :, k] * bk[:, None, k]
     M[:, m:, C - 1] = bk[:, pn + m:] - s1 + s2
 
+
+def gauss_jordan(M, d):
+    """The kernel's elimination of M [B, d, C] in place: the solution
+    [B, d, C - d], rows in step order ((x, u) order: x columns first)."""
+    dt = M.dtype
+    Bsz = M.shape[0]
     lanes = np.arange(Bsz)
     used = np.zeros((Bsz, d), bool)
     step_of = np.zeros((Bsz, d), int)
@@ -116,12 +114,34 @@ def forward_knot(Q, Ub, Bm, At, A1, bk, Gx, yx, owner, n, m, p):
         upd = np.ones((Bsz, d), bool)
         upd[lanes, pr] = False                   # every row but the pivot row
         prow = M[lanes, pr]                      # [B, C]
-        M = np.where(upd[:, :, None],
-                     M - slot[:, :, None] * prow[:, None, :], M)
+        M[:] = np.where(upd[:, :, None],
+                        M - slot[:, :, None] * prow[:, None, :], M)
         step_of[lanes, pr] = s
         used[lanes, pr] = True
     M[:, :, d:] = M[:, :, d:] * rinvs[lanes[:, None], step_of][:, :, None]
-    return M[lanes[:, None], pivrow, d:]         # rows in step order
+    return M[lanes[:, None], pivrow, d:]
+
+
+def forward_knot(Q, Ub, Bm, At, A1, bk, Gx, yx, owner, n, m, p):
+    """One knot of the forward sweep, as the kernel computes it: returns
+    the solution [B, d, R] (rows in (x, u) order, columns [G | y])."""
+    dt = Q.dtype
+    pn, d = p * n, n + m
+    Bsz = Q.shape[0]
+    F = fill_in(At, Gx)
+    M = np.zeros((Bsz, d, d + pn + 1), dt)
+    Qo = Q[:, owner]                             # [B, m, n, n]
+    acc = np.zeros((Bsz, m, n), dt)              # B^T Q_owner
+    for k in range(n):
+        acc = acc + Bm[:, k, :, None] * Qo[:, :, k, :]
+    M[:, :m, :n] = acc
+    acc = np.zeros((Bsz, n, n), dt)              # sum_i F_i Q_i
+    for i in range(p):
+        for k in range(n):
+            acc = acc + F[:, :, i * n + k, None] * Q[:, i, k, None, :]
+    M[:, m:, :n] = acc - np.eye(n, dtype=dt)
+    rhs_columns(M, F, Ub, Bm, At, A1, bk, yx, owner, n, m, p)
+    return gauss_jordan(M, d)
 
 
 def emulate(spec, jb, b, dtype):

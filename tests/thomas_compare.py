@@ -15,11 +15,13 @@ prints, per input set, each kernel's worst relative error against the f64
 plain version, and in f32 the device time per call (forward + backward;
 the event reading of this repository's ``chip_smoke.device_ms``, so both
 trees are timed alike); for the roundabout also K3's forward kernel alone at
-B = 132, 924 and 1024, and for every K3 input set the lanes per SM of its
+B = 132, 924 and 1024, and for every input set the lanes per SM of the
 forward kernel from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` (the
-tree's own ``thomas_dense_occupancy_*`` export, or for a tree without one a
-probe library compiled from its source).  The outputs go to
-DIR/NAME-kkt.pt (``tests/trial_compare.py`` writes DIR/NAME.pt).
+tree's own ``thomas_dense_occupancy_*`` / ``thomas_sq_occupancy_*``
+export, which for K1 also gives the registers and local memory a thread,
+or for a tree without one a probe library compiled from its source).  The
+outputs go to DIR/NAME-kkt.pt (``tests/trial_compare.py`` writes
+DIR/NAME.pt).
 ``compare`` counts the unequal output elements of two dumps and their
 largest difference, input set by input set.  Run each ``dump`` in its own
 process: the two trees' packages share a name.
@@ -47,44 +49,63 @@ def _timing():
     return mod
 
 
-def _occupancy_probe(tree, out_dir):
-    """A library compiled from TREE's ``thomas_dense.cu`` with one more
-    export: its forward kernel's lanes per SM (for trees without
-    ``thomas_dense_occupancy_*``)."""
+# Per library: the shared-memory forward kernel and its Q operand scalars
+# and extra scalars, in TREE's thomas_common.cuh terms.
+_PROBES = {"thomas_dense": ("thomas_dense_fwd_kernel", "p * n * n", "0"),
+           "thomas_sq": ("thomas_sq_fwd_kernel", "p * n + NW * n", "n * NW")}
+
+
+def _occupancy_probe(tree, out_dir, lib_name):
+    """A library compiled from TREE's ``<lib_name>.cu`` with one more
+    export: its shared-memory forward kernel's lanes per SM (for trees
+    without the library's occupancy export)."""
     from algames_tpu_torch.ops import build
-    src = out_dir / "occupancy_probe.cu"
-    so = out_dir / "occupancy_probe.so"
+    kernel, qs, ext = _PROBES[lib_name]
+    src = out_dir / f"occupancy_probe_{lib_name}.cu"
+    so = out_dir / f"occupancy_probe_{lib_name}.so"
     out_dir.mkdir(parents=True, exist_ok=True)
     body = "\n".join(
-        f"""extern "C" int probe_occupancy_{sfx}(int n, int m, int p) {{
-  const size_t bytes = thomas::fwd_smem_bytes<{T}>(n, m, p, p * n * n, 0);
-  if (thomas::set_smem((const void*)thomas_dense_fwd_kernel<{T}>, bytes))
-    return -1;
+        f"""extern "C" int probe_occupancy_{sfx}(int n, int m, int p, int NW) {{
+  const size_t bytes = thomas::fwd_smem_bytes<{T}>(n, m, p, {qs}, {ext});
+  if (thomas::set_smem((const void*){kernel}<{T}>, bytes)) return -1;
   int lanes = -1;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &lanes, thomas_dense_fwd_kernel<{T}>, thomas::kThreads, bytes);
+      &lanes, {kernel}<{T}>, thomas::kThreads, bytes);
   return lanes;
 }}""" for sfx, T in (("f32", "float"), ("f64", "double")))
-    src.write_text(f'#include "{tree}/algames_tpu_torch/csrc/thomas_dense.cu"'
+    src.write_text(f'#include "{tree}/algames_tpu_torch/csrc/{lib_name}.cu"'
                    f"\n{body}\n")
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
                     str(src)], check=True, capture_output=True)
     return ctypes.CDLL(str(so))
 
 
-def _occupancy(lib, probe, n, m, p, sfx):
-    fn = getattr(lib, f"thomas_dense_occupancy_{sfx}", None)
-    if fn is None:
-        fn = getattr(probe, f"probe_occupancy_{sfx}")
-    fn.argtypes = [ctypes.c_int] * 3
+def _occupancy(lib, lib_name, probes, tree, out_dir, n, m, p, sfx, NW=0):
+    """The forward kernel's lanes per SM at these widths, as a string (K1
+    with the tree's own export: also registers and local memory)."""
+    if lib_name == "thomas_sq" and hasattr(lib, f"thomas_sq_occupancy_{sfx}"):
+        from algames_tpu_torch.ops.thomas import structured_forward
+        tiled, lanes, regs, frame = structured_forward(
+            n, m, p, NW, torch.float32 if sfx == "f32" else torch.float64)
+        return (f"{'register-tiled' if tiled else 'shared-memory'}, {lanes} "
+                f"lanes per SM, {regs} registers, {frame} B local")
+    fn = getattr(lib, f"{lib_name}_occupancy_{sfx}", None)
+    if fn is not None:
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        return f"{fn(n, m, p)} lanes per SM"
+    if lib_name not in probes:
+        probes[lib_name] = _occupancy_probe(tree, out_dir, lib_name)
+    fn = getattr(probes[lib_name], f"probe_occupancy_{sfx}")
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_int
-    return fn(n, m, p)
+    return f"shared-memory, {fn(n, m, p, NW)} lanes per SM"
 
 
 def _fwd_only(spec, jb, b, lanes):
     """A closure running K3's forward kernel alone on the first ``lanes``
-    lanes (homogeneous specs); it binds the launcher on every call, as the
-    wrappers do, so that ``device_ms`` sees the launch."""
+    lanes (homogeneous specs); it binds the launcher on every call, so that
+    ``device_ms`` sees the launch in either kind of tree."""
     from algames_tpu_torch.core.spec import owner_map_u
     from algames_tpu_torch.ops import build, thomas
     lib = build.load(thomas._LIB_DENSE)
@@ -96,8 +117,11 @@ def _fwd_only(spec, jb, b, lanes):
     own = build.int_table(owner_map_u(spec))
 
     def run():
-        fwd = build.bind(lib, "thomas_dense_fwd_f32",
-                         [P] * 8 + [I] * 5 + [P])
+        # A tree with ``build.launcher`` times launches through its hook, an
+        # older one through ``build.bind``: looked up at every call, when
+        # the timer may have replaced it.
+        bind = getattr(build, "launcher", None) or build.bind
+        fwd = bind(lib, "thomas_dense_fwd_f32", [P] * 8 + [I] * 5 + [P])
         build.check(lib, thomas._LIB_DENSE, fwd(
             *[a.data_ptr() for a in ops], own, G.data_ptr(), yhat.data_ptr(),
             lanes, T, n, m, p, torch.cuda.current_stream().cuda_stream))
@@ -128,8 +152,9 @@ def dump(tree, name, out_dir):
                           iterates=cs.golden_iterates("di2_N10")), 300),
           ("K1 quad2", dict(preset=quadrotor3d,
                             iterates=cs.golden_iterates("quad2_N15")), 500)]
-    probe = None
+    probes = {}
     lib = build.load(thomas._LIB_DENSE)
+    lib_sq = build.load(thomas._LIB)
     res = {}
     t0 = time.perf_counter()
     for tag, kw, seed0 in k3:
@@ -150,12 +175,10 @@ def dump(tree, name, out_dir):
                 err = float(cs.rel_err(y, ref).max())
                 line = f"{name} {key}: worst rel err vs f64 plain {err:.3e}"
                 if mu == 1e3:
-                    if probe is None and not hasattr(
-                            lib, f"thomas_dense_occupancy_{sfx}"):
-                        probe = _occupancy_probe(tree, out_dir)
-                    lanes = _occupancy(lib, probe, spec.n,
-                                       spec.p * max(spec.mi), spec.p, sfx)
-                    line += f"; forward kernel {lanes} lanes per SM"
+                    occ = _occupancy(lib, "thomas_dense", probes, tree,
+                                     out_dir, spec.n, spec.p * max(spec.mi),
+                                     spec.p, sfx)
+                    line += f"; forward kernel {occ}"
                 print(line, flush=True)
                 if mu == 1e3 and dtype == torch.float32:
                     tm.device_ms(lambda: thomas.solve_thomas(spec, jbt, bt),
@@ -173,10 +196,17 @@ def dump(tree, name, out_dir):
                                             False, kw.get("preset"),
                                             kw.get("iterates",
                                                    cs.flagship_iterates))
+        ref = thomas.solve_thomas_structured_plain(spec, sq, b, w_owner)
         for dtype in (torch.float64, torch.float32):
             sqt, bt = tree_map(lambda a: a.to(dtype), sq), b.to(dtype)
             y = thomas.solve_thomas_structured(spec, sqt, bt, w_owner)
             res[f"{tag} {str(dtype)[-7:]}"] = [y.cpu()]
+            sfx = "f32" if dtype == torch.float32 else "f64"
+            occ = _occupancy(lib_sq, "thomas_sq", probes, tree, out_dir,
+                             spec.n, spec.m, spec.p, sfx, len(w_owner))
+            print(f"{name} {tag} mu=1e+03 {sfx}: worst rel err vs f64 plain "
+                  f"{float(cs.rel_err(y, ref).max()):.3e}; forward kernel "
+                  f"{occ}", flush=True)
             if dtype == torch.float32:
                 tm.device_ms(lambda: thomas.solve_thomas_structured(
                     spec, sqt, bt, w_owner), 20, ("thomas_sq_",), 2,
