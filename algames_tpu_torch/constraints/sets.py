@@ -328,3 +328,32 @@ def reset_constraints(gc: GameConstraints, B: int) -> GameConstraints:
             b, lam=b.lam.new_zeros(shape),
             mu=b.mu.new_zeros(shape) + gc.mu0)
     return map_blocks(gc, upd)
+
+
+def per_lane(gc: GameConstraints, B: int) -> GameConstraints:
+    """The AL state as per-lane [B, K, C] tensors: unbatched [K, C] state is
+    copied to every lane, per-lane state is kept as it is."""
+    def upd(b: ConBlock):
+        if b.lam.dim() == 3:
+            if b.lam.shape[0] != B or b.mu.shape[0] != B:
+                raise ValueError(f"AL state of {b.lam.shape[0]} lanes, "
+                                 f"want {B}")
+            return b
+        shape = (B,) + tuple(b.lam.shape)
+        return dataclasses.replace(b, lam=b.lam.expand(shape).contiguous(),
+                                   mu=b.mu.expand(shape).contiguous())
+    return map_blocks(gc, upd)
+
+
+def reset_penalties(gc: GameConstraints) -> GameConstraints:
+    """Reset penalties to mu0 and keep the duals (the MPC dual warm start:
+    carried multipliers, a fresh penalty schedule), per lane [B, K, C] or
+    unbatched [K, C] as given."""
+    return map_blocks(gc, lambda b: dataclasses.replace(
+        b, mu=b.mu.new_zeros(b.mu.shape) + gc.mu0))
+
+
+def reset_constraint_duals(gc: GameConstraints) -> GameConstraints:
+    """Zero the duals and keep the penalties, at the state's own shape."""
+    return map_blocks(gc, lambda b: dataclasses.replace(
+        b, lam=b.lam.new_zeros(b.lam.shape)))

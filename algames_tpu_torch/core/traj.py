@@ -32,17 +32,27 @@ def zero_traj(spec: ProblemSpec, B: int, dtype, device) -> PrimalDual:
 
 
 def init_traj(spec: ProblemSpec, x0: torch.Tensor, shift: int = 2 ** 10,
-              prev: PrimalDual | None = None) -> PrimalDual:
-    """Zero init with MPC warm-start shift semantics, x0 [B, n].
+              prev: PrimalDual | None = None,
+              generator: torch.Generator | None = None,
+              amplitude: float = 1e-8) -> PrimalDual:
+    """Fresh init with MPC warm-start shift semantics, x0 [B, n].
 
-    Entry k is taken from ``prev`` shifted by ``shift`` knots when ``k+shift``
-    is in range, else it is fresh (zero); finally ``x[:, 0]`` is pinned to
-    x0.  The reference package draws the fresh entries at amplitude 1e-8
-    when given a PRNG key; the solver's batch path passes none, so the fresh
-    entries are zeros there too.
+    The fresh entries are drawn uniform in [0, amplitude) from
+    ``generator`` (x, then u, then lam, on x0's device, where the generator
+    must live), or are zeros without one.  Entry k is then taken from
+    ``prev`` shifted by ``shift`` knots when ``k+shift`` is in range, else
+    it stays fresh; finally ``x[:, 0]`` is pinned to x0.
     """
     B = x0.shape[0]
-    fresh = zero_traj(spec, B, x0.dtype, x0.device)
+    if generator is None:
+        fresh = zero_traj(spec, B, x0.dtype, x0.device)
+    else:
+        def draw(*shape):
+            return amplitude * torch.rand(shape, generator=generator,
+                                          dtype=x0.dtype, device=x0.device)
+        fresh = PrimalDual(x=draw(B, spec.N, spec.n),
+                           u=draw(B, spec.T, spec.m),
+                           lam=draw(B, spec.p, spec.T, spec.n))
     if prev is not None and shift < spec.N:
         s = shift
         x = torch.cat([prev.x[:, s:], fresh.x[:, spec.N - s:]], dim=1)

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -260,6 +261,15 @@ def _state_tables(sb, dtype, device):
     return meta, masks, spar, row
 
 
+@functools.lru_cache(maxsize=None)
+def _owner_index(spec, device):
+    """(owner of each control, control index), on ``device``, once per spec:
+    a table copied from the host on every call would synchronise the
+    stream each time."""
+    return (torch.as_tensor(owner_map_u(spec), device=device),
+            torch.arange(spec.m, device=device))
+
+
 def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
     """Pack the operands and tables, run the kernel of ``lib`` on
     ``stream``, and return ``(tn, PointLite)``."""
@@ -287,8 +297,7 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
     zmax = (torch.stack([b.params.z_max for b in cb]) if cb else zeros(0, m))
     zmin = (torch.stack([b.params.z_min for b in cb]) if cb else zeros(0, m))
     pmr = torch.stack([obj.mu, obj.r], dim=1).contiguous()
-    own = torch.as_tensor(owner_map_u(spec), device=device)
-    j = torch.arange(m, device=device)
+    own, j = _owner_index(spec, device)
     Rdp = obj.Rd[own, j].contiguous()
     ufp = obj.uf[own, j].contiguous()
     p_meta = []

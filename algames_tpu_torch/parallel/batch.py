@@ -13,15 +13,18 @@ from ..problem.solver import SolveResult, newton_solve
 from ..utils import tree_map
 
 
-def solve_batch(prob: GameProblem, x0s: torch.Tensor,
-                method="thomas") -> SolveResult:
-    """Solve one game per row of ``x0s`` [B, n]."""
-    return newton_solve(prob, x0s, method=method)
+def solve_batch(prob: GameProblem, x0s: torch.Tensor, method="thomas",
+                generator: torch.Generator | None = None) -> SolveResult:
+    """Solve one game per row of ``x0s`` [B, n]; ``generator`` draws each
+    lane's fresh init (zeros without one)."""
+    return newton_solve(prob, x0s, method=method, generator=generator)
 
 
 def solve_many(prob: GameProblem, x0s: torch.Tensor, method="thomas",
-               chunk: int | None = None, reduce=None):
-    """Sweep ``x0s`` [N, n] in chunks of ``chunk`` lanes.
+               chunk: int | None = None, reduce=None,
+               generator: torch.Generator | None = None):
+    """Sweep ``x0s`` [N, n] in chunks of ``chunk`` lanes; the chunks draw
+    their fresh inits from ``generator`` one after the other.
 
     N is padded to a multiple of ``chunk`` with copies of row 0 and the
     result is trimmed back to N lanes.  ``chunk=None`` (or >= N) is one
@@ -34,7 +37,7 @@ def solve_many(prob: GameProblem, x0s: torch.Tensor, method="thomas",
     """
     N = x0s.shape[0]
     if chunk is None or chunk >= N:
-        out = solve_batch(prob, x0s, method=method)
+        out = solve_batch(prob, x0s, method=method, generator=generator)
         if reduce is not None:
             return tree_map(lambda a: a[None], reduce(out))
         return out
@@ -42,8 +45,8 @@ def solve_many(prob: GameProblem, x0s: torch.Tensor, method="thomas",
     pad = C * chunk - N
     if pad:
         x0s = torch.cat([x0s, x0s[:1].expand(pad, -1)])
-    outs = [solve_batch(prob, x0s[i * chunk:(i + 1) * chunk], method=method)
-            for i in range(C)]
+    outs = [solve_batch(prob, x0s[i * chunk:(i + 1) * chunk], method=method,
+                        generator=generator) for i in range(C)]
     if reduce is not None:
         outs = [reduce(o) for o in outs]
         return tree_map(lambda a, *r: torch.stack((a,) + r), outs[0],

@@ -113,15 +113,16 @@ def _ibr_player_solve(prob: GameProblem, kkt, traj: PrimalDual, gc, stats,
                       i: int, active: torch.Tensor):
     """Player i's AL solve with the others frozen, on the lanes where
     ``active`` [B] holds: the AL outer loop around the Newton inner loop,
-    each a host loop over the lanes still in it.  The AL state is reset
-    and the multipliers zeroed on every lane first.  Stats rows record the
-    player's AL epoch in the ``outer`` column and the running largest step
-    in the ``delta`` column.  Returns (traj, gc, stats, max_delta [B])."""
+    each a host loop over the lanes still in it.  With ``dual_reset`` the
+    AL state is reset and the multipliers zeroed on every lane first.
+    Stats rows record the player's AL epoch in the ``outer`` column and
+    the running largest step in the ``delta`` column.  Returns (traj, gc, stats, max_delta [B])."""
     spec, model, opts, obj = prob.spec, prob.model, prob.opts, prob.obj
     Bsz, dtype, device = traj.x.shape[0], traj.x.dtype, traj.x.device
     spec_i = player_spec(spec, i)
-    gc = gcm.reset_constraints(gc, Bsz)
-    traj = PrimalDual(x=traj.x, u=traj.u, lam=torch.zeros_like(traj.lam))
+    if opts.dual_reset:
+        gc = gcm.reset_constraints(gc, Bsz)
+        traj = PrimalDual(x=traj.x, u=traj.u, lam=torch.zeros_like(traj.lam))
     pd = R.point_data(model, spec, obj, gc, traj)
 
     def norm_i(spec_, res_):
@@ -143,6 +144,8 @@ def _ibr_player_solve(prob: GameProblem, kkt, traj: PrimalDual, gc, stats,
             if not bool(irun.any()):
                 break
             reg = opts.reg_0 * (l + 1).to(dtype) ** 4
+            if not opts.regularize:
+                reg = torch.zeros_like(reg)
             res, jb, _, _ = R.assemble_from_point(spec, obj, gc, traj, pd,
                                                   reg=reg)
             res_norm = player_residual_norm(spec, res, i)
@@ -194,7 +197,8 @@ def _ibr_init(prob: GameProblem, x0s, capacity: int):
     traj0 = init_traj(spec, x0s)
     traj0 = PrimalDual(x=rollout_rk3(model, x0s, traj0.u, spec.dt),
                        u=traj0.u, lam=traj0.lam)
-    gc0 = gcm.reset_constraints(prob.gc, Bsz)
+    gc0 = (gcm.reset_constraints(prob.gc, Bsz) if prob.opts.dual_reset
+           else gcm.per_lane(prob.gc, Bsz))
     return traj0, gc0, init_stats(Bsz, capacity, dtype, device)
 
 

@@ -1,11 +1,13 @@
 """Solver options (counterpart of ``algames_tpu/problem/options.py``).
 
-The TPU compiler knobs of the reference package (``loop_unroll``,
-``flat_loop``) have no counterpart: the port always runs the flat (k, l)
-machine with a host loop.  ``ls_parallel`` > 1, ``adaptive_penalty``,
-``regularize=False`` and ``dual_reset=False`` are not ported yet (the
-flagship runs none of them); the port always regularizes and always resets
-the AL state at the start of a solve.
+The fields of the reference package's ``Options`` that the port acts on,
+with the same defaults.  Left out: the TPU compiler knobs ``flat_loop``
+(the port always runs the flat (k, l) machine, as a host loop) and
+``loop_unroll`` (iterations per while-loop trip), and the fields that no
+solver path reads (``theta``, ``alpha_increase``, ``rho_trial``,
+``active_set_tolerance``, ``gamma``, ``inner_print``, ``outer_print``,
+``seed``); ``convert.problem_from_reference`` raises on a reference
+problem that sets one of those away from its default.
 """
 from __future__ import annotations
 
@@ -15,7 +17,14 @@ from typing import Tuple
 
 @dataclasses.dataclass(frozen=True)
 class Options:
-    # Regularization: reg = reg_0 * l^4 on the primal diagonals.
+    # Amplitude of the random primal-dual init (solves given a generator).
+    amplitude_init: float = 1e-8
+    # Knots the warm start is shifted by (MPC uses 1).
+    shift: int = 2 ** 10
+
+    # Regularization: reg = reg_0 * l^4 on the primal diagonals and in the
+    # line-search trials; none with regularize=False.
+    regularize: bool = True
     reg_0: float = 1e-3
 
     # Backtracking line search.
@@ -24,6 +33,10 @@ class Options:
     beta: float = 0.01
     ls_iter: int = 25
     delta_min: float = 1e-9
+    # Evaluate the first ls_parallel trials for every lane and accept the
+    # first that passes; deeper trials run sequentially.  The accept
+    # decisions are those of ls_parallel=1.
+    ls_parallel: int = 1
     # Evaluate line-search trials with the fused trial kernel
     # (ops/trial.py) where the problem lies inside its specialization.
     ls_fused: bool = False
@@ -45,6 +58,20 @@ class Options:
     # Iteration caps.
     outer_iter: int = 7
     inner_iter: int = 20
+
+    # Adaptive penalty safeguard (not in the ALGAMES reference): raise the
+    # penalties only when the constraint violation failed to shrink by
+    # adaptive_ratio since the last update, else take the dual step alone.
+    adaptive_penalty: bool = False
+    adaptive_ratio: float = 0.25
+
+    # MPC: replans of mpc_solve, RK3 plant substeps per control interval.
+    mpc_horizon: int = 20
+    upsampling: int = 2
+
+    # Reset the AL state (duals to 0, penalties to mu0) at the start of a
+    # solve; with False the given AL state is used as it is.
+    dual_reset: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

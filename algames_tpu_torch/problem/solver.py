@@ -63,6 +63,7 @@ class _Carry:
     last_vio: torch.Tensor      # [B, 4] dyn, con, sta, opt
     delta_prev: torch.Tensor
     alpha_prev: torch.Tensor
+    prev_cvio: torch.Tensor     # [B] constraint violation at the last update
     delta_fin: torch.Tensor
 
 
@@ -84,21 +85,24 @@ def _kkt_solver(method):
 def line_search(model, spec, obj, gc, opts, traj, dtraj, res_norm, reg,
                 live, trial_fn=None, norm_fn=None):
     """Backtracking line search: accept alpha iff the trial mean residual
-    (with the Tikhonov pull toward the current iterate) is at most
-    (1 - alpha beta) res_norm.  Returns (alpha, j, PointLite), each per
-    lane; failed iff j == ls_iter.
+    (with the Tikhonov pull ``reg`` [B] toward the current iterate) is at
+    most (1 - alpha beta) res_norm.  Returns (alpha, j, PointLite), each
+    per lane; failed iff j == ls_iter.
 
-    The first trial (alpha_0) is evaluated for every lane; the sequential
-    continuation runs only on the ``live`` lanes whose first trial failed
-    (the other lanes' results are discarded by the caller).  On a failed
-    line search the step uses a final alpha that was never evaluated
-    (alpha_0 decrease^ls_iter) while the returned point is from the last
-    tested alpha, and the caller completes it with Jacobians at the
-    final-alpha point: the rebuilt point data mixes two points about
+    The first K = ``opts.ls_parallel`` trials (at most ls_iter - 1) are
+    evaluated for every lane and the first that passes is accepted; the
+    sequential continuation, from trial K+1, runs only on the ``live``
+    lanes whose first K trials all failed (the other lanes' results are
+    discarded by the caller).  The decisions are those of K = 1.  On a
+    failed line search the step uses a final alpha that was never
+    evaluated (alpha_0 decrease^ls_iter) while the returned point is from
+    the last tested alpha, and the caller completes it with Jacobians at
+    the final-alpha point: the rebuilt point data mixes two points about
     3e-8 |step| apart, exactly as the reference does.
 
-    ``trial_fn`` (the fused trial) and ``norm_fn`` (a custom residual norm
-    for the eager trial) exclude each other.
+    ``trial_fn`` (the fused trial: K launches for the window) and
+    ``norm_fn`` (a custom residual norm for the eager trial) exclude each
+    other.
     """
     if trial_fn is not None and norm_fn is not None:
         raise ValueError("trial_fn and norm_fn cannot both be given")
@@ -112,13 +116,28 @@ def line_search(model, spec, obj, gc, opts, traj, dtraj, res_norm, reg,
         def trial_point(alpha):
             return trial_fn(model, spec, obj, gc, traj, dtraj, alpha, reg)
 
-    alpha0 = torch.full((Bsz,), opts.alpha_0, dtype=dtype, device=device)
-    tn, pd_first = trial_point(alpha0)
-    any_ok = tn <= (1.0 - alpha0 * opts.beta) * res_norm
+    K = max(1, min(int(opts.ls_parallel), opts.ls_iter - 1))
+    alphas = opts.alpha_0 * opts.alpha_decrease ** torch.arange(
+        K, dtype=dtype, device=device)
+    any_ok = torch.zeros((Bsz,), dtype=torch.bool, device=device)
+    alpha_par = alphas[K - 1].expand(Bsz)
+    j_par = torch.full((Bsz,), K, dtype=torch.int32, device=device)
+    pd_par = None
+    for k in range(K):
+        alpha_k = alphas[k].expand(Bsz).contiguous()
+        tn, pd_k = trial_point(alpha_k)
+        ok = tn <= (1.0 - alpha_k * opts.beta) * res_norm
+        first = ok & ~any_ok
+        alpha_par = torch.where(first, alpha_k, alpha_par)
+        j_par = torch.where(first, k + 1, j_par)
+        pd_par = pd_k if pd_par is None else where_tree(first, pd_k, pd_par)
+        any_ok = any_ok | ok
+    pd_last = pd_k
 
-    j = torch.full((Bsz,), 2, dtype=torch.int32, device=device)
-    alpha = alpha0 * opts.alpha_decrease
-    pd_seq = pd_first
+    j = torch.full((Bsz,), K + 1, dtype=torch.int32, device=device)
+    alpha = torch.full((Bsz,), opts.alpha_0 * opts.alpha_decrease ** K,
+                       dtype=dtype, device=device)
+    pd_seq = pd_last
     run = live & ~any_ok & (j < opts.ls_iter)
     while bool(run.any()):
         tn, pd_t = trial_point(alpha)
@@ -128,9 +147,9 @@ def line_search(model, spec, obj, gc, opts, traj, dtraj, res_norm, reg,
         pd_seq = where_tree(run, pd_t, pd_seq)
         run = run & ~ok & (j < opts.ls_iter)
 
-    alpha = torch.where(any_ok, alpha0, alpha)
-    j = torch.where(any_ok, torch.ones_like(j), j)
-    return alpha, j, where_tree(any_ok, pd_first, pd_seq)
+    alpha = torch.where(any_ok, alpha_par, alpha)
+    j = torch.where(any_ok, j_par, j)
+    return alpha, j, where_tree(any_ok, pd_par, pd_seq)
 
 
 def _contiguous(tree):
@@ -145,6 +164,8 @@ def _iteration(prob: GameProblem, kkt, w_owner, c: _Carry, active):
     gc, traj, pd = c.gc, c.traj, c.pd
     dtype = traj.x.dtype
     reg = opts.reg_0 * (c.l + 1).to(dtype) ** 4       # reference l^4 schedule
+    if not opts.regularize:
+        reg = torch.zeros_like(reg)
     if spec.homogeneous and R.structured_q_supported(spec, obj, gc):
         res, blocks, sta_v, con_v = R.assemble_structured_from_point(
             spec, obj, gc, traj, pd, reg=reg)
@@ -190,21 +211,33 @@ def _iteration(prob: GameProblem, kkt, w_owner, c: _Carry, active):
     return traj, pd, stats, last_vio, delta_rec, alpha_rec, stop
 
 
-def _outer_update(opts, traj, gc, rho, last_vio, active):
+def _outer_update(opts, traj, gc, rho, last_vio, prev_cvio, active):
     """AL convergence gate + dual ascent + penalty schedule on the lanes
-    where ``active`` holds; returns (converged, gc, rho)."""
+    where ``active`` holds; returns (converged, gc, rho, prev_cvio).  With
+    ``opts.adaptive_penalty`` a lane takes the dual step when its constraint
+    violation max(con, sta) fell to adaptive_ratio x ``prev_cvio`` or below,
+    and the penalty step otherwise (never both)."""
     converged = ((last_vio[:, 0] < opts.eps_dyn)
                  & (last_vio[:, 1] < opts.eps_con)
                  & (last_vio[:, 2] < opts.eps_sta)
                  & (last_vio[:, 3] < opts.eps_opt))
     do_update = active & ~converged
+    cvio = torch.maximum(last_vio[:, 1], last_vio[:, 2])
     if bool(do_update.any()):
-        gc_new = gcm.penalty_update(gcm.dual_update(gc, traj))
-        gc = where_tree(do_update, gc_new, gc)
-        rho = torch.where(do_update,
-                          torch.clamp(rho * opts.rho_increase,
-                                      max=opts.rho_max), rho)
-    return converged, gc, rho
+        rho_up = torch.clamp(rho * opts.rho_increase, max=opts.rho_max)
+        if opts.adaptive_penalty:
+            improved = cvio <= opts.adaptive_ratio * prev_cvio
+            gc = where_tree(do_update & improved, gcm.dual_update(gc, traj),
+                            gc)
+            gc = where_tree(do_update & ~improved, gcm.penalty_update(gc),
+                            gc)
+            rho = torch.where(do_update & ~improved, rho_up, rho)
+        else:
+            gc_new = gcm.penalty_update(gcm.dual_update(gc, traj))
+            gc = where_tree(do_update, gc_new, gc)
+            rho = torch.where(do_update, rho_up, rho)
+    prev_cvio = torch.where(do_update, cvio, prev_cvio)
+    return converged, gc, rho, prev_cvio
 
 
 def _body(prob: GameProblem, kkt, w_owner, c: _Carry, active) -> _Carry:
@@ -213,14 +246,15 @@ def _body(prob: GameProblem, kkt, w_owner, c: _Carry, active) -> _Carry:
     traj, pd, stats, last_vio, delta_rec, alpha_rec, stop_inner = _iteration(
         prob, kkt, w_owner, c, active)
     advance = stop_inner | (c.l + 1 >= opts.inner_iter)
-    gc, rho, done = c.gc, c.rho, c.done
+    gc, rho, done, prev_cvio = c.gc, c.rho, c.done, c.prev_cvio
     if bool((advance & active).any()):
-        converged, gc_o, rho_o = _outer_update(
-            opts, traj, c.gc, c.rho, last_vio,
+        converged, gc_o, rho_o, prev_o = _outer_update(
+            opts, traj, c.gc, c.rho, last_vio, c.prev_cvio,
             active=advance & (c.k < opts.outer_iter - 1))
         done = done | (advance & converged)
         gc = where_tree(advance, gc_o, gc)
         rho = torch.where(advance, rho_o, rho)
+        prev_cvio = torch.where(advance, prev_o, prev_cvio)
     dtype = traj.x.dtype
     zero = torch.zeros((), dtype=dtype, device=rho.device)
     one = torch.ones((), dtype=dtype, device=rho.device)
@@ -231,19 +265,25 @@ def _body(prob: GameProblem, kkt, w_owner, c: _Carry, active) -> _Carry:
         last_vio=last_vio,
         delta_prev=torch.where(advance, zero, delta_rec),
         alpha_prev=torch.where(advance, one, alpha_rec),
-        delta_fin=delta_rec)
+        prev_cvio=prev_cvio, delta_fin=delta_rec)
 
 
-def solve_init(prob: GameProblem, x0s: torch.Tensor):
-    """Per-lane setup: zero primal-dual init + RK3 rollout, AL state reset,
-    stats buffer, penalty schedule, and the point data at the initial
-    iterate."""
+def solve_init(prob: GameProblem, x0s: torch.Tensor,
+               warm: PrimalDual | None = None,
+               generator: torch.Generator | None = None):
+    """Per-lane setup: the primal-dual init (zeros, or a draw from
+    ``generator``; the ``warm`` plan [B, ...] shifted by ``opts.shift``
+    knots where given) + RK3 rollout, the AL state (reset; with
+    ``dual_reset=False`` ``prob.gc`` as it is, per lane), stats buffer,
+    penalty schedule, and the point data at the initial iterate."""
     spec, model, opts = prob.spec, prob.model, prob.opts
     B, dtype, device = x0s.shape[0], x0s.dtype, x0s.device
-    traj0 = init_traj(spec, x0s)
+    traj0 = init_traj(spec, x0s, shift=opts.shift, prev=warm,
+                      generator=generator, amplitude=opts.amplitude_init)
     traj0 = PrimalDual(x=rollout_rk3(model, x0s, traj0.u, spec.dt),
                        u=traj0.u, lam=traj0.lam)
-    gc0 = gcm.reset_constraints(prob.gc, B)
+    gc0 = (gcm.reset_constraints(prob.gc, B) if opts.dual_reset
+           else gcm.per_lane(prob.gc, B))
     stats0 = init_stats(B, opts.outer_iter * opts.inner_iter + 1, dtype,
                         device)
     rho0 = torch.full((B,), opts.rho_0, dtype=dtype, device=device)
@@ -264,15 +304,20 @@ def solve_finalize(prob: GameProblem, c: _Carry) -> SolveResult:
 
 
 def newton_solve(prob: GameProblem, x0s: torch.Tensor | None = None,
-                 method="thomas") -> SolveResult:
+                 method="thomas", warm: PrimalDual | None = None,
+                 generator: torch.Generator | None = None) -> SolveResult:
     """Full ALGAMES solve of one game per row of ``x0s`` [B, n] (default:
-    ``prob.x0`` as a batch of one).  Returns a batched SolveResult."""
+    ``prob.x0`` as a batch of one).  ``warm``: the MPC warm start, a
+    previous plan [B, ...] shifted by ``opts.shift`` knots; ``generator``
+    draws the fresh init (zeros without one); ``prob.gc`` may hold
+    per-lane [B, K, C] AL state, which ``dual_reset=False`` uses as it is.
+    Returns a batched SolveResult."""
     spec, opts = prob.spec, prob.opts
     if x0s is None:
         x0s = prob.x0[None]
     kkt = _kkt_solver(method)
     w_owner = R.structured_w_owner(prob.gc)
-    traj0, pd0, gc0, stats0, rho0 = solve_init(prob, x0s)
+    traj0, pd0, gc0, stats0, rho0 = solve_init(prob, x0s, warm, generator)
     B, dtype, device = x0s.shape[0], x0s.dtype, x0s.device
     izero = torch.zeros((B,), dtype=torch.int32, device=device)
     c = _Carry(k=izero, l=izero.clone(),
@@ -282,6 +327,8 @@ def newton_solve(prob: GameProblem, x0s: torch.Tensor | None = None,
                                    device=device),
                delta_prev=torch.zeros((B,), dtype=dtype, device=device),
                alpha_prev=torch.ones((B,), dtype=dtype, device=device),
+               prev_cvio=torch.full((B,), float("inf"), dtype=dtype,
+                                    device=device),
                delta_fin=torch.zeros((B,), dtype=dtype, device=device))
     while True:
         active = (c.k < opts.outer_iter) & ~c.done

@@ -3,9 +3,9 @@
 
 Drives the port's main paths on the card (the five presets and the
 heterogeneous game through ``parallel.solve_many`` -> ``newton_solve`` with
-``method="thomas"`` and ``ls_fused=True``, and iterative best response
-through ``ibr_newton_solve``),
-through its hand-written CUDA kernels, after checking each kernel against
+``method="thomas"`` and ``ls_fused=True``, iterative best response
+through ``ibr_newton_solve``, and receding-horizon MPC through
+``mpc_solve``), through its hand-written CUDA kernels, after checking each kernel against
 its plain PyTorch version:
 
 - the flagship batched game solve (3-player unicycle merge, N=20): K1
@@ -21,7 +21,9 @@ its plain PyTorch version:
 - the heterogeneous double integrator (mi = (2, 1), player-blocked, N=8):
   K3 on controls padded to p max(mi) and K4's player-blocked instance;
 - iterative best response on the flagship (``ibr_newton_solve``): K3 on
-  each player's p=1 subproblem.
+  each player's p=1 subproblem;
+- receding-horizon MPC on the 3-player highway (``mpc_solve``): K1, and
+  K2 with the fused trial.
 
 Phases:
 
@@ -109,7 +111,25 @@ Phases:
    its first 128 lanes the share stopped before 10 rounds within 0.02 of
    the reference's and the mean final residual within 1.1 x; K3 launched,
    neither K1 nor a trial kernel; the same chunk with the plain versions,
-   and a profile of one Gauss-Seidel round.
+   and a profile of one Gauss-Seidel round;
+15. receding-horizon MPC on the highway of ``benchmarks/bench_mpc.py``
+   (BASELINE config 3: p=3 unicycles, N=20, outer 3 x 8, shift 1, duals
+   carried across replans): K1 on its KKT systems at B=32 and B=1 as in 2
+   (``K1-highway32``, ``K1-highway1``); K2 on highway trial inputs at
+   B=32 as in 3 (``K2-highway32``); the f32 closed loop through
+   ``mpc_solve`` at H=30 for one scenario and for 32 (x0 + 0.05 N(0, 1),
+   numpy seed 0), each replan (solve, plant and host work) synchronised
+   and timed (p50 and p95 over replans 3..30; scenario-replans/s as
+   B x 30 over the loop's wall time): every state finite, the executed
+   pairwise distance >= 2r = 0.2, every applied |u| <= 3 + 1e-6, the share
+   of replans meeting all four 1e-3 gates >= the reference package's own
+   on the same starts minus 0.01 (``tests/reference_fractions.py mpc``),
+   K1 launched and K3 not (``mpc``); the f64 loop of 4 scenarios and 5
+   replans through K1 against the plain versions on the card, equal stats
+   rows, states within 1e-8 (``mpc-plain``); the 32-scenario loop with the
+   fused trial (K2), same gates (``mpc-fused``); one flagship chunk with
+   ``ls_parallel=2`` against 1, equal stats rows and accepted step sizes
+   (``ls-parallel``).
 
 Kernel times are per wrapper call (CUDA events, host work included) and
 the kernels' device time (``device_ms``: CUDA events around each kernel
@@ -177,6 +197,14 @@ BIKE3_PLAIN_TOL = 1e-10
 # The f64 3-player quadrotor solve through K1's shared-memory route against
 # the same solve through the plain versions on the card.
 WIDE_PLAIN_TOL = 1e-8
+# BASELINE config 3 as `benchmarks/bench_mpc.py` runs it: the highway's
+# collision radius and control bound, H_MPC replans, and B_MPC scenarios in
+# the batched closed loop.  REF_MPC: the reference package's f32 share of
+# replans whose final violations meet all four gates, on the same starts
+# (`tests/reference_fractions.py mpc`), by the number of scenarios.
+HIGHWAY_R, HIGHWAY_U = 0.1, 3.0
+H_MPC, B_MPC = 30, 32
+REF_MPC = {1: 30 / 30, 32: 960 / 960}
 # Per kernel: description, source, the TPU kernel it replaces.
 KERNELS = {
     "K1": ("structured block-Thomas KKT sweep", "thomas_sq.cu",
@@ -282,8 +310,8 @@ def device_ms(fn, reps, names, per_call, tag="time"):
     ``torch.cuda._sleep`` that outlasts the host's queueing of the launch
     (checked; doubled until it does), so the gap between its events is the
     kernel's own device time, whatever host work and synchronisation the
-    wrapper does around it (the K2/K4 and padded-K3 wrappers synchronise
-    the stream once per call).  Never 0: it raises unless it saw ``reps`` x
+    wrapper does around it (the padded-K3 wrapper synchronises the stream
+    once per call).  Never 0: it raises unless it saw ``reps`` x
     ``per_call`` launches.  Cross-check, printed: the profiler over the same
     run, its launches of the kernels whose names contain one of ``names``
     and their device time; a note when it is short of launches or differs
@@ -608,9 +636,9 @@ def backward_errors(spec, sq, w_owner, b, ys, lanes=256):
 
 
 def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
-             seed0=0, gate="forward", wide=False):
+             seed0=0, gate="forward", wide=False, B=B_KERNEL):
     """K1 against its plain version on ``preset``'s KKT systems (default:
-    the flagship), B=1024, over mu = 1 .. 1e7, on the register-tiled
+    the flagship), B lanes, over mu = 1 .. 1e7, on the register-tiled
     forward kernel (``wide``: on the shared-memory one, for systems beyond
     its size classes; the other route taken is a failure); then its times,
     bound, library call and forward kernel (``k1_occupancy``) in f32.
@@ -632,7 +660,7 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
 
     def compare(mu, seed, penalize_rows):
         nonlocal spec
-        spec, sq, b, w_owner = k1_system(dev, B_KERNEL, mu, seed0 + seed,
+        spec, sq, b, w_owner = k1_system(dev, B, mu, seed0 + seed,
                                          penalize_rows, preset, iterates)
         ref = solve_thomas_structured_plain(spec, sq, b, w_owner)
         y64 = solve(sq, b, w_owner)
@@ -687,7 +715,7 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
         log(f"[{tag}] every constraint row penalized at mu={mu:.0e} "
             f"(reported, not gated: two f64 solvers differ by up to cond * "
             f"eps here): f64 {e64:.3e}, f32 {e32:.3e}")
-    spec, sq, b, w_owner = k1_system(dev, B_KERNEL, 1e3, seed0 + 99, False,
+    spec, sq, b, w_owner = k1_system(dev, B, 1e3, seed0 + 99, False,
                                      preset, iterates)
     sq32, b32 = tree_map(lambda a: a.float(), sq), b.float()
     ms = cuda_ms(lambda: solve(sq32, b32, w_owner), 20)
@@ -697,31 +725,31 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
                        ("thomas_sq_",), 2, tag)
     log(f"[{tag}] worst over mu: f64 {worst64:.3e}, f32 {worst32:.3e} "
         f"relative; f32 kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms at B={B_KERNEL} (per call, CUDA events); kernel "
+        f"{plain_ms:.4f} ms at B={B} (per call, CUDA events); kernel "
         f"device time {dev_ms:.4f} ms (events, fwd + bwd)")
     jb32 = JacBlocks(Qblk=structured_to_dense(sq32, w_owner, spec.p),
                      Ublk=sq32.Ublk, A=sq32.A, B=sq32.B)
-    lib_ms, y_lib = library_solve_ms(spec, jb32, b32, B_KERNEL)
+    lib_ms, y_lib = library_solve_ms(spec, jb32, b32, B)
     y = solve(sq32, b32, w_owner)
     dev_lib = float(rel_err(y_lib, y).max())
     bnd = bound(tensor_bytes([sq32.qdiag, sq32.wv, sq32.Ublk, sq32.A,
                               sq32.B, b32]) + tensor_bytes([y]),
-                thomas_flops(spec, B_KERNEL, NW=len(w_owner)))
-    log(f"[{tag}] library: torch.linalg.solve on the dense [{B_KERNEL}, "
+                thomas_flops(spec, B, NW=len(w_owner)))
+    log(f"[{tag}] library: torch.linalg.solve on the dense [{B}, "
         f"{spec.S}, {spec.S}] KKT matrices, f32, one call: {lib_ms:.4f} ms; "
         f"worst relative deviation from K1 {dev_lib:.3e} (not gated); bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-    occ = k1_occupancy(tag, spec, len(w_owner))
+    occ = k1_occupancy(tag, spec, len(w_owner), B)
     return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
             "device_ms": dev_ms, **bnd, "library_ms": lib_ms,
             "forward_kernel": occ}
 
 
-def k1_occupancy(tag, spec, NW):
+def k1_occupancy(tag, spec, NW, B=B_KERNEL):
     """The forward kernel K1 runs at ``spec``'s widths with ``NW`` w
     vectors, per dtype: its route, lanes per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), waves at
-    B_KERNEL, registers and local memory (frame) a thread
+    B lanes, registers and local memory (frame) a thread
     (``cudaFuncGetAttributes``), through ``thomas_sq_occupancy_*``;
     printed and returned."""
     import math
@@ -737,19 +765,19 @@ def k1_occupancy(tag, spec, NW):
                              f"lane on an SM")
         out[name] = {"route": "register-tiled" if tiled else "shared-memory",
                      "lanes_per_sm": lanes,
-                     "waves": math.ceil(B_KERNEL / (sms * lanes)),
+                     "waves": math.ceil(B / (sms * lanes)),
                      "registers": regs, "frame_bytes": frame}
         log(f"[{tag}] {name} forward kernel: {out[name]['route']} (d="
             f"{spec.n + spec.m}, R={spec.p * spec.n + 1}, NW={NW}): {lanes} "
-            f"lanes per SM, {out[name]['waves']} wave(s) at B={B_KERNEL} on "
+            f"lanes per SM, {out[name]['waves']} wave(s) at B={B} on "
             f"{sms} SMs, {regs} registers and {frame} bytes of local memory "
             f"a thread")
     return out
 
 
 def trial_inputs(preset, iterates, half_duals, dev, dtype, seed,
-                 zero_u=False, smoothing=None):
-    """B_KERNEL lanes of trial inputs for one game: iterates from
+                 zero_u=False, smoothing=None, B=B_KERNEL):
+    """B lanes of trial inputs for one game: iterates from
     ``iterates(prob, spec, B, rng, dev, dtype)``, small random steps,
     positive duals (half of them zeroed with ``half_duals``, so that
     inactive rows go unpenalized), penalties from 1 to 1e7, per-lane alpha
@@ -761,7 +789,6 @@ def trial_inputs(preset, iterates, half_duals, dev, dtype, seed,
     from algames_tpu_torch.constraints.sets import map_blocks
     from algames_tpu_torch.core.traj import PrimalDual
 
-    B = B_KERNEL
     prob, spec = preset(dev, dtype)
     if smoothing is not None:
         prob = dataclasses.replace(prob, model=dataclasses.replace(
@@ -799,6 +826,13 @@ def k4_inputs(dev, dtype):
     from algames_tpu_torch.presets import roundabout
     return trial_inputs(roundabout, lambda prob, *a: crowded_iterates(*a),
                         True, dev, dtype, seed=11)
+
+
+def highway_trial_inputs(dev, dtype):
+    """Highway trial inputs at the batched closed loop's B_MPC lanes, the
+    shapes the fused trial gets in ``mpc-fused``."""
+    return trial_inputs(highway_game, flagship_iterates, True, dev, dtype,
+                        seed=13, B=B_MPC)
 
 
 def game_trial_inputs(preset, golden, seed, **kw):
@@ -928,6 +962,41 @@ def hetero_game(dev, dtype, outer=7, inner=20):
     return game_problem(N, 0.1, x0, model, opts, obj, gc), spec
 
 
+def highway_game(dev, dtype, N=20):
+    """BASELINE config 3, the 3-player highway of
+    ``benchmarks/bench_mpc.py::make_problem``: unicycles in parallel lanes,
+    N=20, dt 0.1, Q diag (0, 5, 1, 2) (lane, heading and speed tracking), R
+    0.1, targets at x = 10 in lanes y = 0.4 i with speeds 0.8 + 0.3 i,
+    pairwise collision avoidance (r = 0.1), controls within +-3;
+    ``Options(outer_iter=3, inner_iter=8, shift=1, dual_reset=False)`` (the
+    reference's gates, 1e-3 on all four violations; upsampling 2).  ``N``
+    cuts the horizon for the CPU tests."""
+    import torch
+    from algames_tpu_torch.constraints import sets as S
+    from algames_tpu_torch.core.spec import spec_from_model
+    from algames_tpu_torch.models.unicycle import unicycle_game
+    from algames_tpu_torch.objective.objective import game_objective
+    from algames_tpu_torch.problem.options import Options
+    from algames_tpu_torch.problem.problem import game_problem
+    p, dt = 3, 0.1
+    model = unicycle_game(p=p)
+    spec = spec_from_model(model, N, dt)
+    obj = game_objective(
+        spec, Q=[np.asarray([0.0, 5.0, 1.0, 2.0])] * p,
+        R=[0.1 * np.ones(2)] * p,
+        xf=[np.asarray([10.0, 0.4 * i, 0.0, 0.8 + 0.3 * i]) for i in range(p)],
+        uf=[np.zeros(2)] * p, dtype=dtype, device=dev)
+    gc = S.game_constraints(spec, dtype=dtype, device=dev)
+    gc = S.add_collision_avoidance(spec, gc, HIGHWAY_R)
+    gc = S.add_control_bound(spec, gc, HIGHWAY_U * np.ones(2 * p),
+                             -HIGHWAY_U * np.ones(2 * p))
+    x0 = torch.as_tensor(np.concatenate([[0.0, -0.5, -1.0], 0.4 * np.arange(p),
+                                         np.zeros(p), 0.8 + 0.3 * np.arange(p)]),
+                         dtype=dtype, device=dev)
+    opts = Options(outer_iter=3, inner_iter=8, shift=1, dual_reset=False)
+    return game_problem(N, dt, x0, model, opts, obj, gc), spec
+
+
 def phase_trial(tag, inputs, dev):
     """The fused trial (K2 or K4) against its plain version on
     ``inputs(dev, dtype)``: tn and every carried leaf, f64 <= 1e-12 and f32 <=
@@ -972,10 +1041,11 @@ def phase_trial(tag, inputs, dev):
             bnd = trial_bound(*args, lite_k, tn_k)
             lanes = trial_occupancy(prob.model, spec, prob.obj, dtype)
             sms = torch.cuda.get_device_properties(0).multi_processor_count
+            B = alpha.shape[0]
             log(f"[{tag}] kernel instance {instance_name(prob.model, spec)}: "
                 f"{lanes} lanes per SM in f32, "
-                f"{-(-B_KERNEL // (sms * lanes))} wave(s) at B={B_KERNEL}")
-            log(f"[{tag}] f32 B={B_KERNEL}: kernel {ms:.4f} ms, plain "
+                f"{-(-B // (sms * lanes))} wave(s) at B={B}")
+            log(f"[{tag}] f32 B={B}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms (per call, CUDA events); kernel device "
                 f"time {dev_ms:.4f} ms (events); bound "
                 f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); no single "
@@ -1130,11 +1200,12 @@ def phase_sweep(dev):
     return launches
 
 
-def profile_chunk(tag, prob, x0s, names, solve=None):
+def profile_chunk(tag, prob, x0s, names, solve=None, what=None):
     """Host/launch overhead of the eager per-iteration loop: device time of
-    one chunk (``solve()``, default ``parallel.solve_batch(prob, x0s)``)
-    against its wall time, under the profiler.  Only device-side events
-    count: a CPU op's own device time repeats its kernels' time."""
+    one chunk (``solve()``, default ``parallel.solve_batch(prob, x0s)``;
+    ``what`` names it in the log) against its wall time, under the
+    profiler.  Only device-side events count: a CPU op's own device time
+    repeats its kernels' time."""
     import torch
     from algames_tpu_torch import parallel
     from torch.autograd import DeviceType
@@ -1152,8 +1223,9 @@ def profile_chunk(tag, prob, x0s, names, solve=None):
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     dev_us = sum(e.self_device_time_total for e in evs)
     n_kern = sum(e.count for e in evs)
-    log(f"[{tag}] one {x0s.shape[0]}-lane chunk at outer "
-        f"{prob.opts.outer_iter} x {prob.opts.inner_iter}: wall "
+    what = what or (f"one {x0s.shape[0]}-lane chunk at outer "
+                    f"{prob.opts.outer_iter} x {prob.opts.inner_iter}")
+    log(f"[{tag}] {what}: wall "
         f"{wall * 1e3:.1f} ms "
         f"under the profiler, device busy {dev_us / 1e3:.1f} ms "
         f"({100 * dev_us / 1e6 / wall:.1f}%), {n_kern} device kernels and "
@@ -1668,6 +1740,226 @@ def phase_sweep_ibr(dev):
     return launches
 
 
+def mpc_starts(prob, spec, B, dev, dtype):
+    """The closed loop's starts: ``prob.x0`` for one scenario, else
+    x0 + 0.05 N(0, 1) from numpy seed 0 (``tests/reference_fractions.py
+    mpc`` feeds the reference the same)."""
+    import torch
+    x0 = np.asarray(prob.x0.cpu(), np.float64)
+    if B > 1:
+        x0 = x0[None] + 0.05 * np.random.default_rng(0).standard_normal(
+            (B, spec.n))
+    return torch.as_tensor(x0.reshape(B, spec.n), dtype=dtype, device=dev)
+
+
+def final_violations(out):
+    """Each lane's four final violations (dyn, con, sta, opt) [B, 4]."""
+    import torch
+    s = out.stats
+    last = torch.clamp(s.iter.long() - 1, min=0)[:, None]
+    return torch.stack([c.gather(1, last)[:, 0] for c in
+                        (s.dyn_vio, s.con_vio, s.sta_vio, s.opt_vio)], dim=1)
+
+
+def timed_mpc(prob, x0s, horizon, method="thomas"):
+    """``mpc_solve`` on the host's clock, the card synchronised around the
+    loop and at the start of each replan's solve: (result, the loop's
+    seconds, each replan's seconds [H] from the start of its solve to the
+    start of the next or the loop's end, so with its plant substeps,
+    penalty reset and host work, final violations [H, B, 4] per replan).
+    The replans are seen by rebinding ``mpc.newton_solve``, the function
+    ``mpc_solve`` calls once per replan; the script stops if it is not."""
+    import torch
+    import algames_tpu_torch.mpc as mpc
+    from algames_tpu_torch.problem.solver import newton_solve
+    if mpc.newton_solve is not newton_solve:
+        raise SystemExit("mpc_solve no longer calls the solver's "
+                         "newton_solve; the replans cannot be timed")
+    starts, outs = [], []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        outs.append(newton_solve(*args, **kw))
+        return outs[-1]
+    mpc.newton_solve = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mpc.mpc_solve(prob, x0s, horizon=horizon, method=method)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        mpc.newton_solve = newton_solve
+    if len(starts) != horizon:
+        raise SystemExit(f"mpc_solve made {len(starts)} solves for "
+                         f"{horizon} replans")
+    vios = torch.stack([final_violations(o) for o in outs]).cpu().numpy()
+    return res, t1 - t0, np.diff(np.asarray(starts + [t1])), vios
+
+
+def closed_loop(tag, res, vios, spec, opts, ref_share):
+    """The closed loop's checks (as ``benchmarks/bench_mpc.py`` writes them
+    to ``mpc_closedloop.json``): every state and control finite, the
+    executed pairwise distance >= 2 r, every applied |u| <= the bound, and
+    the share of replans whose final violations meet all four gates >= the
+    reference package's share on the same inputs minus 0.01.  Returns
+    (min distance, max |u|, share)."""
+    import torch
+    X, U = res.states.double(), res.controls.double()
+    finite = bool(torch.isfinite(X).all() and torch.isfinite(U).all())
+    dmin = min(float((X[:, :, list(spec.px[a])] - X[:, :, list(spec.px[b])])
+                     .norm(dim=-1).min())
+               for a in range(spec.p) for b in range(a + 1, spec.p))
+    umax = float(U.abs().max())
+    eps = np.asarray([opts.eps_dyn, opts.eps_con, opts.eps_sta, opts.eps_opt])
+    share = float((vios < eps).all(axis=-1).mean())
+    log(f"[{tag}] closed loop: finite {finite}, min pairwise executed "
+        f"distance {dmin:.4f} (>= {2 * HIGHWAY_R:g}), max applied |u| "
+        f"{umax:.6f} (<= {HIGHWAY_U:g} + 1e-6), replans meeting all four "
+        f"gates {share:.4f} (>= reference {ref_share:.4f} - 0.01)")
+    if not (finite and dmin >= 2 * HIGHWAY_R and umax <= HIGHWAY_U + 1e-6
+            and share >= ref_share - 0.01):
+        raise SystemExit(f"the {tag} closed loop failed its gates")
+    return dmin, umax, share
+
+
+def kernel_counters():
+    from algames_tpu_torch.ops.thomas import solve_thomas, solve_thomas_structured
+    from algames_tpu_torch.ops.trial import trial_eval
+    return {"K1": solve_thomas_structured, "K3": solve_thomas,
+            "trial": trial_eval}
+
+
+def run_mpc(tag, prob, spec, B, dev, ref_share):
+    """One closed loop of H_MPC replans over B scenarios, its counts zeroed
+    just before: replan wall times, launches, closed-loop gates."""
+    import torch
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    counters["K1"].wide_launches = 0
+    x0s = mpc_starts(prob, spec, B, dev, torch.float32)
+    res, wall, secs, vios = timed_mpc(prob, x0s, H_MPC)
+    launches = {k: c.launches for k, c in counters.items()}
+    launches["K1 wide route"] = counters["K1"].wide_launches
+    lat = secs[2:] * 1e3
+    p50, p95 = float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
+    rate = B * H_MPC / wall
+    iters = res.iters.cpu().numpy()
+    log(f"[{tag}] B={B}, H={H_MPC}: replan wall time (solve, plant and "
+        f"host work, synchronised, replans 3..{H_MPC}) p50 {p50:.3f} ms, "
+        f"p95 {p95:.3f} ms, mean {float(lat.mean()):.3f} ms; the loop "
+        f"{wall * 1e3:.3f} ms, {rate:.1f} scenario-replans/s; stats "
+        f"rows per replan {int(iters.min())}..{int(iters.max())} (mean "
+        f"{float(iters.mean()):.2f}); launches {launches}, K1 per replan "
+        f"{launches['K1'] / H_MPC:.2f}")
+    dmin, umax, share = closed_loop(tag, res, vios, spec, prob.opts,
+                                    ref_share)
+    return {"B": B, "p50_ms": p50, "p95_ms": p95, "rate": rate,
+            "launches": launches, "min_distance": dmin, "max_u": umax,
+            "share": share}
+
+
+def phase_mpc(dev, k1_by_lanes):
+    """BASELINE config 3: the highway's closed loop through ``mpc_solve`` in
+    f32 at H_MPC replans, one scenario and B_MPC, K1 as every replan's KKT
+    step (the trial eager, K3 never, K1 never on its wide route)."""
+    import torch
+    import algames_tpu_torch as agt
+    prob, spec = highway_game(dev, torch.float32)
+    agt.mpc_solve(prob, horizon=2)                      # warm-up, untimed
+    out = {}
+    for B in (1, B_MPC):
+        r = run_mpc("mpc", prob, spec, B, dev, REF_MPC[B])
+        k1 = k1_by_lanes[B]
+        log(f"[mpc] K1 at B={B}: device time {k1['device_ms']:.4f} ms per "
+            f"call (fwd + bwd), {r['launches']['K1'] / H_MPC:.2f} calls per "
+            f"replan, bound {k1['bound_ms']:.4f} ms")
+        lk = r["launches"]
+        if not (lk["K1"] > 0 and lk["K3"] == 0 and lk["trial"] == 0
+                and lk["K1 wide route"] == 0):
+            raise SystemExit("the highway's closed loop took the wrong "
+                             "kernels")
+        out[B] = r
+    x0s = mpc_starts(prob, spec, B_MPC, dev, torch.float32)
+    profile_chunk("profile-mpc", prob, x0s, ("thomas_sq_",),
+                  solve=lambda: agt.mpc_solve(prob, x0s, horizon=5),
+                  what=f"a closed loop of 5 replans over {B_MPC} scenarios")
+    return out
+
+
+def phase_mpc_plain(dev):
+    """The f64 closed loop (4 scenarios, 5 replans) through the kernels
+    against the same loop through the plain versions on the card: equal
+    stats rows per replan, states within 1e-8."""
+    import torch
+    import algames_tpu_torch as agt
+    from algames_tpu_torch.ops.thomas import kkt_solve_plain
+    prob, spec = highway_game(dev, torch.float64)
+    x0s = mpc_starts(prob, spec, 4, dev, torch.float64)
+    k1 = kernel_counters()["K1"]
+    before = k1.launches
+    res = agt.mpc_solve(prob, x0s, horizon=5)
+    ran = k1.launches - before
+    res_p = agt.mpc_solve(prob, x0s, horizon=5, method=kkt_solve_plain)
+    it, it_p = res.iters.cpu().numpy(), res_p.iters.cpu().numpy()
+    dx = float((res.states - res_p.states).abs().max())
+    log(f"[mpc-plain] f64, 4 scenarios, 5 replans: stats rows {it.tolist()} "
+        f"(plain versions {it_p.tolist()}), max |dx| of the states "
+        f"{dx:.3e} (<= 1e-8), K1 launches {ran}")
+    if not ((it == it_p).all() and dx <= 1e-8 and ran > 0):
+        raise SystemExit("the closed loop through K1 disagrees with the "
+                         "plain versions")
+
+
+def phase_mpc_fused(dev):
+    """The B_MPC closed loop again with ``ls_fused=True``: the trial takes
+    the fused kernel (K2's unicycle instance) where ``trial_supported``
+    holds; the same closed-loop gates."""
+    import torch
+    from algames_tpu_torch.ops.trial import trial_supported
+    prob, spec = highway_game(dev, torch.float32)
+    prob = dataclasses.replace(
+        prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
+    supported = trial_supported(prob.model, spec, prob.obj, prob.gc)
+    r = run_mpc("mpc-fused", prob, spec, B_MPC, dev, REF_MPC[B_MPC])
+    lk = r["launches"]
+    log(f"[mpc-fused] trial_supported {supported}: the trial took the fused "
+        f"kernel {lk['trial']} times ({lk['trial'] / H_MPC:.2f} per replan)")
+    if not (supported and lk["trial"] > 0 and lk["K1"] > 0
+            and lk["K3"] == 0):
+        raise SystemExit("the fused closed loop took the wrong kernels")
+    return r
+
+
+def phase_ls_parallel(dev):
+    """One flagship chunk (CHUNK lanes, f32, outer 3 x 8, K1 + K2) with
+    ``ls_parallel=2`` against ``ls_parallel=1``: per-lane stats rows and
+    accepted step sizes equal."""
+    import torch
+    from algames_tpu_torch import parallel
+    from algames_tpu_torch.presets import flagship_unicycle
+    prob, x0s = sweep_problem(flagship_unicycle, dev, outer=3, inner=8)
+    trial = kernel_counters()["trial"]
+    outs = {}
+    for K in (1, 2):
+        pk = dataclasses.replace(
+            prob, opts=dataclasses.replace(prob.opts, ls_parallel=K))
+        before = trial.launches
+        outs[K], el = timed_sweep(pk, x0s[:CHUNK], "thomas")
+        log(f"[ls-parallel] K={K}: {el:.3f} s for {CHUNK} lanes, fused "
+            f"trial launches {trial.launches - before}")
+    it1, it2 = (outs[k].stats.iter.cpu().numpy() for k in (1, 2))
+    same_alpha = bool(torch.equal(outs[1].stats.column("alpha"),
+                                  outs[2].stats.column("alpha")))
+    dx = float((outs[1].traj.x - outs[2].traj.x).abs().max())
+    log(f"[ls-parallel] stats rows equal on {int((it1 == it2).sum())} of "
+        f"{CHUNK} lanes; accepted alphas equal {same_alpha}; max |dx| {dx:.3e}")
+    if not ((it1 == it2).all() and same_alpha):
+        raise SystemExit("ls_parallel=2 changed the line search's decisions")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1764,6 +2056,18 @@ def main():
     phase("golden-ibr", phase_golden_ibr, dev)
     launches_ibr = phase("sweep-ibr", phase_sweep_ibr, dev)
 
+    # BASELINE config 3: the highway's receding-horizon closed loop, K1 at
+    # B_MPC lanes and at one; then the ls_parallel window on the flagship.
+    k1_hw = {B: phase(f"K1-highway{B}", phase_k1, dev, f"K1-highway{B}",
+                      highway_game, flagship_iterates, 1100 + B, "forward",
+                      False, B) for B in (B_MPC, 1)}
+    k2_hw = phase(f"K2-highway{B_MPC}", phase_trial, f"K2-highway{B_MPC}",
+                  highway_trial_inputs, dev)
+    mpc = phase("mpc", phase_mpc, dev, k1_hw)
+    phase("mpc-plain", phase_mpc_plain, dev)
+    mpc_fused = phase("mpc-fused", phase_mpc_fused, dev)
+    phase("ls-parallel", phase_ls_parallel, dev)
+
     def entry(kernel, game, launches, numbers):
         name, source, replaces = KERNELS[kernel]
         return {"name": f"{kernel} {name} ({game})", "route": "cuda",
@@ -1775,7 +2079,12 @@ def main():
         entry("K1", "quad2_N15", launches_quad["K1"], k1_quad),
         entry("K1", "K1-wide: quad3 (3-player quadrotor, d=48), the "
               "wide-system shared-memory route", launches_wide, k1_wide),
+        entry("K1", f"highway_mpc, B={B_MPC}", mpc[B_MPC]["launches"]["K1"],
+              k1_hw[B_MPC]),
+        entry("K1", "highway_mpc, B=1", mpc[1]["launches"]["K1"], k1_hw[1]),
         entry("K2", "uni3_N20", launches["K2"], k2),
+        entry("K2", f"highway_mpc, B={B_MPC}",
+              mpc_fused["launches"]["trial"], k2_hw),
         entry("K3", "round4_N40", launches4["K3"], k3),
         entry("K3", "bike3_N20", launches_bike["K3"], k3_bike),
         entry("K3", "hetero2_N8, padded", launches_het["K3"], k3_het),

@@ -10,6 +10,7 @@ do.
     JAX_PLATFORMS=cpu python tests/reference_fractions.py full [KEY[@A:B] ...]
     JAX_PLATFORMS=cpu python tests/reference_fractions.py f64 KEY LANE ...
     JAX_PLATFORMS=cpu python tests/reference_fractions.py ibr
+    JAX_PLATFORMS=cpu python tests/reference_fractions.py mpc
 
 ``subset`` (minutes per game): the first 256 of ``chip_smoke.py``'s 4096
 sweep scenarios of each game (x0 + 0.05 N(0, 1), numpy seed 0), f32 at the
@@ -41,6 +42,19 @@ on the first 128 of its 512 scenarios, through the reference
 (``method="schur"``) and the port's plain versions: the share of lanes
 whose Gauss-Seidel loop stopped before ``ibr_iter`` rounds and the mean
 final residual (the quantity of ``benchmarks/bench_ibr.py``).
+
+``mpc``: receding-horizon MPC on the highway of
+``benchmarks/bench_mpc.py::make_problem`` (BASELINE config 3) as
+``chip_smoke.py``'s ``mpc`` phase runs it: f32, 30 replans, from the
+problem's start and from 32 starts x0 + 0.05 N(0, 1) (numpy seed 0).  The
+reference's ``mpc_solve`` vmapped (``method="schur"``), and the same loop
+replan by replan (jitted, vmapped ``newton_solve`` with the shifted warm
+start and the carried duals, as ``mpc_solve`` does it, to read each
+replan's four final violations, which ``MPCResult`` does not keep); then
+the port's ``mpc_solve`` through its plain versions.  Prints the share of
+replans whose final violations meet all four gates (the ``mpc`` phase's
+gate), the minimum executed pairwise distance and the largest applied
+|u|.  A few minutes.
 """
 import dataclasses
 import os
@@ -255,10 +269,132 @@ def ibr():
           f"{IBR_LANES} lanes", flush=True)
 
 
+def load_bench_mpc():
+    """``benchmarks/bench_mpc.py`` as a module, without its cache set-up."""
+    import importlib.util
+    os.environ["PLATFORM"] = "cpu"
+    spec = importlib.util.spec_from_file_location(
+        "bench_mpc", os.path.join(REPO, "benchmarks", "bench_mpc.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def closed_loop_numbers(px, X, U, V, eps):
+    """(share of replans meeting the four gates, min pairwise executed
+    distance, max |u|) of states X [B, H+1, n], controls U [B, H, m] and
+    final violations V [B, H, 4]."""
+    X = np.asarray(X, np.float64)
+    dmin = min(float(np.linalg.norm(X[:, :, px[a]] - X[:, :, px[b]],
+                                    axis=-1).min())
+               for a in range(len(px)) for b in range(a + 1, len(px)))
+    return (float((np.asarray(V) < eps).all(axis=-1).mean()), dmin,
+            float(np.abs(np.asarray(U, np.float64)).max()))
+
+
+def mpc(H=30, B=32):
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    import algames_tpu as ag
+    from algames_tpu.models.integration import rk3_step
+    from algames_tpu.mpc import mpc_solve
+
+    import algames_tpu_torch.mpc as tmpc
+    from algames_tpu_torch.convert import problem_from_reference
+
+    prob, spec, model = load_bench_mpc().make_problem(ag, jnp.float32)
+    opts = prob.opts
+    eps = np.asarray([opts.eps_dyn, opts.eps_con, opts.eps_sta, opts.eps_opt])
+    px = [list(ix) for ix in spec.px]
+    x0 = np.asarray(prob.x0, np.float64)
+    starts = {32: x0[None] + 0.05 * np.random.default_rng(0)
+              .standard_normal((B, spec.n)), 1: x0[None]}
+
+    def vio(out):
+        it = jnp.maximum(out.stats.iter - 1, 0)
+        return jnp.stack([out.stats.dyn_vio[it], out.stats.con_vio[it],
+                          out.stats.sta_vio[it], out.stats.opt_vio[it]])
+
+    def plant(x, u):
+        for _ in range(opts.upsampling):
+            x = rk3_step(model, x, u, spec.dt / opts.upsampling)
+        return x
+
+    def replan(x, warm, gc):
+        out = ag.newton_solve(dataclasses.replace(prob, x0=x, gc=gc),
+                              method="schur", warm=warm)
+        return (plant(x, out.traj.u[0]), out.traj, ag.reset_penalties(out.gc),
+                vio(out), out.traj.u[0], out.stats.iter)
+
+    first = jax.jit(jax.vmap(lambda x: replan(x, None, prob.gc)))
+    later = jax.jit(jax.vmap(replan))
+    loop = jax.jit(jax.vmap(lambda x: mpc_solve(
+        dataclasses.replace(prob, x0=x), horizon=H, method="schur")))
+    tprob = problem_from_reference(prob, CPU, torch.float32)
+    for nb in (B, 1):
+        xs = jnp.asarray(starts[nb], jnp.float32)
+        ref = loop(xs)
+        ref_share = float(((np.asarray(ref.dyn_vio) < opts.eps_dyn)
+                           & (np.asarray(ref.opt_vio) < opts.eps_opt)).mean())
+        X, U, V, it = [np.asarray(xs)], [], [], []
+        x, warm, gc = xs, None, None
+        for h in range(H):
+            x, warm, gc, v, u, n_it = (first(x) if h == 0
+                                       else later(x, warm, gc))
+            X.append(np.asarray(x))
+            U.append(np.asarray(u))
+            V.append(np.asarray(v))
+            it.append(np.asarray(n_it))
+        X, U, V = (np.stack(a, axis=1) for a in (X, U, V))
+        it = np.stack(it, axis=1)
+        share, dmin, umax = closed_loop_numbers(px, X, U, V, eps)
+        print(f"highway_mpc reference, {nb} scenario(s), H={H}: mpc_solve "
+              f"stats rows {int(np.asarray(ref.iters).min())}.."
+              f"{int(np.asarray(ref.iters).max())} (mean "
+              f"{float(np.asarray(ref.iters).mean()):.3f}), replans meeting "
+              f"the dyn and opt gates {ref_share}; replan by replan: stats "
+              f"rows equal to mpc_solve's on "
+              f"{int((it == np.asarray(ref.iters)).sum())} of {nb * H}, max "
+              f"|x - x_mpc_solve| "
+              f"{float(np.abs(X - np.asarray(ref.states)).max()):.3e}; "
+              f"replans meeting all four gates {share} "
+              f"({int(round(share * nb * H))}/{nb * H}), min pairwise "
+              f"distance {dmin}, max |u| {umax}", flush=True)
+
+        solve, vios = tmpc.newton_solve, []
+
+        def recorded(*args, **kw):
+            out = solve(*args, **kw)
+            vios.append(np.stack([np.asarray(c.gather(
+                1, torch.clamp(out.stats.iter.long() - 1, min=0)[:, None])
+                [:, 0]) for c in (out.stats.dyn_vio, out.stats.con_vio,
+                                  out.stats.sta_vio, out.stats.opt_vio)],
+                axis=1))
+            return out
+        tmpc.newton_solve = recorded
+        try:
+            tout = tmpc.mpc_solve(tprob, torch.as_tensor(
+                starts[nb], dtype=torch.float32), horizon=H)
+        finally:
+            tmpc.newton_solve = solve
+        share_t, dmin_t, umax_t = closed_loop_numbers(
+            px, tout.states.numpy(), tout.controls.numpy(),
+            np.stack(vios, axis=1), eps)
+        it_t = tout.iters.numpy()
+        print(f"highway_mpc port (plain versions), {nb} scenario(s): stats "
+              f"rows equal to the reference's on {int((it_t == it).sum())} "
+              f"of {nb * H}; replans meeting all four gates {share_t} "
+              f"({int(round(share_t * nb * H))}/{nb * H}), min pairwise "
+              f"distance {dmin_t}, max |u| {umax_t}", flush=True)
+
+
 if __name__ == "__main__":
     torch.set_num_threads(4)
     if sys.argv[1] == "ibr":
         ibr()
+    elif sys.argv[1] == "mpc":
+        mpc()
     elif sys.argv[1] == "f64":
         f64_lanes(sys.argv[2], [int(k) for k in sys.argv[3:]])
     elif sys.argv[1] == "full":

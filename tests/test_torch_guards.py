@@ -50,6 +50,7 @@ def test_no_jax_import_in_sources():
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert os.path.join(PKG, "problem", "ibr.py") in paths
     assert os.path.join(PKG, "models", "hetero.py") in paths
+    assert os.path.join(PKG, "mpc.py") in paths
     offenders = []
     for path in paths:
         with open(path) as fh:
@@ -116,6 +117,57 @@ def test_cpu_hetero_and_ibr_solves_launch_no_kernel():
     assert out.traj.x.shape == (2, spec.N, spec.n)
     assert bool(torch.isfinite(out.traj.x).all())
     assert [c.launches for c in counters] == before == [0, 0, 0]
+
+
+@pytest.mark.parametrize("ls_fused", [False, True])
+def test_cpu_mpc_launches_no_kernel(ls_fused):
+    """A CPU closed loop of the highway (cut to N=6, 2 scenarios, 2
+    replans; K1, and the fused trial's unicycle instance with
+    ``ls_fused``, both as plain versions) moves no kernel's launch
+    counter."""
+    from chip_smoke import highway_game
+    prob, spec = highway_game(torch.device("cpu"), torch.float64, N=6)
+    prob = dataclasses.replace(prob, opts=dataclasses.replace(
+        prob.opts, ls_fused=ls_fused))
+    assert trial_supported(prob.model, spec, prob.obj, prob.gc)
+    counters = (solve_thomas_structured, solve_thomas, trial_eval)
+    before = [c.launches for c in counters]
+    out = agt.mpc_solve(prob, prob.x0[None].repeat(2, 1), horizon=2)
+    assert out.states.shape == (2, 3, spec.n)
+    assert bool(torch.isfinite(out.states).all())
+    assert [c.launches for c in counters] == before == [0, 0, 0]
+
+
+def test_highway_game_matches_reference(monkeypatch):
+    """``chip_smoke.highway_game`` builds the problem of
+    ``benchmarks/bench_mpc.py::make_problem`` (BASELINE config 3) at its
+    published size: spec, model, options and every leaf equal to the
+    reference's problem carried over."""
+    import importlib.util
+    import jax.numpy as jnp
+    import algames_tpu
+    from algames_tpu_torch.convert import problem_from_reference
+    from algames_tpu_torch.utils import tree_leaves
+    from chip_smoke import highway_game
+    monkeypatch.setenv("PLATFORM", "cpu")
+    mod = importlib.util.spec_from_file_location(
+        "bench_mpc", os.path.join(REPO, "benchmarks", "bench_mpc.py"))
+    bench = importlib.util.module_from_spec(mod)
+    mod.loader.exec_module(bench)
+    cpu = torch.device("cpu")
+    ref = problem_from_reference(
+        bench.make_problem(algames_tpu, jnp.float64)[0], cpu, torch.float64)
+    prob, spec = highway_game(cpu, torch.float64)
+    assert (spec.N, spec.n, spec.m, spec.p) == (20, 12, 6, 3)
+    assert spec == ref.spec and prob.opts == ref.opts
+    assert prob.model == ref.model
+    for a, r in zip(tree_leaves((prob.x0, prob.obj, prob.gc)),
+                    tree_leaves((ref.x0, ref.obj, ref.gc)), strict=True):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    for a, r in zip(prob.gc.state_blocks + prob.gc.control_blocks,
+                    ref.gc.state_blocks + ref.gc.control_blocks,
+                    strict=True):
+        assert (a.owner, a.is_state) == (r.owner, r.is_state)
 
 
 def test_hetero_spec_takes_the_kernel_route(monkeypatch):

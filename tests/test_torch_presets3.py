@@ -65,8 +65,8 @@ def test_native_preset_matches_reference(key):
 
 def test_converter_carries_model_constants_and_refuses():
     """Non-default physical constants and the heterogeneous model's ragged
-    index tuples survive the converter; options the port has not ported
-    are refused."""
+    index tuples survive the converter, and so does ``ls_parallel`` > 1;
+    a block of a sense the port has not ported is refused."""
     cases = [
         ag.double_integrator_game(p=3, d=3),
         ag.bicycle_game(p=2, lf=0.07, lr=0.03),
@@ -89,8 +89,15 @@ def test_converter_carries_model_constants_and_refuses():
     parallel_ls = problem(ag.hetero_double_integrator_game(mi=(2, 1)))
     parallel_ls = dataclasses.replace(parallel_ls, opts=dataclasses.replace(
         parallel_ls.opts, ls_parallel=2))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        problem_from_reference(parallel_ls, CPU, F64)
+    assert problem_from_reference(parallel_ls, CPU, F64).opts.ls_parallel == 2
+    spec = parallel_ls.spec
+    gc = ag.add_control_bound(spec, parallel_ls.gc, jnp.ones(spec.m),
+                              -jnp.ones(spec.m))
+    gc = dataclasses.replace(gc, control_blocks=(dataclasses.replace(
+        gc.control_blocks[0], sense="eq"),))
+    with pytest.raises(NotImplementedError, match="inequality"):
+        problem_from_reference(dataclasses.replace(parallel_ls, gc=gc), CPU,
+                               F64)
 
 
 def _rel(a, ref):

@@ -1,6 +1,7 @@
 """Kernel K2 (fused line-search trial): its plain PyTorch version against the
 JAX package's hand-written Pallas trial kernel (interpret mode) and against
-the XLA trial pass, on the flagship problem; plus the specialization
+the XLA trial pass, on the flagship problem, and against the Pallas kernel
+on the MPC highway of ``benchmarks/bench_mpc.py``; plus the specialization
 predicate and the wrapper's CPU contract.
 
 f64 throughout; every PointLite leaf and tn within a per-lane relative error
@@ -8,6 +9,8 @@ f64 throughout; every PointLite leaf and tn within a per-lane relative error
 order of floating-point operations differs.
 """
 import dataclasses
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +31,7 @@ from algames_tpu_torch.ops import trial
 from algames_tpu_torch.utils import tree_leaves
 
 torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 3
 TOL = 1e-12
 
@@ -40,9 +44,9 @@ def _xla_trial(model, spec, obj, gc, traj, dtraj, alpha, reg_eff):
     return JR.residual_norm(spec, JR.Residual(rx=rx, ru=ru, rd=res_t.rd)), lite
 
 
-@pytest.fixture(scope="module")
-def case():
-    prob, spec = flagship_unicycle()
+def _case(prob, spec):
+    """B lanes of trial inputs for ``prob`` from numpy seed 0, as the
+    reference's arrays and the port's."""
     tprob = problem_from_reference(prob, torch.device("cpu"), torch.float64)
     rng = np.random.default_rng(0)
 
@@ -83,6 +87,25 @@ def case():
                 targs=targs, jargs=jargs)
 
 
+@pytest.fixture(scope="module")
+def case():
+    return _case(*flagship_unicycle())
+
+
+@pytest.fixture(scope="module")
+def highway():
+    """BASELINE config 3's game, whose trials K2 takes in the MPC loop with
+    the fused line search."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PLATFORM", "cpu")
+        mod = importlib.util.spec_from_file_location(
+            "bench_mpc", os.path.join(REPO, "benchmarks", "bench_mpc.py"))
+        bench = importlib.util.module_from_spec(mod)
+        mod.loader.exec_module(bench)
+    prob, spec = bench.make_problem(ag, jnp.float64)[:2]
+    return _case(prob, spec)
+
+
 def _rel(a, ref):
     a = np.asarray(a).reshape(B, -1)
     ref = np.asarray(ref).reshape(B, -1)
@@ -102,6 +125,16 @@ def _assert_same(port, ref):
 
 
 def test_plain_matches_pallas_trial_kernel(case):
+    _pallas_matches(case)
+
+
+def test_highway_plain_matches_pallas_trial_kernel(highway):
+    assert trial.trial_supported(highway["tprob"].model, highway["spec"],
+                                 highway["tprob"].obj, highway["tgc"])
+    _pallas_matches(highway)
+
+
+def _pallas_matches(case):
     prob, spec = case["prob"], case["spec"]
     ref = jax.jit(lambda *a: _trial_eval_handwritten(
         prob.model, spec, prob.obj, case["jgc"], *a, block_lanes=B,
