@@ -1,19 +1,24 @@
 """Game constraint container, AL state and its updates (counterpart of
 ``algames_tpu/constraints/sets.py``: planar and spherical collision, circle,
-wall, 3D wall, cylinder, state/velocity and control bound families).
+wall, 3D wall, cylinder, state/velocity and control bound families, each
+block of one cone: inequality, equality or second-order cone).
 
 A ``ConBlock`` pairs a family-parameter record (shared by every lane) with
-the AL state ``lam``/``mu`` [B, K, C] (K = applied knots, C = rows).  A
-problem built by the builders below holds unbatched [K, C] AL state; the
-solver resets it to per-lane [B, K, C] tensors, because dual and penalty
-updates make it differ per lane.
+the AL state ``lam``/``mu`` [B, K, C] (K = applied knots, C = rows) and the
+active-set flags ``active``.  A problem built by the builders below holds
+unbatched [K, C] state; the solver resets it to per-lane [B, K, C] tensors,
+because dual and penalty updates make it differ per lane.
 
-AL math (inequality cone, c <= 0):
+AL math by sense:
 
-    Irho  = ((c >= 0) | (lam > 0)) * mu
+    Irho  = ((c >= 0) | (lam > 0)) * mu   (ineq, soc);  mu   (eq)
     grad  = J' lam + J' (Irho * c)
-    dual update: lam <- clamp(lam + alpha*mu*c, 0, lam_max)
+    hess  = J' diag(Irho) J
+    dual update:  clamp(lam + alpha*mu*c, 0, lam_max)         (ineq)
+                  clamp(lam + alpha*mu*c, -lam_max, lam_max)  (eq)
+                  proj_soc(lam - alpha*mu*c)                  (soc)
     penalty update: mu <- min(phi * mu, mu_max)
+    active set: (c >= -tol) | (lam > 0)  (ineq, soc);  always  (eq)
 """
 from __future__ import annotations
 
@@ -35,18 +40,32 @@ class ConBlock:
 
     ``owner``: player whose stationarity rows receive the AL gradient
     (state constraints); -1 for the shared control constraints.
+    ``sense``: the cone, "ineq" (c <= 0), "eq" (c == 0) or "soc" (the
+    second-order cone, its axis in the last row).  ``active``: the
+    active-set flags (bool, the shape of ``lam``; all False when not
+    given), refreshed by :func:`update_active_set`.
     """
     params: object
     lam: torch.Tensor                 # [B, K, C] (or [K, C] before a solve)
     mu: torch.Tensor                  # [B, K, C]
     owner: int
     is_state: bool
+    sense: str = "ineq"
+    active: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.sense not in ("ineq", "eq", "soc"):
+            raise ValueError(f"unknown constraint sense {self.sense!r}")
+        if self.active is None and isinstance(self.lam, torch.Tensor):
+            self.active = torch.zeros(self.lam.shape, dtype=torch.bool,
+                                      device=self.lam.device)
 
 
 @dataclasses.dataclass
 class GameConstraints:
-    """All constraint blocks + dual-ascent step sizes and AL parameters
-    (0-d tensors, ``alphax_dual`` [p]); shared by every lane."""
+    """All constraint blocks + dual-ascent step sizes, AL parameters and the
+    active-set tolerance (0-d tensors, ``alphax_dual`` [p]); shared by
+    every lane."""
     state_blocks: Tuple[ConBlock, ...]
     control_blocks: Tuple[ConBlock, ...]
     alpha_dual: torch.Tensor
@@ -55,6 +74,7 @@ class GameConstraints:
     mu0: torch.Tensor
     mu_max: torch.Tensor
     lam_max: torch.Tensor
+    active_tol: torch.Tensor
 
 
 def game_constraints(spec: ProblemSpec, dtype, device) -> GameConstraints:
@@ -65,7 +85,8 @@ def game_constraints(spec: ProblemSpec, dtype, device) -> GameConstraints:
         state_blocks=(), control_blocks=(),
         alpha_dual=s(1.0), alphax_dual=torch.ones((spec.p,), dtype=dtype,
                                                   device=device),
-        phi=s(10.0), mu0=s(1.0), mu_max=s(1e7), lam_max=s(1e7))
+        phi=s(10.0), mu0=s(1.0), mu_max=s(1e7), lam_max=s(1e7),
+        active_tol=s(0.0))
 
 
 def set_constraint_params(gc: GameConstraints, opts) -> GameConstraints:
@@ -79,7 +100,8 @@ def set_constraint_params(gc: GameConstraints, opts) -> GameConstraints:
     gc = dataclasses.replace(
         gc, alpha_dual=s(opts.alpha_dual),
         alphax_dual=s(opts.alphax_dual[:p]), phi=s(opts.rho_increase),
-        mu0=s(opts.rho_0), mu_max=s(opts.rho_max), lam_max=s(opts.lam_max))
+        mu0=s(opts.rho_0), mu_max=s(opts.rho_max), lam_max=s(opts.lam_max),
+        active_tol=s(opts.active_set_tolerance))
     return map_blocks(gc, lambda b: dataclasses.replace(
         b, mu=torch.full_like(b.mu, opts.rho_0)))
 
@@ -292,19 +314,79 @@ def block_jacobian(block: ConBlock, traj) -> torch.Tensor:
     return kernels.jacobian(block.params, block_inputs(block, traj))
 
 
-def block_violation_max(c: torch.Tensor) -> torch.Tensor:
-    """Per-lane max violation max(0, c) of a block, [B]."""
-    return torch.clamp(c, min=0.0).amax(dim=(1, 2))
+def block_violation(c: torch.Tensor, sense: str) -> torch.Tensor:
+    """Row violations of a block's values: |c| (eq), max(0, c) (else)."""
+    return c.abs() if sense == "eq" else torch.clamp(c, min=0.0)
+
+
+def block_violation_max(c: torch.Tensor, sense: str) -> torch.Tensor:
+    """Per-lane max violation of a block, [B]."""
+    return block_violation(c, sense).amax(dim=(1, 2))
+
+
+def al_expansion_full(block: ConBlock, traj):
+    """AL gradient [B, K, dim], Gauss-Newton Hessian [B, K, dim, dim] and
+    values [B, K, C] of a block at every applied knot:
+    ``grad = J'(lam + Irho c)``, ``hess = J' diag(Irho) J``."""
+    c = block_values(block, traj)
+    J = block_jacobian(block, traj)
+    irho = al_irho(block, c)
+    w = block.lam + irho * c
+    if J.shape[-2] == 1:
+        grad = J[..., 0, :] * w[..., 0, None]
+        hess = (J[..., 0, :, None] * J[..., 0, None, :]) * irho[..., 0, None,
+                                                               None]
+    else:
+        grad = torch.einsum('...cd,...c->...d', J, w)
+        hess = torch.einsum('...cd,...c,...ce->...de', J, irho, J)
+    return grad, hess, c
+
+
+def al_expansion(block: ConBlock, traj):
+    """(grad, hess) of :func:`al_expansion_full`."""
+    grad, hess, _ = al_expansion_full(block, traj)
+    return grad, hess
+
+
+def al_irho(block: ConBlock, c: torch.Tensor) -> torch.Tensor:
+    """The rows' penalty weights Irho: mu on equality rows, and on the
+    others mu where c >= 0 or lam > 0, else 0."""
+    if block.sense == "eq":
+        return block.mu
+    return torch.where((c >= 0.0) | (block.lam > 0.0), block.mu,
+                       torch.zeros((), dtype=c.dtype, device=c.device))
+
+
+def soc_projection(v: torch.Tensor) -> torch.Tensor:
+    """Projection of rows [..., C] onto the second-order cone
+    {(x, t): |x| <= t}, the cone axis t in the last component."""
+    x, t = v[..., :-1], v[..., -1]
+    nx = torch.linalg.vector_norm(x, dim=-1)
+    scale = torch.clamp((nx + t) / torch.clamp(2.0 * nx, min=1e-30), 0.0, 1.0)
+    inside, below = nx <= t, nx <= -t
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    x_p = torch.where(inside[..., None], x,
+                      torch.where(below[..., None], zero, scale[..., None] * x))
+    t_p = torch.where(inside, t, torch.where(below, zero, scale * nx))
+    return torch.cat([x_p, t_p[..., None]], dim=-1)
 
 
 def dual_update(gc: GameConstraints, traj) -> GameConstraints:
     """Dual ascent on every block: per-player state step ``alphax_dual[i]``,
-    shared control step ``alpha_dual``."""
+    shared control step ``alpha_dual``; each block projected onto its cone
+    (ineq: [0, lam_max]; eq: [-lam_max, lam_max]; soc: proj_soc of
+    lam - alpha mu c)."""
     def upd(block: ConBlock, alpha):
         c = block_values(block, traj)
-        lam = torch.minimum(
-            torch.clamp(block.lam + alpha * block.mu * c, min=0.0),
-            gc.lam_max)
+        if block.sense == "soc":
+            lam = soc_projection(block.lam - alpha * block.mu * c)
+        elif block.sense == "eq":
+            lam = torch.minimum(torch.maximum(block.lam + alpha * block.mu * c,
+                                              -gc.lam_max), gc.lam_max)
+        else:
+            lam = torch.minimum(
+                torch.clamp(block.lam + alpha * block.mu * c, min=0.0),
+                gc.lam_max)
         return dataclasses.replace(block, lam=lam)
     return dataclasses.replace(
         gc,
@@ -314,35 +396,53 @@ def dual_update(gc: GameConstraints, traj) -> GameConstraints:
                              for b in gc.control_blocks))
 
 
+def update_active_set(gc: GameConstraints, traj) -> GameConstraints:
+    """Recompute the active flags at ``traj``: ``(c >= -active_tol) |
+    (lam > 0)``, and every row of an equality block."""
+    def upd(block: ConBlock):
+        c = block_values(block, traj)
+        if block.sense == "eq":
+            act = torch.ones(c.shape, dtype=torch.bool, device=c.device)
+        else:
+            act = (c >= -gc.active_tol) | (block.lam > 0.0)
+        return dataclasses.replace(block, active=act)
+    return map_blocks(gc, upd)
+
+
 def penalty_update(gc: GameConstraints) -> GameConstraints:
     """``mu <- min(phi * mu, mu_max)``."""
     return map_blocks(gc, lambda b: dataclasses.replace(
         b, mu=torch.minimum(b.mu * gc.phi, gc.mu_max)))
 
 
+def _lane_copy(a: torch.Tensor, B: int) -> torch.Tensor:
+    """Unbatched [K, C] state copied to B lanes; per-lane state as it is."""
+    if a.dim() == 3:
+        if a.shape[0] != B:
+            raise ValueError(f"AL state of {a.shape[0]} lanes, want {B}")
+        return a
+    return a.expand((B,) + tuple(a.shape)).contiguous()
+
+
 def reset_constraints(gc: GameConstraints, B: int) -> GameConstraints:
-    """Zero duals and reset penalties to mu0, as per-lane [B, K, C] state."""
+    """Zero duals and reset penalties to mu0, as per-lane [B, K, C] state;
+    the active flags are kept, per lane."""
     def upd(b: ConBlock):
         shape = (B,) + tuple(b.lam.shape[-2:])
         return dataclasses.replace(
             b, lam=b.lam.new_zeros(shape),
-            mu=b.mu.new_zeros(shape) + gc.mu0)
+            mu=b.mu.new_zeros(shape) + gc.mu0,
+            active=_lane_copy(b.active, B))
     return map_blocks(gc, upd)
 
 
 def per_lane(gc: GameConstraints, B: int) -> GameConstraints:
-    """The AL state as per-lane [B, K, C] tensors: unbatched [K, C] state is
-    copied to every lane, per-lane state is kept as it is."""
-    def upd(b: ConBlock):
-        if b.lam.dim() == 3:
-            if b.lam.shape[0] != B or b.mu.shape[0] != B:
-                raise ValueError(f"AL state of {b.lam.shape[0]} lanes, "
-                                 f"want {B}")
-            return b
-        shape = (B,) + tuple(b.lam.shape)
-        return dataclasses.replace(b, lam=b.lam.expand(shape).contiguous(),
-                                   mu=b.mu.expand(shape).contiguous())
-    return map_blocks(gc, upd)
+    """The AL state and active flags as per-lane [B, K, C] tensors:
+    unbatched [K, C] state is copied to every lane, per-lane state is kept
+    as it is."""
+    return map_blocks(gc, lambda b: dataclasses.replace(
+        b, lam=_lane_copy(b.lam, B), mu=_lane_copy(b.mu, B),
+        active=_lane_copy(b.active, B)))
 
 
 def reset_penalties(gc: GameConstraints) -> GameConstraints:
@@ -357,3 +457,27 @@ def reset_constraint_duals(gc: GameConstraints) -> GameConstraints:
     """Zero the duals and keep the penalties, at the state's own shape."""
     return map_blocks(gc, lambda b: dataclasses.replace(
         b, lam=b.lam.new_zeros(b.lam.shape)))
+
+
+def state_violation(gc: GameConstraints, traj) -> torch.Tensor:
+    """Max state-constraint violation per knot, [B, N] (0 at knot 0)."""
+    vio = traj.x.new_zeros(traj.x.shape[:2])
+    for b in gc.state_blocks:
+        cv = block_violation(block_values(b, traj), b.sense).amax(dim=-1)
+        vio[:, 1:] = torch.maximum(vio[:, 1:], cv)
+    return vio
+
+
+def dynamics_violation_vector(model, spec: ProblemSpec, traj) -> torch.Tensor:
+    """Max-abs RK2 dynamics defect per interval, [B, T]."""
+    from ..problem.residual import dynamics_residual
+    return dynamics_residual(model, spec, traj).abs().amax(dim=-1)
+
+
+def control_violation(gc: GameConstraints, traj) -> torch.Tensor:
+    """Max control-constraint violation per interval, [B, T]."""
+    vio = traj.u.new_zeros(traj.u.shape[:2])
+    for b in gc.control_blocks:
+        vio = torch.maximum(
+            vio, block_violation(block_values(b, traj), b.sense).amax(dim=-1))
+    return vio

@@ -4,14 +4,14 @@
 ``GameProblem`` / model (unicycle, double integrator, heterogeneous double
 integrator, bicycle, quadrotor, with their physical constants and index
 tuples) / ``GameObjective`` (with its CollisionCost
-pairs) / ``GameConstraints`` / ``ConBlock`` and every constraint family's
-parameters by name, and converts each array leaf with ``np.asarray`` (which
-works on the reference's arrays without importing its framework).  The
-static ``ProblemSpec`` is rebuilt field by field, and ``Options`` with
-every field the port has; the TPU compiler knobs ``flat_loop`` and
-``loop_unroll`` are dropped.  It raises on anything the port does not
-carry: non-inequality blocks, and a reference option that no solver path
-of the port reads (``options.py`` lists them) set away from its default.
+pairs) / ``GameConstraints`` / ``ConBlock`` (with its sense and active
+flags) and every constraint family's parameters by name, and converts each
+array leaf with ``np.asarray`` (which works on the reference's arrays
+without importing its framework).  The static ``ProblemSpec`` is rebuilt
+field by field, and ``Options`` with every field the port has; the TPU
+compiler knobs ``flat_loop`` and ``loop_unroll`` are dropped.  It raises
+on a reference option that no solver path of the port reads
+(``options.py`` lists them) set away from its default.
 
 ``constraints_from_reference`` converts a constraint set alone, also the
 per-lane AL state of a vmapped solve's result, and ``traj_from_reference``
@@ -84,15 +84,14 @@ def constraints_from_reference(g, device, dtype,
     """A reference ``GameConstraints`` as the port's.  With ``lanes``, ``g``
     is the constraint set of a vmapped solve's result: its duals and
     penalties are per lane [B, K, C] and stay so; every other leaf is the
-    problem's, repeated per lane, and lane 0's is taken."""
+    problem's, repeated per lane, and lane 0's is taken.  The active
+    flags follow the duals."""
     t0 = _tensor(device, dtype)
 
     def t(a):
         return t0(np.asarray(a)[0] if lanes else a)
 
     def block(b):
-        if getattr(b, "sense", "ineq") != "ineq":
-            raise NotImplementedError("only inequality blocks are ported")
         kind = type(b.params).__name__
         if kind not in _FAMILIES:
             raise NotImplementedError(f"constraint family {kind} is not "
@@ -101,13 +100,17 @@ def constraints_from_reference(g, device, dtype,
         par = cls(**{f.name: (t if f.type == "torch.Tensor" else _static)(
             getattr(b.params, f.name)) for f in dataclasses.fields(cls)})
         return ConBlock(params=par, lam=t0(b.lam), mu=t0(b.mu),
-                        owner=int(b.owner), is_state=bool(b.is_state))
+                        owner=int(b.owner), is_state=bool(b.is_state),
+                        sense=str(b.sense),
+                        active=torch.as_tensor(np.array(b.active, bool),
+                                               device=device))
 
     return GameConstraints(
         state_blocks=tuple(block(b) for b in g.state_blocks),
         control_blocks=tuple(block(b) for b in g.control_blocks),
         alpha_dual=t(g.alpha_dual), alphax_dual=t(g.alphax_dual),
-        phi=t(g.phi), mu0=t(g.mu0), mu_max=t(g.mu_max), lam_max=t(g.lam_max))
+        phi=t(g.phi), mu0=t(g.mu0), mu_max=t(g.mu_max), lam_max=t(g.lam_max),
+        active_tol=t(g.active_tol))
 
 
 def _options_from_reference(opts) -> Options:

@@ -50,6 +50,31 @@ class ProblemSpec:
     def homogeneous(self) -> bool:
         return len(set(self.ni)) == 1 and len(set(self.mi)) == 1
 
+    # Flat column offsets in knot block k (0..T-1): x_{k+1} at 0, u_k at n,
+    # lam_{i,k} at n + m + i n.
+    def col_x(self, k: int) -> int:
+        return k * self.W
+
+    def col_u(self, k: int) -> int:
+        return k * self.W + self.n
+
+    def col_lam(self, i: int, k: int) -> int:
+        return k * self.W + self.n + self.m + i * self.n
+
+    # Flat row offsets of the reference's row order: player-major (per knot
+    # the n statx rows, then the player's mi statu rows), then the dynamics.
+    def _player_row_base(self, i: int) -> int:
+        return sum((self.n + self.mi[j]) * self.T for j in range(i))
+
+    def row_stat_x(self, i: int, k: int) -> int:
+        return self._player_row_base(i) + k * (self.n + self.mi[i])
+
+    def row_stat_u(self, i: int, k: int) -> int:
+        return self.row_stat_x(i, k) + self.n
+
+    def row_dyn(self, k: int) -> int:
+        return self._player_row_base(self.p) + k * self.n
+
     def __post_init__(self):
         if self.N < 2:
             raise ValueError("need at least one dynamics interval")

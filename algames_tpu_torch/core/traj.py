@@ -86,6 +86,11 @@ def delta_step(delta: PrimalDual, alpha: torch.Tensor) -> torch.Tensor:
     return s * alpha / (T * (n + m))
 
 
+def reset_duals(traj: PrimalDual) -> PrimalDual:
+    """Zero the dynamics multipliers."""
+    return PrimalDual(x=traj.x, u=traj.u, lam=torch.zeros_like(traj.lam))
+
+
 def unpack_step(spec: ProblemSpec, flat: torch.Tensor) -> PrimalDual:
     """Scatter a flat Newton step [B, S] into a PrimalDual.
     ``x[:, 0]`` is zero: the knot-0 state is not a decision variable."""

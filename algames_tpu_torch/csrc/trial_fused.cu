@@ -58,10 +58,11 @@
 // read few values and staging cost more than it saved.  Every intermediate
 // stays in registers, thread-local or shared memory; the norm is summed by
 // warp shuffles, then over the warps in order.  The static structure
-// (block kinds, owners, indices, bound masks, cylinder axes, collision-cost
-// pairs) travels as a by-value parameter table, so one compiled kernel
-// serves any player count and block list; the family parameters (radii,
-// centres, wall corners, bounds, pair weights) are small device arrays.
+// (block kinds, owners, senses, indices, bound masks, cylinder axes,
+// collision-cost pairs) travels as a by-value parameter table, so one
+// compiled kernel serves any player count and block list; the family
+// parameters (radii, centres, wall corners, bounds, pair weights) are small
+// device arrays.
 // State bounds read their AL state only at finite rows and write 0 at the
 // others, as the masked bound evaluation does; gated rows (walls,
 // cylinders) use the reference's strict comparisons and are exactly 0
@@ -94,10 +95,12 @@ enum : unsigned char {
 // cylinder (p1, p2, p3, l, r); bound z_max [n] then z_min [n]).  ``mask``:
 // a bound's finite rows (bit j: upper bound of state j, bit n+j: lower
 // bound), or a cylinder block's axes (bits 2j, 2j+1: axis of cylinder j).
+// ``eq``: 1 for an equality block (its rows always penalized), 0 for the
+// inequality and second-order-cone senses.
 struct SBlock {
   unsigned long long mask;
   int row, par;
-  unsigned char kind, owner, cnt;
+  unsigned char kind, owner, cnt, eq;
   unsigned char a[6];
 };
 
@@ -105,6 +108,7 @@ struct TrialMeta {
   SBlock sb[kMaxSB];
   unsigned char pair[kMaxPair][8];  // owner, dim, pxi[3], pxj[3]
   unsigned char c_mask[kMaxCB][2 * kMaxM];
+  unsigned char c_eq[kMaxCB];       // control blocks' ``eq``, as SBlock's
 };
 
 struct ModelConst {
@@ -615,10 +619,11 @@ __device__ __forceinline__ void stage(T* trial, T* keep, const T* cur,
   }
 }
 
-// AL weight of one row: lam + Irho c with Irho = mu where c >= 0 or lam > 0.
+// AL weight of one row: lam + Irho c with Irho = mu on an equality row
+// (``eq``), else mu where c >= 0 or lam > 0 and 0 elsewhere.
 template <typename T>
-__device__ __forceinline__ T al_weight(T cv, T lc, T mu) {
-  return lc + ((cv >= T(0) || lc > T(0)) ? mu : T(0)) * cv;
+__device__ __forceinline__ T al_weight(T cv, T lc, T mu, bool eq) {
+  return lc + ((eq || cv >= T(0) || lc > T(0)) ? mu : T(0)) * cv;
 }
 
 // |x_a - x_b|^2 over ``dim`` (2 or 3) coordinate pairs at knot k, with the
@@ -655,7 +660,7 @@ __device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
     if (sb.kind == kCollision) {          // c = r^2 - |x_i - x_j|^2
       T d[3];
       const T cv = par[0] - sqdist(L, t + 1, sb.a, sb.a + 3, sb.cnt, d);
-      const T w = al_weight(cv, A.slam[o0], A.smu[o0]);
+      const T w = al_weight(cv, A.slam[o0], A.smu[o0], sb.eq);
       #pragma unroll
       for (int j = 0; j < 3; ++j) {
         if (j >= sb.cnt) break;
@@ -670,7 +675,7 @@ __device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
         const T ex = px - pc[0], ey = py - pc[1];
         const T cv = pc[2] * pc[2] - ex * ex - ey * ey;
         const size_t o = o0 + (size_t)j * Tn;
-        const T w = al_weight(cv, A.slam[o], A.smu[o]);
+        const T w = al_weight(cv, A.slam[o], A.smu[o], sb.eq);
         g[sb.a[0]] += (T(-2) * ex) * w;
         g[sb.a[1]] += (T(-2) * ey) * w;
         A.sc[o] = cv;
@@ -685,7 +690,7 @@ __device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
             ((px - x2) * (x1 - x2) + (py - y2) * (y1 - y2)) > T(0);
         const T cv = gate ? (px - x1) * pw[4] + (py - y1) * pw[5] : T(0);
         const size_t o = o0 + (size_t)j * Tn;
-        const T w = al_weight(cv, A.slam[o], A.smu[o]);
+        const T w = al_weight(cv, A.slam[o], A.smu[o], sb.eq);
         if (gate) {
           g[sb.a[0]] += pw[4] * w;
           g[sb.a[1]] += pw[5] * w;
@@ -715,7 +720,7 @@ __device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
                                 + (pp[2] - p1[2]) * pw[11]
                           : T(0);
         const size_t o = o0 + (size_t)j * Tn;
-        const T w = al_weight(cv, A.slam[o], A.smu[o]);
+        const T w = al_weight(cv, A.slam[o], A.smu[o], sb.eq);
         if (gate)
           for (int r = 0; r < 3; ++r) g[sb.a[r]] += pw[9 + r] * w;
         A.sc[o] = cv;
@@ -733,7 +738,7 @@ __device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
         out = out + ta * ta;
         const T cv = valid ? out : T(0);
         const size_t o = o0 + (size_t)j * Tn;
-        const T w = al_weight(cv, A.slam[o], A.smu[o]);
+        const T w = al_weight(cv, A.slam[o], A.smu[o], sb.eq);
         if (valid) {
           #pragma unroll
           for (int r = 0; r < 3; ++r)
@@ -750,11 +755,11 @@ __device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
         T cu = T(0), cl = T(0), gj = T(0);
         if (mu_) {
           cu = L.X(t + 1, j) - zx[j];
-          gj = al_weight(cu, A.slam[ou], A.smu[ou]);
+          gj = al_weight(cu, A.slam[ou], A.smu[ou], sb.eq);
         }
         if (ml_) {
           cl = zx[n + j] - L.X(t + 1, j);
-          gj -= al_weight(cl, A.slam[ol], A.smu[ol]);
+          gj -= al_weight(cl, A.slam[ol], A.smu[ol], sb.eq);
         }
         if (mu_ || ml_) g[j] += gj;
         A.sc[ou] = cu;
@@ -805,8 +810,9 @@ __device__ void knot_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
       const bool mu_ = meta.c_mask[k][j], ml_ = meta.c_mask[k][m + j];
       const T cu = mu_ ? uj - A.zmax[k * m + j] : T(0);
       const T cl = ml_ ? A.zmin[k * m + j] - uj : T(0);
-      const T wu = al_weight(cu, A.clam[o + j], A.cmu[o + j]);
-      const T wl = al_weight(cl, A.clam[o + m + j], A.cmu[o + m + j]);
+      const bool eq = meta.c_eq[k];
+      const T wu = al_weight(cu, A.clam[o + j], A.cmu[o + j], eq);
+      const T wl = al_weight(cl, A.clam[o + m + j], A.cmu[o + m + j], eq);
       alu[j] += wu * (mu_ ? T(1) : T(0)) - wl * (ml_ ? T(1) : T(0));
       A.cc[o + j] = cu;
       A.cc[o + m + j] = cl;
@@ -967,8 +973,9 @@ struct LaneLayout {
 };
 
 // The parameter table from the wrapper's flat int arrays.  s_meta per state
-// block: kind, owner, row, par, cnt, a0..a5; s_mask per block; p_meta per
-// pair: owner, dim, pxi0..2, pxj0..2; c_mask per control block: 2m flags.
+// block: kind, owner, row, par, cnt, a0..a5, eq; s_mask per block; p_meta
+// per pair: owner, dim, pxi0..2, pxj0..2; c_mask per control block: 2m
+// flags, then each control block's eq.
 bool make_meta(const int* s_meta, const unsigned long long* s_mask,
                const int* p_meta, const unsigned char* c_mask, int nsb,
                int npair, int ncb, int m, TrialMeta* meta) {
@@ -976,7 +983,7 @@ bool make_meta(const int* s_meta, const unsigned long long* s_mask,
     return false;
   *meta = TrialMeta{};
   for (int k = 0; k < nsb; ++k) {
-    const int* s = s_meta + 11 * k;
+    const int* s = s_meta + 12 * k;
     SBlock& sb = meta->sb[k];
     sb.kind = (unsigned char)s[0];
     sb.owner = (unsigned char)s[1];
@@ -984,14 +991,17 @@ bool make_meta(const int* s_meta, const unsigned long long* s_mask,
     sb.par = s[3];
     sb.cnt = (unsigned char)s[4];
     for (int j = 0; j < 6; ++j) sb.a[j] = (unsigned char)s[5 + j];
+    sb.eq = (unsigned char)s[11];
     sb.mask = s_mask[k];
     if (sb.kind == kCylinder && sb.cnt > kMaxCyl) return false;
   }
   for (int k = 0; k < npair; ++k)
     for (int j = 0; j < 8; ++j)
       meta->pair[k][j] = (unsigned char)p_meta[8 * k + j];
-  for (int k = 0; k < ncb; ++k)
+  for (int k = 0; k < ncb; ++k) {
     for (int j = 0; j < 2 * m; ++j) meta->c_mask[k][j] = c_mask[2 * m * k + j];
+    meta->c_eq[k] = c_mask[2 * m * ncb + k];
+  }
   return true;
 }
 

@@ -177,3 +177,30 @@ def cost_hessian_diag(spec: ProblemSpec, obj: GameObjective, dtype, device):
     Qx = obj.Qd[:, None, :] * scale[None, :, None]
     Ru = torch.diag_embed(obj.Rd * spec.dt)
     return Qx, Ru
+
+
+def collision_stage_cost(obj: GameObjective, idx: int, x: torch.Tensor):
+    """Collision cost of pair ``idx`` at states ``x`` [..., n]:
+    ``0.5 mu max(0, r - |x_i - x_j|)^2``."""
+    dn = torch.linalg.vector_norm(x[..., list(obj.pxi[idx])]
+                                  - x[..., list(obj.pxj[idx])], dim=-1)
+    return 0.5 * obj.mu[idx] * torch.clamp(obj.r[idx] - dn, min=0.0) ** 2
+
+
+def total_cost(spec: ProblemSpec, obj: GameObjective, traj: PrimalDual,
+               i: int) -> torch.Tensor:
+    """Player i's total objective per lane [B]: the stage costs
+    0.5 (x - xf)' Q (x - xf) dt + 0.5 (u - uf)' R (u - uf) dt, the terminal
+    0.5 (x - xf)' Q (x - xf), and the collision costs owned by player i,
+    dt-scaled as the stage costs."""
+    dx = traj.x - obj.xf[i]
+    du = traj.u - obj.uf[i]
+    stage_x = 0.5 * (dx * obj.Qd[i] * dx).sum(dim=-1)          # [B, N]
+    stage_u = 0.5 * (du * obj.Rd[i] * du).sum(dim=-1)          # [B, T]
+    scale = _dt_scale(spec, traj.x.dtype, traj.x.device)
+    J = (stage_x * scale).sum(dim=-1) + stage_u.sum(dim=-1) * spec.dt
+    for idx, owner in enumerate(obj.pair_i):
+        if owner == i:
+            J = J + (collision_stage_cost(obj, idx, traj.x) * scale).sum(
+                dim=-1)
+    return J

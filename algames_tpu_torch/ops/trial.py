@@ -15,7 +15,9 @@ controls) as a compile-time policy; its constants are kernel arguments, and
 the state
 blocks (collision in 2 or 3 dimensions, circle, 2D wall, 3D wall, cylinder,
 state bound), control bounds and collision-cost pairs travel as a by-value
-table.  CUDA was chosen over Triton because the body is a per-knot scalar
+table, each block with its sense (equality rows are always penalized; the
+inequality and second-order-cone rows by the inequality rule).  CUDA was
+chosen over Triton because the body is a per-knot scalar
 program with data-dependent indices (collision pairs, owners, bound masks,
 gates) and loops over players and blocks, which maps directly onto one
 thread per knot; in Triton it would have to be recast as padded power-of-two
@@ -144,7 +146,9 @@ def trial_supported(model, spec, obj, gc) -> bool:
     the collision (2 or 3 coordinates), circle, wall, 3D wall, cylinder or
     state-bound families; box bounds as the only control blocks;
     collision-cost pairs on 2 or 3 coordinates; all within the kernel's
-    table sizes."""
+    table sizes.  Every sense is inside: equality rows are always
+    penalized, inequality and second-order-cone rows by the inequality
+    rule, as in :func:`~..constraints.sets.al_irho`."""
     name = model_name(model)
     if name is None or spec.mi != model.mi:
         return False
@@ -219,8 +223,9 @@ def _check(model, spec, obj, gc, traj, dtraj, alpha, reg_eff) -> None:
 
 def _state_tables(sb, dtype, device):
     """The kernel's state-block table: per block (kind, owner, first row,
-    first parameter, count, six indices) and its mask, plus the parameter
-    array (see ``csrc/trial_fused.cu`` SBlock for the layout)."""
+    first parameter, count, six indices, equality flag) and its mask, plus
+    the parameter array (see ``csrc/trial_fused.cu`` SBlock for the
+    layout)."""
     meta, masks, params = [], [], []
     row = npar = 0
     for blk in sb:
@@ -251,7 +256,8 @@ def _state_tables(sb, dtype, device):
                 if kind == 5:
                     mask = sum(a << (2 * j) for j, a in enumerate(par.axis))
             vals = [torch.stack(cols, dim=1).reshape(-1)]
-        meta += [kind, blk.owner, row, npar, cnt, *idx]
+        meta += [kind, blk.owner, row, npar, cnt, *idx,
+                 int(blk.sense == "eq")]
         masks.append(mask)
         row += blk.lam.shape[-1]
         npar += sum(int(v.numel()) for v in vals)
@@ -305,7 +311,8 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
         a, b = tuple(obj.pxi[k]), tuple(obj.pxj[k])
         p_meta += [i, len(a), *(a + (0,) * (3 - len(a))),
                    *(b + (0,) * (3 - len(b)))]
-    c_mask = build.byte_table([v for b in cb for v in b.params.mask])
+    c_mask = build.byte_table([v for b in cb for v in b.params.mask]
+                              + [b.sense == "eq" for b in cb])
 
     rx0 = torch.empty((Bsz, T, p, n), dtype=dtype, device=device)
     ru0 = torch.empty((Bsz, T, m), dtype=dtype, device=device)

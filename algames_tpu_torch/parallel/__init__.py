@@ -1,6 +1,6 @@
 """Scenario-batch solving."""
-from .batch import (convergence_fraction, divergence_mask, solve_batch,
-                    solve_many)
+from .batch import (convergence_fraction, convergence_mask, divergence_mask,
+                    solve_batch, solve_many)
 
-__all__ = ["convergence_fraction", "divergence_mask", "solve_batch",
-           "solve_many"]
+__all__ = ["convergence_fraction", "convergence_mask", "divergence_mask",
+           "solve_batch", "solve_many"]

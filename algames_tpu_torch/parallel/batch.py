@@ -72,11 +72,15 @@ def divergence_mask(result: SolveResult) -> torch.Tensor:
     return bad_res | bad_traj
 
 
+def convergence_mask(result: SolveResult, opts) -> torch.Tensor:
+    """True where the lane's final violations meet the tolerances."""
+    s = result.stats
+    return ((_final(result, s.dyn_vio) < opts.eps_dyn)
+            & (_final(result, s.con_vio) < opts.eps_con)
+            & (_final(result, s.sta_vio) < opts.eps_sta)
+            & (_final(result, s.opt_vio) < opts.eps_opt))
+
+
 def convergence_fraction(result: SolveResult, opts) -> torch.Tensor:
     """Fraction of lanes whose final violations meet the tolerances."""
-    s = result.stats
-    ok = ((_final(result, s.dyn_vio) < opts.eps_dyn)
-          & (_final(result, s.con_vio) < opts.eps_con)
-          & (_final(result, s.sta_vio) < opts.eps_sta)
-          & (_final(result, s.opt_vio) < opts.eps_opt))
-    return ok.to(torch.float32).mean()
+    return convergence_mask(result, opts).to(torch.float32).mean()

@@ -84,10 +84,10 @@ def player_violations(spec: ProblemSpec, gc, pd: R.PointData,
     sta_v = torch.zeros_like(dyn_v)
     for b, c in zip(gc.state_blocks, pd.state_c):
         if b.owner == i:
-            sta_v = torch.maximum(sta_v, gcm.block_violation_max(c))
+            sta_v = torch.maximum(sta_v, gcm.block_violation_max(c, b.sense))
     con_v = torch.zeros_like(dyn_v)
-    for c in pd.control_c:
-        con_v = torch.maximum(con_v, gcm.block_violation_max(c))
+    for b, c in zip(gc.control_blocks, pd.control_c):
+        con_v = torch.maximum(con_v, gcm.block_violation_max(c, b.sense))
     return dyn_v, con_v, sta_v, opt_v
 
 

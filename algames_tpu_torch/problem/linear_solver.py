@@ -1,8 +1,21 @@
-"""Schur-condensed block-Thomas KKT solve in plain PyTorch (counterpart of
-``algames_tpu/problem/linear_solver.py::solve_tridiagonal_schur``).  It is
-the plain version of kernels K1 and K3 (``ops/thomas.py``).
+"""The KKT linear solves in plain PyTorch (counterpart of
+``algames_tpu/problem/linear_solver.py``), batched over a leading lane
+axis.
 
-Per knot, the statx rows ``[Q_i | 0 | -I(own lam)]`` eliminate the p*n
+The block-tridiagonal system, per knot equation t (W x W blocks from
+``residual.build_tridiagonal``)::
+
+    L_{t-1} y_{t-1} + D_t y_t + U_t y_{t+1} = b_t
+
+is solved by one of: a dense S x S solve (``solve_dense``), block Thomas
+(``solve_tridiagonal``), block cyclic reduction
+(``solve_cyclic_reduction``), or the Schur-condensed block Thomas on the
+dense per-knot ingredients (``solve_tridiagonal_schur``), the plain
+version of kernels K1 and K3 (``ops/thomas.py``).  The pivoted solves are
+``torch.linalg.solve_ex``: a singular lane yields non-finite values (as in
+the reference) instead of failing the whole batch.
+
+In the Schur-condensed sweep, per knot, the statx rows ``[Q_i | 0 | -I(own lam)]`` eliminate the p*n
 multiplier unknowns exactly (``lam_i = Q_i x - a_i``), leaving one pivoted
 (n+m)-size solve with (p*n + 1) right-hand sides; the multipliers are
 rebuilt in the backward sweep.
@@ -22,6 +35,136 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+
+def dense_from_tridiagonal(spec, D, U, L, out=None):
+    """The block-tridiagonal matrix of D [B, T, W, W] and U, L
+    [B, T-1, W, W] (L[:, t] is the sub-diagonal block of equation t+1) as
+    a dense [B, S, S] matrix, written into the leading S x S corner of
+    ``out`` (zeros elsewhere) when given."""
+    T, W = spec.T, spec.W
+    J = D.new_zeros((D.shape[0], T * W, T * W)) if out is None else out
+    for t in range(T):
+        r = slice(t * W, (t + 1) * W)
+        J[:, r, r] = D[:, t]
+        if t + 1 < T:
+            r1 = slice((t + 1) * W, (t + 2) * W)
+            J[:, r, r1] = U[:, t]
+            J[:, r1, r] = L[:, t]
+    return J
+
+
+def solve_dense(spec, D, U, L, b_knots):
+    """Dense S x S solve of the block-tridiagonal system
+    (:func:`dense_from_tridiagonal`), b_knots [B, T, W].  Returns the flat
+    [B, S] solution of J y = b."""
+    J = dense_from_tridiagonal(spec, D, U, L)
+    return torch.linalg.solve_ex(J, b_knots.reshape(b_knots.shape[0], -1))[0]
+
+
+def solve_tridiagonal(spec, D, U, L, b_knots):
+    """Block-Thomas solve of the system of :func:`solve_dense`: one pivoted
+    W x W solve with W + 1 right-hand sides per knot, then the backward
+    sweep.  Returns flat [B, S]."""
+    T, W = spec.T, spec.W
+    Bsz = b_knots.shape[0]
+    zero = D.new_zeros((Bsz, 1, W, W))
+    Lhat = torch.cat([zero, L], dim=1)                  # Lhat_0 = 0
+    Uhat = torch.cat([U, zero], dim=1)                  # Uhat_{T-1} = 0
+    G = D.new_zeros((Bsz, W, W))
+    y = D.new_zeros((Bsz, W, 1))
+    Gs, ys = [], []
+    for t in range(T):
+        M = D[:, t] - Lhat[:, t] @ G
+        rhs = torch.cat([Uhat[:, t], b_knots[:, t, :, None] - Lhat[:, t] @ y],
+                        dim=2)
+        sol = torch.linalg.solve_ex(M, rhs)[0]          # [B, W, W+1]
+        G, y = sol[:, :, :W], sol[:, :, W:]
+        Gs.append(G)
+        ys.append(y)
+    out = [None] * T
+    y_next = D.new_zeros((Bsz, W, 1))
+    for t in range(T - 1, -1, -1):
+        y_next = ys[t] - Gs[t] @ y_next
+        out[t] = y_next[..., 0]
+    return torch.stack(out, dim=1).reshape(Bsz, -1)
+
+
+def newton_step(spec, D, U, L, b_knots, method: str = "tridiag"):
+    """The Newton step: the solution of J y = -b, flat [B, S] in column
+    order, by ``"dense"`` or ``"tridiag"`` (block Thomas)."""
+    if method == "dense":
+        return solve_dense(spec, D, U, L, -b_knots)
+    return solve_tridiagonal(spec, D, U, L, -b_knots)
+
+
+def _bmv(M, v):
+    """Batched matrix-vector products [..., i, j] x [..., j]."""
+    return (M @ v[..., None])[..., 0]
+
+
+def solve_cyclic_reduction(spec, D, U, L, b_knots):
+    """Block cyclic reduction of the system of :func:`solve_dense`: each of
+    ceil(log2 T) levels eliminates every odd-indexed block at once,
+
+      y_odd = D_odd^{-1} (b_odd - Lh_odd y_{odd-1} - Uh_odd y_{odd+1})
+      D'_e  = D_e - Lh_e D_{e-1}^{-1} Uh_{e-1} - Uh_e D_{e+1}^{-1} Lh_{e+1}
+      Lh'_e = -Lh_e D_{e-1}^{-1} Lh_{e-1};  Uh'_e = -Uh_e D_{e+1}^{-1} Uh_{e+1}
+      b'_e  = b_e - Lh_e D_{e-1}^{-1} b_{e-1} - Uh_e D_{e+1}^{-1} b_{e+1}
+
+    with an identity block appended to a level of odd length (trimmed in
+    the back substitution).  Returns flat [B, S]."""
+    T, W = spec.T, spec.W
+    Bsz = b_knots.shape[0]
+    zero = D.new_zeros((Bsz, 1, W, W))
+    Lh = torch.cat([zero, L], dim=1)                    # sub-diag of eq t
+    Uh = torch.cat([U, zero], dim=1)                    # super-diag of eq t
+    b = b_knots
+    stack = []
+    while D.shape[1] > 1:
+        Tl = D.shape[1]
+        if Tl % 2 == 1:
+            eye = torch.eye(W, dtype=D.dtype, device=D.device)
+            D = torch.cat([D, eye.expand(Bsz, 1, W, W)], dim=1)
+            Lh = torch.cat([Lh, zero], dim=1)
+            Uh = torch.cat([Uh, zero], dim=1)
+            b = torch.cat([b, b.new_zeros((Bsz, 1, W))], dim=1)
+            Tl += 1
+        Do, De = D[:, 1::2], D[:, 0::2]
+        Lo, Le = Lh[:, 1::2], Lh[:, 0::2]
+        Uo, Ue = Uh[:, 1::2], Uh[:, 0::2]
+        bo, be = b[:, 1::2], b[:, 0::2]
+        # D_o^{-1} [L_o U_o b_o] against every odd diagonal block at once.
+        rhs = torch.cat([Lo, Uo, bo[..., None]], dim=-1)
+        sol = torch.linalg.solve_ex(Do, rhs)[0]
+        DiL, DiU, Dib = sol[..., :W], sol[..., W:2 * W], sol[..., 2 * W]
+        stack.append((DiL, DiU, Dib, Tl))
+        # Even block jj: right odd neighbour jj (if any), left jj - 1.
+        ne, no = De.shape[1], DiL.shape[1]
+        m_r = min(ne, no)
+        Dn, bn = De.clone(), be.clone()
+        Ln, Un = torch.zeros_like(Le), torch.zeros_like(Ue)
+        Dn[:, :m_r] += -Ue[:, :m_r] @ DiL[:, :m_r]
+        Un[:, :m_r] = -Ue[:, :m_r] @ DiU[:, :m_r]
+        bn[:, :m_r] += -_bmv(Ue[:, :m_r], Dib[:, :m_r])
+        if ne > 1:
+            Dn[:, 1:] += -Le[:, 1:] @ DiU[:, :ne - 1]
+            Ln[:, 1:] = -Le[:, 1:] @ DiL[:, :ne - 1]
+            bn[:, 1:] += -_bmv(Le[:, 1:], Dib[:, :ne - 1])
+        D, Lh, Uh, b = Dn, Ln, Un, bn
+
+    ys = torch.linalg.solve_ex(D[:, 0], b[:, 0])[0][:, None]
+    for DiL, DiU, Dib, Tl in reversed(stack):
+        half = Tl // 2
+        y_even = ys[:, :half]                           # trim a coarser pad
+        y_odd = Dib - _bmv(DiL, y_even)
+        if half > 1:
+            y_odd[:, :half - 1] += -_bmv(DiU[:, :half - 1], y_even[:, 1:])
+        merged = b_knots.new_zeros((Bsz, Tl, W))
+        merged[:, 0::2] = y_even
+        merged[:, 1::2] = y_odd
+        ys = merged
+    return ys[:, :T].reshape(Bsz, -1)
 
 
 @dataclasses.dataclass

@@ -5,9 +5,9 @@ with the same defaults.  Left out: the TPU compiler knobs ``flat_loop``
 (the port always runs the flat (k, l) machine, as a host loop) and
 ``loop_unroll`` (iterations per while-loop trip), and the fields that no
 solver path reads (``theta``, ``alpha_increase``, ``rho_trial``,
-``active_set_tolerance``, ``gamma``, ``inner_print``, ``outer_print``,
-``seed``); ``convert.problem_from_reference`` raises on a reference
-problem that sets one of those away from its default.
+``gamma``, ``inner_print``, ``outer_print``, ``seed``);
+``convert.problem_from_reference`` raises on a reference problem that
+sets one of those away from its default.
 """
 from __future__ import annotations
 
@@ -48,6 +48,9 @@ class Options:
     lam_max: float = 1e7
     alpha_dual: float = 1.0
     alphax_dual: Tuple[float, ...] = (1.0,) * 10
+    # A row is active where c >= -active_set_tolerance or lam > 0
+    # (constraints.sets.update_active_set; the active-set analysis).
+    active_set_tolerance: float = 1e-4
 
     # Convergence criteria.
     eps_dyn: float = 1e-3

@@ -1,7 +1,10 @@
 """KKT residual and Jacobian assembly (counterpart of
 ``algames_tpu/problem/residual.py``): the structured-Q form (diagonal plus
-rank-1 statx Hessians) for diagonal objectives, and the dense form for
-objectives with collision-cost pairs.
+rank-1 statx Hessians) for diagonal objectives, the dense form for
+objectives with collision-cost pairs and for the KKT ladder's methods,
+the block-tridiagonal matrix (``build_tridiagonal``) and the reference's
+flat row order (``flatten_residual``, ``flatten_jacobian``) that the
+dense solves and the active-set analysis use.
 
 Per-knot layout (0-based t):
 
@@ -106,11 +109,6 @@ def dynamics_residual(model, spec: ProblemSpec, traj: PrimalDual):
     return rk2_step(model, traj.x[:, :-1], traj.u, spec.dt) - traj.x[:, 1:]
 
 
-def _irho(blk: gcm.ConBlock, c: torch.Tensor) -> torch.Tensor:
-    return torch.where((c >= 0.0) | (blk.lam > 0.0), blk.mu,
-                       torch.zeros((), dtype=c.dtype, device=c.device))
-
-
 def _bound_masks(blk, like):
     dim = blk.params.z_max.shape[0]
     mk = torch.as_tensor(blk.params.mask, dtype=like.dtype, device=like.device)
@@ -161,13 +159,13 @@ def _add_al_grads(spec: ProblemSpec, gc: gcm.GameConstraints, rx, ru,
     directly."""
     per = [None] * spec.p
     for blk, c, J in zip(gc.state_blocks, state_c, state_J):
-        g = _al_grad(blk, J, blk.lam + _irho(blk, c) * c)
+        g = _al_grad(blk, J, blk.lam + gcm.al_irho(blk, c) * c)
         per[blk.owner] = g if per[blk.owner] is None else per[blk.owner] + g
     gsum = _owner_stack(spec, per, rx[:, :, 0])
     if gsum is not None:
         rx = rx + gsum
     for blk, c, J in zip(gc.control_blocks, control_c, control_J):
-        ru = ru + _al_grad(blk, J, blk.lam + _irho(blk, c) * c)
+        ru = ru + _al_grad(blk, J, blk.lam + gcm.al_irho(blk, c) * c)
     return rx, ru
 
 
@@ -227,6 +225,95 @@ def residual_from_point(spec: ProblemSpec, gc: gcm.GameConstraints,
     return Residual(rx=rx, ru=ru, rd=pd.rd)
 
 
+def residual(model, spec: ProblemSpec, obj, gc: gcm.GameConstraints,
+             traj: PrimalDual, reg=0.0,
+             traj_ref: PrimalDual | None = None) -> Residual:
+    """Full KKT residual at ``traj``; with ``traj_ref``, plus the Tikhonov
+    pull ``reg (traj - traj_ref)`` on the primal rows (``reg`` [B] or a
+    scalar)."""
+    res = residual_from_point(spec, gc,
+                              point_data(model, spec, obj, gc, traj))
+    if traj_ref is None:
+        return res
+    r = lanes(reg, 3)
+    return Residual(
+        rx=res.rx + (r * (traj.x[:, 1:] - traj_ref.x[:, 1:]))[:, :, None],
+        ru=res.ru + r * (traj.u - traj_ref.u), rd=res.rd)
+
+
+def jacobian_blocks(model, spec: ProblemSpec, obj, gc: gcm.GameConstraints,
+                    traj: PrimalDual, reg_x=0.0, reg_u=0.0) -> JacBlocks:
+    """Dense Jacobian ingredients at ``traj``: cost Hessians, every
+    block's AL Hessian (:func:`constraints.sets.al_expansion`; control
+    blocks couple same-owner controls only), ``reg_x`` / ``reg_u`` on the
+    primal diagonals and the RK2 step Jacobians."""
+    T, p, n, m = spec.T, spec.p, spec.n, spec.m
+    Bsz = traj.x.shape[0]
+    dtype, device = traj.x.dtype, traj.x.device
+    Qx, Ru = cost_hessian(spec, obj, traj)
+    Qblk = Qx[:, :, 1:].permute(0, 2, 1, 3, 4)               # [B, T, p, n, n]
+    Ublk, same = _control_hessian(spec, Ru, dtype, device)
+    hess_per = [None] * p
+    for blk in gc.state_blocks:
+        _, hess = gcm.al_expansion(blk, traj)
+        i = blk.owner
+        hess_per[i] = hess if hess_per[i] is None else hess_per[i] + hess
+    hsum = _owner_stack(spec, hess_per, Qblk[:, :, 0])
+    if hsum is not None:
+        Qblk = Qblk + hsum
+    Ublk = Ublk.expand(Bsz, T, m, m)
+    for blk in gc.control_blocks:
+        _, hess = gcm.al_expansion(blk, traj)
+        Ublk = Ublk + hess * same
+    Qblk = Qblk + reg_x * torch.eye(n, dtype=dtype, device=device)
+    Ublk = Ublk + reg_u * torch.eye(m, dtype=dtype, device=device)
+    A, B = step_jacobians(model, traj.x[:, :-1], traj.u, spec.dt)
+    return JacBlocks(Qblk=Qblk, Ublk=Ublk.expand(Bsz, T, m, m), A=A, B=B)
+
+
+def build_tridiagonal(spec: ProblemSpec, jb: JacBlocks):
+    """The block-tridiagonal KKT matrix as (D [B, T, W, W], U, L
+    [B, T-1, W, W]): U[:, t] couples equation t to v_{t+1}, L[:, t]
+    couples equation t+1 to v_t.
+
+      statx(i) rows: Qblk_i at the x columns, -I at lam_i; A_{t+1}^T at
+                     lam_i of the next knot (U)
+      statu rows:    Ublk at the u columns; rows pu_i: B[:, pu_i]^T at lam_i
+      dyn rows:      -I at the x columns, B at u; A_{t+1} at x of the
+                     previous knot (L)
+    """
+    T, p, n, m, W = spec.T, spec.p, spec.n, spec.m, spec.W
+    Bsz = jb.A.shape[0]
+    eye_n = torch.eye(n, dtype=jb.A.dtype, device=jb.A.device)
+    ru0, rd0 = p * n, p * n + m
+    D = jb.A.new_zeros((Bsz, T, W, W))
+    U = jb.A.new_zeros((Bsz, T - 1, W, W))
+    L = jb.A.new_zeros((Bsz, T - 1, W, W))
+    At1 = jb.A[:, 1:].transpose(-1, -2)
+    for i in range(p):
+        r, c = slice(i * n, (i + 1) * n), slice(n + m + i * n,
+                                                 n + m + (i + 1) * n)
+        D[:, :, r, :n] = jb.Qblk[:, :, i]
+        D[:, :, r, c] = -eye_n
+        pu = list(spec.pu[i])
+        D[:, :, [ru0 + j for j in pu], c] = jb.B[..., pu].transpose(-1, -2)
+        U[:, :, r, c] = At1
+    D[:, :, ru0:rd0, n:n + m] = jb.Ublk
+    D[:, :, rd0:, :n] = -eye_n
+    D[:, :, rd0:, n:n + m] = jb.B
+    L[:, :, rd0:, :n] = jb.A[:, 1:]
+    return D, U, L
+
+
+def assemble(model, spec: ProblemSpec, obj, gc: gcm.GameConstraints,
+             traj: PrimalDual, reg=0.0):
+    """Residual, dense :class:`JacBlocks` and the violations (sta, con) at
+    ``traj`` in one pass (:func:`point_data` + :func:`assemble_from_point`);
+    ``reg`` on the Jacobian's primal diagonals only."""
+    pd = point_data(model, spec, obj, gc, traj)
+    return assemble_from_point(spec, obj, gc, traj, pd, reg=reg)
+
+
 def structured_w_owner(gc: gcm.GameConstraints):
     """Owner of each rank-1 w vector: one per row of every non-bound state
     block, in ``gc.state_blocks`` order."""
@@ -276,13 +363,13 @@ def assemble_from_point(spec: ProblemSpec, obj, gc, traj, pd: PointData,
     grad_per = [None] * p
     hess_per = [None] * p
     for blk, c, J in zip(gc.state_blocks, pd.state_c, pd.state_J):
-        irho = _irho(blk, c)
+        irho = gcm.al_irho(blk, c)
         grad = _al_grad(blk, J, blk.lam + irho * c)
         hess = _al_hess(blk, J, irho)
         i = blk.owner
         grad_per[i] = grad if grad_per[i] is None else grad_per[i] + grad
         hess_per[i] = hess if hess_per[i] is None else hess_per[i] + hess
-        sta_v = torch.maximum(sta_v, gcm.block_violation_max(c))
+        sta_v = torch.maximum(sta_v, gcm.block_violation_max(c, blk.sense))
     gsum = _owner_stack(spec, grad_per, pd.rd)
     if gsum is not None:
         rx = rx + gsum
@@ -291,10 +378,10 @@ def assemble_from_point(spec: ProblemSpec, obj, gc, traj, pd: PointData,
         Qblk = Qblk + hsum
     Ublk = Ublk.expand(Bsz, T, m, m)
     for blk, c, J in zip(gc.control_blocks, pd.control_c, pd.control_J):
-        irho = _irho(blk, c)
+        irho = gcm.al_irho(blk, c)
         ru = ru + _al_grad(blk, J, blk.lam + irho * c)
         Ublk = Ublk + _al_hess(blk, J, irho) * same
-        con_v = torch.maximum(con_v, gcm.block_violation_max(c))
+        con_v = torch.maximum(con_v, gcm.block_violation_max(c, blk.sense))
 
     eye_n = torch.eye(n, dtype=dtype, device=device)
     eye_m = torch.eye(m, dtype=dtype, device=device)
@@ -323,7 +410,7 @@ def assemble_structured_from_point(spec: ProblemSpec, obj, gc, traj,
     qadd_per = [None] * p
     wvs = []
     for blk, c, J in zip(gc.state_blocks, pd.state_c, pd.state_J):
-        irho = _irho(blk, c)
+        irho = gcm.al_irho(blk, c)
         grad = _al_grad(blk, J, blk.lam + irho * c)
         i = blk.owner
         grad_per[i] = grad if grad_per[i] is None else grad_per[i] + grad
@@ -334,7 +421,7 @@ def assemble_structured_from_point(spec: ProblemSpec, obj, gc, traj,
             for cc in range(blk.lam.shape[-1]):
                 wvs.append(torch.sqrt(irho[..., cc])[..., None]
                            * J[..., cc, :])                  # [B, T, n]
-        sta_v = torch.maximum(sta_v, gcm.block_violation_max(c))
+        sta_v = torch.maximum(sta_v, gcm.block_violation_max(c, blk.sense))
     gsum = _owner_stack(spec, grad_per, pd.rd)
     if gsum is not None:
         rx = rx + gsum
@@ -343,10 +430,10 @@ def assemble_structured_from_point(spec: ProblemSpec, obj, gc, traj,
         qdiag = qdiag + qsum
     Ublk = Ublk.expand(Bsz, T, m, m)
     for blk, c, J in zip(gc.control_blocks, pd.control_c, pd.control_J):
-        irho = _irho(blk, c)
+        irho = gcm.al_irho(blk, c)
         ru = ru + _al_grad(blk, J, blk.lam + irho * c)
         Ublk = Ublk + _al_hess(blk, J, irho) * same
-        con_v = torch.maximum(con_v, gcm.block_violation_max(c))
+        con_v = torch.maximum(con_v, gcm.block_violation_max(c, blk.sense))
 
     qdiag = (qdiag + lanes(reg, 4)).expand(Bsz, T, p, n)
     eye_m = torch.eye(m, dtype=dtype, device=device)
@@ -363,10 +450,10 @@ def point_violations(gc: gcm.GameConstraints, pd: PointData):
     Bsz = pd.rd.shape[0]
     sta_v = pd.rd.new_zeros((Bsz,))
     con_v = pd.rd.new_zeros((Bsz,))
-    for c in pd.state_c:
-        sta_v = torch.maximum(sta_v, gcm.block_violation_max(c))
-    for c in pd.control_c:
-        con_v = torch.maximum(con_v, gcm.block_violation_max(c))
+    for blk, c in zip(gc.state_blocks, pd.state_c):
+        sta_v = torch.maximum(sta_v, gcm.block_violation_max(c, blk.sense))
+    for blk, c in zip(gc.control_blocks, pd.control_c):
+        con_v = torch.maximum(con_v, gcm.block_violation_max(c, blk.sense))
     return sta_v, con_v
 
 
@@ -393,3 +480,44 @@ def residual_knot_blocks(spec: ProblemSpec, res: Residual) -> torch.Tensor:
     Bsz = res.rd.shape[0]
     return torch.cat([res.rx.reshape(Bsz, spec.T, spec.p * spec.n), res.ru,
                       res.rd], dim=2)
+
+
+def flatten_residual(spec: ProblemSpec, res: Residual) -> torch.Tensor:
+    """The residual [B, S] in the reference's row order: per player, per
+    knot its n statx rows then its mi statu rows; then the dynamics rows."""
+    Bsz = res.rd.shape[0]
+    parts = [torch.cat([res.rx[:, :, i], res.ru[:, :, list(spec.pu[i])]],
+                       dim=2).reshape(Bsz, -1) for i in range(spec.p)]
+    return torch.cat(parts + [res.rd.reshape(Bsz, -1)], dim=1)
+
+
+def flatten_jacobian(spec: ProblemSpec, jb: JacBlocks) -> torch.Tensor:
+    """The dense Jacobian [B, S, S]: rows in the reference's order
+    (:func:`flatten_residual`), columns in per-knot order
+    [x_{t+1} | u_t | lam_{., t}]."""
+    S, T, p, n, m = spec.S, spec.T, spec.p, spec.n, spec.m
+    Bsz = jb.A.shape[0]
+    J = jb.A.new_zeros((Bsz, S, S))
+    eye_n = torch.eye(n, dtype=jb.A.dtype, device=jb.A.device)
+    for t in range(T):
+        cx, cu = spec.col_x(t), spec.col_u(t)
+        for i in range(p):
+            pu = list(spec.pu[i])
+            cl = spec.col_lam(i, t)
+            rx, ru = spec.row_stat_x(i, t), spec.row_stat_u(i, t)
+            J[:, rx:rx + n, cx:cx + n] = jb.Qblk[:, t, i]
+            J[:, rx:rx + n, cl:cl + n] = -eye_n
+            if t + 1 < T:
+                cl1 = spec.col_lam(i, t + 1)
+                J[:, rx:rx + n, cl1:cl1 + n] = jb.A[:, t + 1].transpose(-1, -2)
+            J[:, ru:ru + len(pu), cl:cl + n] = jb.B[:, t][:, :, pu].transpose(
+                -1, -2)
+            J[:, ru:ru + len(pu), [cu + j for j in pu]] = (
+                jb.Ublk[:, t][:, pu][:, :, pu])
+        rd = spec.row_dyn(t)
+        J[:, rd:rd + n, cx:cx + n] = -eye_n
+        J[:, rd:rd + n, cu:cu + m] = jb.B[:, t]
+        if t >= 1:
+            cxm = spec.col_x(t - 1)
+            J[:, rd:rd + n, cxm:cxm + n] = jb.A[:, t]
+    return J

@@ -15,12 +15,13 @@ Iterate-level control flow:
     inner l = 0..inner_iter-1 with reg = reg_0 * (l+1)^4
       rebuild residual + Jacobian from the carried point data (structured
       Hessians for diagonal objectives of homogeneous specs, dense ones
-      with collision-cost pairs or unequal per-player control widths),
-      record stats, stop on opt_vio < eps_opt
-      KKT step (kernel K1 on structured, K3 on dense Hessians),
-      backtracking line search (the fused trial kernel when
-      ``opts.ls_fused``), update; stop on a failed line search or a step
-      below delta_min
+      with collision-cost pairs, unequal per-player control widths or a
+      method of the KKT ladder), record stats, stop on opt_vio < eps_opt
+      KKT step (``"thomas"``: kernel K1 on structured, K3 on dense
+      Hessians; the ladder's ``"schur"``, ``"tridiag"``, ``"dense"``,
+      ``"cr"``: plain PyTorch solves), backtracking line search (the fused
+      trial kernel when ``opts.ls_fused``, on ``"thomas"`` only), update;
+      stop on a failed line search or a step below delta_min
     convergence gate on 4 violations, dual ascent + penalty schedule
 """
 from __future__ import annotations
@@ -38,6 +39,8 @@ from ..ops.trial import trial_eval, trial_eval_plain, trial_supported
 from ..stats import Statistics, init_stats, record
 from ..utils import tree_map, where_tree
 from . import residual as R
+from .linear_solver import (newton_step, solve_cyclic_reduction,
+                            solve_tridiagonal_schur)
 from .problem import GameProblem
 
 
@@ -67,19 +70,44 @@ class _Carry:
     delta_fin: torch.Tensor
 
 
+# The KKT ladder's methods: dense Jacobian blocks, no fused trial.
+LADDER = ("schur", "tridiag", "dense", "cr")
+
+
+def _ladder_solve(method):
+    """The plain-PyTorch solve of one of the ``LADDER`` methods on dense
+    :class:`~.linear_solver.JacBlocks`: ``"schur"`` the Schur-condensed
+    block Thomas, ``"cr"`` block cyclic reduction, ``"tridiag"`` block
+    Thomas and ``"dense"`` one S x S solve, each on ``build_tridiagonal``'s
+    blocks.  Marked ``dense_only``: the solver assembles dense blocks for
+    it and runs the eager trial."""
+    def solve(spec, jb, nb, w_owner):
+        if method == "schur":
+            return solve_tridiagonal_schur(spec, jb, nb)
+        D, U, L = R.build_tridiagonal(spec, jb)
+        if method == "cr":
+            return solve_cyclic_reduction(spec, D, U, L, nb)
+        return newton_step(spec, D, U, L, -nb, method=method)
+    solve.dense_only = True
+    return solve
+
+
 def _kkt_solver(method):
     """``"thomas"``: kernel K1 or K3, by the form of the Hessian blocks
-    (their plain versions on CPU tensors).  A callable
+    (their plain versions on CPU tensors).  One of ``LADDER``: the plain
+    PyTorch solves of :func:`_ladder_solve`.  A callable
     ``(spec, blocks, b, w_owner) -> [B, S]`` receives the
     :class:`~.residual.StructuredQ` or :class:`~.linear_solver.JacBlocks`
     blocks and is used as is, e.g. ``ops.thomas.kkt_solve_plain`` to run
     the plain versions on the card."""
     if method == "thomas":
         return kkt_solve
+    if method in LADDER:
+        return _ladder_solve(method)
     if callable(method):
         return method
     raise ValueError(f"unknown linear-solver method {method!r}; expected "
-                     "'thomas' or a callable")
+                     f"'thomas', one of {LADDER} or a callable")
 
 
 def line_search(model, spec, obj, gc, opts, traj, dtraj, res_norm, reg,
@@ -158,15 +186,19 @@ def _contiguous(tree):
 
 def _iteration(prob: GameProblem, kkt, w_owner, c: _Carry, active):
     """One inner quasi-Newton iteration for every lane: assembly from the
-    carried point data, KKT step, line search, masked update.  Returns
-    (traj, pd, stats, last_vio, delta_rec, alpha_rec, stop_inner)."""
+    carried point data, KKT step, line search, masked update.  For a
+    ``dense_only`` solve (the ``LADDER`` methods) the Hessians are dense
+    and the trial is the eager one.  Returns (traj, pd, stats, last_vio,
+    delta_rec, alpha_rec, stop_inner)."""
     spec, model, obj, opts = prob.spec, prob.model, prob.obj, prob.opts
+    dense_only = getattr(kkt, "dense_only", False)
     gc, traj, pd = c.gc, c.traj, c.pd
     dtype = traj.x.dtype
     reg = opts.reg_0 * (c.l + 1).to(dtype) ** 4       # reference l^4 schedule
     if not opts.regularize:
         reg = torch.zeros_like(reg)
-    if spec.homogeneous and R.structured_q_supported(spec, obj, gc):
+    if (not dense_only and spec.homogeneous
+            and R.structured_q_supported(spec, obj, gc)):
         res, blocks, sta_v, con_v = R.assemble_structured_from_point(
             spec, obj, gc, traj, pd, reg=reg)
     else:
@@ -187,7 +219,7 @@ def _iteration(prob: GameProblem, kkt, w_owner, c: _Carry, active):
     # The fused trial where the problem lies inside its specialization;
     # otherwise the eager trial (an explicit branch, never a fallback on
     # error).
-    trial_fn = (trial_eval if opts.ls_fused
+    trial_fn = (trial_eval if opts.ls_fused and not dense_only
                 and trial_supported(model, spec, obj, gc) else None)
     alpha, j, lite = line_search(
         model, spec, obj, gc, opts, traj, dtraj, res_norm, reg,
@@ -311,7 +343,7 @@ def newton_solve(prob: GameProblem, x0s: torch.Tensor | None = None,
     previous plan [B, ...] shifted by ``opts.shift`` knots; ``generator``
     draws the fresh init (zeros without one); ``prob.gc`` may hold
     per-lane [B, K, C] AL state, which ``dual_reset=False`` uses as it is.
-    Returns a batched SolveResult."""
+    ``method``: see :func:`_kkt_solver`.  Returns a batched SolveResult."""
     spec, opts = prob.spec, prob.opts
     if x0s is None:
         x0s = prob.x0[None]

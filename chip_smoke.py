@@ -23,7 +23,11 @@ its plain PyTorch version:
 - iterative best response on the flagship (``ibr_newton_solve``): K3 on
   each player's p=1 subproblem;
 - receding-horizon MPC on the 3-player highway (``mpc_solve``): K1, and
-  K2 with the fused trial.
+  K2 with the fused trial;
+- the ring road (the flagship with player 0 held on a ring by an equality
+  block): K1, and K4's equality rows;
+- the KKT ladder's plain solves (``method="schur"``, ``"tridiag"``,
+  ``"dense"``, ``"cr"``) and the active-set nullspace, on the card.
 
 Phases:
 
@@ -129,7 +133,30 @@ Phases:
    rows, states within 1e-8 (``mpc-plain``); the 32-scenario loop with the
    fused trial (K2), same gates (``mpc-fused``); one flagship chunk with
    ``ls_parallel=2`` against 1, equal stats rows and accepted step sizes
-   (``ls-parallel``).
+   (``ls-parallel``);
+16. the ring road ``ring3_eq_N20`` (``ring3_eq_game``): K4 on its trial
+   inputs with duals of both signs as in 7 (``K4-eq``; the rows with
+   c < 0 and lam < 0 are where the equality rule differs), and again with
+   the block flagged ``"soc"`` (``K4-soc``, the inequality rule); the f64
+   solve through K1 and K4 against ``tests/golden_torch/ring3_eq_N20.npz``
+   (58 stats rows, x and u within 1e-8; ``golden-eq``); the f32 sweep of
+   B_EQ lanes as one chunk (x0 + 0.05 N(0, 1), player 0 put back on the
+   ring), finite, no divergence, the converged fraction and the feasible
+   share each >= the reference's own on the first 256 minus 0.01, K1 and
+   K4 launched, K3 not (``sweep-eq``);
+17. the KKT ladder (``ladder``): the f32 flagship (outer 3 x 8) through
+   ``"schur"``, ``"tridiag"``, ``"cr"`` on 256 lanes and ``"dense"`` on 32,
+   each converged >= 0.99 with no kernel launched, its wall time per
+   trip; 8 lanes in f64 through the four and ``"thomas"``, stats rows
+   equal and x within 1e-8;
+18. the active-set nullspace (``nullspace``) of
+   ``examples/nullspace_example.py``'s game (``crossing_game``) solved in
+   f64 from 8 starts through ``"tridiag"``: lane 0's dimension equal to
+   the reference's, ``update_nullspace_masked`` (rank threshold NS_ATOL)
+   equal to ``update_nullspace`` on every lane, |J_active v| < 1e-7,
+   first-order invariance (>= 10x) at eps 1e-3; and one masked nullspace
+   at the roundabout's scale (p=4, N=40, zero trajectory), timed, its
+   dimension the reference's.
 
 Kernel times are per wrapper call (CUDA events, host work included) and
 the kernels' device time (``device_ms``: CUDA events around each kernel
@@ -205,6 +232,30 @@ WIDE_PLAIN_TOL = 1e-8
 HIGHWAY_R, HIGHWAY_U = 0.1, 3.0
 H_MPC, B_MPC = 30, 32
 REF_MPC = {1: 30 / 30, 32: 960 / 960}
+# The ring road (``ring3_eq_game``): B_EQ lanes of the f32 sweep.  REF_EQ:
+# the reference package's converged fraction and feasible share (dyn, con
+# and sta gates) on the first 256 of the same starts
+# (`tests/reference_fractions.py subset ring3_eq_N20`).  In f32 the ring's
+# always-penalized rows hold stationarity near 10 (mu up to 1e7 times the
+# f32 rounding of c = r^2 - |p - c|^2 at r^2 = 16), so no lane of either
+# package meets the 1e-2 stationarity gate; the feasible share is the gate
+# that can tell the two apart.
+B_EQ = 1024
+REF_EQ = (0 / 256, 153 / 256)
+# The nullspace game (``crossing_game``), f64, 8 lanes: the reference
+# package's stats rows and ``update_nullspace`` dimensions per lane, its
+# ``update_nullspace_masked`` dimensions at the default atol 1e-10, and
+# the masked dimension at the roundabout's scale on the zero trajectory
+# (`tests/reference_fractions.py nullspace`).  NS_ATOL: the masked
+# version's rank threshold here, between the kernel's singular values
+# (<= 8.7e-10 on the CPU, the rounding floor of a matrix of norm ~2e6) and
+# the next (>= 7.0e-7; the same script's port lines).
+REF_NULLSPACE = {"rows": [141] * 8, "dims": [20, 20, 19, 18, 23, 22, 18, 20],
+                 "masked_default": [1] * 8, "big": 468}
+NS_ATOL = 1e-8
+# Lanes of the f32 flagship run through each of the KKT ladder's methods
+# ("dense" solves [lanes, S, S] systems).
+LADDER_LANES = {"schur": 256, "tridiag": 256, "cr": 256, "dense": 32}
 # Per kernel: description, source, the TPU kernel it replaces.
 KERNELS = {
     "K1": ("structured block-Thomas KKT sweep", "thomas_sq.cu",
@@ -580,15 +631,17 @@ def flagship_iterates(prob, spec, B, rng, dev, dtype):
 
 
 def k1_system(dev, B, mu, seed, penalize_rows=False, preset=None,
-              iterates=flagship_iterates):
+              iterates=flagship_iterates, eq_mu=False):
     """KKT systems (f64) with structured Hessians assembled by the port from
     perturbed points of ``preset`` (default: the flagship).  The AL penalty
     mu enters as late-AL-schedule curvature on the statx Hessian diagonals
     (qdiag += mu, as the reference package's kernel validation does); with
     ``penalize_rows`` it instead penalizes every constraint row at mu
-    (positive duals), which makes the systems far worse conditioned."""
+    (positive duals), which makes the systems far worse conditioned; with
+    ``eq_mu`` it is the equality blocks' penalty alone (their rows carry
+    Irho = mu whatever their duals, as late in the AL schedule)."""
     import torch
-    from algames_tpu_torch.constraints.sets import reset_constraints
+    from algames_tpu_torch.constraints.sets import map_blocks, reset_constraints
     from algames_tpu_torch.presets import flagship_unicycle
     from algames_tpu_torch.problem import residual as R
     from algames_tpu_torch.utils import tree_map
@@ -598,11 +651,14 @@ def k1_system(dev, B, mu, seed, penalize_rows=False, preset=None,
     traj = iterates(prob, spec, B, rng, dev, torch.float64)
     gc = (al_state(prob.gc, B, rng, dev, torch.float64, mu=mu)
           if penalize_rows else reset_constraints(prob.gc, B))
+    if eq_mu:
+        gc = map_blocks(gc, lambda b: dataclasses.replace(
+            b, mu=torch.full_like(b.mu, mu)) if b.sense == "eq" else b)
     pd = R.point_data(prob.model, spec, prob.obj, gc, traj)
     res, sq, _, _ = R.assemble_structured_from_point(
         spec, prob.obj, gc, traj, pd,
         reg=torch.full((B,), 1e-3, dtype=torch.float64, device=dev))
-    if not penalize_rows:
+    if not (penalize_rows or eq_mu):
         sq = dataclasses.replace(sq, qdiag=sq.qdiag + mu)
     b = -R.residual_knot_blocks(spec, res)
     sq = tree_map(lambda a: a.contiguous(), sq)
@@ -636,9 +692,10 @@ def backward_errors(spec, sq, w_owner, b, ys, lanes=256):
 
 
 def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
-             seed0=0, gate="forward", wide=False, B=B_KERNEL):
+             seed0=0, gate="forward", wide=False, B=B_KERNEL, eq_mu=False):
     """K1 against its plain version on ``preset``'s KKT systems (default:
-    the flagship), B lanes, over mu = 1 .. 1e7, on the register-tiled
+    the flagship), B lanes, over mu = 1 .. 1e7 (``eq_mu``: mu on the
+    equality rows, ``k1_system``), on the register-tiled
     forward kernel (``wide``: on the shared-memory one, for systems beyond
     its size classes; the other route taken is a failure); then its times,
     bound, library call and forward kernel (``k1_occupancy``) in f32.
@@ -661,7 +718,8 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
     def compare(mu, seed, penalize_rows):
         nonlocal spec
         spec, sq, b, w_owner = k1_system(dev, B, mu, seed0 + seed,
-                                         penalize_rows, preset, iterates)
+                                         penalize_rows, preset, iterates,
+                                         eq_mu and not penalize_rows)
         ref = solve_thomas_structured_plain(spec, sq, b, w_owner)
         y64 = solve(sq, b, w_owner)
         sq32 = tree_map(lambda a: a.float(), sq)
@@ -716,7 +774,7 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
             f"(reported, not gated: two f64 solvers differ by up to cond * "
             f"eps here): f64 {e64:.3e}, f32 {e32:.3e}")
     spec, sq, b, w_owner = k1_system(dev, B, 1e3, seed0 + 99, False,
-                                     preset, iterates)
+                                     preset, iterates, eq_mu)
     sq32, b32 = tree_map(lambda a: a.float(), sq), b.float()
     ms = cuda_ms(lambda: solve(sq32, b32, w_owner), 20)
     plain_ms = cuda_ms(
@@ -776,7 +834,8 @@ def k1_occupancy(tag, spec, NW, B=B_KERNEL):
 
 
 def trial_inputs(preset, iterates, half_duals, dev, dtype, seed,
-                 zero_u=False, smoothing=None, B=B_KERNEL):
+                 zero_u=False, smoothing=None, B=B_KERNEL, signed=False,
+                 sense=None):
     """B lanes of trial inputs for one game: iterates from
     ``iterates(prob, spec, B, rng, dev, dtype)``, small random steps,
     positive duals (half of them zeroed with ``half_duals``, so that
@@ -784,7 +843,10 @@ def trial_inputs(preset, iterates, half_duals, dev, dtype, seed,
     and reg, all from numpy seed ``seed``.  With ``zero_u`` the first
     quarter of the lanes has every control and control step exactly 0, so
     that the trial point sits on the quadrotor's thrust kink; ``smoothing``
-    replaces the quadrotor's thrust smoothing."""
+    replaces the quadrotor's thrust smoothing; with ``signed`` half of the
+    duals change sign (equality rows with c < 0 and lam < 0, where the
+    equality and inequality rules differ); ``sense`` replaces the sense of
+    the game's equality blocks."""
     import torch
     from algames_tpu_torch.constraints.sets import map_blocks
     from algames_tpu_torch.core.traj import PrimalDual
@@ -809,6 +871,12 @@ def trial_inputs(preset, iterates, half_duals, dev, dtype, seed,
     if half_duals:
         gc = map_blocks(gc, lambda b: dataclasses.replace(b, lam=b.lam * t(
             rng.random(tuple(b.lam.shape)) < 0.5)))
+    if signed:
+        gc = map_blocks(gc, lambda b: dataclasses.replace(b, lam=b.lam * t(
+            np.where(rng.random(tuple(b.lam.shape)) < 0.5, -1.0, 1.0))))
+    if sense is not None:
+        gc = map_blocks(gc, lambda b: dataclasses.replace(b, sense=sense)
+                        if b.sense == "eq" else b)
     alpha = t(0.5 ** rng.integers(0, 6, size=B))
     reg = t(1e-3 * (1.0 + rng.integers(0, 20, size=B)) ** 4)
     return prob, spec, gc, traj, dtraj, alpha, reg
@@ -840,6 +908,16 @@ def game_trial_inputs(preset, golden, seed, **kw):
     def inputs(dev, dtype):
         return trial_inputs(preset, golden_iterates(golden), True, dev, dtype,
                             seed, **kw)
+    return inputs
+
+
+def ring_trial_inputs(sense=None):
+    """Ring-road trial inputs around its frozen equilibrium, with duals of
+    both signs; ``sense`` replaces the ring block's."""
+    def inputs(dev, dtype):
+        return trial_inputs(ring3_eq_game, golden_iterates("ring3_eq_N20"),
+                            True, dev, dtype, seed=41, signed=True,
+                            sense=sense)
     return inputs
 
 
@@ -995,6 +1073,74 @@ def highway_game(dev, dtype, N=20):
                          dtype=dtype, device=dev)
     opts = Options(outer_iter=3, inner_iter=8, shift=1, dual_reset=False)
     return game_problem(N, dt, x0, model, opts, obj, gc), spec
+
+
+def ring3_eq_game(dev, dtype, N=20, outer=7, inner=20):
+    """``ring3_eq_N20``: the flagship (``flagship_unicycle``) with player 0
+    held on a ring road by an equality block: the circle of radius 4
+    centred at (0, -4), through its start and tangent to its heading
+    (``tests/torch_goldens.py::ring3_eq_problem``)."""
+    from algames_tpu_torch.constraints import sets as S
+    from algames_tpu_torch.presets import flagship_unicycle
+    prob, spec = flagship_unicycle(dev, dtype, outer=outer, inner=inner, N=N)
+    gc = S.add_circle_constraint(spec, prob.gc, [0.0], [-4.0], [4.0], i=0)
+    ring = dataclasses.replace(gc.state_blocks[-1], sense="eq")
+    gc = S.set_constraint_params(dataclasses.replace(
+        gc, state_blocks=gc.state_blocks[:-1] + (ring,)), prob.opts)
+    return dataclasses.replace(prob, gc=gc), spec
+
+
+def crossing_game(dev, dtype, p=3, N=20, r=0.25):
+    """The game of ``examples/nullspace_example.py``: unicycles with
+    crossing targets (x = 2, y = 0.4 (p - 1 - 2i), speed 0.3), Q = 1,
+    R = 0.1, pairwise collision avoidance of radius ``r``, ``Options()``;
+    its collision rows are active at the equilibrium
+    (``tests/reference_fractions.py::crossing_problem``)."""
+    import torch
+    from algames_tpu_torch.constraints import sets as S
+    from algames_tpu_torch.core.spec import spec_from_model
+    from algames_tpu_torch.models.unicycle import unicycle_game
+    from algames_tpu_torch.objective.objective import game_objective
+    from algames_tpu_torch.problem.options import Options
+    from algames_tpu_torch.problem.problem import game_problem
+    model = unicycle_game(p=p)
+    spec = spec_from_model(model, N, 0.1)
+    obj = game_objective(
+        spec, Q=[np.ones(4)] * p, R=[0.1 * np.ones(2)] * p,
+        xf=[np.asarray([2.0, 0.4 * (p - 1 - i) - 0.4 * i, 0.0, 0.3])
+            for i in range(p)],
+        uf=[np.zeros(2)] * p, dtype=dtype, device=dev)
+    gc = S.add_collision_avoidance(
+        spec, S.game_constraints(spec, dtype=dtype, device=dev), r)
+    x0 = torch.as_tensor(np.concatenate([np.zeros(p), 0.4 * np.arange(p),
+                                         np.zeros(p), 0.3 * np.ones(p)]),
+                         dtype=dtype, device=dev)
+    return game_problem(N, 0.1, x0, model, Options(), obj, gc), spec
+
+
+def invariance_ratio(prob, traj, v, eps, rng):
+    """|r(z + eps w) - r(z)| / |r(z + eps v) - r(z)| for the extended
+    residual (``active_set.extended_residual`` with the appended duals) at
+    ``traj`` (one lane), v [Sh] a nullspace vector and w a random direction
+    of equal norm (numpy ``rng``): first-order invariance along v makes it
+    O(1 / eps)."""
+    import torch
+    from algames_tpu_torch.active_set import extended_residual
+    from algames_tpu_torch.core.traj import unpack_step, update_traj
+    spec = prob.spec
+    S, T = spec.S, spec.T
+    nop = spec.p * (spec.p - 1)
+
+    def step(d):
+        dtraj = unpack_step(spec, d[None, :S])
+        t = update_traj(traj, torch.full((1,), eps, dtype=d.dtype,
+                                         device=d.device), dtraj)
+        return extended_residual(prob, t, eps * d[S:].reshape(1, T, nop))
+    r0 = extended_residual(prob, traj, v.new_zeros((1, T, nop)))
+    w = torch.as_tensor(rng.standard_normal(v.shape[0]), dtype=v.dtype,
+                        device=v.device)
+    w = w * (v.norm() / w.norm())
+    return float((step(w) - r0).norm() / (step(v) - r0).norm())
 
 
 def phase_trial(tag, inputs, dev):
@@ -1960,6 +2106,274 @@ def phase_ls_parallel(dev):
         raise SystemExit("ls_parallel=2 changed the line search's decisions")
 
 
+def phase_k4_eq(dev):
+    """K4 on ring-road trial inputs (``ring_trial_inputs``): the equality
+    rows, then the same block flagged ``"soc"`` (inequality rule), each
+    against the plain version as in ``phase_trial``; returns the equality
+    run's numbers."""
+    import torch
+    from algames_tpu_torch.constraints.sets import block_values
+    _, _, gc, traj, *_ = ring_trial_inputs()(dev, torch.float64)
+    ring = gc.state_blocks[-1]
+    mixed = int(((ring.lam < 0) & (block_values(ring, traj) < 0)).sum())
+    log(f"[K4-eq] ring block rows with c < 0 and lam < 0 (the rows where "
+        f"the equality and inequality rules differ): {mixed} of "
+        f"{ring.lam.numel()}")
+    if ring.sense != "eq" or mixed == 0:
+        raise SystemExit("the K4-eq inputs miss the rows the equality rule "
+                         "changes")
+    numbers = phase_trial("K4-eq", ring_trial_inputs(), dev)
+    phase_trial("K4-soc", ring_trial_inputs("soc"), dev)
+    return numbers
+
+
+def onto_ring(x0s, p):
+    """Starts of the ring-road game: player 0's position put back on the
+    ring (radius 4 about (0, -4)) along its radius, its heading along the
+    ring, so that the equality rows can hold from the first knot on (the
+    perturbed start leaves the ring farther than one step's controls can
+    correct, and no lane of either package converges)."""
+    x0s = x0s.copy()
+    d = np.stack([x0s[:, 0], x0s[:, p] + 4.0], axis=1)
+    e = d / np.linalg.norm(d, axis=1, keepdims=True)
+    x0s[:, 0], x0s[:, p] = 4.0 * e[:, 0], -4.0 + 4.0 * e[:, 1]
+    x0s[:, 2 * p] = np.arctan2(-e[:, 0], e[:, 1])
+    return x0s
+
+
+def phase_sweep_eq(dev):
+    """The f32 ring-road sweep: the first B_EQ of the sweep starts (x0 +
+    0.05 N(0, 1), numpy seed 0, player 0 put back on the ring,
+    ``onto_ring``) as one chunk, outer 7 x 20, through K1 and K4 (the
+    equality rows); every trajectory finite, no divergence, the converged
+    fraction and the feasible share (the dyn, con and sta gates) each >=
+    the reference package's own on the first 256 minus 0.01 (REF_EQ); K1
+    and K4 launched, K3 not.  Then the first 256 lanes through the plain
+    versions on the card in f64 (each lane's outcome without f32
+    rounding) and in f32, and through the kernels in f64: the f64 kernel
+    path has the f64 plain path's stats rows on every lane and x within
+    1e-8; the f32 kernel path's feasibility agrees with the f64 outcome on
+    at least as many lanes as the f32 plain versions' does, minus 0.01."""
+    import torch
+    from algames_tpu_torch import parallel
+    from algames_tpu_torch.ops.thomas import (kkt_solve_plain, solve_thomas,
+                                              solve_thomas_structured)
+    from algames_tpu_torch.ops.trial import trial_eval
+
+    prob, spec = ring3_eq_game(dev, torch.float32)
+    opts = dataclasses.replace(prob.opts, ls_fused=True)
+    prob = dataclasses.replace(prob, opts=opts)
+    rng = np.random.default_rng(0)
+    x0s = onto_ring(np.asarray(prob.x0.cpu(), np.float64)[None]
+                    + 0.05 * rng.standard_normal((N_SWEEP, spec.n)), spec.p)
+    x0s = torch.as_tensor(x0s[:B_EQ], dtype=torch.float32, device=dev)
+    parallel.solve_batch(dataclasses.replace(prob, opts=dataclasses.replace(
+        opts, outer_iter=1, inner_iter=2)), x0s[:64])          # warm-up
+    counters = (solve_thomas_structured, trial_eval, solve_thomas)
+    for c in counters:
+        c.launches = 0
+    out, el = timed_sweep(prob, x0s, "thomas")
+    k1, k4, k3 = (c.launches for c in counters)
+    frac = float(parallel.convergence_fraction(out, opts))
+    feas_opts = dataclasses.replace(opts, eps_opt=float("inf"))
+    feas = float(parallel.convergence_fraction(out, feas_opts))
+    div = float(parallel.divergence_mask(out).float().mean())
+    finite = bool(torch.isfinite(out.traj.x).all())
+    iters = out.stats.iter.cpu().numpy()
+    log(f"[sweep-eq] f32 {B_EQ} scenarios, one chunk, outer "
+        f"{opts.outer_iter} x {opts.inner_iter}, kernels: {el:.3f} s, "
+        f"{B_EQ / el:.1f} solves/s, stats rows {iters.min()}..{iters.max()} "
+        f"(mean {iters.mean():.2f})")
+    log(f"[sweep-eq] converged {frac:.4f} (reference {REF_EQ[0]:.4f}; >= "
+        f"{REF_EQ[0] - 0.01:.4f}), feasible {feas:.4f} (reference "
+        f"{REF_EQ[1]:.4f}; >= {REF_EQ[1] - 0.01:.4f}), diverged {div:.4f}, "
+        f"finite {finite}; launches K1 {k1}, K4 {k4}, K3 {k3}")
+    if not (finite and div == 0.0 and frac >= REF_EQ[0] - 0.01
+            and feas >= REF_EQ[1] - 0.01 and k1 > 0 and k4 > 0 and k3 == 0):
+        raise SystemExit("the ring-road sweep failed its gates")
+    lanes = 256
+    first = dataclasses.replace(out, stats=tree_slice(out.stats, lanes),
+                                traj=tree_slice(out.traj, lanes))
+    prob64, _ = ring3_eq_game(dev, torch.float64)
+    prob64 = dataclasses.replace(prob64, opts=dataclasses.replace(
+        prob64.opts, ls_fused=True))
+    x64 = x0s[:lanes].double()
+    k64, _ = timed_sweep(prob64, x64, "thomas")
+    plain64 = dataclasses.replace(prob64, opts=dataclasses.replace(
+        prob64.opts, ls_fused=False))
+    p64, el64 = timed_sweep(plain64, x64, kkt_solve_plain)
+    rows = bool((k64.stats.iter == p64.stats.iter).all())
+    dx64 = float((k64.traj.x - p64.traj.x).abs().max())
+    plain32 = dataclasses.replace(prob, opts=dataclasses.replace(
+        opts, ls_fused=False))
+    p32, el32 = timed_sweep(plain32, x0s[:lanes], kkt_solve_plain)
+    ok64 = parallel.convergence_mask(p64, feas_opts)
+    ok_k = parallel.convergence_mask(first, feas_opts)
+    ok_p = parallel.convergence_mask(p32, feas_opts)
+    agree_k = float((ok_k == ok64).float().mean())
+    agree_p = float((ok_p == ok64).float().mean())
+    log(f"[sweep-eq] first {lanes} lanes, f64: kernels and plain versions on "
+        f"the card ({el64:.3f} s) with equal stats rows on every lane "
+        f"{rows}, max |dx| {dx64:.3e} (<= 1e-8); feasible "
+        f"{float(ok64.float().mean()):.4f} in f64 (plain)")
+    log(f"[sweep-eq] first {lanes} lanes, f32: feasible "
+        f"{float(ok_k.float().mean()):.4f} through the kernels, "
+        f"{float(ok_p.float().mean()):.4f} through the plain versions on the "
+        f"card ({el32:.3f} s); feasibility as in f64 on {agree_k:.4f} of the "
+        f"lanes through the kernels, {agree_p:.4f} through the plain "
+        f"versions (kernels >= plain - 0.01)")
+    if not (rows and dx64 <= 1e-8 and agree_k >= agree_p - 0.01):
+        raise SystemExit("the ring-road sweep's kernel path disagrees with "
+                         "the plain versions")
+    return {"K1": k1, "K4": k4}
+
+
+def phase_ladder(dev):
+    """The KKT ladder's plain solves on the card: the f32 flagship (outer 3
+    x 8, the sweep's first starts) through ``"schur"``, ``"tridiag"`` and
+    ``"cr"`` on 256 lanes and ``"dense"`` on 32 ([32, S, S] systems), each
+    converged >= 0.99 with no kernel launched; then 8 lanes in f64 (the
+    eager trial on all five) through the four and ``"thomas"``: stats rows
+    equal, x within 1e-8 of ``"thomas"``'s.  Prints each method's wall time
+    per trip of the solver loop (one Newton step for every lane)."""
+    import torch
+    import algames_tpu_torch as agt
+    from algames_tpu_torch import parallel
+    from algames_tpu_torch.ops.thomas import (solve_thomas,
+                                              solve_thomas_structured)
+    from algames_tpu_torch.ops.trial import trial_eval
+    from algames_tpu_torch.presets import flagship_unicycle
+
+    prob, x0s = sweep_problem(flagship_unicycle, dev, outer=3, inner=8)
+    counters = (solve_thomas_structured, trial_eval, solve_thomas)
+    out = {}
+    for method, lanes in LADDER_LANES.items():
+        agt.newton_solve(dataclasses.replace(prob, opts=dataclasses.replace(
+            prob.opts, outer_iter=1, inner_iter=1)), x0s[:lanes],
+            method=method)                                     # warm-up
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = agt.newton_solve(prob, x0s[:lanes], method=method)
+        torch.cuda.synchronize()
+        el = time.perf_counter() - t0
+        ran = sum(c.launches - b for c, b in zip(counters, before))
+        trips = int(res.stats.iter.max()) - 1
+        frac = float(parallel.convergence_fraction(res, prob.opts))
+        out[method] = 1e3 * el / trips
+        log(f"[ladder] f32 {method}, {lanes} lanes: {el:.3f} s, {trips} "
+            f"trips, {out[method]:.2f} ms per trip (one Newton step of every "
+            f"lane), converged {frac:.4f} (>= 0.99), kernel launches {ran}")
+        if not (frac >= 0.99 and ran == 0
+                and bool(torch.isfinite(res.traj.x).all())):
+            raise SystemExit(f"the ladder's {method} solve failed its gates")
+    p64, _ = flagship_unicycle(dev, torch.float64, outer=3, inner=8)
+    x64 = x0s[:8].double()
+    ref = agt.newton_solve(p64, x64, method="thomas")
+    for method in ("schur", "tridiag", "dense", "cr"):
+        res = agt.newton_solve(p64, x64, method=method)
+        rows = bool((res.stats.iter == ref.stats.iter).all())
+        dx = float((res.traj.x - ref.traj.x).abs().max())
+        log(f"[ladder] f64 {method}, 8 lanes: stats rows equal to thomas's "
+            f"{rows}, max |x - x_thomas| {dx:.3e} (<= 1e-8)")
+        if not (rows and dx <= 1e-8):
+            raise SystemExit(f"the f64 {method} solve disagrees with thomas")
+    return out
+
+
+def phase_nullspace(dev):
+    """The active-set nullspace on the card.  The game of
+    ``examples/nullspace_example.py`` (``crossing_game``), f64, from its
+    start and 7 starts + 0.01 N(0, 1) (numpy seed 0), solved through
+    ``"tridiag"``: lane 0's ``update_nullspace`` dimension equals the
+    reference package's (REF_NULLSPACE); ``update_nullspace_masked`` over
+    the 8 lanes, with the rank threshold NS_ATOL, gives each lane's host
+    dimension; the flagged vectors satisfy |J_active v| < 1e-7; lane 0's
+    basis is first-order invariant (the extended residual moves >= 10x
+    less along a basis vector than along a random direction of equal
+    norm, eps = 1e-3).  Then one ``update_nullspace_masked`` at the
+    roundabout's scale (p=4, N=40, r=0.5, zero trajectory), timed, whose
+    dimension equals the reference's."""
+    import torch
+    import algames_tpu_torch as agt
+    from algames_tpu_torch import active_set as A
+
+    prob, spec = crossing_game(dev, torch.float64)
+    rng = np.random.default_rng(0)
+    x0s = np.repeat(np.asarray(prob.x0.cpu())[None], 8, axis=0)
+    x0s[1:] += 0.01 * rng.standard_normal((7, spec.n))
+    t0 = time.perf_counter()
+    res = agt.newton_solve(prob, torch.as_tensor(x0s, device=dev),
+                           method="tridiag")
+    torch.cuda.synchronize()
+    log(f"[nullspace] f64 tridiag solve of 8 lanes: "
+        f"{time.perf_counter() - t0:.2f} s, stats rows "
+        f"{res.stats.iter.tolist()} (reference {REF_NULLSPACE['rows']})")
+    prob = dataclasses.replace(prob, gc=res.gc)
+    t0 = time.perf_counter()
+    host = [A.update_nullspace(prob, res.traj, lane=k) for k in range(8)]
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    dims = [h.mat.shape[1] for h in host]
+    t0 = time.perf_counter()
+    masked = A.update_nullspace_masked(prob, res.traj, atol=NS_ATOL)
+    torch.cuda.synchronize()
+    t_masked = time.perf_counter() - t0
+    default = A.update_nullspace_masked(prob, res.traj).dim.tolist()
+    gc = agt.update_active_set(res.gc, res.traj)
+    J = A.extended_jacobian(dataclasses.replace(prob, gc=gc), res.traj)
+    worst = 0.0
+    for k in range(8):
+        vmask, hmask = A.active_masks(prob, gc, lane=k)
+        Ja = J[k][torch.as_tensor(vmask, device=dev)][
+            :, torch.as_tensor(hmask, device=dev)]
+        worst = max(worst, float((Ja @ host[k].mat).abs().max()))
+        v = masked.vec[k][masked.mask[k]]
+        # Masked vectors: active rows of J, inactive columns pinned.
+        ok_rows = torch.ones(J.shape[1], dtype=torch.bool, device=dev)
+        ok_rows[spec.S:] = False
+        ok_rows[torch.as_tensor(vmask, device=dev)] = True
+        worst = max(worst, float((J[k][ok_rows] @ v.T).abs().max()))
+    lane0 = dataclasses.replace(prob, gc=A.lane_slice(prob.gc, 0))
+    one = agt.PrimalDual(x=res.traj.x[:1], u=res.traj.u[:1],
+                         lam=res.traj.lam[:1])
+    ratio = invariance_ratio(lane0, one, host[0].vec[0], 1e-3,
+                             np.random.default_rng(1))
+    log(f"[nullspace] update_nullspace dimensions {dims} (reference "
+        f"{REF_NULLSPACE['dims']}; lane 0 gated), {t_host:.2f} s for 8 "
+        f"lanes; update_nullspace_masked (atol {NS_ATOL:g}) "
+        f"{masked.dim.tolist()}, {t_masked:.2f} s for the batch of 8; at the "
+        f"default atol 1e-10 {default} (the reference package's on the CPU: "
+        f"{REF_NULLSPACE['masked_default']}, its kernel's singular values "
+        f"at ~3e-10, the rounding floor of this matrix); max |J_active v| "
+        f"{worst:.3e} "
+        f"(< 1e-7); residual change random / basis at eps 1e-3: "
+        f"{ratio:.1f} (>= 10)")
+    if not (dims[0] == REF_NULLSPACE["dims"][0]
+            and masked.dim.tolist() == dims and worst < 1e-7
+            and ratio >= 10.0):
+        raise SystemExit("the nullspace phase failed its gates")
+    big, bspec = crossing_game(dev, torch.float64, p=4, N=40, r=0.5)
+    z = agt.PrimalDual(
+        x=torch.zeros((1, bspec.N, bspec.n), dtype=torch.float64, device=dev),
+        u=torch.zeros((1, bspec.T, bspec.m), dtype=torch.float64, device=dev),
+        lam=torch.zeros((1, bspec.p, bspec.T, bspec.n), dtype=torch.float64,
+                        device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nb = A.update_nullspace_masked(big, z)
+    torch.cuda.synchronize()
+    t_big = time.perf_counter() - t0
+    Sv, Sh = A.sizes(bspec)
+    log(f"[nullspace] roundabout scale (p=4, N=40, Sh={Sh}, masked system "
+        f"[{Sv + Sh - bspec.S}, {Sh}] f64): update_nullspace_masked "
+        f"{t_big:.2f} s, dimension {int(nb.dim[0])} (reference "
+        f"{REF_NULLSPACE['big']})")
+    if int(nb.dim[0]) != REF_NULLSPACE["big"]:
+        raise SystemExit("the roundabout-scale nullspace dimension differs")
+    return {"host_s": t_host, "masked_s": t_masked, "big_s": t_big}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2068,6 +2482,21 @@ def main():
     mpc_fused = phase("mpc-fused", phase_mpc_fused, dev)
     phase("ls-parallel", phase_ls_parallel, dev)
 
+    # The ring road (an equality block: K1 with its w vector, the
+    # equality rows penalized at mu in K1-ring-eq, and K4's equality rows),
+    # the KKT ladder's plain solves and the active-set nullspace.
+    k1_ring = phase("K1-ring", phase_k1, dev, "K1-ring", ring3_eq_game,
+                    golden_iterates("ring3_eq_N20"), 1300)
+    phase("K1-ring-eq", phase_k1, dev, "K1-ring-eq", ring3_eq_game,
+          golden_iterates("ring3_eq_N20"), 1400, "backward", False, B_KERNEL,
+          True)
+    k4_eq = phase("K4-eq", phase_k4_eq, dev)
+    phase("golden-eq", phase_golden, "golden-eq", ring3_eq_game,
+          "ring3_eq_N20", flag_kkt, dev)
+    launches_eq = phase("sweep-eq", phase_sweep_eq, dev)
+    phase("ladder", phase_ladder, dev)
+    phase("nullspace", phase_nullspace, dev)
+
     def entry(kernel, game, launches, numbers):
         name, source, replaces = KERNELS[kernel]
         return {"name": f"{kernel} {name} ({game})", "route": "cuda",
@@ -2097,6 +2526,8 @@ def main():
         entry("K4", "bike3_N20", launches_bike["K4"], k4_bike),
         entry("K4", "quad2_N15", launches_quad["K4"], k4_quad),
         entry("K4", "hetero2_N8", launches_het["K4"], k4_het),
+        entry("K1", "ring3_eq_N20", launches_eq["K1"], k1_ring),
+        entry("K4", "ring3_eq_N20", launches_eq["K4"], k4_eq),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

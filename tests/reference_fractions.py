@@ -11,6 +11,7 @@ do.
     JAX_PLATFORMS=cpu python tests/reference_fractions.py f64 KEY LANE ...
     JAX_PLATFORMS=cpu python tests/reference_fractions.py ibr
     JAX_PLATFORMS=cpu python tests/reference_fractions.py mpc
+    JAX_PLATFORMS=cpu python tests/reference_fractions.py nullspace
 
 ``subset`` (minutes per game): the first 256 of ``chip_smoke.py``'s 4096
 sweep scenarios of each game (x0 + 0.05 N(0, 1), numpy seed 0), f32 at the
@@ -18,10 +19,14 @@ preset budget, through the reference (``schur``) and through the port's
 plain versions with the fused trial; prints each converged and diverged
 fraction under the sweep's gates (dyn, con, sta 1e-3; opt 1e-2, or 5e-2 for
 the quadrotor, whose thrust clamp holds stationarity near 3e-2), the
-iteration counts, and the lanes whose counts differ.  KEY is one of
-di2_N10, bike3_N20, quad2_N15 (default: all three) and hetero2_N8 (the
+feasible share (the dyn, con and sta gates alone), the iteration counts,
+and the lanes whose counts differ.  KEY is one of
+di2_N10, bike3_N20, quad2_N15 (default: all three), hetero2_N8 (the
 heterogeneous game of ``tests/test_hetero.py`` at outer 7 x 20, as
-``chip_smoke.py`` builds it).
+``chip_smoke.py`` builds it) and ring3_eq_N20 (the flagship at outer 7 x
+20 with player 0 on a ring road, an equality block:
+``tests/torch_goldens.py::ring3_eq_problem``; its starts put player 0
+back on the ring, ``chip_smoke.py::onto_ring``).
 
 ``full``: the reference alone over all 4096 sweep scenarios (or lanes A
 to B of them), in chunks of 256, printing the running converged and
@@ -55,6 +60,17 @@ the port's ``mpc_solve`` through its plain versions.  Prints the share of
 replans whose final violations meet all four gates (the ``mpc`` phase's
 gate), the minimum executed pairwise distance and the largest applied
 |u|.  A few minutes.
+
+``nullspace``: the nullspace dimensions behind ``chip_smoke.py``'s
+``nullspace`` phase (``REF_NULLSPACE``).  The game of
+``examples/nullspace_example.py`` (``crossing_problem``: p=3, N=20,
+r=0.25, crossing targets, ``Options()``), f64, from its start and 7
+starts perturbed by 0.01 N(0, 1) (numpy seed 0), solved through
+``"tridiag"`` by both packages (stats rows compared); per lane the
+reference's ``update_nullspace`` dimension and ``update_nullspace_masked``
+dimension, and the port's.  Then ``update_nullspace_masked`` at the
+roundabout's scale (p=4, N=40, r=0.5, the zero trajectory) in both.  A
+few minutes.
 """
 import dataclasses
 import os
@@ -65,6 +81,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tests"))
 CPU = torch.device("cpu")
 N_SUBSET = 256
 N_SWEEP = 4096
@@ -74,11 +91,14 @@ N_IBR, IBR_LANES, IBR_ITER = 512, 128, 10
 
 
 def jax_problem(key, dtype):
-    """The reference package's problem of ``key``: a preset, or the
-    heterogeneous game (``tests/test_hetero.py``'s, with the f32 gates of
-    the presets)."""
+    """The reference package's problem of ``key``: a preset, the ring-road
+    game, or the heterogeneous game (``tests/test_hetero.py``'s, with the
+    f32 gates of the presets)."""
     import jax.numpy as jnp
     from algames_tpu.presets import PRESETS as JAX_PRESETS
+    if key == "ring3_eq_N20":
+        from torch_goldens import ring3_eq_problem
+        return ring3_eq_problem(dtype)
     if key != "hetero2_N8":
         return JAX_PRESETS[key](dtype=dtype)
     import algames_tpu as ag
@@ -103,18 +123,21 @@ def jax_problem(key, dtype):
 
 def port_problem(key, prob, dtype):
     """The port's problem of ``key`` on the CPU: its preset, or the
-    reference's heterogeneous game carried over."""
+    reference's heterogeneous or ring-road game carried over."""
     from algames_tpu_torch.convert import problem_from_reference
     from algames_tpu_torch.presets import PRESETS
-    if key == "hetero2_N8":
+    if key in ("hetero2_N8", "ring3_eq_N20"):
         return problem_from_reference(prob, CPU, dtype)
     return PRESETS[key](CPU, dtype)[0]
 
 
-def sweep_inputs(x0, n, lanes=N_SUBSET):
+def sweep_inputs(x0, n, lanes=N_SUBSET, key=None):
     rng = np.random.default_rng(0)
     x0s = np.asarray(x0, np.float64)[None] + 0.05 * rng.standard_normal(
         (N_SWEEP, n))
+    if key == "ring3_eq_N20":
+        from chip_smoke import onto_ring
+        x0s = onto_ring(x0s, 3)
     return x0s[:lanes]
 
 
@@ -139,15 +162,18 @@ def subset(keys):
 
     for key in keys:
         prob, spec = jax_problem(key, jnp.float32)
-        x0s = sweep_inputs(prob.x0, spec.n)
+        x0s = sweep_inputs(prob.x0, spec.n, key=key)
         out = jax.jit(lambda x: jbatch.solve_batch(prob, x, method="schur"))(
             jnp.asarray(x0s, jnp.float32))
         s = out.stats
         it_ref = np.asarray(s.iter)
         conv_ref = converged(key, prob.opts, it_ref, s.dyn_vio, s.con_vio,
                              s.sta_vio, s.opt_vio)
+        feas_ref = converged(key, prob.opts, it_ref, s.dyn_vio, s.con_vio,
+                             s.sta_vio, np.zeros_like(s.opt_vio))
         print(f"{key} reference: converged {conv_ref.mean()} "
-              f"({int(conv_ref.sum())}/{N_SUBSET}), diverged "
+              f"({int(conv_ref.sum())}/{N_SUBSET}), feasible (dyn, con, sta "
+              f"gates) {int(feas_ref.sum())}/{N_SUBSET}, diverged "
               f"{float(np.asarray(jbatch.divergence_mask(out)).mean())}, "
               f"unconverged lanes {np.nonzero(~conv_ref)[0].tolist()}, "
               f"iterations {it_ref.min()}..{it_ref.max()} (mean "
@@ -164,9 +190,13 @@ def subset(keys):
         conv = converged(key, tprob.opts, it, t.dyn_vio.numpy(),
                          t.con_vio.numpy(), t.sta_vio.numpy(),
                          t.opt_vio.numpy())
+        feas = converged(key, tprob.opts, it, t.dyn_vio.numpy(),
+                         t.con_vio.numpy(), t.sta_vio.numpy(),
+                         np.zeros_like(t.opt_vio.numpy()))
         diff = np.nonzero(it != it_ref)[0]
         print(f"{key} port (plain versions): converged {conv.mean()} "
-              f"({int(conv.sum())}/{N_SUBSET}), diverged "
+              f"({int(conv.sum())}/{N_SUBSET}), feasible {int(feas.sum())}/"
+              f"{N_SUBSET}, diverged "
               f"{float(parallel.divergence_mask(tout).float().mean())}, "
               f"unconverged lanes {np.nonzero(~conv)[0].tolist()}; "
               f"iteration counts equal on {N_SUBSET - len(diff)} of "
@@ -185,7 +215,7 @@ def full(keys):
         key, _, lanes = arg.partition("@")
         a, b = map(int, lanes.split(":")) if lanes else (0, N_SWEEP)
         prob, spec = jax_problem(key, jnp.float32)
-        x0s = sweep_inputs(prob.x0, spec.n, N_SWEEP)
+        x0s = sweep_inputs(prob.x0, spec.n, N_SWEEP, key)
         solve = jax.jit(lambda x: jbatch.solve_batch(prob, x, method="schur"))
         conv = div = 0
         for s in range(a, b, N_SUBSET):
@@ -210,7 +240,7 @@ def f64_lanes(key, lanes):
     from algames_tpu_torch.convert import problem_from_reference
 
     prob, spec = jax_problem(key, jnp.float64)
-    x0s = sweep_inputs(prob.x0, spec.n)[lanes]
+    x0s = sweep_inputs(prob.x0, spec.n, key=key)[lanes]
     ref = jax.jit(lambda x: jbatch.solve_batch(prob, x, method="schur"))(
         jnp.asarray(x0s))
     tprob = problem_from_reference(prob, CPU, torch.float64)
@@ -389,12 +419,103 @@ def mpc(H=30, B=32):
               f"distance {dmin_t}, max |u| {umax_t}", flush=True)
 
 
+def crossing_problem(p=3, N=20, r=0.25, dtype=None):
+    """The game of ``examples/nullspace_example.py``: unicycles with
+    crossing targets, pairwise collision avoidance of radius ``r``,
+    ``Options()``."""
+    import jax.numpy as jnp
+    import algames_tpu as ag
+    dtype = jnp.float64 if dtype is None else dtype
+    model = ag.unicycle_game(p=p)
+    spec = ag.spec_from_model(model, N, 0.1)
+    obj = ag.game_objective(
+        spec, Q=[jnp.ones(4, dtype)] * p, R=[0.1 * jnp.ones(2, dtype)] * p,
+        xf=[jnp.asarray([2.0, 0.4 * (p - 1 - i) - 0.4 * i, 0.0, 0.3], dtype)
+            for i in range(p)],
+        uf=[jnp.zeros(2, dtype)] * p, dtype=dtype)
+    gc = ag.add_collision_avoidance(spec, ag.game_constraints(spec, dtype=dtype),
+                                    r)
+    x0 = jnp.asarray(np.concatenate([np.zeros(p), 0.4 * np.arange(p),
+                                     np.zeros(p), 0.3 * np.ones(p)]), dtype)
+    return ag.game_problem(N, 0.1, x0, model, ag.Options(), obj, gc), spec
+
+
+def nullspace(lanes=8):
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    import algames_tpu as ag
+    from algames_tpu import active_set as jas
+    from algames_tpu.parallel import batch as jbatch
+
+    import algames_tpu_torch as agt
+    from algames_tpu_torch import active_set as tas
+    from algames_tpu_torch.convert import problem_from_reference
+
+    prob, spec = crossing_problem()
+    rng = np.random.default_rng(0)
+    x0s = np.repeat(np.asarray(prob.x0)[None], lanes, axis=0)
+    x0s[1:] += 0.01 * rng.standard_normal((lanes - 1, spec.n))
+    out = jax.jit(lambda x: jbatch.solve_batch(prob, x, method="tridiag"))(
+        jnp.asarray(x0s))
+    it_ref = np.asarray(out.stats.iter)
+    dims, mdims = [], []
+    for k in range(lanes):
+        pk = dataclasses.replace(prob, gc=jax.tree_util.tree_map(
+            lambda a: a[k], out.gc))
+        tk = jax.tree_util.tree_map(lambda a: a[k], out.traj)
+        dims.append(int(jas.update_nullspace(pk, tk).mat.shape[1]))
+        mdims.append(int(jax.jit(jas.update_nullspace_masked)(pk, tk).dim))
+    print(f"crossing_p3_N20 reference: stats rows {it_ref.tolist()}; "
+          f"update_nullspace dimensions {dims}; update_nullspace_masked "
+          f"{mdims}", flush=True)
+
+    tprob = problem_from_reference(prob, CPU, torch.float64)
+    res = agt.newton_solve(tprob, torch.as_tensor(x0s), method="tridiag")
+    it = res.stats.iter.numpy()
+    tprob = dataclasses.replace(tprob, gc=res.gc)
+    tdims = [int(tas.update_nullspace(tprob, res.traj, lane=k).mat.shape[1])
+             for k in range(lanes)]
+    masked = tas.update_nullspace_masked(tprob, res.traj)
+    tm = masked.dim.tolist()
+    dx = float(np.abs(res.traj.x.numpy() - np.asarray(out.traj.x)).max())
+    print(f"crossing_p3_N20 port: stats rows equal on "
+          f"{int((it == it_ref).sum())} of {lanes}, max |x - x_ref| "
+          f"{dx:.3e}; update_nullspace dimensions {tdims}; "
+          f"update_nullspace_masked {tm}", flush=True)
+    # The masked system's singular values on each side of the host
+    # dimension: the kernel's and the next larger.
+    s = masked.svals.numpy()
+    kern = max(float(s[k, -d]) for k, d in enumerate(tdims))
+    nxt = min(float(s[k, -d - 1]) for k, d in enumerate(tdims))
+    print(f"crossing_p3_N20 port, masked system: the host dimension's "
+          f"smallest singular values <= {kern:.3e}, the next >= {nxt:.3e}; "
+          f"update_nullspace_masked at atol 1e-8 "
+          f"{tas.update_nullspace_masked(tprob, res.traj, 1e-8).dim.tolist()}",
+          flush=True)
+
+    big, bspec = crossing_problem(p=4, N=40, r=0.5)
+    z = ag.zero_traj(bspec, jnp.float64)
+    ref = int(jax.jit(jas.update_nullspace_masked)(big, z).dim)
+    tbig = problem_from_reference(big, CPU, torch.float64)
+    tz = agt.PrimalDual(x=torch.zeros((1, bspec.N, bspec.n), dtype=torch.float64),
+                        u=torch.zeros((1, bspec.T, bspec.m), dtype=torch.float64),
+                        lam=torch.zeros((1, bspec.p, bspec.T, bspec.n),
+                                        dtype=torch.float64))
+    port = int(tas.update_nullspace_masked(tbig, tz).dim[0])
+    print(f"crossing_p4_N40 (zero trajectory, Sh {tas.sizes(bspec)[1]}): "
+          f"update_nullspace_masked dimension reference {ref}, port {port}",
+          flush=True)
+
+
 if __name__ == "__main__":
     torch.set_num_threads(4)
     if sys.argv[1] == "ibr":
         ibr()
     elif sys.argv[1] == "mpc":
         mpc()
+    elif sys.argv[1] == "nullspace":
+        nullspace()
     elif sys.argv[1] == "f64":
         f64_lanes(sys.argv[2], [int(k) for k in sys.argv[3:]])
     elif sys.argv[1] == "full":

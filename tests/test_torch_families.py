@@ -174,7 +174,7 @@ def test_blocks_and_al_updates(key):
         close(tsets.block_values(tb, ttr), cj, 1e-12)
         close(tsets.block_jacobian(tb, ttr),
               jax.vmap(lambda tr: jsets.block_jacobian(jb, tr))(jtr), 1e-12)
-        close(tsets.block_violation_max(tsets.block_values(tb, ttr)),
+        close(tsets.block_violation_max(tsets.block_values(tb, ttr), tb.sense),
               jax.vmap(lambda c: jsets.block_violation_max(jb, c))(cj), 1e-12)
     axes = gc_axes(jgc)
     jd = jax.vmap(jsets.dual_update, in_axes=(axes, 0), out_axes=axes)(

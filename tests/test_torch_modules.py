@@ -176,7 +176,7 @@ def test_constraints_and_al_updates(setup):
         close(tsets.block_values(tb, ttr), cj)
         close(tsets.block_jacobian(tb, ttr),
               jax.vmap(lambda tr: jsets.block_jacobian(jb, tr))(jtr))
-        close(tsets.block_violation_max(tsets.block_values(tb, ttr)),
+        close(tsets.block_violation_max(tsets.block_values(tb, ttr), tb.sense),
               jax.vmap(lambda c: jsets.block_violation_max(jb, c))(cj))
     jd = jax.vmap(jsets.dual_update, in_axes=(axes, 0), out_axes=axes)(
         jgc, jtr)

@@ -205,8 +205,8 @@ def _non_default(f):
 
 # Reference options that no solver path reads: the converter refuses them
 # away from their defaults.  The compiler knobs are dropped.
-UNREAD = ("theta", "alpha_increase", "rho_trial", "active_set_tolerance",
-          "gamma", "inner_print", "outer_print", "seed")
+UNREAD = ("theta", "alpha_increase", "rho_trial", "gamma", "inner_print",
+          "outer_print", "seed")
 KNOBS = ("flat_loop", "loop_unroll")
 
 
@@ -244,15 +244,37 @@ def test_convert_refuses_unread_options(name):
 
 
 @pytest.mark.parametrize("sense", ["eq", "soc"])
-def test_convert_refuses_other_senses(sense):
-    """Only inequality blocks are ported: the converter raises on the
-    others."""
-    prob, _ = flagship_unicycle(p=2, N=5)
-    blk = jsets._replace(prob.gc.control_blocks[0], sense=sense)
-    gc = jsets._replace(prob.gc, control_blocks=(blk,))
-    with pytest.raises(NotImplementedError, match="inequality"):
-        problem_from_reference(dataclasses.replace(prob, gc=gc), CPU,
-                               torch.float64)
+def test_convert_carries_senses(sense):
+    """Blocks of every sense convert: each block's sense and active flags,
+    the constraint set's active-set tolerance and the option it comes
+    from arrive in the port, unbatched and per lane."""
+    prob, spec = flagship_unicycle(p=2, N=5)
+    opts = dataclasses.replace(prob.opts, active_set_tolerance=3e-3)
+    gc = jsets.set_constraint_params(prob.gc, opts)
+    gc = jsets._replace(gc, control_blocks=(jsets._replace(
+        gc.control_blocks[0], sense=sense),))
+    x = 0.3 * np.random.default_rng(2).standard_normal((spec.N, spec.n))
+    traj = ag.PrimalDual(x=jnp.asarray(x), u=0.5 * jnp.ones((spec.T, spec.m)),
+                         lam=jnp.zeros((spec.p, spec.T, spec.n)))
+    gc = ag.update_active_set(gc, traj)
+    tprob = problem_from_reference(dataclasses.replace(prob, gc=gc,
+                                                       opts=opts), CPU,
+                                   torch.float64)
+    assert tprob.opts.active_set_tolerance == 3e-3
+    assert float(tprob.gc.active_tol) == 3e-3
+    for a, r in zip(tprob.gc.state_blocks + tprob.gc.control_blocks,
+                    gc.state_blocks + gc.control_blocks):
+        assert a.sense == r.sense
+        np.testing.assert_array_equal(a.active.numpy(), np.asarray(r.active))
+    assert tprob.gc.control_blocks[0].sense == sense
+    assert any(bool(np.asarray(b.active).any()) for b in gc.state_blocks
+               + gc.control_blocks)
+    lanes = jax.tree_util.tree_map(lambda a: jnp.stack([a, a]), gc)
+    tgc = constraints_from_reference(lanes, CPU, torch.float64, lanes=True)
+    for a, r in zip(tgc.state_blocks + tgc.control_blocks,
+                    gc.state_blocks + gc.control_blocks):
+        assert a.active.shape == (2,) + np.asarray(r.active).shape
+        assert a.sense == r.sense
 
 
 def test_mpc_tracks_target():

@@ -66,7 +66,7 @@ def test_native_preset_matches_reference(key):
 def test_converter_carries_model_constants_and_refuses():
     """Non-default physical constants and the heterogeneous model's ragged
     index tuples survive the converter, and so does ``ls_parallel`` > 1;
-    a block of a sense the port has not ported is refused."""
+    an equality block arrives as one."""
     cases = [
         ag.double_integrator_game(p=3, d=3),
         ag.bicycle_game(p=2, lf=0.07, lr=0.03),
@@ -95,9 +95,9 @@ def test_converter_carries_model_constants_and_refuses():
                               -jnp.ones(spec.m))
     gc = dataclasses.replace(gc, control_blocks=(dataclasses.replace(
         gc.control_blocks[0], sense="eq"),))
-    with pytest.raises(NotImplementedError, match="inequality"):
-        problem_from_reference(dataclasses.replace(parallel_ls, gc=gc), CPU,
-                               F64)
+    eq = problem_from_reference(dataclasses.replace(parallel_ls, gc=gc), CPU,
+                                F64)
+    assert eq.gc.control_blocks[0].sense == "eq"
 
 
 def _rel(a, ref):

@@ -2,7 +2,7 @@
 by the JAX package in f64 on the CPU.  Not a test module (pytest does not
 collect it); ``chip_smoke.py`` reads its files and never imports JAX.
 
-    JAX_PLATFORMS=cpu python tests/torch_goldens.py [hetero] [ibr]
+    JAX_PLATFORMS=cpu python tests/torch_goldens.py [hetero] [ibr] [ring3_eq]
 
 writes, under ``tests/golden_torch/``:
 
@@ -14,10 +14,14 @@ writes, under ``tests/golden_torch/``:
   (``flagship_unicycle``, outer 3 x inner 8 per player solve,
   ``IBROptions(ibr_iter=10)``, the configuration of
   ``benchmarks/bench_ibr.py``) through ``method="schur"``: x, u, ``iter``
-  (stats rows) and the Gauss-Seidel round count ``q``.
+  (stats rows) and the Gauss-Seidel round count ``q``;
+- ``ring3_eq_N20.npz``: the flagship (``flagship_unicycle``, outer 7 x
+  inner 20) with player 0 held on a ring road by an equality block
+  (``ring3_eq_problem``) through ``newton_solve_jit``: x, u, ``iter`` and
+  the final violations.
 
-``test_torch_hetero.py`` and ``test_torch_ibr.py`` check that the files
-still match the JAX package.
+``test_torch_hetero.py``, ``test_torch_ibr.py`` and
+``test_torch_cones.py`` check that the files still match the JAX package.
 """
 import os
 import sys
@@ -62,8 +66,41 @@ def ibr_solution():
             "res": np.asarray(res.stats.res[it - 1])}
 
 
+def ring3_eq_problem(dtype=None, N=20, outer=7, inner=20):
+    """``ring3_eq_N{N}``: the flagship with player 0 held on a ring road,
+    the circle of radius 4 centred at (0, -4) (through its start, tangent
+    to its heading), an ``add_circle_constraint`` block turned to
+    ``sense="eq"``."""
+    import dataclasses
+    import jax.numpy as jnp
+    import algames_tpu as ag
+    from algames_tpu.presets import flagship_unicycle
+    dtype = jnp.float64 if dtype is None else dtype
+    prob, spec = flagship_unicycle(dtype=dtype, N=N, outer=outer,
+                                   inner=inner)
+    gc = ag.add_circle_constraint(spec, prob.gc, [0.0], [-4.0], [4.0], i=0)
+    ring = dataclasses.replace(gc.state_blocks[-1], sense="eq")
+    gc = dataclasses.replace(gc, state_blocks=gc.state_blocks[:-1] + (ring,))
+    gc = ag.set_constraint_params(gc, prob.opts)
+    return dataclasses.replace(prob, gc=gc), spec
+
+
+def ring3_eq_solution():
+    """The f64 solve of ``ring3_eq_N20``."""
+    import algames_tpu as ag
+    prob, _ = ring3_eq_problem()
+    res = ag.newton_solve_jit(prob)
+    it = int(res.stats.iter)
+    out = {"x": np.asarray(res.traj.x), "u": np.asarray(res.traj.u),
+           "iter": np.asarray(it)}
+    for k in ("dyn_vio", "con_vio", "sta_vio", "opt_vio"):
+        out[k] = np.asarray(getattr(res.stats, k)[it - 1])
+    return out
+
+
 GOLDENS = {"hetero": ("hetero2_N8", hetero_solution),
-           "ibr": ("ibr_uni3_N20", ibr_solution)}
+           "ibr": ("ibr_uni3_N20", ibr_solution),
+           "ring3_eq": ("ring3_eq_N20", ring3_eq_solution)}
 
 
 if __name__ == "__main__":
