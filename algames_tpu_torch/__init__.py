@@ -8,8 +8,11 @@ player sweep of iterative best response) and the fused line-search trial
 (``ops.trial``).  ``mpc_solve`` runs receding-horizon MPC over a batch of
 scenarios.  The KKT step also has the plain solves of the ladder
 (``method="schur"``, ``"tridiag"``, ``"dense"``, ``"cr"``), and
-``active_set`` the equilibrium-subspace analysis.  On CPU tensors each
-wrapper runs its plain PyTorch version.
+``active_set`` the equilibrium-subspace analysis.  ``parallel`` splits a
+scenario batch over a world of ranks (``sharded_monte_carlo``) and the
+KKT solve over the horizon (``spike_kkt_method``); ``checkpoint``,
+``profiling`` and ``plots`` save, time and draw solves.  On CPU tensors
+each wrapper runs its plain PyTorch version.
 """
 from .constraints.sets import (add_circle_constraint, add_collision_avoidance,
                                add_control_bound, control_violation,
@@ -29,12 +32,15 @@ from .mpc import MPCResult, mpc_solve
 from .problem.options import IBROptions, Options
 from .problem.problem import GameProblem, game_problem
 from .problem.solver import SolveResult, newton_solve
-from . import active_set, parallel
+from .stats import print_stats
+from .utils import scn
+from . import active_set, checkpoint, parallel, profiling
 
 __all__ = [
     "IBROptions", "MPCResult", "Options", "GameProblem", "GameObjective",
     "HeteroDoubleIntegratorGame", "PrimalDual", "ProblemSpec",
     "SolveResult", "UnicycleGame", "active_set", "add_circle_constraint",
+    "checkpoint", "print_stats", "profiling", "scn",
     "add_collision_avoidance", "add_control_bound", "control_violation",
     "dual_update", "dynamics_violation_vector", "game_constraints",
     "game_objective", "game_problem", "hetero_double_integrator_game",

@@ -62,32 +62,44 @@ def solve_dense(spec, D, U, L, b_knots):
     return torch.linalg.solve_ex(J, b_knots.reshape(b_knots.shape[0], -1))[0]
 
 
-def solve_tridiagonal(spec, D, U, L, b_knots):
-    """Block-Thomas solve of the system of :func:`solve_dense`: one pivoted
-    W x W solve with W + 1 right-hand sides per knot, then the backward
-    sweep.  Returns flat [B, S]."""
-    T, W = spec.T, spec.W
-    Bsz = b_knots.shape[0]
-    zero = D.new_zeros((Bsz, 1, W, W))
-    Lhat = torch.cat([zero, L], dim=1)                  # Lhat_0 = 0
-    Uhat = torch.cat([U, zero], dim=1)                  # Uhat_{T-1} = 0
-    G = D.new_zeros((Bsz, W, W))
-    y = D.new_zeros((Bsz, W, 1))
-    Gs, ys = [], []
+def pad_couplings(D, U, L):
+    """(Lhat, Uhat) [B, T, W, W]: the off-diagonal blocks by equation, with
+    zero blocks at Lhat_0 and Uhat_{T-1}."""
+    zero = D.new_zeros((D.shape[0], 1) + D.shape[2:])
+    return torch.cat([zero, L], dim=1), torch.cat([U, zero], dim=1)
+
+
+def block_thomas(D, Lhat, Uhat, RHS):
+    """Block-Thomas sweep of the block-tridiagonal system (D, Lhat, Uhat)
+    [B, T, W, W] with R right-hand sides RHS [B, T, W, R]: one pivoted
+    W x W solve with W + R columns per knot, then the backward sweep.
+    Returns the solution [B, T, W, R]."""
+    T, W = D.shape[1], D.shape[2]
+    G = D.new_zeros(D.shape[:1] + D.shape[2:])
+    Y = RHS.new_zeros(RHS.shape[:1] + RHS.shape[2:])
+    Gs, Ys = [], []
     for t in range(T):
         M = D[:, t] - Lhat[:, t] @ G
-        rhs = torch.cat([Uhat[:, t], b_knots[:, t, :, None] - Lhat[:, t] @ y],
-                        dim=2)
-        sol = torch.linalg.solve_ex(M, rhs)[0]          # [B, W, W+1]
-        G, y = sol[:, :, :W], sol[:, :, W:]
+        sol = torch.linalg.solve_ex(
+            M, torch.cat([Uhat[:, t], RHS[:, t] - Lhat[:, t] @ Y], dim=2))[0]
+        G, Y = sol[:, :, :W], sol[:, :, W:]
         Gs.append(G)
-        ys.append(y)
+        Ys.append(Y)
     out = [None] * T
-    y_next = D.new_zeros((Bsz, W, 1))
+    Y_next = torch.zeros_like(Y)
     for t in range(T - 1, -1, -1):
-        y_next = ys[t] - Gs[t] @ y_next
-        out[t] = y_next[..., 0]
-    return torch.stack(out, dim=1).reshape(Bsz, -1)
+        Y_next = Ys[t] - Gs[t] @ Y_next
+        out[t] = Y_next
+    return torch.stack(out, dim=1)
+
+
+def solve_tridiagonal(spec, D, U, L, b_knots):
+    """Block-Thomas solve of the system of :func:`solve_dense`
+    (:func:`block_thomas` with one right-hand side).  Returns flat
+    [B, S]."""
+    Lhat, Uhat = pad_couplings(D, U, L)
+    y = block_thomas(D, Lhat, Uhat, b_knots[..., None])
+    return y.reshape(b_knots.shape[0], -1)
 
 
 def newton_step(spec, D, U, L, b_knots, method: str = "tridiag"):

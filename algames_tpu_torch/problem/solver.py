@@ -335,16 +335,13 @@ def solve_finalize(prob: GameProblem, c: _Carry) -> SolveResult:
     return SolveResult(traj=c.traj, gc=c.gc, stats=stats, rho=c.rho)
 
 
-def newton_solve(prob: GameProblem, x0s: torch.Tensor | None = None,
-                 method="thomas", warm: PrimalDual | None = None,
-                 generator: torch.Generator | None = None) -> SolveResult:
-    """Full ALGAMES solve of one game per row of ``x0s`` [B, n] (default:
-    ``prob.x0`` as a batch of one).  ``warm``: the MPC warm start, a
-    previous plan [B, ...] shifted by ``opts.shift`` knots; ``generator``
-    draws the fresh init (zeros without one); ``prob.gc`` may hold
-    per-lane [B, K, C] AL state, which ``dual_reset=False`` uses as it is.
-    ``method``: see :func:`_kkt_solver`.  Returns a batched SolveResult."""
-    spec, opts = prob.spec, prob.opts
+def solve_start(prob: GameProblem, x0s: torch.Tensor | None = None,
+                method="thomas", warm: PrimalDual | None = None,
+                generator: torch.Generator | None = None):
+    """The KKT solve of ``method`` (:func:`_kkt_solver`), the w-vector owners
+    and the initial carry of :func:`newton_solve`'s loop (arguments as
+    there); each :func:`solve_trip` then advances the carry by one trip."""
+    opts = prob.opts
     if x0s is None:
         x0s = prob.x0[None]
     kkt = _kkt_solver(method)
@@ -362,11 +359,30 @@ def newton_solve(prob: GameProblem, x0s: torch.Tensor | None = None,
                prev_cvio=torch.full((B,), float("inf"), dtype=dtype,
                                     device=device),
                delta_fin=torch.zeros((B,), dtype=dtype, device=device))
-    while True:
-        active = (c.k < opts.outer_iter) & ~c.done
-        n_active = int(active.sum())
-        if n_active == 0:
-            break
-        new = _body(prob, kkt, w_owner, c, active)
-        c = new if n_active == B else where_tree(active, new, c)
+    return kkt, w_owner, c
+
+
+def solve_trip(prob: GameProblem, kkt, w_owner, c: _Carry):
+    """One trip of the flat (k, l) machine on the lanes still active: the
+    next carry, or None once no lane is."""
+    active = (c.k < prob.opts.outer_iter) & ~c.done
+    n_active = int(active.sum())
+    if n_active == 0:
+        return None
+    new = _body(prob, kkt, w_owner, c, active)
+    return new if n_active == c.k.shape[0] else where_tree(active, new, c)
+
+
+def newton_solve(prob: GameProblem, x0s: torch.Tensor | None = None,
+                 method="thomas", warm: PrimalDual | None = None,
+                 generator: torch.Generator | None = None) -> SolveResult:
+    """Full ALGAMES solve of one game per row of ``x0s`` [B, n] (default:
+    ``prob.x0`` as a batch of one).  ``warm``: the MPC warm start, a
+    previous plan [B, ...] shifted by ``opts.shift`` knots; ``generator``
+    draws the fresh init (zeros without one); ``prob.gc`` may hold
+    per-lane [B, K, C] AL state, which ``dual_reset=False`` uses as it is.
+    ``method``: see :func:`_kkt_solver`.  Returns a batched SolveResult."""
+    kkt, w_owner, c = solve_start(prob, x0s, method, warm, generator)
+    while (new := solve_trip(prob, kkt, w_owner, c)) is not None:
+        c = new
     return solve_finalize(prob, c)

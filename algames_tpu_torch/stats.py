@@ -52,6 +52,25 @@ def init_stats(B: int, capacity: int, dtype, device) -> Statistics:
                          device=device))
 
 
+def print_stats(stats: Statistics, lane: int = 0, header: bool = True) -> None:
+    """Console table of one lane's recorded iterations (reference
+    ``display_solver_header/data``, ``src/utils.jl:37-61``), in the JAX
+    package's columns and format."""
+    from .utils import scn
+
+    it = int(stats.iter[lane])
+    outer = stats.outer[lane].tolist()
+    data = stats.data[lane].double().tolist()
+    if header:
+        print(f"{'out':<4} {'res':<9} {'Δ':<9} {'dyn':<9} {'con':<9} "
+              f"{'sta':<9} {'opt':<9}")
+    for i in range(it):
+        row = data[i]
+        print(f"{outer[i]:<4} {scn(row[0]):<9} {scn(row[1]):<9} "
+              f"{scn(row[3]):<9} {scn(row[4]):<9} {scn(row[5]):<9} "
+              f"{scn(row[6]):<9}")
+
+
 def record(stats: Statistics, active, outer, res, delta, alpha,
            dyn_vio, con_vio, sta_vio, opt_vio) -> Statistics:
     """Append one record on the lanes where ``active`` [B] holds.  Every

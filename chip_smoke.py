@@ -4,9 +4,12 @@
 Drives the port's main paths on the card (the five presets and the
 heterogeneous game through ``parallel.solve_many`` -> ``newton_solve`` with
 ``method="thomas"`` and ``ls_fused=True``, iterative best response
-through ``ibr_newton_solve``, and receding-horizon MPC through
-``mpc_solve``), through its hand-written CUDA kernels, after checking each kernel against
-its plain PyTorch version:
+through ``ibr_newton_solve``, receding-horizon MPC through
+``mpc_solve``, a sweep split over ranks through
+``parallel.sharded_monte_carlo``, and the long-horizon game with its KKT
+step split over ranks through ``parallel.spike_kkt_method``), through its
+hand-written CUDA kernels, after checking each kernel against its plain
+PyTorch version:
 
 - the flagship batched game solve (3-player unicycle merge, N=20): K1
   (structured-Q block-Thomas KKT sweep) and K2 (fused line-search trial);
@@ -27,7 +30,12 @@ its plain PyTorch version:
 - the ring road (the flagship with player 0 held on a ring by an equality
   block): K1, and K4's equality rows;
 - the KKT ladder's plain solves (``method="schur"``, ``"tridiag"``,
-  ``"dense"``, ``"cr"``) and the active-set nullspace, on the card.
+  ``"dense"``, ``"cr"``) and the active-set nullspace, on the card;
+- scenario sharding over a world of ranks (``parallel.run_ranks``): K1
+  and K2 in every rank;
+- the long-horizon game of ``benchmarks/bench_spike.py`` (N=257, T=256):
+  K1, and the horizon-split SPIKE solve (plain PyTorch, as the JAX
+  package's; no TPU kernel) over 1 and 4 ranks.
 
 Phases:
 
@@ -156,7 +164,26 @@ Phases:
    equal to ``update_nullspace`` on every lane, |J_active v| < 1e-7,
    first-order invariance (>= 10x) at eps 1e-3; and one masked nullspace
    at the roundabout's scale (p=4, N=40, zero trajectory), timed, its
-   dimension the reference's.
+   dimension the reference's;
+19. scenario sharding (``shard``): the first B_SHARD lanes of the f32
+   flagship sweep (outer 3 x 8, fused trial) through
+   ``sharded_monte_carlo`` over 1 rank on NCCL (trajectories and summary
+   bitwise ``solve_many``'s in this process) and over 2 ranks on gloo,
+   both on this card (each half bitwise ``solve_many``'s of that half;
+   converged >= 0.99, none diverged); K1 and K2 launched in every rank;
+20. K1 on the long-horizon game's systems (``spike_game``, T=256) at
+   B=32 and B=1 as in 2 (``K1-long32``, ``K1-long1``);
+21. SPIKE (``spike``): the long-horizon game in f64 at N=257 over 1 rank
+   (NCCL) and 4 (gloo, on this card) against ``"tridiag"`` and
+   ``"thomas"`` (K1): stats rows equal, x within 1e-8; in f32, one
+   scenario, wall ms per solve, stats rows and dyn_vio of each method at
+   N = 65, 257, 1025 (over 4 ranks shape-only: they share one card); a
+   32-scenario ``"thomas"`` solve at N=257; K1 launched, neither K3 nor a
+   trial kernel;
+22. the checkpoint and profiling modules on the card (``aux``): a
+   ``SolveResult`` round trip and a trajectory's, bitwise, on their
+   device and dtype; ``timed_solve`` bitwise ``newton_solve``'s, one time
+   per trip; ``device_trace`` writes a trace holding K1's kernels.
 
 Kernel times are per wrapper call (CUDA events, host work included) and
 the kernels' device time (``device_ms``: CUDA events around each kernel
@@ -256,6 +283,14 @@ NS_ATOL = 1e-8
 # Lanes of the f32 flagship run through each of the KKT ladder's methods
 # ("dense" solves [lanes, S, S] systems).
 LADDER_LANES = {"schur": 256, "tridiag": 256, "cr": 256, "dense": 32}
+# Scenario sharding: lanes of the f32 flagship sweep split over the ranks.
+# The long-horizon game (``spike_game``): its horizons, and the lanes of
+# its batched solve and of K1-long's larger batch.  A rank's collectives
+# time out after RANK_TIMEOUT_S, its world after twice that.
+B_SHARD = 1024
+SPIKE_NS = (65, 257, 1025)
+B_LONG = 32
+RANK_TIMEOUT_S = 60
 # Per kernel: description, source, the TPU kernel it replaces.
 KERNELS = {
     "K1": ("structured block-Thomas KKT sweep", "thomas_sq.cu",
@@ -1072,6 +1107,38 @@ def highway_game(dev, dtype, N=20):
                                          np.zeros(p), 0.8 + 0.3 * np.arange(p)]),
                          dtype=dtype, device=dev)
     opts = Options(outer_iter=3, inner_iter=8, shift=1, dual_reset=False)
+    return game_problem(N, dt, x0, model, opts, obj, gc), spec
+
+
+def spike_game(dev, dtype, N=257):
+    """The long-horizon game of ``benchmarks/bench_spike.py::make_problem``:
+    a 2-player unicycle overtaking game, dt 0.05, Q 1, R 0.1, targets at
+    x = 6 in lanes y = 0.3 i at speed 0.5, pairwise collision avoidance
+    (r = 0.1), controls within +-2, ``Options(outer_iter=2, inner_iter=6)``
+    with the stationarity gate 1e-2 in f32 (1e-3 in f64); N in {65, 257,
+    1025} there (T = 64, 256, 1024; W = 28)."""
+    import torch
+    from algames_tpu_torch.constraints import sets as S
+    from algames_tpu_torch.core.spec import spec_from_model
+    from algames_tpu_torch.models.unicycle import unicycle_game
+    from algames_tpu_torch.objective.objective import game_objective
+    from algames_tpu_torch.problem.options import Options
+    from algames_tpu_torch.problem.problem import game_problem
+    p, dt = 2, 0.05
+    model = unicycle_game(p=p)
+    spec = spec_from_model(model, N, dt)
+    obj = game_objective(
+        spec, Q=[np.ones(4)] * p, R=[0.1 * np.ones(2)] * p,
+        xf=[np.asarray([6.0, 0.3 * i, 0.0, 0.5]) for i in range(p)],
+        uf=[np.zeros(2)] * p, dtype=dtype, device=dev)
+    gc = S.game_constraints(spec, dtype=dtype, device=dev)
+    gc = S.add_collision_avoidance(spec, gc, 0.1)
+    gc = S.add_control_bound(spec, gc, 2 * np.ones(spec.m),
+                             -2 * np.ones(spec.m))
+    opts = Options(outer_iter=2, inner_iter=6,
+                   eps_opt=1e-2 if dtype == torch.float32 else 1e-3)
+    x0 = torch.as_tensor([0.0, -0.5, 0.0, 0.3, 0.0, 0.0, 0.6, 0.4],
+                         dtype=dtype, device=dev)
     return game_problem(N, dt, x0, model, opts, obj, gc), spec
 
 
@@ -1977,18 +2044,29 @@ def kernel_counters():
             "trial": trial_eval}
 
 
-def run_mpc(tag, prob, spec, B, dev, ref_share):
-    """One closed loop of H_MPC replans over B scenarios, its counts zeroed
-    just before: replan wall times, launches, closed-loop gates."""
-    import torch
+def zero_counters():
+    """Every kernel count set to 0; returns the counters."""
     counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
     counters["K1"].wide_launches = 0
-    x0s = mpc_starts(prob, spec, B, dev, torch.float32)
-    res, wall, secs, vios = timed_mpc(prob, x0s, H_MPC)
+    return counters
+
+
+def read_counters(counters):
     launches = {k: c.launches for k, c in counters.items()}
     launches["K1 wide route"] = counters["K1"].wide_launches
+    return launches
+
+
+def run_mpc(tag, prob, spec, B, dev, ref_share):
+    """One closed loop of H_MPC replans over B scenarios, its counts zeroed
+    just before: replan wall times, launches, closed-loop gates."""
+    import torch
+    counters = zero_counters()
+    x0s = mpc_starts(prob, spec, B, dev, torch.float32)
+    res, wall, secs, vios = timed_mpc(prob, x0s, H_MPC)
+    launches = read_counters(counters)
     lat = secs[2:] * 1e3
     p50, p95 = float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
     rate = B * H_MPC / wall
@@ -2374,6 +2452,311 @@ def phase_nullspace(dev):
     return {"host_s": t_host, "masked_s": t_masked, "big_s": t_big}
 
 
+def lane_summary(res, opts):
+    """The summary ``parallel.sharded_monte_carlo`` reduces, of one
+    result on its own (f32 counts)."""
+    import torch
+    from algames_tpu_torch import parallel
+    B = float(res.traj.x.shape[0])
+    it = torch.clamp(res.stats.iter.long() - 1, min=0)[:, None]
+    return {"converged_frac": float(
+                parallel.convergence_mask(res, opts).float().sum() / B),
+            "worst_dyn_vio": float(res.stats.dyn_vio.gather(1, it).max()),
+            "divergence_frac": float(
+                parallel.divergence_mask(res).float().sum() / B),
+            "mean_iters": float(res.stats.iter.float().sum() / B)}
+
+
+def shard_rank(rank, dev, lanes):
+    """One rank of the ``shard`` phase: the f32 flagship sweep's first
+    ``lanes`` starts through ``sharded_monte_carlo`` over a mesh of the
+    world (``"thomas"``, fused trial), its counts zeroed just before and
+    read just after: (trajectories on the CPU, summary, launches, wall
+    seconds of the call)."""
+    import torch
+    from algames_tpu_torch import parallel
+    from algames_tpu_torch.presets import flagship_unicycle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prob, x0s = sweep_problem(flagship_unicycle, dev, outer=3, inner=8)
+    mesh = parallel.make_mesh(device_type=dev.type)
+    # Warm-up, untimed: one trip at the same shapes (the group's
+    # communicators, the wrappers' per-shape tables, the allocator).
+    parallel.sharded_monte_carlo(dataclasses.replace(
+        prob, opts=dataclasses.replace(prob.opts, outer_iter=1,
+                                       inner_iter=1)), mesh, x0s[:lanes])
+    counters = zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trajs, summary = parallel.sharded_monte_carlo(prob, mesh, x0s[:lanes])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (trajs.cpu(), {k: float(v) for k, v in summary.items()},
+            read_counters(counters), wall, tuple(mesh.mesh.shape))
+
+
+def phase_shard(dev):
+    """Scenario sharding (``parallel.sharded_monte_carlo``) on the card:
+    B_SHARD lanes of the f32 flagship sweep (outer 3 x 8, ``"thomas"``,
+    fused trial).  World 1 on NCCL: trajectories and summary bitwise
+    ``solve_many``'s on the same lanes in this process, K1 and K2
+    launched.  World 2 on gloo, both ranks on this card: each rank's half
+    bitwise ``solve_many`` of the same half; converged >= 0.99, none
+    diverged.  Walls of world 2 are shape-only: its ranks share one card."""
+    import torch
+    from algames_tpu_torch import parallel
+    from algames_tpu_torch.presets import flagship_unicycle
+    prob, x0s = sweep_problem(flagship_unicycle, dev, outer=3, inner=8)
+    x0s = x0s[:B_SHARD]
+    parallel.solve_batch(prob, x0s[:64])             # warm-up, untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = parallel.solve_many(prob, x0s)
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t0
+    halves = [parallel.solve_many(prob, x0s[h * B_SHARD // 2:
+                                             (h + 1) * B_SHARD // 2])
+              for h in range(2)]
+    torch.cuda.empty_cache()
+    out = {}
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.perf_counter()
+        ranks = parallel.run_ranks(shard_rank, world, backend, "cuda",
+                                   B_SHARD, timeout_s=RANK_TIMEOUT_S)
+        spawn = time.perf_counter() - t0
+        trajs, summary, launches, wall, shape = ranks[0]
+        same_ranks = all(torch.equal(r[0], trajs) and r[1] == summary
+                         for r in ranks[1:])
+        if world == 1:
+            want = lane_summary(ref, prob.opts)
+            bitwise = (torch.equal(trajs, ref.traj.x.cpu())
+                       and summary == want)
+        else:
+            want = None
+            bitwise = all(torch.equal(
+                trajs[h * B_SHARD // 2:(h + 1) * B_SHARD // 2],
+                halves[h].traj.x.cpu()) for h in range(2))
+        k1 = [r[2]["K1"] for r in ranks]
+        k2 = [r[2]["trial"] for r in ranks]
+        log(f"[shard] world {world} ({backend}, mesh {shape}): "
+            f"{B_SHARD} lanes in {wall:.3f} s ({B_SHARD / wall:.1f} solves/s"
+            f"{'; shape-only: the ranks share one card' if world > 1 else ''}"
+            f"; solve_many in this process {el:.3f} s); the call with its "
+            f"spawn {spawn:.1f} s; summary {summary}; bitwise "
+            f"{'solve_many' if world == 1 else 'each half'}'s {bitwise}"
+            f"{f' (summary {want})' if want else ''}; ranks agree "
+            f"{same_ranks}; K1 launches per rank {k1}, K2 {k2}")
+        if not (bitwise and same_ranks and min(k1) > 0 and min(k2) > 0
+                and all(r[2]["K3"] == 0 for r in ranks)
+                and summary["converged_frac"] >= 0.99
+                and summary["divergence_frac"] == 0.0):
+            raise SystemExit(f"the world-{world} sharded sweep failed its "
+                             "gates")
+        out[world] = {"launches": {"K1": sum(k1), "K2": sum(k2)},
+                      "wall": wall}
+    return out
+
+
+def spike_rank(rank, dev, runs):
+    """One rank of the ``spike`` phase: ``newton_solve`` of ``spike_game``
+    through ``spike_kkt_method`` over the world, per (N, dtype, timed)
+    of ``runs``; a timed run solves once at outer 1 x inner 1 first
+    (warm-up) and is timed between barriers.  Per run: (x on the CPU,
+    stats rows, final dyn_vio, seconds)."""
+    import torch
+    import torch.distributed as dist
+    import algames_tpu_torch as agt
+    from algames_tpu_torch.parallel import spike_kkt_method
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for N, dtype, timed in runs:
+        prob, _ = spike_game(dev, dtype, N)
+        method = spike_kkt_method()
+        if timed:
+            agt.newton_solve(dataclasses.replace(prob, opts=dataclasses.replace(
+                prob.opts, outer_iter=1, inner_iter=1)), method=method)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = agt.newton_solve(prob, method=method)
+        torch.cuda.synchronize()
+        el = time.perf_counter() - t0
+        it = int(res.stats.iter[0])
+        out.append((res.traj.x.cpu(), it,
+                    float(res.stats.dyn_vio[0, it - 1]), el))
+    return out
+
+
+def spike_solve(prob, method, timed, x0s=None):
+    """(result, seconds, launches) of ``newton_solve``.  A timed solve runs
+    once at outer 1 x inner 1 first (warm-up); the kernel counts are zeroed
+    after it, just before the solve, and read just after."""
+    import torch
+    import algames_tpu_torch as agt
+    if timed:
+        agt.newton_solve(dataclasses.replace(prob, opts=dataclasses.replace(
+            prob.opts, outer_iter=1, inner_iter=1)), x0s, method=method)
+    torch.cuda.synchronize()
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    res = agt.newton_solve(prob, x0s, method=method)
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t0
+    return res, el, read_counters(counters)
+
+
+def spike_path_ok(method, launches):
+    """A long-horizon solve's launches: K1 (narrow route) for ``"thomas"``
+    and no kernel for the plain methods; never K3 or a trial kernel."""
+    return (launches["K3"] == launches["trial"] == 0
+            and launches["K1 wide route"] == 0
+            and (launches["K1"] > 0) == (method == "thomas"))
+
+
+def phase_spike(dev, worlds=((1, "nccl"), (4, "gloo"))):
+    """The long-horizon game (``spike_game``) with its KKT step split over
+    the horizon (``parallel.spike_kkt_method``), on the card, over each
+    (ranks, backend) of ``worlds`` (rank r on card r % device_count).  f64
+    at N=257: SPIKE against ``"tridiag"`` and ``"thomas"`` (K1) here:
+    equal stats rows, x within 1e-8.  f32, one scenario, N in SPIKE_NS:
+    wall ms per solve, stats rows and final dyn_vio of ``"thomas"``,
+    ``"tridiag"`` and SPIKE over each world (recorded, not gated lane by
+    lane; shape-only where ranks share a card); and ``"thomas"`` on B_LONG
+    scenarios at N=257 (x0 + 0.05 N(0, 1), numpy seed 0), all finite.
+    Each sequential solve is counted from zero after its warm-up: K1 for
+    ``"thomas"``, no kernel for ``"tridiag"``, never K3 or a trial kernel.
+    Returns the rows and K1's launches in the timed f32 N=257 ``"thomas"``
+    solves, by lanes (1 and B_LONG)."""
+    import torch
+    from algames_tpu_torch import parallel
+    rows = []
+    runs = [(257, torch.float64, False)] + [(N, torch.float32, True)
+                                              for N in SPIKE_NS]
+    torch.cuda.empty_cache()
+    spike = {}
+    for world, backend in worlds:
+        t0 = time.perf_counter()
+        ranks = parallel.run_ranks(spike_rank, world, backend, "cuda", runs,
+                                   timeout_s=RANK_TIMEOUT_S)
+        same = all(torch.equal(a[0], b[0]) for r in ranks[1:]
+                   for a, b in zip(r, ranks[0]))
+        log(f"[spike] world {world} ({backend}): {len(runs)} solves per "
+            f"rank in {time.perf_counter() - t0:.1f} s with the spawn; every "
+            f"rank's x equal to rank 0's {same}")
+        if not same:
+            raise SystemExit("the SPIKE ranks disagree")
+        spike[world] = ranks[0]
+    paths_ok = True
+    prob64, _ = spike_game(dev, torch.float64, 257)
+    ok = True
+    for method in ("tridiag", "thomas"):
+        res, _, launches = spike_solve(prob64, method, False)
+        paths_ok = paths_ok and spike_path_ok(method, launches)
+        it = int(res.stats.iter[0])
+        for world in spike:
+            x, it_s, _, _ = spike[world][0]
+            dx = float((x - res.traj.x.cpu()).abs().max())
+            log(f"[spike] f64 N=257: SPIKE over {world} rank(s) against "
+                f"{method!r}: stats rows {it_s} / {it}, max |dx| {dx:.3e} "
+                f"(<= 1e-8)")
+            ok = ok and it_s == it and dx <= 1e-8
+    if not ok:
+        raise SystemExit("SPIKE disagrees with the sequential solves in f64")
+    k1_long = {}
+    for k, N in enumerate(SPIKE_NS):
+        prob, spec = spike_game(dev, torch.float32, N)
+        for m in ("thomas", "tridiag"):
+            res, el, launches = spike_solve(prob, m, True)
+            paths_ok = paths_ok and spike_path_ok(m, launches)
+            if N == 257 and m == "thomas":
+                k1_long[1] = launches["K1"]
+            it = int(res.stats.iter[0])
+            rows.append({"N": N, "T": spec.T, "method": m, "ranks": 1,
+                         "ms": el * 1e3, "iters": it,
+                         "dyn_vio": float(res.stats.dyn_vio[0, it - 1]),
+                         "converged": bool(parallel.convergence_fraction(
+                             res, prob.opts) == 1)})
+        for world in spike:
+            _, it, dyn, el = spike[world][k + 1]
+            rows.append({"N": N, "T": spec.T, "method": "spike",
+                         "ranks": world, "ms": el * 1e3, "iters": it,
+                         "dyn_vio": dyn,
+                         **({"note": "shape-only: the ranks share one card"}
+                            if world > torch.cuda.device_count() else {})})
+    for r in rows:
+        log(f"[spike] f32 N={r['N']} (T={r['T']}), B=1: {r['method']} over "
+            f"{r['ranks']} rank(s): {r['ms']:.1f} ms per solve, stats rows "
+            f"{r['iters']}, dyn_vio {r['dyn_vio']:.3e}"
+            f"{', converged %s' % r['converged'] if 'converged' in r else ''}"
+            f"{' (' + r['note'] + ')' if 'note' in r else ''}")
+    prob, spec = spike_game(dev, torch.float32, 257)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(np.asarray(prob.x0.cpu(), np.float64)[None]
+                          + 0.05 * rng.standard_normal((B_LONG, spec.n)),
+                          dtype=torch.float32, device=dev)
+    res, el, launches = spike_solve(prob, "thomas", True, x0s)
+    paths_ok = paths_ok and spike_path_ok("thomas", launches)
+    k1_long[B_LONG] = launches["K1"]
+    frac = float(parallel.convergence_fraction(res, prob.opts))
+    log(f"[spike] f32 N=257, B={B_LONG} through 'thomas': {el * 1e3:.1f} ms, "
+        f"stats rows {int(res.stats.iter.min())}..{int(res.stats.iter.max())},"
+        f" converged {frac:.4f} (reported); K1 launches in the timed f32 "
+        f"N=257 'thomas' solve, counted from zero after its warm-up: "
+        f"{k1_long[1]} at B=1, {k1_long[B_LONG]} at B={B_LONG}; every "
+        f"sequential solve on its kernels {paths_ok}")
+    if not (bool(torch.isfinite(res.traj.x).all()) and paths_ok):
+        raise SystemExit("the long-horizon solves failed their checks")
+    return {"rows": rows, "launches": k1_long}
+
+
+def phase_aux(dev):
+    """The auxiliary modules on the card: a ``SolveResult`` checkpoint
+    round trip (``save_pytree`` / ``restore_pytree``; device, dtype and
+    values kept bitwise) and a trajectory's (``save_traj`` /
+    ``load_traj``); ``profiling.timed_solve`` bitwise ``newton_solve``'s,
+    one wall time per trip; ``profiling.device_trace`` writes a Chrome
+    trace that holds K1's kernels.  8 lanes of the f32 flagship sweep."""
+    import os
+    import tempfile
+    import torch
+    import algames_tpu_torch as agt
+    from algames_tpu_torch import checkpoint, profiling
+    from algames_tpu_torch.presets import flagship_unicycle
+    from algames_tpu_torch.utils import tree_leaves
+    prob, x0s = sweep_problem(flagship_unicycle, dev, outer=3, inner=8)
+    x0s = x0s[:8]
+    res = agt.newton_solve(prob, x0s)
+    out, t_elap = profiling.timed_solve(prob, x0s)
+    timed_same = all(torch.equal(a, b) for a, b in
+                     zip(tree_leaves(out), tree_leaves(res)))
+    trips = int(res.stats.iter.max()) - 1
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_pytree(os.path.join(tmp, "res"), res)
+        back = checkpoint.restore_pytree(os.path.join(tmp, "res"), res)
+        pairs = list(zip(tree_leaves(res), tree_leaves(back)))
+        ckpt_same = all(a.device == b.device and a.dtype == b.dtype
+                        and torch.equal(a, b) for a, b in pairs)
+        checkpoint.save_traj(os.path.join(tmp, "t.npz"), res.traj)
+        t = checkpoint.load_traj(os.path.join(tmp, "t.npz"), device=dev)
+        traj_same = all(torch.equal(getattr(t, k), getattr(res.traj, k))
+                        for k in ("x", "u", "lam"))
+        with profiling.device_trace(os.path.join(tmp, "trace")):
+            agt.newton_solve(prob, x0s)
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "trace", "trace.json")
+        trace = open(path).read()
+        has_k1 = "thomas_sq_" in trace
+        size = os.path.getsize(path)
+    log(f"[aux] checkpoint round trip of a SolveResult ({len(pairs)} leaves, "
+        f"{res.traj.x.device}, {res.traj.x.dtype}): bitwise {ckpt_same}; "
+        f"trajectory .npz bitwise {traj_same}; timed_solve bitwise "
+        f"newton_solve's {timed_same}, {len(t_elap)} times for {trips} trips "
+        f"(median {1e3 * float(np.median(t_elap)):.2f} ms a trip); "
+        f"device_trace wrote {size} bytes, K1 kernels in it {has_k1}")
+    if not (ckpt_same and traj_same and timed_same and len(t_elap) == trips
+            and has_k1):
+        raise SystemExit("the auxiliary modules failed their checks")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2497,6 +2880,16 @@ def main():
     phase("ladder", phase_ladder, dev)
     phase("nullspace", phase_nullspace, dev)
 
+    # Scenario sharding and the long-horizon game: K1 at T=256, SPIKE over
+    # ranks; then the checkpoint and profiling modules.
+    phase("shard", phase_shard, dev)
+    long_game = functools.partial(spike_game, N=257)
+    k1_long = {B: phase(f"K1-long{B}", phase_k1, dev, f"K1-long{B}",
+                        long_game, flagship_iterates, 1500 + B, "forward",
+                        False, B) for B in (B_LONG, 1)}
+    spike = phase("spike", phase_spike, dev)
+    phase("aux", phase_aux, dev)
+
     def entry(kernel, game, launches, numbers):
         name, source, replaces = KERNELS[kernel]
         return {"name": f"{kernel} {name} ({game})", "route": "cuda",
@@ -2528,6 +2921,10 @@ def main():
         entry("K4", "hetero2_N8", launches_het["K4"], k4_het),
         entry("K1", "ring3_eq_N20", launches_eq["K1"], k1_ring),
         entry("K4", "ring3_eq_N20", launches_eq["K4"], k4_eq),
+        entry("K1", f"long horizon, spike_uni2_N257 (T=256), B={B_LONG}",
+              spike["launches"][B_LONG], k1_long[B_LONG]),
+        entry("K1", "long horizon, spike_uni2_N257 (T=256), B=1",
+              spike["launches"][1], k1_long[1]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,13 +41,20 @@ def test_imports_with_jax_blocked():
 
 
 def test_no_jax_import_in_sources():
-    """No source of the package, nor ``chip_smoke.py``, imports JAX or the
+    """No source of the package, nor ``chip_smoke.py``, the port's examples
+    or the rank functions of its distributed tests, imports JAX or the
     JAX package."""
     pat = re.compile(r"^\s*(import\s+(jax|algames_tpu)\b"
                      r"|from\s+(jax|algames_tpu)[\s.])")
-    paths = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, files in os.walk(PKG):
-        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_ranks.py")]
+    for folder in (PKG, os.path.join(REPO, "examples_torch")):
+        for root, _, files in os.walk(folder):
+            paths += [os.path.join(root, f) for f in files
+                      if f.endswith(".py")]
+    assert os.path.join(PKG, "parallel", "horizon.py") in paths
+    assert os.path.join(REPO, "examples_torch",
+                        "long_horizon_example.py") in paths
     assert os.path.join(PKG, "problem", "ibr.py") in paths
     assert os.path.join(PKG, "models", "hetero.py") in paths
     assert os.path.join(PKG, "mpc.py") in paths
