@@ -31,11 +31,19 @@
 // so B=1024 runs in one wave: 1.19 / 1.91 / 2.12 ms at the same batches.
 // Of a knot's ~89,700 SM cycles at B=1024, the elimination takes ~44,000
 // (24 steps of barrier, shuffles and a pivot search) and the build of the
-// augmented system ~30,000.  Systems wider than the largest size class
-// (d > 24 or d + R > 96) keep the shared-memory forward kernel; the
-// backward kernel (0.46 ms of the roundabout's 2.57 ms) is unchanged.
+// augmented system ~30,000.  The backward kernel (0.46 ms of the
+// roundabout's 2.57 ms) is the shared-memory one for every width.
 // The core's Q form here is DenseQ: Q [p, n, n] staged per knot, the x
-// columns as dense products, Gauss-Jordan elimination.
+// columns as dense products.  Its classes for d <= 24 eliminate
+// Gauss-Jordan; those for d <= 32 (the quadrotor's systems turned dense,
+// d=32, and IBR's quadrotor player systems, d=28) eliminate LU with K1's
+// back substitution, since Gauss-Jordan misses the backward-error gate on
+// the quadrotor's f32 systems (tests/test_torch_k3_order.py), and stage Q
+// (2 x 24 x 24 scalars a knot at the quadrotor's widths) in one buffer,
+// the next knot's copy issued once the build has read it: double-buffered,
+// the 30,496 bytes a lane in f32 fit 7 lanes on an SM and B=1024 took a
+// second wave; staged once, 25,888 fit 8.  Systems beyond (d > 32 or
+// d + R > 96) keep the shared-memory forward kernel (the "big" route).
 #include "thomas_common.cuh"
 #include "thomas_dense_core.cuh"
 
@@ -89,31 +97,33 @@ struct DenseBwdForm {
 
 // The register-tiled core's dense Q form: Q_i [n, n] per player staged per
 // knot; the x columns are B^T Q_owner (statu rows) and -I + sum_i F_i Q_i
-// (dyn rows); Gauss-Jordan elimination.
-template <typename T>
+// (dyn rows).  ``LU``: the classes for d <= 32, LU elimination and Q
+// staged once; else Gauss-Jordan and Q double-buffered.
+template <typename T, bool LU>
 struct DenseQ {
-  static constexpr bool kLU = false;
+  static constexpr bool kLU = LU;
   static constexpr bool kProducts = false;
+  static constexpr bool kStageOnce = LU;
   const T* Qg;                         // [B, T, p, n, n]
 
   __host__ __device__ int staged(int n, int p) const {
     return thomas_core::round16<T>(p * n * n);
   }
   __host__ __device__ int extra(int, int) const { return 0; }
+  template <int NT>
   __device__ __forceinline__ void issue(T* dst, size_t kt, int n,
                                         int p) const {
     const int pn = p * n;
-    thomas_core::copy_flat(dst, Qg + kt * pn * n, pn * n);
+    thomas_core::copy_flat<T, NT>(dst, Qg + kt * pn * n, pn * n);
   }
-  // acc[i] += column c (< n) of owned row rg + 8 i; acc is zero on entry.
-  template <int TR>
+  // acc[i] += column c (< n) of owned row rg + RG i; acc is zero on entry.
+  template <int RG, int TR>
   __device__ __forceinline__ void x_column(T (&acc)[TR], const T* Q,
                                            const T* Bs, const T* Fs,
                                            const T*, int ldF,
                                            const int (&own)[TR], int rg,
                                            int c, int n, int m,
                                            int p) const {
-    constexpr int kRG = thomas_core::kRG;
     #pragma unroll 1
     for (int i2 = 0; i2 < p; ++i2) {
       #pragma unroll 4
@@ -121,14 +131,14 @@ struct DenseQ {
         const T qv = Q[(i2 * n + k) * n + c];
         #pragma unroll
         for (int i = 0; i < TR; ++i) {
-          const int a = rg + kRG * i - m;
+          const int a = rg + RG * i - m;
           if (a >= 0 && a < n) acc[i] += Fs[a * ldF + i2 * n + k] * qv;
         }
       }
     }
     #pragma unroll
     for (int i = 0; i < TR; ++i) {
-      const int r = rg + kRG * i;
+      const int r = rg + RG * i;
       if (r < m) {                     // B^T Q_owner
         const T* Qo = Q + own[i] * n * n;
         T v = T(0);
@@ -183,7 +193,24 @@ thomas_dense_tiled_kernel(const T* __restrict__ Qg, const T* __restrict__ Ub,
                           T* __restrict__ y_out, int Tn, int n, int m, int p,
                           const __grid_constant__ DenseMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  thomas_core::forward_sweep<T, TR, TC>(DenseQ<T>{Qg}, Ub, Bm, A,
+  thomas_core::forward_sweep<T, TR, TC>(DenseQ<T, false>{Qg}, Ub, Bm, A,
+                                        bk, G_out, y_out, Tn, n, m, p,
+                                        meta.owner, smem_raw);
+}
+
+// The same for the classes of d <= 32: LU, Q staged once.
+template <typename T, int TR, int TC>
+__global__ void
+__launch_bounds__(thomas_core::kThreads, sizeof(T) == 4 ? 8 : 4)
+thomas_dense_tiled_lu_kernel(const T* __restrict__ Qg,
+                             const T* __restrict__ Ub,
+                             const T* __restrict__ Bm,
+                             const T* __restrict__ A,
+                             const T* __restrict__ bk, T* __restrict__ G_out,
+                             T* __restrict__ y_out, int Tn, int n, int m,
+                             int p, const __grid_constant__ DenseMeta meta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  thomas_core::forward_sweep<T, TR, TC>(DenseQ<T, true>{Qg}, Ub, Bm, A,
                                         bk, G_out, y_out, Tn, n, m, p,
                                         meta.owner, smem_raw);
 }
@@ -239,34 +266,50 @@ int launch_fwd_big(const void* Q, const void* Ub, const void* Bm,
   return (int)cudaGetLastError();
 }
 
+// A size class's kernel and its Q form (lu: LU, Q staged once).
+struct Tiled {
+  const void* fn;
+  bool lu;
+};
+
 // The size classes, smallest first: (TR, TC) holds d <= 8 TR and
 // C = d + p n + 1 <= 16 TC.  The wrapper routes the systems that fit none
 // to launch_fwd_big (thomas_dense_tiled_fits).
 template <typename T>
-const void* tiled_kernel(int n, int m, int p) {
+Tiled tiled_kernel(int n, int m, int p) {
   const int d = n + m, C = d + p * n + 1;
   if (d <= 16 && C <= 32)
-    return (const void*)thomas_dense_tiled_kernel<T, 2, 2>;
+    return {(const void*)thomas_dense_tiled_kernel<T, 2, 2>, false};
   if (d <= 24 && C <= 64)
-    return (const void*)thomas_dense_tiled_kernel<T, 3, 4>;
+    return {(const void*)thomas_dense_tiled_kernel<T, 3, 4>, false};
   if (d <= 24 && C <= 96)
-    return (const void*)thomas_dense_tiled_kernel<T, 3, 6>;
-  return nullptr;
+    return {(const void*)thomas_dense_tiled_kernel<T, 3, 6>, false};
+  if (d <= 32 && C <= 64)
+    return {(const void*)thomas_dense_tiled_lu_kernel<T, 4, 4>, true};
+  if (d <= 32 && C <= 96)
+    return {(const void*)thomas_dense_tiled_lu_kernel<T, 4, 6>, true};
+  return {nullptr, false};
+}
+
+template <typename T, bool LU>
+size_t smem_bytes_of(int n, int m, int p) {
+  const DenseQ<T, LU> qf{nullptr};
+  return thomas_core::CoreLayout<T>::bytes(
+      n, m, p, qf.staged(n, p), qf.extra(n, m), DenseQ<T, LU>::kLU,
+      DenseQ<T, LU>::kStageOnce);
 }
 
 template <typename T>
 size_t tiled_smem_bytes(int n, int m, int p) {
-  const DenseQ<T> qf{nullptr};
-  return thomas_core::CoreLayout<T>::bytes(n, m, p, qf.staged(n, p),
-                                           qf.extra(n, m),
-                                           DenseQ<T>::kLU);
+  return tiled_kernel<T>(n, m, p).lu ? smem_bytes_of<T, true>(n, m, p)
+                                       : smem_bytes_of<T, false>(n, m, p);
 }
 
 template <typename T>
 int launch_fwd(const void* Q, const void* Ub, const void* Bm, const void* A,
                const void* b, const int* owner, void* G, void* yhat, int B,
                int Tn, int n, int m, int p, void* stream) {
-  const void* kernel = tiled_kernel<T>(n, m, p);
+  const void* kernel = tiled_kernel<T>(n, m, p).fn;
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const size_t bytes = tiled_smem_bytes<T>(n, m, p);
@@ -282,22 +325,29 @@ int launch_fwd(const void* Q, const void* Ub, const void* Bm, const void* A,
                                args, bytes, (cudaStream_t)stream);
 }
 
-// Lanes per SM of the forward kernel that launch_fwd (or, with ``big``,
-// launch_fwd_big) runs for these widths; -1 if there is none.
+// The forward kernel that launch_fwd (or, with ``big``, launch_fwd_big)
+// runs for these widths: out = {lanes per SM, registers a thread, local
+// memory bytes a thread}; non-zero if there is none.
 template <typename T>
-int occupancy(int n, int m, int p, bool big) {
-  const void* kernel = big ? (const void*)thomas_dense_fwd_kernel<T>
-                           : tiled_kernel<T>(n, m, p);
-  if (kernel == nullptr) return -1;
+int occupancy(int n, int m, int p, bool big, int* out) {
+  const void* kernel = big ? (m <= kMaxM
+                                  ? (const void*)thomas_dense_fwd_kernel<T>
+                                  : nullptr)
+                           : tiled_kernel<T>(n, m, p).fn;
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const size_t bytes =
       big ? thomas::fwd_smem_bytes<T>(n, m, p, p * n * n, 0)
           : tiled_smem_bytes<T>(n, m, p);
-  if (thomas::set_smem(kernel, bytes)) return -1;
-  int lanes = -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&lanes, kernel, kThreads,
-                                                    bytes))
-    return -1;
-  return lanes;
+  int err = thomas::set_smem(kernel, bytes);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (err) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel,
+                                                           kThreads, bytes);
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  return err;
 }
 
 template <typename T>
@@ -339,13 +389,15 @@ int launch_bwd(const void* G, const void* yhat, const void* Q, const void* A,
     return launch_bwd<T>(G, yhat, Q, A, b, y, B, Tn, n, m, p, stream);        \
   }                                                                           \
   extern "C" int thomas_dense_tiled_fits_##SUFFIX(int n, int m, int p) {      \
-    return tiled_kernel<T>(n, m, p) != nullptr;                               \
+    return tiled_kernel<T>(n, m, p).fn != nullptr;                            \
   }                                                                           \
-  extern "C" int thomas_dense_occupancy_##SUFFIX(int n, int m, int p) {       \
-    return occupancy<T>(n, m, p, false);                                      \
+  extern "C" int thomas_dense_occupancy_##SUFFIX(int n, int m, int p,         \
+                                                 int* out) {                  \
+    return occupancy<T>(n, m, p, false, out);                                 \
   }                                                                           \
-  extern "C" int thomas_dense_occupancy_big_##SUFFIX(int n, int m, int p) {   \
-    return occupancy<T>(n, m, p, true);                                       \
+  extern "C" int thomas_dense_occupancy_big_##SUFFIX(int n, int m, int p,     \
+                                                     int* out) {              \
+    return occupancy<T>(n, m, p, true, out);                                  \
   }
 
 THOMAS_DENSE_EXPORT(f32, float)

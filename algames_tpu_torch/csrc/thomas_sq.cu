@@ -23,21 +23,32 @@
 // warp, not the core's Gauss-Jordan: on the quadrotor's f32 systems
 // Gauss-Jordan's backward error reached 66 x the plain version's at mu =
 // 1e7 (tests/test_torch_k1_order.py).  Size classes (TR, TC) = (2, 2),
-// (3, 4), (4, 6) cover d <= 32 (the core's 32-bit pivot mask) and
-// d + R <= 96: the double integrator, the flagship, the quadrotor (d=32).
-// On an H100 80GB HBM3 (f32, B=1024, forward + backward;
-// tests/thomas_compare.py) it takes 1.68 ms on the quadrotor's systems,
-// 0.98 ms on the flagship's and 0.20 ms on the double integrator's, where
-// the shared-memory forward kernel took 4.84, 1.67 and 0.30 ms: one wave
-// of 8 lanes per SM against 6 (quadrotor), one barrier per pivot step
-// against three.  Of a quadrotor knot's ~173,000 SM cycles the elimination
-// takes ~68,000, the build of the augmented system ~48,000 and the back
-// substitution ~24,000 (tests/k1_phase_clocks.py); its f32 instance holds
-// 64 registers a thread and spills (a 224-byte frame).
+// (3, 4), (4, 6) of 128 threads cover d <= 32 and d + R <= 96: the double
+// integrator, the flagship, the quadrotor (d=32).  On an H100 80GB HBM3
+// (f32, B=1024, forward + backward; tests/thomas_compare.py) it takes 1.68
+// ms on the quadrotor's systems, 0.98 ms on the flagship's and 0.20 ms on
+// the double integrator's, where the shared-memory forward kernel took
+// 4.84, 1.67 and 0.30 ms: one wave of 8 lanes per SM against 6
+// (quadrotor), one barrier per pivot step against three.  Of a quadrotor
+// knot's ~173,000 SM cycles the elimination takes ~68,000, the build of the
+// augmented system ~48,000 and the back substitution ~24,000
+// (tests/k1_phase_clocks.py); its f32 instance holds 64 registers a thread
+// and spills (a 224-byte frame).
+// The tall class (3, 10) covers d <= 48 and d + R <= 160, the 3-player
+// quadrotor's systems (d=48, d + R = 157): 256 threads a lane, 16 row
+// groups by 16 column groups (thomas_core::kTallRG), so that a thread
+// holds 30 entries of the 48 x 157 system where 128 threads would hold 60
+// (the (4, 6) tile already spills at 64 registers); the pivot search and
+// the row broadcast are 16-lane shuffles and the pivot mask 64 bits.  Its
+// 60,096 bytes of shared memory a lane in f32 (the double-buffered q and
+// w, the A ring, the carry G and LU's d x d slots) fit 3 lanes on an SM
+// (80 registers a thread at most), so B=1024 takes 3 waves where the
+// shared-memory kernel, at 2 lanes, took 4.
 // Wider systems take the shared-memory forward kernel of
 // thomas_common.cuh (the "wide" route: every per-knot operand, the carry
 // and the augmented system in shared memory, three barriers per pivot
-// step, a serial back substitution per right-hand side).  The backward
+// step, a serial back substitution per right-hand side; its f64 instance
+// needs more than an SM's 227 KB from d = 64 on).  The backward
 // kernel is the shared-memory one of thomas_common.cuh for every width:
 // a knot's multipliers are one matrix-vector product, about 7% of K1's
 // device time in the quadrotor sweep's profile on an H100 (PERF.md).
@@ -100,6 +111,7 @@ template <typename T>
 struct StructuredQ {
   static constexpr bool kLU = true;
   static constexpr bool kProducts = true;
+  static constexpr bool kStageOnce = false;
   const T* qd;                         // [B, T, p, n]
   const T* wv;                         // [B, T, NW, n]
   const int* w_owner;                  // [NW]
@@ -115,18 +127,21 @@ struct StructuredQ {
   __host__ __device__ int extra(int n, int m) const {
     return (n + m) * ldW();
   }
+  template <int NT>
   __device__ __forceinline__ void issue(T* dst, size_t kt, int n,
                                         int p) const {
-    thomas_core::copy_flat(dst, qd + kt * p * n, p * n);
-    thomas_core::copy_flat(dst + wofs(n, p), wv + kt * NW * n, NW * n);
+    thomas_core::copy_flat<T, NT>(dst, qd + kt * p * n, p * n);
+    thomas_core::copy_flat<T, NT>(dst + wofs(n, p), wv + kt * NW * n,
+                                  NW * n);
   }
+  template <int NT>
   __device__ __forceinline__ void products(const T* Q, const T* Bs,
                                            const T* Fs, T* Pw, int ldF,
                                            const int* owner, int n, int m,
                                            int p) const {
     const T* w = Q + wofs(n, p);
     const int d = n + m, ld = ldW();
-    for (int idx = threadIdx.x; idx < d * NW; idx += thomas_core::kThreads) {
+    for (int idx = threadIdx.x; idx < d * NW; idx += NT) {
       const int r = idx / NW, k = idx - r * NW;
       const int o = w_owner[k];
       const T* wk = w + k * n;
@@ -142,15 +157,15 @@ struct StructuredQ {
       Pw[r * ld + k] = s;
     }
   }
-  // acc[i] += column c (< n) of owned row rg + 8 i; acc is zero on entry.
-  template <int TR>
+  // acc[i] += column c (< n) of owned row rg + RG i; acc is zero on
+  // entry.
+  template <int RG, int TR>
   __device__ __forceinline__ void x_column(T (&acc)[TR], const T* Q,
                                            const T* Bs, const T* Fs,
                                            const T* Pw, int ldF,
                                            const int (&own)[TR], int rg,
                                            int c, int n, int m,
                                            int p) const {
-    constexpr int kRG = thomas_core::kRG;
     const T* w = Q + wofs(n, p);
     const int d = n + m, ld = ldW();
     #pragma unroll 1
@@ -158,13 +173,13 @@ struct StructuredQ {
       const T qv = Q[i2 * n + c];
       #pragma unroll
       for (int i = 0; i < TR; ++i) {
-        const int a = rg + kRG * i - m;
+        const int a = rg + RG * i - m;
         if (a >= 0 && a < n) acc[i] += Fs[a * ldF + i2 * n + c] * qv;
       }
     }
     #pragma unroll
     for (int i = 0; i < TR; ++i) {     // B^T diag(q_owner)
-      const int r = rg + kRG * i;
+      const int r = rg + RG * i;
       if (r < m) acc[i] = Bs[c * m + r] * Q[own[i] * n + c];
     }
     #pragma unroll 2
@@ -172,13 +187,13 @@ struct StructuredQ {
       const T wv_c = w[k * n + c];
       #pragma unroll
       for (int i = 0; i < TR; ++i) {
-        const int r = rg + kRG * i;
+        const int r = rg + RG * i;
         if (r < d) acc[i] += Pw[r * ld + k] * wv_c;
       }
     }
     #pragma unroll
     for (int i = 0; i < TR; ++i) {     // -I
-      const int r = rg + kRG * i;
+      const int r = rg + RG * i;
       if (r >= m && r < d) acc[i] += (r - m == c) ? T(-1) : T(0);
     }
   }
@@ -256,6 +271,29 @@ thomas_sq_tiled_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
       G_out, y_out, Tn, n, m, p, meta.owner, smem_raw);
 }
 
+// The tall size class: TR x 16 rows and TC x 16 columns, 256 threads; 3
+// lanes per SM in f32 (at most 80 registers a thread), 1 in f64 (its
+// 123,216 bytes of shared memory).
+template <typename T, int TR, int TC>
+__global__ void
+__launch_bounds__(thomas_core::kTallRG * thomas_core::kCG,
+                  sizeof(T) == 4 ? 3 : 1)
+thomas_sq_tiled_tall_kernel(const T* __restrict__ qd,
+                            const T* __restrict__ wv,
+                            const T* __restrict__ Ub,
+                            const T* __restrict__ Bm,
+                            const T* __restrict__ A,
+                            const T* __restrict__ bk,
+                            T* __restrict__ G_out, T* __restrict__ y_out,
+                            int Tn, int n, int m, int p, int NW,
+                            const __grid_constant__ SqMeta meta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  thomas_core::forward_sweep<T, TR, TC, StructuredQ<T>,
+                             thomas_core::kTallRG>(
+      StructuredQ<T>{qd, wv, meta.w_owner, NW}, Ub, Bm, A, bk,
+      G_out, y_out, Tn, n, m, p, meta.owner, smem_raw);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) thomas_sq_bwd_kernel(
     const T* __restrict__ G, const T* __restrict__ yhat,
@@ -300,17 +338,30 @@ SqMeta make_meta(const int* owner, const int* w_owner, int m, int NW) {
 
 bool dims_ok(int m, int NW) { return m <= kMaxM && NW <= kMaxNW; }
 
+// A size class's kernel and its threads a lane.
+struct Tiled {
+  const void* fn;
+  int threads;
+};
+
 // The size classes, smallest first: (TR, TC) holds d <= 8 TR and
-// C = d + p n + 1 <= 16 TC.  The wrapper routes the systems that fit none
-// to launch_fwd_wide (thomas_sq_tiled_fits).
+// C = d + p n + 1 <= 16 TC, the tall one d <= 16 TR.  The wrapper routes
+// the systems that fit none to launch_fwd_wide (thomas_sq_tiled_fits).
 template <typename T>
-const void* tiled_kernel(int n, int m, int p, int NW) {
-  if (!dims_ok(m, NW)) return nullptr;
+Tiled tiled_kernel(int n, int m, int p, int NW) {
+  constexpr int k128 = thomas_core::kThreads;
+  constexpr int k256 = thomas_core::kTallRG * thomas_core::kCG;
+  if (!dims_ok(m, NW)) return {nullptr, 0};
   const int d = n + m, C = d + p * n + 1;
-  if (d <= 16 && C <= 32) return (const void*)thomas_sq_tiled_kernel<T, 2, 2>;
-  if (d <= 24 && C <= 64) return (const void*)thomas_sq_tiled_kernel<T, 3, 4>;
-  if (d <= 32 && C <= 96) return (const void*)thomas_sq_tiled_kernel<T, 4, 6>;
-  return nullptr;
+  if (d <= 16 && C <= 32)
+    return {(const void*)thomas_sq_tiled_kernel<T, 2, 2>, k128};
+  if (d <= 24 && C <= 64)
+    return {(const void*)thomas_sq_tiled_kernel<T, 3, 4>, k128};
+  if (d <= 32 && C <= 96)
+    return {(const void*)thomas_sq_tiled_kernel<T, 4, 6>, k128};
+  if (d <= 48 && C <= 160)
+    return {(const void*)thomas_sq_tiled_tall_kernel<T, 3, 10>, k256};
+  return {nullptr, 0};
 }
 
 template <typename T>
@@ -331,11 +382,11 @@ int launch_fwd(const void* qd, const void* wv, const void* Ub, const void* Bm,
                const void* A, const void* b, const int* owner,
                const int* w_owner, void* G, void* yhat, int B, int Tn, int n,
                int m, int p, int NW, void* stream) {
-  const void* kernel = tiled_kernel<T>(n, m, p, NW);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const Tiled k = tiled_kernel<T>(n, m, p, NW);
+  if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const size_t bytes = tiled_smem_bytes<T>(n, m, p, NW);
-  int err = thomas::set_smem(kernel, bytes);
+  int err = thomas::set_smem(k.fn, bytes);
   if (err) return err;
   SqMeta meta = make_meta(owner, w_owner, m, NW);
   const T *qp = (const T*)qd, *wp = (const T*)wv, *Ubp = (const T*)Ub,
@@ -343,8 +394,8 @@ int launch_fwd(const void* qd, const void* wv, const void* Ub, const void* Bm,
   T *Gp = (T*)G, *yp = (T*)yhat;
   void* args[] = {&qp, &wp, &Ubp, &Bp, &Ap,  &bp, &Gp,
                   &yp, &Tn, &n,   &m,  &p,   &NW, &meta};
-  return (int)cudaLaunchKernel(kernel, dim3(B), dim3(thomas_core::kThreads),
-                               args, bytes, (cudaStream_t)stream);
+  return (int)cudaLaunchKernel(k.fn, dim3(B), dim3(k.threads), args, bytes,
+                               (cudaStream_t)stream);
 }
 
 // The shared-memory kernel of thomas_common.cuh, for systems beyond the
@@ -372,20 +423,21 @@ int launch_fwd_wide(const void* qd, const void* wv, const void* Ub,
 // memory bytes a thread}; non-zero if there is none.
 template <typename T>
 int occupancy(int n, int m, int p, int NW, bool wide, int* out) {
-  const void* kernel = wide ? (dims_ok(m, NW)
-                                   ? (const void*)thomas_sq_fwd_kernel<T>
-                                   : nullptr)
-                            : tiled_kernel<T>(n, m, p, NW);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const Tiled k =
+      wide ? Tiled{dims_ok(m, NW) ? (const void*)thomas_sq_fwd_kernel<T>
+                                  : nullptr,
+                   kThreads}
+           : tiled_kernel<T>(n, m, p, NW);
+  if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   const size_t bytes = wide ? wide_smem_bytes<T>(n, m, p, NW)
                             : tiled_smem_bytes<T>(n, m, p, NW);
-  int err = thomas::set_smem(kernel, bytes);
+  int err = thomas::set_smem(k.fn, bytes);
   if (err) return err;
   cudaFuncAttributes attr;
-  err = (int)cudaFuncGetAttributes(&attr, kernel);
+  err = (int)cudaFuncGetAttributes(&attr, k.fn);
   if (err) return err;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], kernel, kThreads, bytes);
+      &out[0], k.fn, k.threads, bytes);
   out[1] = attr.numRegs;
   out[2] = (int)attr.localSizeBytes;
   return err;
@@ -427,7 +479,7 @@ int launch_bwd(const void* G, const void* yhat, const void* qd, const void* wv,
                               B, Tn, n, m, p, NW, stream);                    \
   }                                                                           \
   extern "C" int thomas_sq_tiled_fits_##SUFFIX(int n, int m, int p, int NW) { \
-    return tiled_kernel<T>(n, m, p, NW) != nullptr;                           \
+    return tiled_kernel<T>(n, m, p, NW).fn != nullptr;                        \
   }                                                                           \
   extern "C" int thomas_sq_occupancy_##SUFFIX(int n, int m, int p, int NW,    \
                                               int* out) {                     \

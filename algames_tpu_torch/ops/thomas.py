@@ -21,15 +21,18 @@ The forward kernels of both hold the augmented system in registers, one
 fixed tile per thread, with one block barrier per pivot step and the next
 knot's operands copied in while a knot is eliminated
 (``csrc/thomas_dense_core.cuh``, with the Q form a compile-time policy:
-K3 Gauss-Jordan, K1 LU and a back substitution).  K3's size classes cover
-d = n + m <= 24 and d + p n + 1 <= 96 (the library's
-``thomas_dense_tiled_fits``), K1's d <= 32 and d + p n + 1 <= 96
-(``thomas_sq_tiled_fits``).  Wider systems take the shared-memory forward
-kernel of ``csrc/thomas_common.cuh`` (every per-knot operand, the carry
-and the augmented system in shared memory), counted apart in
-``solve_thomas.big_launches`` and ``solve_thomas_structured
-.wide_launches``.  The route is chosen by shape before the launch; a build
-or launch error raises.  See the sources for what bounds each on the card.
+K1 and K3's classes for d > 24 LU and a back substitution, K3's others
+Gauss-Jordan).  K3's size classes cover d = n + m <= 32 and d + p n + 1 <=
+96 (the library's ``thomas_dense_tiled_fits``), K1's d <= 32 and
+d + p n + 1 <= 96 with 128 threads a lane and, with 256, d <= 48 and
+d + p n + 1 <= 160 (``thomas_sq_tiled_fits``).  Wider systems take the
+shared-memory forward kernel of ``csrc/thomas_common.cuh`` (every
+per-knot operand, the carry and the augmented system in shared memory),
+counted apart in ``solve_thomas.big_launches`` and
+``solve_thomas_structured.wide_launches``; ``shared=True`` takes it at
+any widths, to time it against the register-tiled one.  The route is
+chosen by shape before the launch; a build or launch error raises.  See
+the sources for what bounds each on the card.
 
 Each wrapper takes its plain PyTorch version (``problem.linear_solver
 .solve_tridiagonal_schur``, after densifying Q for K1) for CPU tensors only;
@@ -131,13 +134,15 @@ def _sq_route(n: int, m: int, p: int, NW: int, dtype) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _sq_launch(spec, w_owner, dtype):
-    """K1 at these widths, once per (shape, dtype): ``(route, library,
-    forward and backward launchers, owner and w_owner tables)``."""
+def _sq_launch(spec, w_owner, dtype, shared=False):
+    """K1 at these widths, once per (shape, dtype, route asked for):
+    ``(route, library, forward and backward launchers, owner and w_owner
+    tables)``."""
     lib = build.load(_LIB)
     sfx = "f32" if dtype == torch.float32 else "f64"
     P, I = build.P, build.I
-    route = _sq_route(spec.n, spec.m, spec.p, len(w_owner), dtype)
+    route = ("wide_" if shared else
+             _sq_route(spec.n, spec.m, spec.p, len(w_owner), dtype))
     fwd = build.launcher(lib, f"thomas_sq_fwd_{route}{sfx}",
                          [P] * 10 + [I] * 6 + [P])
     bwd = build.launcher(lib, f"thomas_sq_bwd_{sfx}", [P] * 9 + [I] * 6 + [P])
@@ -145,13 +150,15 @@ def _sq_launch(spec, w_owner, dtype):
             build.int_table(w_owner))
 
 
-def structured_forward(n: int, m: int, p: int, NW: int, dtype):
+def structured_forward(n: int, m: int, p: int, NW: int, dtype,
+                       shared=False):
     """The forward kernel that K1 runs at these widths with ``NW`` w
-    vectors: ``(register-tiled or not, lanes per SM, registers a thread,
-    local memory bytes a thread)`` from the CUDA runtime; needs a card."""
+    vectors (``shared``: the shared-memory one): ``(register-tiled or not,
+    lanes per SM, registers a thread, local memory bytes a thread)`` from
+    the CUDA runtime; needs a card."""
     lib = build.load(_LIB)
     sfx = "f32" if dtype == torch.float32 else "f64"
-    route = _sq_route(n, m, p, NW, dtype)
+    route = "wide_" if shared else _sq_route(n, m, p, NW, dtype)
     fn = build.bind(lib, f"thomas_sq_occupancy_{route}{sfx}",
                     [build.I] * 4 + [build.P])
     out = (ctypes.c_int * 3)()
@@ -160,17 +167,18 @@ def structured_forward(n: int, m: int, p: int, NW: int, dtype):
 
 
 def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
-                            w_owner) -> torch.Tensor:
+                            w_owner, shared: bool = False) -> torch.Tensor:
     """Solve the KKT system for ``b`` [B, T, W] (pass the negated residual
     for the Newton step); ``sq`` leaves are [B, T, ...] and contiguous.
     Returns the flat [B, S] solution in per-knot column order.  The
     forward kernel is the register-tiled one where a size class fits, else
-    the shared-memory one (counted by ``wide_launches``)."""
+    (or with ``shared``) the shared-memory one (counted by
+    ``wide_launches``)."""
     _check(spec, sq, b, w_owner)
     if _route(b) == "plain":
         return solve_thomas_structured_plain(spec, sq, b, w_owner)
     route, lib, fwd, bwd, owner, w_own = _sq_launch(spec, tuple(w_owner),
-                                                    b.dtype)
+                                                    b.dtype, shared)
     Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
     d, pn, NW = n + m, p * n, len(w_owner)
     G = torch.empty((Bsz, T, d, pn), dtype=b.dtype, device=b.device)
@@ -212,14 +220,16 @@ def _dense_route(lib, n: int, m: int, p: int, dtype) -> str:
     return "" if fits(n, m, p) else "big_"
 
 
-def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p) -> torch.Tensor:
+def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p, shared=False
+                  ) -> torch.Tensor:
     """Run K3's forward and backward kernels on [B, T, ...] operands with
     ``m`` control rows owned per ``owner``; returns y [B, T, n + m + p n].
     The forward kernel is the register-tiled one where a size class fits,
-    else the shared-memory one (counted by ``solve_thomas.big_launches``)."""
+    else (or with ``shared``) the shared-memory one (counted by
+    ``solve_thomas.big_launches``)."""
     lib = build.load(_LIB_DENSE)
     sfx = "f32" if b.dtype == torch.float32 else "f64"
-    route = _dense_route(lib, n, m, p, b.dtype)
+    route = "big_" if shared else _dense_route(lib, n, m, p, b.dtype)
     P, I = build.P, build.I
     fwd = build.launcher(lib, f"thomas_dense_fwd_{route}{sfx}",
                          [P] * 8 + [I] * 5 + [P])
@@ -245,35 +255,42 @@ def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p) -> torch.Tensor:
     return y
 
 
-def dense_forward(n: int, m: int, p: int, dtype):
+def dense_forward(n: int, m: int, p: int, dtype, shared=False):
     """The forward kernel that K3 runs at these widths (``m``: the padded
-    control rows): ``(register-tiled or not, lanes per SM from the CUDA
-    runtime)``; needs a card."""
+    control rows; ``shared``: the shared-memory one): ``(register-tiled or
+    not, lanes per SM, registers a thread, local memory bytes a thread)``
+    from the CUDA runtime; needs a card."""
     lib = build.load(_LIB_DENSE)
     sfx = "f32" if dtype == torch.float32 else "f64"
-    route = _dense_route(lib, n, m, p, dtype)
+    route = "big_" if shared else _dense_route(lib, n, m, p, dtype)
     fn = build.bind(lib, f"thomas_dense_occupancy_{route}{sfx}",
-                    [build.I] * 3)
-    return not route, fn(n, m, p)
+                    [build.I] * 3 + [build.P])
+    out = (ctypes.c_int * 3)()
+    build.check(lib, _LIB_DENSE, fn(n, m, p, out))
+    return (not route, *out)
 
 
-def solve_thomas(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
+def solve_thomas(spec, jb: JacBlocks, b: torch.Tensor,
+                 shared: bool = False) -> torch.Tensor:
     """Solve the KKT system with dense Hessian blocks (kernel K3) for ``b``
     [B, T, W]; ``jb`` leaves are [B, T, ...] and contiguous.  Returns the
     flat [B, S] solution in per-knot column order.  A heterogeneous spec
-    is solved padded (see the module's docstring)."""
+    is solved padded (see the module's docstring).  ``shared``: the
+    shared-memory forward kernel whatever the widths."""
     Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
     _check_operands(spec, jb, b, {
         "Qblk": (Bsz, T, p, n, n), "Ublk": (Bsz, T, m, m),
         "A": (Bsz, T, n, n), "B": (Bsz, T, n, m)})
     if _route(b) == "plain":
         return solve_thomas_plain(spec, jb, b)
+    launch = (functools.partial(_launch_dense, shared=True) if shared
+              else _launch_dense)
     if spec.homogeneous:
-        y = _launch_dense(jb.Qblk, jb.Ublk, jb.B, jb.A, b, owner_map_u(spec),
-                          n, m, p)
+        y = launch(jb.Qblk, jb.Ublk, jb.B, jb.A, b, owner_map_u(spec), n, m,
+                   p)
     else:
         Ub, Bm, bk, owner = pad_operands(spec, jb, b)
-        y = _launch_dense(jb.Qblk, Ub, Bm, jb.A, bk, owner, n, len(owner), p)
+        y = launch(jb.Qblk, Ub, Bm, jb.A, bk, owner, n, len(owner), p)
         y = y[..., unpad_columns(spec, len(owner))]
     solve_thomas.launches += 1
     return y.reshape(Bsz, -1)

@@ -20,11 +20,12 @@ PyTorch version:
 - the 3-player bicycle (N=20, collision cost, walls, circles, state and
   control bounds): K3 and K4;
 - the 2-player quadrotor (N=15, spherical collision, a floor facet, a
-  cylinder, thrust bounds [0, 3]): K1 and K4;
+  cylinder, thrust bounds [0, 3]): K1 and K4, and K3 on its systems
+  turned dense; with 3 players (d=48) K1's tall size class;
 - the heterogeneous double integrator (mi = (2, 1), player-blocked, N=8):
   K3 on controls padded to p max(mi) and K4's player-blocked instance;
-- iterative best response on the flagship (``ibr_newton_solve``): K3 on
-  each player's p=1 subproblem;
+- iterative best response on the flagship and on the quadrotor
+  (``ibr_newton_solve``): K3 on each player's p=1 subproblem;
 - receding-horizon MPC on the 3-player highway (``mpc_solve``): K1, and
   K2 with the fused trial;
 - the ring road (the flagship with player 0 held on a ring by an equality
@@ -72,7 +73,11 @@ Phases:
    divergence, the converged fractions of the first 256 and of all 4096
    scenarios each >= the reference package's own on the first 256 minus
    0.01; K3 and K4 launched and K1 not; one chunk with the plain versions
-   on the card, and a profile of one chunk's first two outer iterations;
+   on the card through the first half of the outer budget (stats rows
+   compared lane by lane where the kernels finished within it), and a
+   profile of one chunk's first outer iteration (the game sweeps' plain
+   chunk and profile cut so from the whole budget and two outer
+   iterations, to keep the script in its time limit);
 10. the double integrator: K1 on its KKT systems as in 2, K4 on its trial
    inputs as in 7, the f64 solve against ``di2_N10.npz`` (iteration 30, x
    and u within 1e-8), and its f32 sweep at the preset budget (outer 7 x
@@ -99,15 +104,25 @@ Phases:
    thrust clamp holds stationarity near 3e-2; the first 256 lanes gated
    as in 10, the reference's fraction over all 4096 not being measured;
    K1 and K4, not K3); then K3 on the quadrotor's KKT systems turned
-   dense (``K3-big``: d=32 lies beyond K3's largest size class, so they
-   take its shared-memory forward kernel), gated as K1's phase on them,
-   and the f64 quadrotor solve with that route as its KKT step
-   (``golden-big``: iteration 52, within 1e-8 of ``quad2_N15.npz``); then
-   K1's shared-memory route on the quadrotor preset with 3 players (d=48,
-   beyond K1's size classes): its KKT systems gated as the quadrotor's
-   (``K1-wide``), and an f64 solve of 4 scenarios through it against the
-   same solve through the plain versions on the card (``solve-wide``:
-   iteration counts equal, x and u within 1e-8);
+   dense (``K3-big``: d=32, K3's LU size class), gated as K1's phase on
+   them and timed beside K3's shared-memory forward kernel on the same
+   operands, the f64 quadrotor solve with that route as its KKT step
+   (``golden-big``: iteration 52, within 1e-8 of ``quad2_N15.npz``), one
+   f32 chunk of the quadrotor sweep through it (``sweep-quad2-dense``:
+   gated as ``sweep-quad2`` on its first 256 lanes; K3's launch count),
+   and the shared-memory kernel itself on the 3-player quadrotor's
+   systems turned dense (``K3-big48``: d=48, beyond K3's classes,
+   B_BEYOND lanes, the same gates); then the quadrotor preset with 3
+   players (d=48): K1 on its KKT systems on its tall class (256 threads a
+   lane) gated as the quadrotor's and timed beside the shared-memory
+   kernel (``K1-wide``), an f64 solve of 4 scenarios against the same
+   solve through the plain versions on the card (``solve-wide``: iteration
+   counts equal, x and u within 1e-8), one timed f32 chunk of 1024
+   scenarios (``sweep-quad3``: finite, none diverged; K1's launch count
+   and its share of the wall); and K1's shared-memory kernel on the
+   4-player quadrotor's systems (``K1-wide64``: d=64, beyond K1's
+   classes, B_BEYOND lanes, f32 only: its f64 instance needs more shared
+   memory than an SM has);
 13. the heterogeneous game: K3 on its padded KKT systems as in 11
    (``K3-hetero``), K4 on its trial inputs (``K4-hetero``), the f64 solve
    through K3 and K4 against ``tests/golden_torch/hetero2_N8.npz`` (the
@@ -123,7 +138,14 @@ Phases:
    its first 128 lanes the share stopped before 10 rounds within 0.02 of
    the reference's and the mean final residual within 1.1 x; K3 launched,
    neither K1 nor a trial kernel; the same chunk with the plain versions,
-   and a profile of one Gauss-Seidel round;
+   and a profile of one Gauss-Seidel round; then K3 on the quadrotor's
+   player systems (``K3-ibr-quad``: p=1, d=28, its LU class, gated as
+   ``K3-big``, timed beside the shared-memory kernel), and IBR on the
+   quadrotor preset (``sweep-ibr-quad2``: N_IBR_QUAD f32 scenarios, outer
+   3 x 8 per player solve, IBR_QUAD_ITER rounds, gated as ``sweep-ibr`` on
+   all of them against ``tests/reference_fractions.py ibr-quad``; 4 lanes
+   in f64, one round, through the kernels and the plain versions, stats
+   rows equal, x and u within 1e-8);
 15. receding-horizon MPC on the highway of ``benchmarks/bench_mpc.py``
    (BASELINE config 3: p=3 unicycles, N=20, outer 3 x 8, shift 1, duals
    carried across replans): K1 on its KKT systems at B=32 and B=1 as in 2
@@ -245,12 +267,22 @@ QUAD_OPT_GATE = 5e-2
 # IBR_ITER rounds, and the mean final residual.
 N_IBR, IBR_LANES, IBR_ITER = 512, 128, 10
 REF_IBR = (0 / 128, 0.0071520789206260815)
+# The same on the quadrotor preset: N_IBR_QUAD scenarios, all of them held
+# to the reference's run (`tests/reference_fractions.py ibr-quad`), at
+# IBR_QUAD_ITER rounds: a round of the quadrotor's IBR takes ~27 s of host
+# time beside an H100 (10 rounds took 266 s), over a fifth of the script's
+# time limit.
+N_IBR_QUAD, IBR_QUAD_ITER = 128, 2
+REF_IBR_QUAD = (0 / 128, 0.06480180173093686)
 # The f64 bicycle solve through the kernels against the same solve through
 # the plain versions on the card (measured 2.4e-15 on an H100, PERF.md).
 BIKE3_PLAIN_TOL = 1e-10
-# The f64 3-player quadrotor solve through K1's shared-memory route against
+# The f64 3-player quadrotor solve through K1's tall size class against
 # the same solve through the plain versions on the card.
 WIDE_PLAIN_TOL = 1e-8
+# Lanes of the checks of the shared-memory forward kernels on systems
+# beyond the size classes (``K1-wide64``, ``K3-big48``).
+B_BEYOND = 64
 # BASELINE config 3 as `benchmarks/bench_mpc.py` runs it: the highway's
 # collision radius and control bound, H_MPC replans, and B_MPC scenarios in
 # the batched closed loop.  REF_MPC: the reference package's f32 share of
@@ -700,20 +732,18 @@ def k1_system(dev, B, mu, seed, penalize_rows=False, preset=None,
     return spec, sq, b.contiguous(), R.structured_w_owner(gc)
 
 
-def backward_errors(spec, sq, w_owner, b, ys, lanes=256):
+def backward_errors(spec, blocks, w_owner, b, ys, lanes=256):
     """Per-lane normwise backward error |K y - b| / (|K| |y| + |b|) (infinity
-    norms, K the dense f64 KKT matrix of ``sq``) of each solution in ``ys``:
-    how far from the given system the solved one lies, whatever the
-    system's condition."""
+    norms, K the dense f64 KKT matrix of ``blocks``: structured with its
+    ``w_owner``, or dense ``JacBlocks`` with ``w_owner`` None) of each
+    solution in ``ys``: how far from the given system the solved one lies,
+    whatever the system's condition."""
     import torch
-    from algames_tpu_torch.ops.thomas import structured_to_dense
-    from algames_tpu_torch.problem.linear_solver import JacBlocks
     out = [[] for _ in ys]
     for s in range(0, b.shape[0], lanes):
-        sl = tree_slice(sq, s + lanes, s)
-        K = dense_kkt(spec, JacBlocks(
-            Qblk=structured_to_dense(sl, w_owner, spec.p), Ublk=sl.Ublk,
-            A=sl.A, B=sl.B))
+        sl = tree_slice(blocks, s + lanes, s)
+        K = dense_kkt(spec, sl if w_owner is None
+                      else dense_of(spec, sl, w_owner))
         bb = b[s:s + lanes].reshape(K.shape[0], -1)
         k_norm = K.abs().sum(-1).amax(-1)
         for acc, y in zip(out, ys):
@@ -727,13 +757,18 @@ def backward_errors(spec, sq, w_owner, b, ys, lanes=256):
 
 
 def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
-             seed0=0, gate="forward", wide=False, B=B_KERNEL, eq_mu=False):
+             seed0=0, gate="forward", wide=False, B=B_KERNEL, eq_mu=False,
+             shared_too=False, f64=True):
     """K1 against its plain version on ``preset``'s KKT systems (default:
     the flagship), B lanes, over mu = 1 .. 1e7 (``eq_mu``: mu on the
     equality rows, ``k1_system``), on the register-tiled
     forward kernel (``wide``: on the shared-memory one, for systems beyond
     its size classes; the other route taken is a failure); then its times,
-    bound, library call and forward kernel (``k1_occupancy``) in f32.
+    bound, library call and forward kernel (``k1_occupancy``) in f32, and
+    with ``shared_too`` the shared-memory forward kernel's device time and
+    occupancy on the same operands.  Without ``f64`` only the f32 kernel
+    runs (the shared-memory kernel's f64 instance needs more shared memory
+    than an SM has from d = 64 on).
     ``gate`` "forward": worst relative error against the f64 plain
     version, f64 <= 1e-9 and f32 <= 1e-3.  "backward", for systems too
     ill-conditioned for that in f32 (the f32 plain version itself misses
@@ -756,7 +791,7 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
                                          penalize_rows, preset, iterates,
                                          eq_mu and not penalize_rows)
         ref = solve_thomas_structured_plain(spec, sq, b, w_owner)
-        y64 = solve(sq, b, w_owner)
+        y64 = solve(sq, b, w_owner) if f64 else ref
         sq32 = tree_map(lambda a: a.float(), sq)
         y32 = solve(sq32, b.float(), w_owner)
         torch.cuda.synchronize()
@@ -774,6 +809,11 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
     worst64 = worst32 = max_abs32 = 0.0
     launches = solve_thomas_structured.launches
     wide0 = solve_thomas_structured.wide_launches
+    calls = 2 if f64 else 1                  # kernel calls per compare
+    if not f64:
+        log(f"[{tag}] f64: not run (its shared-memory forward kernel needs "
+            f"more shared memory than an SM has); the f64 columns below are "
+            f"the plain version's")
     for i, mu in enumerate(MUS):
         e = compare(mu, i, False)
         e64, e32, a32 = e[:3]
@@ -797,12 +837,12 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
                              f"mu={mu}")
         worst64, worst32 = max(worst64, e64), max(worst32, e32)
         max_abs32 = max(max_abs32, a32)
-    if solve_thomas_structured.launches != launches + 2 * len(MUS):
+    if solve_thomas_structured.launches != launches + calls * len(MUS):
         raise SystemExit(f"the {tag} wrapper did not launch its kernel")
     took_wide = solve_thomas_structured.wide_launches - wide0
-    if took_wide != (2 * len(MUS) if wide else 0):
+    if took_wide != (calls * len(MUS) if wide else 0):
         raise SystemExit(f"{tag}: K1 took the wrong forward route ({took_wide}"
-                         f" of {2 * len(MUS)} calls on the wide route)")
+                         f" of {calls * len(MUS)} calls on the wide route)")
     for mu in (1e3, 1e7):
         e64, e32, _ = compare(mu, 50, True)
         log(f"[{tag}] every constraint row penalized at mu={mu:.0e} "
@@ -832,27 +872,52 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
         f"{spec.S}, {spec.S}] KKT matrices, f32, one call: {lib_ms:.4f} ms; "
         f"worst relative deviation from K1 {dev_lib:.3e} (not gated); bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-    occ = k1_occupancy(tag, spec, len(w_owner), B)
-    return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
-            "device_ms": dev_ms, **bnd, "library_ms": lib_ms,
-            "forward_kernel": occ}
+    dtypes = ("f32", "f64") if f64 else ("f32",)
+    out = {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
+           "device_ms": dev_ms, **bnd, "library_ms": lib_ms,
+           "forward_kernel": k1_occupancy(tag, spec, len(w_owner), B,
+                                          dtypes=dtypes)}
+    if shared_too:
+        out["shared_device_ms"] = device_ms(
+            lambda: solve_thomas_structured(spec, sq32, b32, w_owner,
+                                            shared=True), 20,
+            ("thomas_sq_",), 2, f"{tag} shared-memory kernel")
+        out["shared_forward_kernel"] = k1_occupancy(
+            f"{tag} shared-memory kernel", spec, len(w_owner), B, True)
+        log(f"[{tag}] f32 device time at B={B}: register-tiled "
+            f"{dev_ms:.4f} ms, the shared-memory forward kernel on the same "
+            f"operands {out['shared_device_ms']:.4f} ms "
+            f"({out['shared_device_ms'] / dev_ms:.2f} x)")
+    return out
 
 
-def k1_occupancy(tag, spec, NW, B=B_KERNEL):
+def k1_occupancy(tag, spec, NW, B=B_KERNEL, shared=False,
+                 dtypes=("f32", "f64")):
     """The forward kernel K1 runs at ``spec``'s widths with ``NW`` w
-    vectors, per dtype: its route, lanes per SM
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), waves at
-    B lanes, registers and local memory (frame) a thread
+    vectors (``shared``: its shared-memory one), per dtype: its route,
+    lanes per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    waves at B lanes, registers and local memory (frame) a thread
     (``cudaFuncGetAttributes``), through ``thomas_sq_occupancy_*``;
     printed and returned."""
+    from algames_tpu_torch.ops.thomas import structured_forward
+    return forward_occupancy(
+        tag, lambda dt: structured_forward(spec.n, spec.m, spec.p, NW, dt,
+                                           shared),
+        f"d={spec.n + spec.m}, R={spec.p * spec.n + 1}, NW={NW}", B, dtypes)
+
+
+def forward_occupancy(tag, query, widths, B, dtypes=("f32", "f64")):
+    """Print and return, per dtype, the forward kernel that ``query(dtype)``
+    (``ops.thomas.structured_forward`` or ``dense_forward``) describes:
+    route, lanes per SM, waves at B lanes, registers and frame."""
     import math
     import torch
-    from algames_tpu_torch.ops.thomas import structured_forward
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for dt, name in ((torch.float32, "f32"), (torch.float64, "f64")):
-        tiled, lanes, regs, frame = structured_forward(spec.n, spec.m, spec.p,
-                                                       NW, dt)
+        if name not in dtypes:
+            continue
+        tiled, lanes, regs, frame = query(dt)
         if lanes < 1:
             raise SystemExit(f"[{tag}] the {name} forward kernel fits no "
                              f"lane on an SM")
@@ -860,11 +925,10 @@ def k1_occupancy(tag, spec, NW, B=B_KERNEL):
                      "lanes_per_sm": lanes,
                      "waves": math.ceil(B / (sms * lanes)),
                      "registers": regs, "frame_bytes": frame}
-        log(f"[{tag}] {name} forward kernel: {out[name]['route']} (d="
-            f"{spec.n + spec.m}, R={spec.p * spec.n + 1}, NW={NW}): {lanes} "
-            f"lanes per SM, {out[name]['waves']} wave(s) at B={B} on "
-            f"{sms} SMs, {regs} registers and {frame} bytes of local memory "
-            f"a thread")
+        log(f"[{tag}] {name} forward kernel: {out[name]['route']} "
+            f"({widths}): {lanes} lanes per SM, {out[name]['waves']} wave(s) "
+            f"at B={B} on {sms} SMs, {regs} registers and {frame} bytes of "
+            f"local memory a thread")
     return out
 
 
@@ -985,10 +1049,18 @@ def di3_game(dev, dtype):
 
 def quad3_game(dev, dtype):
     """The quadrotor preset with three players, outer 2 x inner 5: n=36,
-    m=12, so its reduced KKT systems (d=48) lie beyond K1's register size
-    classes and take its shared-memory route."""
+    m=12, so its reduced KKT systems (d=48, R=109) take K1's tall
+    register-tiled class, and turned dense lie beyond K3's classes."""
     from algames_tpu_torch.presets import quadrotor3d
     return quadrotor3d(dev, dtype, outer=2, inner=5, p=3)
+
+
+def quad4_game(dev, dtype):
+    """The quadrotor preset with four players, outer 2 x inner 5: n=48,
+    m=16, so its reduced KKT systems (d=64, R=193) lie beyond K1's size
+    classes and take its shared-memory route."""
+    from algames_tpu_torch.presets import quadrotor3d
+    return quadrotor3d(dev, dtype, outer=2, inner=5, p=4)
 
 
 def quad3_iterates(prob, spec, B, rng, dev, dtype):
@@ -1009,25 +1081,22 @@ def quad3_iterates(prob, spec, B, rng, dev, dtype):
 
 def phase_solve_wide(dev):
     """The f64 ``quad3_game`` solve (4 scenarios, x0 + 0.05 N(0, 1) from
-    numpy seed 0, outer 2 x inner 5) through K1, which takes its
-    shared-memory route at d=48, against the same solve through the plain
+    numpy seed 0, outer 2 x inner 5) through K1, which takes its tall
+    register-tiled class at d=48, against the same solve through the plain
     versions on the card: per-lane iteration counts equal, x and u within
-    WIDE_PLAIN_TOL; returns K1's wide-route launches."""
+    WIDE_PLAIN_TOL; no launch on the shared-memory (wide) route."""
     import torch
     import algames_tpu_torch as agt
-    from algames_tpu_torch.ops.thomas import (kkt_solve_plain,
-                                              solve_thomas_structured)
+    from algames_tpu_torch.ops.thomas import kkt_solve_plain
     prob, spec = quad3_game(dev, torch.float64)
     rng = np.random.default_rng(0)
     x0s = torch.as_tensor(np.asarray(prob.x0.cpu())[None]
                           + 0.05 * rng.standard_normal((4, spec.n)),
                           dtype=torch.float64, device=dev)
-    solve_thomas_structured.launches = 0
-    solve_thomas_structured.wide_launches = 0
+    counters = zero_counters()
     res = agt.newton_solve(prob, x0s)
     torch.cuda.synchronize()
-    launches = solve_thomas_structured.launches
-    wide = solve_thomas_structured.wide_launches
+    launches = read_counters(counters)
     res_p = agt.newton_solve(prob, x0s, method=kkt_solve_plain)
     it, it_p = res.stats.iter.cpu().numpy(), res_p.stats.iter.cpu().numpy()
     dx = float((res.traj.x - res_p.traj.x).abs().max())
@@ -1035,12 +1104,55 @@ def phase_solve_wide(dev):
     log(f"[solve-wide] f64 3-player quadrotor (d=48), 4 scenarios: iterations "
         f"{it.tolist()} (plain versions {it_p.tolist()}), max |dx| {dx:.3e}, "
         f"max |du| {du:.3e} from the plain versions (<= {WIDE_PLAIN_TOL:g}); "
-        f"K1 launches {launches}, of which on the wide route {wide}")
+        f"launches {launches}")
     if not ((it == it_p).all() and dx <= WIDE_PLAIN_TOL
-            and du <= WIDE_PLAIN_TOL and wide > 0 and wide == launches):
-        raise SystemExit("the 3-player quadrotor solve through K1's wide "
-                         "route disagrees with the plain versions")
-    return wide
+            and du <= WIDE_PLAIN_TOL and launches["K1"] > 0
+            and launches["K1 wide route"] == 0):
+        raise SystemExit("the 3-player quadrotor solve through K1 disagrees "
+                         "with the plain versions")
+
+
+def phase_sweep_quad3(dev, k1_wide):
+    """One timed f32 chunk of ``quad3_game``: its first CHUNK scenarios
+    (x0 + 0.05 N(0, 1) from numpy seed 0), outer 2 x 5, the eager trial
+    (the fused one does not take n=36), warm, counted from zero after the
+    warm-up: every trajectory finite, none diverged; K1 launched on its
+    tall register-tiled class (no wide-route launch), K3 not.  Prints K1's
+    share of the chunk's wall time (its f32 device time per call at
+    B=CHUNK from ``K1-wide``, ``k1_wide``, times its launches).  Returns
+    the launches."""
+    import torch
+    from algames_tpu_torch import parallel
+    prob, spec = quad3_game(dev, torch.float32)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(
+        (np.asarray(prob.x0.cpu(), np.float64)[None]
+         + 0.05 * rng.standard_normal((N_SWEEP, spec.n)))[:CHUNK],
+        dtype=torch.float32, device=dev)
+    opts = prob.opts
+    parallel.solve_batch(dataclasses.replace(prob, opts=dataclasses.replace(
+        opts, outer_iter=1, inner_iter=2)), x0s[:64])
+    counters = zero_counters()
+    out, el = timed_sweep(prob, x0s, "thomas")
+    launches = read_counters(counters)
+    finite = bool(torch.isfinite(out.traj.x).all())
+    div = float(parallel.divergence_mask(out).float().mean())
+    frac = float(parallel.convergence_fraction(
+        out, dataclasses.replace(opts, eps_opt=QUAD_OPT_GATE)))
+    iters = out.stats.iter.cpu().numpy()
+    k1_ms = k1_wide["device_ms"] * launches["K1"]
+    log(f"[sweep-quad3] f32 {CHUNK} scenarios of the 3-player quadrotor as "
+        f"one chunk, outer {opts.outer_iter} x {opts.inner_iter}: {el:.3f} "
+        f"s, {CHUNK / el:.1f} solves/s; converged (opt gate "
+        f"{QUAD_OPT_GATE:g}) {frac:.4f} (reported), "
+        f"diverged {div:.4f}, finite {finite}; stats rows "
+        f"{int(iters.min())}..{int(iters.max())}; launches {launches}; K1 "
+        f"device time {launches['K1']} x {k1_wide['device_ms']:.4f} = "
+        f"{k1_ms:.1f} ms, {100 * k1_ms / 1e3 / el:.1f}% of the chunk's wall")
+    if not (finite and div == 0.0 and launches["K1"] > 0
+            and launches["K1 wide route"] == 0 and launches["K3"] == 0):
+        raise SystemExit("the 3-player quadrotor chunk failed its gates")
+    return launches
 
 
 def hetero_game(dev, dtype, outer=7, inner=20):
@@ -1434,6 +1546,7 @@ def profile_chunk(tag, prob, x0s, names, solve=None, what=None):
         wall = time.perf_counter() - t0
     evs = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    trace_s = time.perf_counter() - t0 - wall
     dev_us = sum(e.self_device_time_total for e in evs)
     n_kern = sum(e.count for e in evs)
     what = what or (f"one {x0s.shape[0]}-lane chunk at outer "
@@ -1442,7 +1555,7 @@ def profile_chunk(tag, prob, x0s, names, solve=None, what=None):
         f"{wall * 1e3:.1f} ms "
         f"under the profiler, device busy {dev_us / 1e3:.1f} ms "
         f"({100 * dev_us / 1e6 / wall:.1f}%), {n_kern} device kernels and "
-        f"copies")
+        f"copies; the profiler's trace processing {trace_s:.1f} s")
     top = sorted(evs, key=lambda e: -e.self_device_time_total)
     for e in top[:6] + [e for e in top[6:] if any(n in e.key for n in names)]:
         log(f"[{tag}]   {e.self_device_time_total / 1e3:9.2f} ms "
@@ -1596,7 +1709,7 @@ def phase_k3(dev, tag="K3", preset=None, iterates=None, seed0=100,
         f"B={B_KERNEL} (per call, CUDA events); kernel device time "
         f"{dev_ms:.4f} ms (events, fwd + bwd); bound {bnd['bound_ms']:.4f} "
         f"ms ({bnd['bound_by']})")
-    occupancy_note(tag, spec)
+    occ = k3_occupancy(tag, spec)
     # The roundabout's B dense [S, S] matrices (48 GB in f32) do not fit
     # twice on an 80 GB card: the library solves them 128 lanes per call.
     lanes = min(lib_lanes, B_KERNEL)
@@ -1606,25 +1719,19 @@ def phase_k3(dev, tag="K3", preset=None, iterates=None, seed0=100,
         f"of {lanes} lanes: {lib_ms:.4f} ms; worst relative deviation from "
         f"K3 {float(rel_err(y_lib, y).max()):.3e} (not gated)")
     return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
-            "device_ms": dev_ms, **bnd, "library_ms": lib_ms}
+            "device_ms": dev_ms, **bnd, "library_ms": lib_ms,
+            "forward_kernel": occ}
 
 
-def occupancy_note(tag, spec):
-    """Print which forward kernel K3 runs at ``spec``'s widths and its lanes
-    per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    import math
-    import torch
+def k3_occupancy(tag, spec, B=B_KERNEL, shared=False):
+    """The forward kernel K3 runs at ``spec``'s widths (``shared``: its
+    shared-memory one), per dtype, as :func:`forward_occupancy` prints
+    it."""
     from algames_tpu_torch.ops.thomas import dense_forward
     ms = spec.p * max(spec.mi)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    fwd = {dt: dense_forward(spec.n, ms, spec.p, dt)
-           for dt in (torch.float32, torch.float64)}
-    lanes = {dt: f[1] for dt, f in fwd.items()}
-    kind = ("register-tiled" if fwd[torch.float32][0] else "shared-memory")
-    log(f"[{tag}] forward kernel: {kind} (d={spec.n + ms}, R="
-        f"{spec.p * spec.n + 1}); lanes per SM {lanes[torch.float32]} in f32 "
-        f"({math.ceil(B_KERNEL / (sms * lanes[torch.float32]))} wave(s) at "
-        f"B={B_KERNEL} on {sms} SMs), {lanes[torch.float64]} in f64")
+    return forward_occupancy(
+        tag, lambda dt: dense_forward(spec.n, ms, spec.p, dt, shared),
+        f"d={spec.n + ms}, R={spec.p * spec.n + 1}", B)
 
 
 def roundabout_k3_checks(dev, compare):
@@ -1668,25 +1775,44 @@ def dense_of(spec, sq, w_owner):
                      .contiguous(), Ublk=sq.Ublk, A=sq.A, B=sq.B)
 
 
-def phase_k3_big(dev):
-    """K3 on systems wider than its largest size class, which take its
-    shared-memory forward kernel: the quadrotor's KKT systems turned dense
-    (d=32, R=49), B=1024, mu = 1 .. 1e7, gated as K1's phase on the same
-    systems is (normwise backward error f64 <= 1e-15 and f32 <= 1e-7, each
-    <= 10 x the plain version's own; f32 forward error <= 30 x the f32
-    plain version's); then its times, bound and library call in f32."""
+def quad_dense_system(dev, B, mu, seed, preset=None):
+    """The quadrotor's KKT systems (``k1_system`` on ``preset``, default
+    the 2-player quadrotor, around its golden equilibrium; with a preset,
+    around ``quad3_iterates``) turned dense (JacBlocks)."""
+    from algames_tpu_torch.presets import quadrotor3d
+    spec, sq, b, w_owner = k1_system(
+        dev, B, mu, seed, False, preset or quadrotor3d,
+        quad3_iterates if preset else golden_iterates("quad2_N15"))
+    return spec, dense_of(spec, sq, w_owner), b
+
+
+def ibr_quad_system(dev, B, mu, seed):
+    """Iterative best response's quadrotor player systems (p=1, n=24,
+    mi=4: d=28, R=25): :func:`ibr_player_system` on ``quadrotor3d``
+    around its golden equilibrium."""
+    from algames_tpu_torch.presets import quadrotor3d
+    return ibr_player_system(dev, B, mu, seed, preset=quadrotor3d,
+                             iterates=golden_iterates("quad2_N15"))
+
+
+def phase_k3_quad(dev, tag, system, seed0, B=B_KERNEL, shared=False):
+    """K3 against its plain version on quadrotor systems ``system(dev, B,
+    mu, seed)``, too ill-conditioned for a forward gate in f32, B lanes,
+    mu = 1 .. 1e7, gated as K1's quadrotor phases are: normwise backward
+    error f64 <= 1e-15 and f32 <= 1e-7, each <= 10 x the plain version's
+    own; f32 forward error <= 30 x the f32 plain version's.  With
+    ``shared`` the systems lie beyond K3's size classes and must take its
+    shared-memory forward kernel; without, a register-tiled class, and the
+    shared-memory kernel is timed beside it on the same operands.  Then
+    its times, bound, library call and forward kernel in f32."""
     import torch
     from algames_tpu_torch.ops.thomas import solve_thomas, solve_thomas_plain
-    from algames_tpu_torch.presets import quadrotor3d
     from algames_tpu_torch.utils import tree_map
 
-    iterates = golden_iterates("quad2_N15")
     worst64 = worst32 = max_abs32 = 0.0
     big = solve_thomas.big_launches
     for i, mu in enumerate(MUS):
-        spec, sq, b, w_owner = k1_system(dev, B_KERNEL, mu, 800 + i, False,
-                                         quadrotor3d, iterates)
-        jb = dense_of(spec, sq, w_owner)
+        spec, jb, b = system(dev, B, mu, seed0 + i)
         jb32, b32 = tree_map(lambda a: a.float(), jb), b.float()
         ref = solve_thomas_plain(spec, jb, b)
         y64 = solve_thomas(spec, jb, b)
@@ -1697,70 +1823,128 @@ def phase_k3_big(dev):
         e32 = float(rel_err(y32, ref).max())
         ep32 = float(rel_err(p32, ref).max())
         b64, bp64, bw32, bp32 = (float(e.max()) for e in backward_errors(
-            spec, sq, w_owner, b, (y64, ref, y32, p32)))
-        log(f"[K3-big] mu={mu:.0e}: backward error f64 kernel {b64:.3e} "
+            spec, jb, None, b, (y64, ref, y32, p32), lanes=min(B, 256)))
+        log(f"[{tag}] mu={mu:.0e}: backward error f64 kernel {b64:.3e} "
             f"(plain {bp64:.3e}; <= 1e-15 and 10 x plain), f32 kernel "
             f"{bw32:.3e} (plain {bp32:.3e}; <= 1e-7 and 10 x plain); forward "
             f"vs f64 plain: f32 kernel {e32:.3e} against f32 plain {ep32:.3e} "
             f"(<= 30 x plain), f64 kernel {e64:.3e} (reported)")
         if not (b64 <= 1e-15 and b64 <= 10 * bp64 and bw32 <= 1e-7
                 and bw32 <= 10 * bp32 and e32 <= 30 * ep32):
-            raise SystemExit(f"K3's wide-system route disagrees with its "
-                             f"plain version at mu={mu}")
+            raise SystemExit(f"{tag}: K3 disagrees with its plain version at "
+                             f"mu={mu}")
         worst64, worst32 = max(worst64, e64), max(worst32, e32)
         max_abs32 = max(max_abs32, float((y32.double() - ref).abs().max()))
-    if solve_thomas.big_launches != big + 2 * len(MUS):
-        raise SystemExit("the K3 wrapper did not take its wide-system route")
+    took = solve_thomas.big_launches - big
+    if took != (2 * len(MUS) if shared else 0):
+        raise SystemExit(f"{tag}: K3 took the wrong forward route ({took} of "
+                         f"{2 * len(MUS)} calls on the shared-memory route)")
     ms = cuda_ms(lambda: solve_thomas(spec, jb32, b32), 20)
     plain_ms = cuda_ms(lambda: solve_thomas_plain(spec, jb32, b32), 5)
     dev_ms = device_ms(lambda: solve_thomas(spec, jb32, b32), 20,
-                       ("thomas_dense_",), 2, "K3-big")
+                       ("thomas_dense_",), 2, tag)
     y = solve_thomas(spec, jb32, b32)
     bnd = bound(tensor_bytes([jb32.Qblk, jb32.Ublk, jb32.A, jb32.B, b32])
-                + tensor_bytes([y]), thomas_flops(spec, B_KERNEL, dense=True))
-    occupancy_note("K3-big", spec)
-    lib_ms, y_lib = library_solve_ms(spec, jb32, b32, B_KERNEL)
-    log(f"[K3-big] worst over mu: f64 {worst64:.3e}, f32 {worst32:.3e} "
+                + tensor_bytes([y]), thomas_flops(spec, B, dense=True))
+    out = {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
+           "device_ms": dev_ms, **bnd,
+           "forward_kernel": k3_occupancy(tag, spec, B, shared)}
+    lib_ms, y_lib = library_solve_ms(spec, jb32, b32, B)
+    out["library_ms"] = lib_ms
+    log(f"[{tag}] worst over mu: f64 {worst64:.3e}, f32 {worst32:.3e} "
         f"relative; f32 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms at "
-        f"B={B_KERNEL} (per call, CUDA events); device time {dev_ms:.4f} ms "
+        f"B={B} (per call, CUDA events); device time {dev_ms:.4f} ms "
         f"(events, fwd + bwd); bound {bnd['bound_ms']:.4f} ms "
         f"({bnd['bound_by']}); library {lib_ms:.4f} ms (worst relative "
         f"deviation from K3 {float(rel_err(y_lib, y).max()):.3e}, not gated)")
-    return {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
-            "device_ms": dev_ms, **bnd, "library_ms": lib_ms}
+    if not shared:
+        out["shared_device_ms"] = device_ms(
+            lambda: solve_thomas(spec, jb32, b32, shared=True), 20,
+            ("thomas_dense_",), 2, f"{tag} shared-memory kernel")
+        out["shared_forward_kernel"] = k3_occupancy(
+            f"{tag} shared-memory kernel", spec, B, True)
+        log(f"[{tag}] f32 device time at B={B}: register-tiled "
+            f"{dev_ms:.4f} ms, the shared-memory forward kernel on the same "
+            f"operands {out['shared_device_ms']:.4f} ms "
+            f"({out['shared_device_ms'] / dev_ms:.2f} x)")
+    return out
+
+
+def dense_k3(spec, blocks, b, w_owner):
+    """A KKT method for ``newton_solve``: the structured blocks turned
+    dense and solved by K3 (on the quadrotor, its LU class for d <= 32)."""
+    from algames_tpu_torch.ops.thomas import solve_thomas
+    return solve_thomas(spec, dense_of(spec, blocks, w_owner), b)
 
 
 def phase_golden_big(dev):
-    """The f64 quadrotor solve (``newton_solve`` with the KKT step passed as
-    a method: its structured blocks turned dense and solved by K3, which
-    takes its wide-system route at d=32) against ``quad2_N15.npz``:
-    iteration 52, x and u within 1e-8; returns K3's wide-route launches."""
+    """The f64 quadrotor solve (``newton_solve`` with :func:`dense_k3` as
+    its KKT step: K3 on the systems turned dense, d=32, its register-tiled
+    LU class) against ``quad2_N15.npz``: iteration 52, x and u within 1e-8;
+    K3 launched, never on its shared-memory route."""
     import torch
     import algames_tpu_torch as agt
-    from algames_tpu_torch.ops.thomas import solve_thomas
     from algames_tpu_torch.presets import quadrotor3d
 
     gold = load_golden("quad2_N15")
     prob, _ = quadrotor3d(dev, torch.float64)
     prob = dataclasses.replace(
         prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
-
-    def dense_k3(spec, blocks, b, w_owner):
-        return solve_thomas(spec, dense_of(spec, blocks, w_owner), b)
-    solve_thomas.big_launches = 0
+    counters = zero_counters()
     res = agt.newton_solve(prob, method=dense_k3)
     torch.cuda.synchronize()
-    launches = solve_thomas.big_launches
+    launches = read_counters(counters)
     it = int(res.stats.iter[0])
     dx = float(np.abs(res.traj.x[0].cpu().numpy() - gold["x"]).max())
     du = float(np.abs(res.traj.u[0].cpu().numpy() - gold["u"]).max())
-    log(f"[golden-big] f64 quadrotor through K3's wide-system route: iter "
-        f"{it} (golden {int(gold['iter'])}), max |dx| {dx:.3e}, max |du| "
-        f"{du:.3e} (<= 1e-8); wide-route launches {launches}")
+    log(f"[golden-big] f64 quadrotor through K3 on its systems turned dense: "
+        f"iter {it} (golden {int(gold['iter'])}), max |dx| {dx:.3e}, max "
+        f"|du| {du:.3e} (<= 1e-8); launches {launches}")
     if not (it == int(gold["iter"]) and dx <= 1e-8 and du <= 1e-8
-            and launches > 0):
-        raise SystemExit("the quadrotor solve through K3's wide-system "
-                         "route misses quad2_N15")
+            and launches["K3"] > 0 and launches["K3 big route"] == 0
+            and launches["K1"] == 0):
+        raise SystemExit("the quadrotor solve through K3 misses quad2_N15")
+
+
+def phase_sweep_quad2_dense(dev):
+    """One f32 chunk of the quadrotor sweep (its first CHUNK scenarios, the
+    preset budget 6 x 12, the fused trial) with :func:`dense_k3` as the KKT
+    step, warm, counted from zero after the warm-up: every trajectory
+    finite, none diverged, the first 256 lanes converged (stationarity
+    gate QUAD_OPT_GATE) >= the reference's own - 0.01 (as ``sweep-quad2``);
+    K3 launched on its register-tiled class (no shared-memory route), K1
+    not.  Returns the launches."""
+    import torch
+    from algames_tpu_torch import parallel
+    from algames_tpu_torch.presets import quadrotor3d
+
+    prob, x0s = sweep_problem(quadrotor3d, dev)
+    x0s = x0s[:CHUNK]
+    opts = prob.opts
+    conv_opts = dataclasses.replace(opts, eps_opt=QUAD_OPT_GATE)
+    parallel.solve_batch(dataclasses.replace(prob, opts=dataclasses.replace(
+        opts, outer_iter=1, inner_iter=2)), x0s[:64], method=dense_k3)
+    counters = zero_counters()
+    out, el = timed_sweep(prob, x0s, dense_k3)
+    launches = read_counters(counters)
+    finite = bool(torch.isfinite(out.traj.x).all())
+    div = float(parallel.divergence_mask(out).float().mean())
+    first = float(parallel.convergence_fraction(
+        dataclasses.replace(out, stats=tree_slice(out.stats, 256),
+                            traj=tree_slice(out.traj, 256)), conv_opts))
+    ref256 = REF_CONVERGED["quad2_N15"][0]
+    frac = float(parallel.convergence_fraction(out, conv_opts))
+    log(f"[sweep-quad2-dense] f32 {CHUNK} scenarios as one chunk, outer "
+        f"{opts.outer_iter} x {opts.inner_iter}, K3 on the systems turned "
+        f"dense: {el:.3f} s, {CHUNK / el:.1f} solves/s; converged (opt gate "
+        f"{QUAD_OPT_GATE:g}) all {frac:.4f}, "
+        f"first 256 lanes {first:.4f} (reference {ref256:.4f}; >= "
+        f"{ref256 - 0.01:.4f}); diverged {div:.4f}, finite {finite}, "
+        f"launches {launches}")
+    if not (finite and div == 0.0 and first >= ref256 - 0.01
+            and launches["K3"] > 0 and launches["K3 big route"] == 0
+            and launches["K1"] == 0):
+        raise SystemExit("the quadrotor chunk through K3 failed its gates")
     return launches
 
 
@@ -1773,8 +1957,12 @@ def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None):
     (``ref`` = (its fraction of the first 256 lanes, of all lanes or None
     where that is not measured)); the
     game's KKT kernel and K4 launched and the other KKT kernel not; one
-    chunk with the plain versions on the card, and a profile of one chunk's
-    first two outer iterations."""
+    chunk with the plain versions on the card through the first half of
+    the outer budget (its per-lane stats rows compared with the kernels'
+    on the lanes that the kernels finished in fewer outer iterations), and
+    a profile of one chunk's first outer iteration (both cut so, from the
+    whole budget and two outer iterations, to keep the script in its time
+    limit)."""
     import torch
     from algames_tpu_torch import parallel
     from algames_tpu_torch.ops.thomas import (kkt_solve_plain, solve_thomas,
@@ -1824,17 +2012,20 @@ def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None):
             and launches[other] == 0 and launches["K1 wide route"] == 0):
         raise SystemExit(f"the {tag} sweep failed its gates")
 
+    outer_p = -(-opts.outer_iter // 2)
     plain = dataclasses.replace(prob, opts=dataclasses.replace(
-        opts, ls_fused=False))
+        opts, ls_fused=False, outer_iter=outer_p))
     out_p, el_p = timed_sweep(plain, x0s[:CHUNK], kkt_solve_plain)
     it_p = out_p.stats.iter.cpu().numpy()
+    inside = (out.stats.outer[:CHUNK].amax(dim=1) < outer_p).cpu().numpy()
     log(f"[{tag}] one {CHUNK}-lane chunk with the plain versions on the "
-        f"card: {el_p:.3f} s, {CHUNK / el_p:.1f} solves/s, converged "
-        f"{float(parallel.convergence_fraction(out_p, conv_opts)):.4f}, "
-        f"per-lane iteration counts equal to the kernels' on "
-        f"{int((it_p == iters[:CHUNK]).sum())} of {CHUNK} lanes")
+        f"card, outer {outer_p} of {opts.outer_iter}: {el_p:.3f} s for "
+        f"{int(it_p.max())} stats rows; per-lane stats rows equal to the "
+        f"kernels' on {int((it_p == iters[:CHUNK])[inside].sum())} of the "
+        f"{int(inside.sum())} lanes the kernels finished in fewer than "
+        f"{outer_p} outer iterations")
     profile_chunk(f"profile-{tag}", dataclasses.replace(
-        prob, opts=dataclasses.replace(opts, outer_iter=2)), x0s[:CHUNK],
+        prob, opts=dataclasses.replace(opts, outer_iter=1)), x0s[:CHUNK],
         ("thomas_dense_" if dense else "thomas_sq_", "trial_fused_"))
     return launches
 
@@ -1953,6 +2144,91 @@ def phase_sweep_ibr(dev):
     return launches
 
 
+def phase_sweep_ibr_quad(dev, k3_ibr_quad):
+    """Iterative best response on the quadrotor preset (p=2, N=15) at the
+    IBR flagship's per-player budget, outer 3 x 8, ``ibr_iter``
+    IBR_QUAD_ITER, through K3 on the player systems (d=28, its
+    register-tiled LU class):
+    N_IBR_QUAD f32 scenarios (x0 + 0.05 N(0, 1), numpy seed 0) as one
+    chunk, warm, counted from zero after the warm-up.  Gates: every
+    trajectory finite; the share stopped before IBR_QUAD_ITER rounds within
+    0.02 of the reference package's own on the same lanes and the mean
+    final residual at most 1.1 x its own (REF_IBR_QUAD); K3 launched, never
+    on its shared-memory route, neither K1 nor a trial kernel.  Prints K3's
+    device time (its f32 device time per call at B=1024 from
+    ``K3-ibr-quad``, ``k3_ibr_quad``, times its launches).  Then 4 lanes in
+    f64, one round, through the kernels and through the plain versions on
+    the card: stats rows and their round column equal, x and u within 1e-8.
+    Returns the f32 run's launches."""
+    import torch
+    from algames_tpu_torch import IBROptions, ibr_newton_solve
+    from algames_tpu_torch.ops.thomas import kkt_solve_plain
+    from algames_tpu_torch.presets import quadrotor3d
+
+    def starts(prob, spec, dtype):
+        rng = np.random.default_rng(0)
+        return torch.as_tensor(
+            np.asarray(prob.x0.cpu(), np.float64)[None]
+            + 0.05 * rng.standard_normal((N_IBR_QUAD, spec.n)), dtype=dtype,
+            device=dev)
+
+    def run(prob, x0s, rounds, method="thomas"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ibr_newton_solve(prob, IBROptions(ibr_iter=rounds), x0s=x0s,
+                               method=method)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    prob, spec = quadrotor3d(dev, torch.float32, outer=3, inner=8)
+    x0s = starts(prob, spec, torch.float32)
+    ibr_newton_solve(dataclasses.replace(prob, opts=dataclasses.replace(
+        prob.opts, outer_iter=1, inner_iter=2)), IBROptions(ibr_iter=1),
+        x0s=x0s[:8])                                       # warm-up
+    counters = zero_counters()
+    out, el = run(prob, x0s, IBR_QUAD_ITER)
+    launches = read_counters(counters)
+    q, res = ibr_finals(out, N_IBR_QUAD)
+    stopped = float((q < IBR_QUAD_ITER).mean())
+    mean_res = float(res.mean())
+    finite = bool(torch.isfinite(out.traj.x).all())
+    ref_stop, ref_res = REF_IBR_QUAD
+    k3_ms = k3_ibr_quad["device_ms"] * launches["K3"]
+    log(f"[sweep-ibr-quad2] f32 {N_IBR_QUAD} quadrotor scenarios as one "
+        f"chunk, outer 3 x 8 per player solve, ibr_iter {IBR_QUAD_ITER}, "
+        f"K3: {el:.3f} s, {N_IBR_QUAD / el:.1f} solves/s; stopped before "
+        f"{IBR_QUAD_ITER} rounds {stopped:.4f} (reference {ref_stop:.4f}; "
+        f"within 0.02), mean final residual {mean_res:.6g} (reference "
+        f"{ref_res:.6g}; <= 1.1 x); rounds histogram "
+        f"{np.bincount(q, minlength=IBR_QUAD_ITER + 1).tolist()}; finite "
+        f"{finite}; launches {launches}; K3 device time {launches['K3']} x "
+        f"{k3_ibr_quad['device_ms']:.4f} (at B=1024) = {k3_ms:.1f} ms")
+    if not (finite and abs(stopped - ref_stop) <= 0.02
+            and mean_res <= 1.1 * ref_res and launches["K3"] > 0
+            and launches["K3 big route"] == 0 and launches["K1"] == 0
+            and launches["trial"] == 0):
+        raise SystemExit("the quadrotor IBR sweep failed its gates")
+
+    prob64, _ = quadrotor3d(dev, torch.float64, outer=3, inner=8)
+    x64 = starts(prob64, spec, torch.float64)[:4]
+    out_k, _ = run(prob64, x64, 1)
+    out_p, _ = run(prob64, x64, 1, kkt_solve_plain)
+    it, it_p = out_k.stats.iter.cpu().numpy(), out_p.stats.iter.cpu().numpy()
+    rows = int(it.max())
+    same_q = bool((out_k.stats.outer[:, :rows]
+                   == out_p.stats.outer[:, :rows]).all())
+    dx = float((out_k.traj.x - out_p.traj.x).abs().max())
+    du = float((out_k.traj.u - out_p.traj.u).abs().max())
+    log(f"[sweep-ibr-quad2] f64, 4 lanes, one round: stats rows "
+        f"{it.tolist()} (plain "
+        f"versions {it_p.tolist()}), round columns equal {same_q}, max |dx| "
+        f"{dx:.3e}, max |du| {du:.3e} (<= 1e-8)")
+    if not ((it == it_p).all() and same_q and dx <= 1e-8 and du <= 1e-8):
+        raise SystemExit("the f64 quadrotor IBR through K3 disagrees with "
+                         "the plain versions")
+    return launches
+
+
 def mpc_starts(prob, spec, B, dev, dtype):
     """The closed loop's starts: ``prob.x0`` for one scenario, else
     x0 + 0.05 N(0, 1) from numpy seed 0 (``tests/reference_fractions.py
@@ -2050,12 +2326,14 @@ def zero_counters():
     for c in counters.values():
         c.launches = 0
     counters["K1"].wide_launches = 0
+    counters["K3"].big_launches = 0
     return counters
 
 
 def read_counters(counters):
     launches = {k: c.launches for k, c in counters.items()}
     launches["K1 wide route"] = counters["K1"].wide_launches
+    launches["K3 big route"] = counters["K3"].big_launches
     return launches
 
 
@@ -2828,15 +3106,28 @@ def main():
         di3_game, random_iterates, True, d, t, seed=29), dev)
     phase("golden-quad2", phase_golden, "golden-quad2", quadrotor3d,
           "quad2_N15", flag_kkt, dev)
-    k3_big = phase("K3-big", phase_k3_big, dev)
-    launches_big = phase("golden-big", phase_golden_big, dev)
+    # K3 on the quadrotor's systems turned dense (its LU class for d <= 32)
+    # and, beyond its classes, on the 3-player quadrotor's (d=48).
+    k3_big = phase("K3-big", phase_k3_quad, dev, "K3-big", quad_dense_system,
+                   800)
+    phase("golden-big", phase_golden_big, dev)
+    launches_big = phase("sweep-quad2-dense", phase_sweep_quad2_dense, dev)
+    phase("K3-big48", phase_k3_quad, dev, "K3-big48",
+          functools.partial(quad_dense_system, preset=quad3_game), 850,
+          B_BEYOND, True)
     launches_quad = phase("sweep-quad2", phase_game_sweep, "sweep-quad2",
                           quadrotor3d, REF_CONVERGED["quad2_N15"], dev, False,
                           QUAD_OPT_GATE)
-    # K1's shared-memory route, on systems beyond its size classes.
-    k1_wide = phase("K1-wide", phase_k1, dev, "K1-wide", quad3_game,
-                    quad3_iterates, 900, "backward", True)
-    launches_wide = phase("solve-wide", phase_solve_wide, dev)
+    # The 3-player quadrotor (d=48): K1's tall class; beyond its classes,
+    # the 4-player quadrotor (d=64) on its shared-memory route.
+    k1_wide = phase("K1-wide", lambda: phase_k1(
+        dev, "K1-wide", quad3_game, quad3_iterates, 900, "backward",
+        shared_too=True))
+    phase("solve-wide", phase_solve_wide, dev)
+    launches_quad3 = phase("sweep-quad3", phase_sweep_quad3, dev, k1_wide)
+    phase("K1-wide64", lambda: phase_k1(
+        dev, "K1-wide64", quad4_game, quad3_iterates, 950, "backward", True,
+        B_BEYOND, f64=False))
 
     # The heterogeneous double integrator (K3 padded + K4's player-blocked
     # instance) and iterative best response (K3 at p=1).
@@ -2852,6 +3143,10 @@ def main():
                    flagship_iterates, 700, B_KERNEL, ibr_player_system)
     phase("golden-ibr", phase_golden_ibr, dev)
     launches_ibr = phase("sweep-ibr", phase_sweep_ibr, dev)
+    k3_ibr_quad = phase("K3-ibr-quad", phase_k3_quad, dev, "K3-ibr-quad",
+                        ibr_quad_system, 1700)
+    launches_ibr_quad = phase("sweep-ibr-quad2", phase_sweep_ibr_quad, dev,
+                              k3_ibr_quad)
 
     # BASELINE config 3: the highway's receding-horizon closed loop, K1 at
     # B_MPC lanes and at one; then the ls_parallel window on the flagship.
@@ -2899,8 +3194,8 @@ def main():
         entry("K1", "uni3_N20", launches["K1"], k1),
         entry("K1", "di2_N10", launches_di["K1"], k1_di),
         entry("K1", "quad2_N15", launches_quad["K1"], k1_quad),
-        entry("K1", "K1-wide: quad3 (3-player quadrotor, d=48), the "
-              "wide-system shared-memory route", launches_wide, k1_wide),
+        entry("K1", "quad3 (3-player quadrotor, d=48): the tall "
+              "register-tiled class", launches_quad3["K1"], k1_wide),
         entry("K1", f"highway_mpc, B={B_MPC}", mpc[B_MPC]["launches"]["K1"],
               k1_hw[B_MPC]),
         entry("K1", "highway_mpc, B=1", mpc[1]["launches"]["K1"], k1_hw[1]),
@@ -2912,8 +3207,10 @@ def main():
         entry("K3", "hetero2_N8, padded", launches_het["K3"], k3_het),
         entry("K3", "ibr_uni3_N20, p=1 player systems", launches_ibr["K3"],
               k3_ibr),
-        entry("K3", "quad2_N15 turned dense, d=32: the wide-system "
-              "shared-memory route", launches_big, k3_big),
+        entry("K3", "quad2_N15 turned dense (d=32): the LU class",
+              launches_big["K3"], k3_big),
+        entry("K3", "ibr_quad2_N15, p=1 player systems (d=28): the LU class",
+              launches_ibr_quad["K3"], k3_ibr_quad),
         entry("K4", "round4_N40", launches4["K4"], k4),
         entry("K4", "di2_N10", launches_di["K4"], k4_di),
         entry("K4", "bike3_N20", launches_bike["K4"], k4_bike),

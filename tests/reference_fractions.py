@@ -10,6 +10,7 @@ do.
     JAX_PLATFORMS=cpu python tests/reference_fractions.py full [KEY[@A:B] ...]
     JAX_PLATFORMS=cpu python tests/reference_fractions.py f64 KEY LANE ...
     JAX_PLATFORMS=cpu python tests/reference_fractions.py ibr
+    JAX_PLATFORMS=cpu python tests/reference_fractions.py ibr-quad
     JAX_PLATFORMS=cpu python tests/reference_fractions.py mpc
     JAX_PLATFORMS=cpu python tests/reference_fractions.py nullspace
 
@@ -47,6 +48,10 @@ on the first 128 of its 512 scenarios, through the reference
 (``method="schur"``) and the port's plain versions: the share of lanes
 whose Gauss-Seidel loop stopped before ``ibr_iter`` rounds and the mean
 final residual (the quantity of ``benchmarks/bench_ibr.py``).
+``ibr-quad``: the same on the quadrotor preset (p=2, N=15) as
+``chip_smoke.py``'s ``sweep-ibr-quad2`` runs it: its 128 scenarios
+(x0 + 0.05 N(0, 1), numpy seed 0), outer 3 x 8 per player solve,
+``ibr_iter=2``, f32.  About four minutes.
 
 ``mpc``: receding-horizon MPC on the highway of
 ``benchmarks/bench_mpc.py::make_problem`` (BASELINE config 3) as
@@ -88,6 +93,10 @@ N_SWEEP = 4096
 KEYS = ("di2_N10", "bike3_N20", "quad2_N15")
 OPT_GATE = {"quad2_N15": 5e-2}
 N_IBR, IBR_LANES, IBR_ITER = 512, 128, 10
+# Per IBR game: its key, the scenarios drawn, the lanes measured, the
+# rounds.
+IBR_GAMES = {"ibr": ("uni3_N20", N_IBR, IBR_LANES, IBR_ITER),
+             "ibr-quad": ("quad2_N15", 128, 128, 2)}
 
 
 def jax_problem(key, dtype):
@@ -253,29 +262,30 @@ def f64_lanes(key, lanes):
           f"{out.stats.iter.tolist()}; max |x - x_ref| {dx:.3e}")
 
 
-def ibr():
+def ibr(mode="ibr"):
     import jax
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
-    from algames_tpu.presets import flagship_unicycle
+    from algames_tpu.presets import PRESETS as JAX_PRESETS
     from algames_tpu.problem.ibr import ibr_newton_solve
     from algames_tpu.problem.options import IBROptions
 
     import algames_tpu_torch as agt
-    from algames_tpu_torch.presets import flagship_unicycle as t_flagship
+    from algames_tpu_torch.presets import PRESETS
 
-    prob, spec = flagship_unicycle(dtype=jnp.float32, outer=3, inner=8)
+    key, draws, lanes, rounds = IBR_GAMES[mode]
+    prob, spec = JAX_PRESETS[key](dtype=jnp.float32, outer=3, inner=8)
     rng = np.random.default_rng(0)
     x0s = (np.asarray(prob.x0, np.float64)[None]
-           + 0.05 * rng.standard_normal((N_IBR, spec.n)))[:IBR_LANES]
+           + 0.05 * rng.standard_normal((draws, spec.n)))[:lanes]
 
     def one(x0):
         return ibr_newton_solve(dataclasses.replace(prob, x0=x0),
-                                IBROptions(ibr_iter=IBR_ITER),
+                                IBROptions(ibr_iter=rounds),
                                 method="schur")
     out = jax.jit(jax.vmap(one))(jnp.asarray(x0s, jnp.float32))
-    tprob, _ = t_flagship(CPU, torch.float32, outer=3, inner=8)
-    tout = agt.ibr_newton_solve(tprob, agt.IBROptions(ibr_iter=IBR_ITER),
+    tprob, _ = PRESETS[key](CPU, torch.float32, outer=3, inner=8)
+    tout = agt.ibr_newton_solve(tprob, agt.IBROptions(ibr_iter=rounds),
                                 x0s=torch.as_tensor(x0s, dtype=torch.float32))
     rows = {}
     for name, it, q, res in (
@@ -283,20 +293,20 @@ def ibr():
              out.stats.res),
             ("port (plain versions)", tout.stats.iter.numpy(),
              tout.stats.outer.numpy(), tout.stats.res.numpy())):
-        last = np.arange(IBR_LANES), it - 1
+        last = np.arange(lanes), it - 1
         q_fin = np.asarray(q)[last]
         res_fin = np.asarray(res, np.float64)[last]
         rows[name] = it
-        print(f"ibr_uni3_N20 {name}: stopped before {IBR_ITER} rounds "
-              f"{float((q_fin < IBR_ITER).mean())} "
-              f"({int((q_fin < IBR_ITER).sum())}/{IBR_LANES}), mean final "
+        print(f"ibr_{key} {name}: stopped before {rounds} rounds "
+              f"{float((q_fin < rounds).mean())} "
+              f"({int((q_fin < rounds).sum())}/{lanes}), mean final "
               f"residual {float(res_fin.mean())}, finite "
               f"{bool(np.isfinite(res_fin).all())}, rounds "
-              f"{np.bincount(q_fin, minlength=IBR_ITER + 1).tolist()}",
+              f"{np.bincount(q_fin, minlength=rounds + 1).tolist()}",
               flush=True)
     it_ref, it = rows["reference"], rows["port (plain versions)"]
-    print(f"ibr_uni3_N20: stats rows equal on {int((it == it_ref).sum())} of "
-          f"{IBR_LANES} lanes", flush=True)
+    print(f"ibr_{key}: stats rows equal on {int((it == it_ref).sum())} of "
+          f"{lanes} lanes", flush=True)
 
 
 def load_bench_mpc():
@@ -510,8 +520,8 @@ def nullspace(lanes=8):
 
 if __name__ == "__main__":
     torch.set_num_threads(4)
-    if sys.argv[1] == "ibr":
-        ibr()
+    if sys.argv[1] in IBR_GAMES:
+        ibr(sys.argv[1])
     elif sys.argv[1] == "mpc":
         mpc()
     elif sys.argv[1] == "nullspace":

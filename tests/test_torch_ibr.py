@@ -1,9 +1,11 @@
 """Iterative best response in the PyTorch port against the JAX package: the
 per-player helpers, the p=1 player sub-KKT solve (K3's plain version and
 the CPU path of its wrapper), the reference's own IBR oracles
-(``tests/test_ibr.py``), a batched Gauss-Seidel solve lane for lane, and
-the frozen solution ``tests/golden_torch/ibr_uni3_N20.npz`` that
-``chip_smoke.py`` holds the kernel path to.
+(``tests/test_ibr.py``), a batched Gauss-Seidel solve lane for lane, the
+frozen solution ``tests/golden_torch/ibr_uni3_N20.npz`` that
+``chip_smoke.py`` holds the kernel path to, and the quadrotor's IBR (its
+player systems take K3's size classes for d <= 32 on the card) against the
+JAX package's frozen ``ibr_quad2_N6.npz``.
 
 Inputs come from numpy seeds; f64 throughout.  Tolerances: 0 for the step
 scatter, 1e-12 for the other helpers (the same slices and sums of inputs
@@ -234,3 +236,25 @@ def test_frozen_golden():
     assert int(out.stats.outer[0, it - 1]) == int(gold["q"])
     close(out.traj.x[0].numpy(), gold["x"], 1e-8)
     close(out.traj.u[0].numpy(), gold["u"], 1e-8)
+
+
+def test_quadrotor_ibr_matches_frozen_reference():
+    """The quadrotor game cut to N=6 (``torch_goldens.ibr_quad_problem``:
+    outer 2 x 4 per player solve, one round), two lanes, f64, through the
+    plain versions against the JAX package's vmapped ``schur`` IBR frozen
+    in ``tests/golden_torch/ibr_quad2_N6.npz`` (``tests/torch_goldens.py
+    ibr_quad``; tracing that IBR takes the JAX package about 70 s, so it is
+    not rerun here): stats rows, their round column and residuals (1e-10)
+    equal, x and u within 1e-8.  About 5 s."""
+    from torch_goldens import ibr_quad_problem
+    gold = np.load(os.path.join(HERE, "golden_torch", "ibr_quad2_N6.npz"))
+    tprob = problem_from_reference(ibr_quad_problem(), CPU, F64)
+    out = agt.ibr_newton_solve(tprob, agt.IBROptions(ibr_iter=1),
+                               x0s=torch.as_tensor(gold["x0s"]))
+    rows = gold["outer"].shape[1]
+    np.testing.assert_array_equal(out.stats.iter.numpy(), gold["iter"])
+    np.testing.assert_array_equal(out.stats.outer[:, :rows].numpy(),
+                                  gold["outer"])
+    close(out.stats.res[:, :rows].numpy(), gold["res"], 1e-10)
+    close(out.traj.x.numpy(), gold["x"], 1e-8)
+    close(out.traj.u.numpy(), gold["u"], 1e-8)

@@ -1,10 +1,11 @@
 """The arithmetic of K1's register-tiled forward kernel
 (``algames_tpu_torch/csrc/thomas_sq.cu`` on the structured Q form of
 ``csrc/thomas_dense_core.cuh``), emulated in numpy on full-size flagship,
-double-integrator and quadrotor KKT systems built by the port on the CPU,
-against the plain version (``ops.thomas.solve_thomas_structured_plain``)
-and the JAX package's structured Pallas kernel (interpret mode) or, for the
-quadrotor, its reference solve on the densified Q.
+double-integrator, quadrotor and 3-player quadrotor (d=48, the tall size
+class of 256 threads) KKT systems built by the port on the CPU, against the
+plain version (``ops.thomas.solve_thomas_structured_plain``) and the JAX
+package's structured Pallas kernel (interpret mode) or, for the
+quadrotors, its reference solve on the densified Q.
 
 The emulation follows the CUDA source step by step: the fill-in
 F = -A_t G_{t-1}; the products Bw[r, k] = B[:, r] . w_k (zero unless player
@@ -20,7 +21,8 @@ right-hand sides, last step first: x_s = M[pr_s, d:] / piv_s, and every row
 pivoted before step s takes M[r, d:] -= M[r, s] x_s; each pivot row's
 right-hand sides times its 1 / piv are the unknowns.  Then K1's unchanged
 backward recursion.  Only the kernel's fused multiply-adds round once where
-numpy rounds twice.
+numpy rounds twice.  The tall class's 16 row groups change no summation
+order: every sum is one thread's chain, whatever the thread grid.
 
 Why LU and not K3's Gauss-Jordan: on the quadrotor's f32 systems
 Gauss-Jordan misses the backward-error gate (``test_gauss_jordan_misses_
@@ -35,8 +37,8 @@ shared-memory kernel's elimination order gives 2.5e-10 there, this one
 1.0e-10; both printed): its gate is the normwise backward error
 (``chip_smoke.backward_errors``), f64 <= 1e-15 and f32 <= 1e-7, each <= 10 x
 the plain version's in the same precision, and the f32 forward error <= 30
-x the f32 plain version's.  Against the JAX package (mu = 1e3, f64):
-<= 1e-10.
+x the f32 plain version's; the 3-player quadrotor's likewise.  Against the
+JAX package (mu = 1e3, f64): <= 1e-10.
 """
 import dataclasses
 import functools
@@ -46,6 +48,8 @@ import numpy as np
 import pytest
 import torch
 
+from algames_tpu.core.spec import spec_from_model
+from algames_tpu.models.quadrotor import quadrotor_game
 from algames_tpu.ops.thomas_pallas import thomas_pallas_structured_for_spec
 from algames_tpu.presets import PRESETS as JAX_PRESETS
 from algames_tpu.problem.linear_solver import solve_tridiagonal_schur
@@ -56,7 +60,8 @@ import chip_smoke
 from algames_tpu_torch.core.spec import owner_map_u
 from algames_tpu_torch.ops import thomas
 from algames_tpu_torch.presets import intro_di, quadrotor3d
-from test_torch_k3_order import fill_in, gauss_jordan, rhs_columns
+from test_torch_k3_order import (fill_in, gauss_jordan, lu_back_substitution,
+                                 rhs_columns)
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -67,7 +72,11 @@ GAMES = {"uni3_N20": (dict(), 0),
                      300),
          "quad2_N15": (dict(preset=quadrotor3d,
                             iterates=chip_smoke.golden_iterates("quad2_N15")),
-                       500)}
+                       500),
+         "quad3_N15": (dict(preset=chip_smoke.quad3_game,
+                            iterates=chip_smoke.quad3_iterates), 900)}
+# The systems too ill-conditioned for a forward gate.
+QUAD_GAMES = ("quad2_N15", "quad3_N15")
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,39 +115,6 @@ def x_columns(M, F, q, w, Bm, owner, w_owner, n, m, p):
     for k in range(NW):
         v = v + Fw[:, :, k, None] * w[:, None, k, :]
     M[:, m:, :n] = v + (-np.eye(n, dtype=dt))
-
-
-def lu_back_substitution(M, d):
-    """The kernel's elimination of M [B, d, C] in place: LU with the
-    reciprocal pivot, then the back substitution on the right-hand sides.
-    Returns the solution [B, d, C - d], rows in step order."""
-    dt = M.dtype
-    Bsz = M.shape[0]
-    lanes = np.arange(Bsz)
-    used = np.zeros((Bsz, d), bool)
-    step_of = np.zeros((Bsz, d), int)
-    pivrow = np.zeros((Bsz, d), int)
-    rinvs = np.zeros((Bsz, d), dt)
-    for s in range(d):
-        col = M[:, :, s].copy()
-        mag = np.where(used, -np.inf, np.abs(col))
-        pr = np.argmax(mag, axis=1)              # first maximum: lowest index
-        rinv = (dt.type(1) / col[lanes, pr]).astype(dt)
-        slot = col * rinv[:, None]               # multipliers
-        pivrow[:, s], rinvs[:, s] = pr, rinv
-        used[lanes, pr] = True
-        step_of[lanes, pr] = s
-        prow = M[lanes, pr]                      # [B, C]
-        M[:] = np.where(~used[:, :, None],      # the rows not pivoted yet
-                        M - slot[:, :, None] * prow[:, None, :], M)
-    for s in range(d - 1, 0, -1):
-        xs = M[lanes, pivrow[:, s], d:] * rinvs[:, s, None]
-        earlier = (step_of < s)[:, :, None]
-        M[:, :, d:] = np.where(earlier, M[:, :, d:]
-                               - M[:, :, s, None] * xs[:, None, :],
-                               M[:, :, d:])
-    M[:, :, d:] = M[:, :, d:] * rinvs[lanes[:, None], step_of][:, :, None]
-    return M[lanes[:, None], pivrow, d:]
 
 
 def emulate(spec, sq, b, w_owner, dtype, eliminate=lu_back_substitution):
@@ -212,7 +188,7 @@ def test_emulated_elimination_matches_the_plain_version(game, no_w, mu,
     y = emulate(spec, sq, b, w_owner, dtype)
     err = rel(y, ref.numpy())
     tag = f"{game}{' NW=0' if no_w else ''} mu={mu:g} {np.dtype(dtype).name}"
-    if game != "quad2_N15":
+    if game not in QUAD_GAMES:
         print(f"{tag}: worst relative error {err:.3e}")
         assert err <= (1e-10 if dtype == np.float64 else 1e-3), err
         return
@@ -254,12 +230,16 @@ def test_gauss_jordan_misses_the_quadrotor_gate():
 def test_emulated_elimination_matches_the_jax_reference(game, no_w):
     """The same systems (mu = 1e3, f64) through the JAX package, lane by
     lane: its structured Pallas kernel in interpret mode, or for the
-    quadrotor its Schur solve on the densified Q."""
+    quadrotors its Schur solve on the densified Q (the 3-player spec from
+    its quadrotor model: it has no such preset)."""
     spec, sq, b, w_owner = system(game, 1e3, no_w)
-    _, jspec = JAX_PRESETS[game]()
+    if game == "quad3_N15":
+        jspec = spec_from_model(quadrotor_game(p=3), 15, 0.1)
+    else:
+        _, jspec = JAX_PRESETS[game]()
     assert (jspec.T, jspec.n, jspec.m, jspec.p, jspec.pu) == (
         spec.T, spec.n, spec.m, spec.p, spec.pu)
-    if game == "quad2_N15":
+    if game in QUAD_GAMES:
         jjb = JaxJacBlocks(
             thomas.structured_to_dense(sq, w_owner, spec.p).numpy(),
             *[getattr(sq, f).numpy() for f in ("Ublk", "A", "B")])

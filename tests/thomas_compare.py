@@ -10,7 +10,11 @@ and occupancy.  Not a test module (pytest does not collect it).
 builds ``chip_smoke.py``'s KKT inputs at B=1024 (mu = 1e3, the timed
 systems of its phases, and mu = 1e7): K3 on the roundabout, the bicycle,
 the padded heterogeneous game and the IBR player systems, K1 on the
-flagship, the double integrator and the quadrotor, in f32 and f64.  It
+flagship, the double integrator and the quadrotor, in f32 and f64; and, for
+a tree whose ``chip_smoke.py`` builds them, K3 on the quadrotor's systems
+turned dense and on IBR's quadrotor player systems and K1 on the 3-player
+quadrotor's (each tree runs them on whichever forward kernel its own
+routing picks).  It
 prints, per input set, each kernel's worst relative error against the f64
 plain version, and in f32 the device time per call (forward + backward;
 the event reading of this repository's ``chip_smoke.device_ms``, so both
@@ -83,12 +87,23 @@ def _occupancy_probe(tree, out_dir, lib_name):
 def _occupancy(lib, lib_name, probes, tree, out_dir, n, m, p, sfx, NW=0):
     """The forward kernel's lanes per SM at these widths, as a string (K1
     with the tree's own export: also registers and local memory)."""
+    from algames_tpu_torch.ops import thomas
+    dtype = torch.float32 if sfx == "f32" else torch.float64
     if lib_name == "thomas_sq" and hasattr(lib, f"thomas_sq_occupancy_{sfx}"):
-        from algames_tpu_torch.ops.thomas import structured_forward
-        tiled, lanes, regs, frame = structured_forward(
-            n, m, p, NW, torch.float32 if sfx == "f32" else torch.float64)
+        tiled, lanes, regs, frame = thomas.structured_forward(n, m, p, NW,
+                                                              dtype)
         return (f"{'register-tiled' if tiled else 'shared-memory'}, {lanes} "
                 f"lanes per SM, {regs} registers, {frame} B local")
+    info = ()
+    if lib_name == "thomas_dense" and hasattr(lib, f"{lib_name}_occupancy_"
+                                                   f"{sfx}"):
+        info = thomas.dense_forward(n, m, p, dtype)
+    if len(info) == 4:                 # the tree's export gives registers
+        tiled, lanes, regs, frame = info
+        return (f"{'register-tiled' if tiled else 'shared-memory'}, {lanes} "
+                f"lanes per SM, {regs} registers, {frame} B local")
+    if len(info) == 2:
+        return f"{info[1]} lanes per SM"
     fn = getattr(lib, f"{lib_name}_occupancy_{sfx}", None)
     if fn is not None:
         fn.argtypes = [ctypes.c_int] * 3
@@ -157,10 +172,20 @@ def dump(tree, name, out_dir):
     lib_sq = build.load(thomas._LIB)
     res = {}
     t0 = time.perf_counter()
+    systems = {"ibr": cs.ibr_player_system}
+    if hasattr(cs, "quad_dense_system"):
+        k3 += [("quad2 dense", {}, 800), ("ibr quad", {}, 1700)]
+        k1 += [("K1 quad3", dict(preset=cs.quad3_game,
+                                 iterates=cs.quad3_iterates), 900)]
+
+        def quad(system):
+            return lambda dev, B, mu, seed, *_: system(dev, B, mu, seed)
+        systems.update({"quad2 dense": quad(cs.quad_dense_system),
+                        "ibr quad": quad(cs.ibr_quad_system)})
     for tag, kw, seed0 in k3:
         print(f"{name} [{time.perf_counter() - t0:.1f} s] K3 {tag}",
               flush=True)
-        system = cs.ibr_player_system if tag == "ibr" else cs.k3_system
+        system = systems.get(tag, cs.k3_system)
         for mu, seed in ((1e3, 99), (1e7, 7)):
             spec, jb, b = system(dev, cs.B_KERNEL, mu, seed0 + seed, False,
                                  (0.3, 1.5), kw.get("preset"),

@@ -3,6 +3,7 @@ by the JAX package in f64 on the CPU.  Not a test module (pytest does not
 collect it); ``chip_smoke.py`` reads its files and never imports JAX.
 
     JAX_PLATFORMS=cpu python tests/torch_goldens.py [hetero] [ibr] [ring3_eq]
+        [ibr_quad]
 
 writes, under ``tests/golden_torch/``:
 
@@ -18,10 +19,19 @@ writes, under ``tests/golden_torch/``:
 - ``ring3_eq_N20.npz``: the flagship (``flagship_unicycle``, outer 7 x
   inner 20) with player 0 held on a ring road by an equality block
   (``ring3_eq_problem``) through ``newton_solve_jit``: x, u, ``iter`` and
-  the final violations.
+  the final violations;
+- ``ibr_quad2_N6.npz``: iterative best response on the quadrotor game of
+  ``presets.quadrotor3d`` cut to N=6 (``ibr_quad_problem``: outer 2 x
+  inner 4 per player solve, one round) from two starts x0 + 0.05 N(0, 1)
+  (numpy seed 0), vmapped, through ``method="schur"``: the starts
+  ``x0s``, x, u, and per lane the stats rows ``iter``, their ``outer``
+  (round) column and residuals ``res``.  About 90 s, 70 of them tracing.
 
 ``test_torch_hetero.py``, ``test_torch_ibr.py`` and
-``test_torch_cones.py`` check that the files still match the JAX package.
+``test_torch_cones.py`` check that the files still match the JAX package,
+but for ``ibr_quad2_N6.npz`` (``test_torch_ibr.py`` holds the port to it;
+the JAX package's IBR on the quadrotor takes too long to trace for a
+tier-1 test).
 """
 import os
 import sys
@@ -98,9 +108,65 @@ def ring3_eq_solution():
     return out
 
 
+def ibr_quad_problem(N=6, outer=2, inner=4):
+    """``presets.quadrotor3d`` (p=2, f64) at horizon N and budget outer x
+    inner."""
+    import jax.numpy as jnp
+    import algames_tpu as ag
+    from algames_tpu.constraints.sets import CylinderWall, Wall3D
+    from algames_tpu.models.quadrotor import quadrotor_game
+    p, dt, dtype = 2, 0.1, jnp.float64
+    model = quadrotor_game(p=p)
+    spec = ag.spec_from_model(model, N, dt)
+    hover = 0.5 * 9.81 / 4.0 / model.kf
+    obj = ag.game_objective(
+        spec, Q=[jnp.asarray([10, 10, 10] + [1] * 9, dtype)] * p,
+        R=[0.1 * jnp.ones(4, dtype)] * p,
+        xf=[jnp.concatenate([jnp.asarray([1.5, 0.3 * i, 1.0], dtype),
+                             jnp.zeros(9, dtype)]) for i in range(p)],
+        uf=[jnp.full((4,), hover, dtype)] * p, dtype=dtype)
+    gc = ag.game_constraints(spec, dtype=dtype)
+    gc = ag.add_spherical_collision_avoidance(spec, gc, 0.1)
+    gc = ag.add_wall_constraint(spec, gc, [
+        Wall3D([0.0, -1.0, 0.2], [2.0, -1.0, 0.2], [0.0, 1.0, 0.2],
+               [0.0, 0.0, -1.0])])
+    gc = ag.add_wall_constraint(spec, gc, [
+        CylinderWall([0.75, 0.15, 0.0], "z", 2.0, 0.2)])
+    gc = ag.add_control_bound(spec, gc, 3 * jnp.ones(spec.m, dtype),
+                              jnp.zeros(spec.m, dtype))
+    x0 = np.zeros(spec.n)
+    x0[[spec.pz[i][2] for i in range(p)]] = 1.0
+    x0[spec.pz[1][1]] = 0.3
+    return ag.game_problem(N, dt, jnp.asarray(x0), model,
+                           ag.Options(outer_iter=outer, inner_iter=inner),
+                           obj, gc)
+
+
+def ibr_quad_solution():
+    """Two lanes of ``ibr_quad_problem``'s f64 IBR (one round) through
+    ``schur``."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from algames_tpu.problem.ibr import ibr_newton_solve
+    from algames_tpu.problem.options import IBROptions
+    prob = ibr_quad_problem()
+    x0s = (np.asarray(prob.x0)[None] + 0.05 * np.random.default_rng(0)
+           .standard_normal((2, prob.spec.n)))
+    res = jax.jit(jax.vmap(lambda x: ibr_newton_solve(
+        dataclasses.replace(prob, x0=x), IBROptions(ibr_iter=1),
+        method="schur")))(jnp.asarray(x0s))
+    rows = int(np.asarray(res.stats.iter).max())
+    return {"x0s": x0s, "x": np.asarray(res.traj.x),
+            "u": np.asarray(res.traj.u), "iter": np.asarray(res.stats.iter),
+            "outer": np.asarray(res.stats.outer)[:, :rows],
+            "res": np.asarray(res.stats.res)[:, :rows]}
+
+
 GOLDENS = {"hetero": ("hetero2_N8", hetero_solution),
            "ibr": ("ibr_uni3_N20", ibr_solution),
-           "ring3_eq": ("ring3_eq_N20", ring3_eq_solution)}
+           "ring3_eq": ("ring3_eq_N20", ring3_eq_solution),
+           "ibr_quad": ("ibr_quad2_N6", ibr_quad_solution)}
 
 
 if __name__ == "__main__":
