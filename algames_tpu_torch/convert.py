@@ -9,9 +9,11 @@ flags) and every constraint family's parameters by name, and converts each
 array leaf with ``np.asarray`` (which works on the reference's arrays
 without importing its framework).  The static ``ProblemSpec`` is rebuilt
 field by field, and ``Options`` with every field the port has; the TPU
-compiler knobs ``flat_loop`` and ``loop_unroll`` are dropped.  It raises
-on a reference option that no solver path of the port reads
-(``options.py`` lists them) set away from its default.
+compiler knobs ``flat_loop`` and ``loop_unroll`` and the fields that no
+solver path of the reference reads (``theta``, ``alpha_increase``,
+``rho_trial``, ``gamma``, ``inner_print``, ``outer_print``, ``seed``) are
+dropped at any value.  It raises on any other reference option that the
+port does not read, set away from its default.
 
 ``constraints_from_reference`` converts a constraint set alone, also the
 per-lane AL state of a vmapped solve's result, and ``traj_from_reference``
@@ -46,8 +48,13 @@ _FAMILIES = {cls.__name__: cls for cls in (
     K.CylinderParams, K.BoundParams)}
 
 
-# Reference options with no counterpart whose value changes no result.
+# Reference options with no counterpart whose value changes no result: the
+# TPU compiler's knobs, and the fields that no solver path of the reference
+# reads (objective scaling, printing, the seed, the trial penalty and the
+# line search's unused constants), taken at any value.
 _COMPILER_KNOBS = ("flat_loop", "loop_unroll")
+_UNREAD_OPTIONS = ("theta", "alpha_increase", "rho_trial", "gamma",
+                   "inner_print", "outer_print", "seed")
 
 
 def _fields(cls):
@@ -115,10 +122,13 @@ def constraints_from_reference(g, device, dtype,
 
 def _options_from_reference(opts) -> Options:
     """The reference's ``Options`` as the port's.  Raises on a field the
-    port does not read that is set away from the reference's default."""
+    port does not read, other than the compiler knobs and the fields the
+    reference never reads, that is set away from the reference's
+    default."""
     carried = set(_fields(Options))
     for f in dataclasses.fields(type(opts)):
-        if f.name in carried or f.name in _COMPILER_KNOBS:
+        if (f.name in carried or f.name in _COMPILER_KNOBS
+                or f.name in _UNREAD_OPTIONS):
             continue
         if getattr(opts, f.name) != f.default:
             raise NotImplementedError(f"option {f.name} is not read by the "

@@ -43,9 +43,14 @@
 // the next knot's copy issued once the build has read it: double-buffered,
 // the 30,496 bytes a lane in f32 fit 7 lanes on an SM and B=1024 took a
 // second wave; staged once, 25,888 fit 8.  Systems beyond (d > 32 or
-// d + R > 96) keep the shared-memory forward kernel (the "big" route).
+// d + R > 96) keep the shared-memory forward kernel (the "big" route)
+// where its bytes fit a block's 227 KB; beyond that (the 4-player
+// quadrotor's systems with collision-cost pairs, d=64: 250 KB in f32 and
+// 499 KB in f64) they take the device-memory route of thomas_global.cuh
+// with the Q form DenseGlobalQ below, Q read from device memory.
 #include "thomas_common.cuh"
 #include "thomas_dense_core.cuh"
+#include "thomas_global.cuh"
 
 namespace {
 
@@ -152,6 +157,32 @@ struct DenseQ {
   }
 };
 
+// The device-memory route's dense Q form (thomas_global.cuh): each x
+// entry of K from Q read from device memory, summed in DenseForm's order.
+template <typename T>
+struct DenseGlobalQ {
+  const T* Qg;                         // [B, T, p, n, n]
+
+  __device__ void products(T*, const T*, const T*, size_t, const int*, int,
+                           int, int) const {}
+  // Row r, column c (< n) of K: B^T Q_owner, or -I + sum_i F_i Q_i.
+  __device__ T x_entry(int r, int c, const T*, const T* F, const T* Bs,
+                       size_t kt, const int* owner, int n, int m,
+                       int p) const {
+    const int pn = p * n;
+    const T* Q = Qg + kt * pn * n;
+    T v = T(0);
+    if (r < m) {
+      const T* Qo = Q + owner[r] * n * n;
+      for (int k = 0; k < n; ++k) v += Bs[k * m + r] * Qo[k * n + c];
+      return v;
+    }
+    const T* f = F + (r - m) * pn;
+    for (int j = 0; j < pn; ++j) v += f[j] * Q[j * n + c];
+    return (r - m == c) ? v + T(-1) : v;
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) thomas_dense_fwd_kernel(
     const T* __restrict__ Qg, const T* __restrict__ Ub,
@@ -215,6 +246,22 @@ thomas_dense_tiled_lu_kernel(const T* __restrict__ Qg,
                                         meta.owner, smem_raw);
 }
 
+// The device-memory route (thomas_global.cuh).
+template <typename T>
+__global__ void __launch_bounds__(thomas_global::kThreads)
+thomas_dense_global_kernel(const T* __restrict__ Qg,
+                           const T* __restrict__ Ub,
+                           const T* __restrict__ Bm,
+                           const T* __restrict__ A,
+                           const T* __restrict__ bk, T* G_out, T* y_out,
+                           T* work, int Tn, int n, int m, int p,
+                           const __grid_constant__ DenseMeta meta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  thomas_global::forward_sweep<T>(DenseGlobalQ<T>{Qg}, Ub, Bm, A, bk, G_out,
+                                  y_out, work, Tn, n, m, p, meta.owner,
+                                  smem_raw);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) thomas_dense_bwd_kernel(
     const T* __restrict__ G, const T* __restrict__ yhat,
@@ -266,6 +313,33 @@ int launch_fwd_big(const void* Q, const void* Ub, const void* Bm,
   return (int)cudaGetLastError();
 }
 
+// The device-memory route of thomas_global.cuh, for systems the
+// shared-memory kernel cannot hold; ``work``: n p n scalars a lane.
+template <typename T>
+int launch_fwd_global(const void* Q, const void* Ub, const void* Bm,
+                      const void* A, const void* b, const int* owner,
+                      void* G, void* yhat, void* work, int B, int Tn, int n,
+                      int m, int p, void* stream) {
+  if (!thomas_global::fits<T>(n, m, p, 0)) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const size_t bytes = thomas_global::smem_bytes<T>(n, m, p);
+  int err = thomas::set_smem((const void*)thomas_dense_global_kernel<T>,
+                             bytes);
+  if (err) return err;
+  DenseMeta meta;
+  pack_owner(owner, m, &meta);
+  thomas_dense_global_kernel<T>
+      <<<B, thomas_global::kThreads, bytes, (cudaStream_t)stream>>>(
+          (const T*)Q, (const T*)Ub, (const T*)Bm, (const T*)A, (const T*)b,
+          (T*)G, (T*)yhat, (T*)work, Tn, n, m, p, meta);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+size_t big_smem_bytes(int n, int m, int p) {
+  return thomas::fwd_smem_bytes<T>(n, m, p, p * n * n, 0);
+}
+
 // A size class's kernel and its Q form (lu: LU, Q staged once).
 struct Tiled {
   const void* fn;
@@ -273,8 +347,8 @@ struct Tiled {
 };
 
 // The size classes, smallest first: (TR, TC) holds d <= 8 TR and
-// C = d + p n + 1 <= 16 TC.  The wrapper routes the systems that fit none
-// to launch_fwd_big (thomas_dense_tiled_fits).
+// C = d + p n + 1 <= 16 TC.  route() sends the systems that fit none to
+// launch_fwd_big or launch_fwd_global.
 template <typename T>
 Tiled tiled_kernel(int n, int m, int p) {
   const int d = n + m, C = d + p * n + 1;
@@ -325,19 +399,37 @@ int launch_fwd(const void* Q, const void* Ub, const void* Bm, const void* A,
                                args, bytes, (cudaStream_t)stream);
 }
 
-// The forward kernel that launch_fwd (or, with ``big``, launch_fwd_big)
-// runs for these widths: out = {lanes per SM, registers a thread, local
-// memory bytes a thread}; non-zero if there is none.
+// K3's forward route at these widths, by shape: 0 a register-tiled class
+// (launch_fwd), 1 the shared-memory kernel (launch_fwd_big) where its
+// bytes fit a block, 2 the device-memory route (launch_fwd_global), -1
+// none.
 template <typename T>
-int occupancy(int n, int m, int p, bool big, int* out) {
-  const void* kernel = big ? (m <= kMaxM
-                                  ? (const void*)thomas_dense_fwd_kernel<T>
-                                  : nullptr)
-                           : tiled_kernel<T>(n, m, p).fn;
+int route(int n, int m, int p) {
+  if (m > kMaxM) return -1;
+  if (tiled_kernel<T>(n, m, p).fn != nullptr) return 0;
+  if (big_smem_bytes<T>(n, m, p) <= (size_t)thomas_global::kMaxSmem)
+    return 1;
+  return thomas_global::fits<T>(n, m, p, 0) ? 2 : -1;
+}
+
+// The forward kernel of ``which`` route (as route() numbers them) at these
+// widths: out = {lanes per SM, registers a thread, local memory bytes a
+// thread}; non-zero if there is none.
+template <typename T>
+int occupancy(int n, int m, int p, int which, int* out) {
+  const void* kernel = nullptr;
+  size_t bytes = 0;
+  if (which == 0) {
+    kernel = tiled_kernel<T>(n, m, p).fn;
+    bytes = tiled_smem_bytes<T>(n, m, p);
+  } else if (which == 1 && m <= kMaxM) {
+    kernel = (const void*)thomas_dense_fwd_kernel<T>;
+    bytes = big_smem_bytes<T>(n, m, p);
+  } else if (which == 2 && thomas_global::fits<T>(n, m, p, 0)) {
+    kernel = (const void*)thomas_dense_global_kernel<T>;
+    bytes = thomas_global::smem_bytes<T>(n, m, p);
+  }
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t bytes =
-      big ? thomas::fwd_smem_bytes<T>(n, m, p, p * n * n, 0)
-          : tiled_smem_bytes<T>(n, m, p);
   int err = thomas::set_smem(kernel, bytes);
   if (err) return err;
   cudaFuncAttributes attr;
@@ -388,16 +480,19 @@ int launch_bwd(const void* G, const void* yhat, const void* Q, const void* A,
       void* stream) {                                                         \
     return launch_bwd<T>(G, yhat, Q, A, b, y, B, Tn, n, m, p, stream);        \
   }                                                                           \
-  extern "C" int thomas_dense_tiled_fits_##SUFFIX(int n, int m, int p) {      \
-    return tiled_kernel<T>(n, m, p).fn != nullptr;                            \
+  extern "C" int thomas_dense_fwd_global_##SUFFIX(                            \
+      const void* Q, const void* Ub, const void* Bm, const void* A,           \
+      const void* b, const int* owner, void* G, void* yhat, void* work,       \
+      int B, int Tn, int n, int m, int p, void* stream) {                     \
+    return launch_fwd_global<T>(Q, Ub, Bm, A, b, owner, G, yhat, work, B,     \
+                                Tn, n, m, p, stream);                         \
+  }                                                                           \
+  extern "C" int thomas_dense_route_##SUFFIX(int n, int m, int p) {           \
+    return route<T>(n, m, p);                                                 \
   }                                                                           \
   extern "C" int thomas_dense_occupancy_##SUFFIX(int n, int m, int p,         \
-                                                 int* out) {                  \
-    return occupancy<T>(n, m, p, false, out);                                 \
-  }                                                                           \
-  extern "C" int thomas_dense_occupancy_big_##SUFFIX(int n, int m, int p,     \
-                                                     int* out) {              \
-    return occupancy<T>(n, m, p, true, out);                                  \
+                                                 int which, int* out) {       \
+    return occupancy<T>(n, m, p, which, out);                                 \
   }
 
 THOMAS_DENSE_EXPORT(f32, float)

@@ -47,13 +47,18 @@
 // Wider systems take the shared-memory forward kernel of
 // thomas_common.cuh (the "wide" route: every per-knot operand, the carry
 // and the augmented system in shared memory, three barriers per pivot
-// step, a serial back substitution per right-hand side; its f64 instance
-// needs more than an SM's 227 KB from d = 64 on).  The backward
+// step, a serial back substitution per right-hand side) where its bytes
+// fit a block's 227 KB, and beyond (from d = 64 in f64: the 4-player
+// quadrotor's systems, 443 KB) the device-memory route of
+// thomas_global.cuh, with the Q form SqGlobalQ below: K [d, d] and a panel
+// of 128 right-hand sides in shared memory, the fill-in F in a workspace
+// in device memory, the carry read back from G.  The backward
 // kernel is the shared-memory one of thomas_common.cuh for every width:
 // a knot's multipliers are one matrix-vector product, about 7% of K1's
 // device time in the quadrotor sweep's profile on an H100 (PERF.md).
 #include "thomas_common.cuh"
 #include "thomas_dense_core.cuh"
+#include "thomas_global.cuh"
 
 namespace {
 
@@ -199,6 +204,55 @@ struct StructuredQ {
   }
 };
 
+// The device-memory route's structured Q form (thomas_global.cuh): the
+// products Pw [d, NW] of StructuredQ (B^T w_k on the owner's statu rows,
+// F_owner(k) w_k on the dyn rows) in the panel, then each x entry from q
+// and w read from device memory, summed in StructuredQ's order.
+template <typename T>
+struct SqGlobalQ {
+  const T* qd;                         // [B, T, p, n]
+  const T* wv;                         // [B, T, NW, n]
+  const int* w_owner;                  // [NW]
+  int NW;
+
+  __device__ void products(T* Pw, const T* F, const T* Bs, size_t kt,
+                           const int* owner, int n, int m, int p) const {
+    const T* w = wv + kt * NW * n;
+    const int d = n + m, pn = p * n;
+    for (int idx = threadIdx.x; idx < d * NW;
+         idx += thomas_global::kThreads) {
+      const int r = idx / NW, k = idx - r * NW;
+      const int o = w_owner[k];
+      const T* wk = w + k * n;
+      T s = T(0);
+      if (r >= m) {                    // F_owner(k) w_k
+        const T* f = F + (r - m) * pn + o * n;
+        for (int j = 0; j < n; ++j) s += f[j] * wk[j];
+      } else if (owner[r] == o) {      // B^T w_k, owner's rows only
+        for (int j = 0; j < n; ++j) s += Bs[j * m + r] * wk[j];
+      }
+      Pw[idx] = s;
+    }
+  }
+  // Row r, column c (< n) of K.
+  __device__ T x_entry(int r, int c, const T* Pw, const T* F, const T* Bs,
+                       size_t kt, const int* owner, int n, int m,
+                       int p) const {
+    const T* q = qd + kt * p * n;
+    const T* w = wv + kt * NW * n;
+    T v;
+    if (r < m) {                       // B^T diag(q_owner)
+      v = Bs[c * m + r] * q[owner[r] * n + c];
+    } else {                           // sum_i F_i diag(q_i)
+      v = T(0);
+      const T* f = F + (r - m) * p * n;
+      for (int i = 0; i < p; ++i) v += f[i * n + c] * q[i * n + c];
+    }
+    for (int k = 0; k < NW; ++k) v += Pw[r * NW + k] * w[k * n + c];
+    return (r >= m && r - m == c) ? v + T(-1) : v;
+  }
+};
+
 // Backward: Q_i x = diag(q_i) x + sum_{owner(k) = i} (w_k . x) w_k, with
 // wx[k] = w_k . x computed once per knot.
 template <typename T>
@@ -294,6 +348,20 @@ thomas_sq_tiled_tall_kernel(const T* __restrict__ qd,
       G_out, y_out, Tn, n, m, p, meta.owner, smem_raw);
 }
 
+// The device-memory route (thomas_global.cuh).
+template <typename T>
+__global__ void __launch_bounds__(thomas_global::kThreads)
+thomas_sq_global_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
+                        const T* __restrict__ Ub, const T* __restrict__ Bm,
+                        const T* __restrict__ A, const T* __restrict__ bk,
+                        T* G_out, T* y_out, T* work, int Tn, int n, int m,
+                        int p, int NW, const __grid_constant__ SqMeta meta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  thomas_global::forward_sweep<T>(
+      SqGlobalQ<T>{qd, wv, meta.w_owner, NW}, Ub, Bm, A, bk, G_out, y_out,
+      work, Tn, n, m, p, meta.owner, smem_raw);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) thomas_sq_bwd_kernel(
     const T* __restrict__ G, const T* __restrict__ yhat,
@@ -345,8 +413,8 @@ struct Tiled {
 };
 
 // The size classes, smallest first: (TR, TC) holds d <= 8 TR and
-// C = d + p n + 1 <= 16 TC, the tall one d <= 16 TR.  The wrapper routes
-// the systems that fit none to launch_fwd_wide (thomas_sq_tiled_fits).
+// C = d + p n + 1 <= 16 TC, the tall one d <= 16 TR.  route() sends the
+// systems that fit none to launch_fwd_wide or launch_fwd_global.
 template <typename T>
 Tiled tiled_kernel(int n, int m, int p, int NW) {
   constexpr int k128 = thomas_core::kThreads;
@@ -418,19 +486,60 @@ int launch_fwd_wide(const void* qd, const void* wv, const void* Ub,
   return (int)cudaGetLastError();
 }
 
-// The forward kernel that launch_fwd (or, with ``wide``, launch_fwd_wide)
-// runs for these widths: out = {lanes per SM, registers a thread, local
-// memory bytes a thread}; non-zero if there is none.
+// The device-memory route of thomas_global.cuh, for systems the
+// shared-memory kernel cannot hold; ``work``: n p n scalars a lane.
 template <typename T>
-int occupancy(int n, int m, int p, int NW, bool wide, int* out) {
-  const Tiled k =
-      wide ? Tiled{dims_ok(m, NW) ? (const void*)thomas_sq_fwd_kernel<T>
-                                  : nullptr,
-                   kThreads}
-           : tiled_kernel<T>(n, m, p, NW);
+int launch_fwd_global(const void* qd, const void* wv, const void* Ub,
+                      const void* Bm, const void* A, const void* b,
+                      const int* owner, const int* w_owner, void* G,
+                      void* yhat, void* work, int B, int Tn, int n, int m,
+                      int p, int NW, void* stream) {
+  if (!dims_ok(m, NW) || !thomas_global::fits<T>(n, m, p, NW))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const size_t bytes = thomas_global::smem_bytes<T>(n, m, p);
+  int err = thomas::set_smem((const void*)thomas_sq_global_kernel<T>, bytes);
+  if (err) return err;
+  thomas_sq_global_kernel<T>
+      <<<B, thomas_global::kThreads, bytes, (cudaStream_t)stream>>>(
+          (const T*)qd, (const T*)wv, (const T*)Ub, (const T*)Bm,
+          (const T*)A, (const T*)b, (T*)G, (T*)yhat, (T*)work, Tn, n, m, p,
+          NW, make_meta(owner, w_owner, m, NW));
+  return (int)cudaGetLastError();
+}
+
+// K1's forward route at these widths, by shape: 0 a register-tiled class
+// (launch_fwd), 1 the shared-memory kernel (launch_fwd_wide) where its
+// bytes fit a block, 2 the device-memory route (launch_fwd_global), -1
+// none.
+template <typename T>
+int route(int n, int m, int p, int NW) {
+  if (!dims_ok(m, NW)) return -1;
+  if (tiled_kernel<T>(n, m, p, NW).fn != nullptr) return 0;
+  if (wide_smem_bytes<T>(n, m, p, NW) <= (size_t)thomas_global::kMaxSmem)
+    return 1;
+  return thomas_global::fits<T>(n, m, p, NW) ? 2 : -1;
+}
+
+// The forward kernel of ``which`` route (as route() numbers them) at these
+// widths: out = {lanes per SM, registers a thread, local memory bytes a
+// thread}; non-zero if there is none.
+template <typename T>
+int occupancy(int n, int m, int p, int NW, int which, int* out) {
+  Tiled k = {nullptr, 0};
+  size_t bytes = 0;
+  if (which == 0) {
+    k = tiled_kernel<T>(n, m, p, NW);
+    bytes = tiled_smem_bytes<T>(n, m, p, NW);
+  } else if (which == 1 && dims_ok(m, NW)) {
+    k = {(const void*)thomas_sq_fwd_kernel<T>, kThreads};
+    bytes = wide_smem_bytes<T>(n, m, p, NW);
+  } else if (which == 2 && dims_ok(m, NW) &&
+             thomas_global::fits<T>(n, m, p, NW)) {
+    k = {(const void*)thomas_sq_global_kernel<T>, thomas_global::kThreads};
+    bytes = thomas_global::smem_bytes<T>(n, m, p);
+  }
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t bytes = wide ? wide_smem_bytes<T>(n, m, p, NW)
-                            : tiled_smem_bytes<T>(n, m, p, NW);
   int err = thomas::set_smem(k.fn, bytes);
   if (err) return err;
   cudaFuncAttributes attr;
@@ -478,16 +587,20 @@ int launch_bwd(const void* G, const void* yhat, const void* qd, const void* wv,
     return launch_fwd_wide<T>(qd, wv, Ub, Bm, A, b, owner, w_owner, G, yhat,  \
                               B, Tn, n, m, p, NW, stream);                    \
   }                                                                           \
-  extern "C" int thomas_sq_tiled_fits_##SUFFIX(int n, int m, int p, int NW) { \
-    return tiled_kernel<T>(n, m, p, NW).fn != nullptr;                        \
+  extern "C" int thomas_sq_fwd_global_##SUFFIX(                               \
+      const void* qd, const void* wv, const void* Ub, const void* Bm,         \
+      const void* A, const void* b, const int* owner, const int* w_owner,     \
+      void* G, void* yhat, void* work, int B, int Tn, int n, int m, int p,    \
+      int NW, void* stream) {                                                 \
+    return launch_fwd_global<T>(qd, wv, Ub, Bm, A, b, owner, w_owner, G,      \
+                                yhat, work, B, Tn, n, m, p, NW, stream);      \
+  }                                                                           \
+  extern "C" int thomas_sq_route_##SUFFIX(int n, int m, int p, int NW) {      \
+    return route<T>(n, m, p, NW);                                             \
   }                                                                           \
   extern "C" int thomas_sq_occupancy_##SUFFIX(int n, int m, int p, int NW,    \
-                                              int* out) {                     \
-    return occupancy<T>(n, m, p, NW, false, out);                             \
-  }                                                                           \
-  extern "C" int thomas_sq_occupancy_wide_##SUFFIX(int n, int m, int p,       \
-                                                   int NW, int* out) {        \
-    return occupancy<T>(n, m, p, NW, true, out);                              \
+                                              int which, int* out) {          \
+    return occupancy<T>(n, m, p, NW, which, out);                             \
   }                                                                           \
   extern "C" int thomas_sq_bwd_##SUFFIX(                                      \
       const void* G, const void* yhat, const void* qd, const void* wv,        \

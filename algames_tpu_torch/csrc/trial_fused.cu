@@ -63,6 +63,10 @@
 // compiled kernel serves any player count and block list; the family
 // parameters (radii, centres, wall corners, bounds, pair weights) are small
 // device arrays.
+// A state bound's 2n rows are flagged in one 64-bit mask, and for the
+// quadrotor (Model::kWideMask: n up to 64, the 3- and 4-player quadrotors'
+// 36 and 48 states) in two, the rows from 64 on in TrialMeta::sb_mask_hi,
+// at the end of the table, so that the other instances' code is unchanged.
 // State bounds read their AL state only at finite rows and write 0 at the
 // others, as the masked bound evaluation does; gated rows (walls,
 // cylinders) use the reference's strict comparisons and are exactly 0
@@ -76,6 +80,7 @@ constexpr int kMaxSB = 64;    // state blocks
 constexpr int kMaxCB = 4;     // control-bound blocks
 constexpr int kMaxM = 32;     // control dimension
 constexpr int kMaxN = 32;     // state dimension (2n bound rows in a 64-bit mask)
+constexpr int kMaxNWide = 64; // the same for Model::kWideMask (two masks)
 constexpr int kMaxPair = 64;  // collision-cost pairs
 constexpr int kMaxCyl = 32;   // cylinders per block (2 axis bits each)
 constexpr int kMaxConst = 12; // model constants
@@ -109,6 +114,7 @@ struct TrialMeta {
   unsigned char pair[kMaxPair][8];  // owner, dim, pxi[3], pxj[3]
   unsigned char c_mask[kMaxCB][2 * kMaxM];
   unsigned char c_eq[kMaxCB];       // control blocks' ``eq``, as SBlock's
+  unsigned long long sb_mask_hi[kMaxSB];  // bound rows 64.. (kWideMask)
 };
 
 struct ModelConst {
@@ -228,6 +234,7 @@ template <typename T>
 struct Unicycle {
   static constexpr int NI = 4, MI = 2;
   static constexpr bool kStage = true;
+  static constexpr bool kWideMask = false;
   using Layout = Interleaved<MI>;
   struct Lin {
     T s, c, v;
@@ -262,6 +269,7 @@ template <typename T, int D>
 struct DoubleIntegrator {
   static constexpr int NI = 2 * D, MI = D;
   static constexpr bool kStage = false;
+  static constexpr bool kWideMask = false;
   using Layout = Interleaved<MI>;
   struct Lin {};
   __device__ explicit DoubleIntegrator(const ModelConst&) {}
@@ -304,6 +312,7 @@ template <typename T>
 struct Bicycle {
   static constexpr int NI = 4, MI = 2;
   static constexpr bool kStage = true;
+  static constexpr bool kWideMask = false;
   using Layout = Interleaved<MI>;
   struct Lin {
     T v, sh, ch, sb, cb, db;
@@ -431,6 +440,7 @@ template <typename T>
 struct Quadrotor {
   static constexpr int NI = 12, MI = 4;
   static constexpr bool kStage = true;
+  static constexpr bool kWideMask = true;
   using Layout = Interleaved<MI>;
   struct Lin {
     const T *x, *u;
@@ -644,8 +654,9 @@ __device__ __forceinline__ T sqdist(const LaneT& L, int k,
 
 // State blocks at knot t+1: values into sc, AL gradients into alx [p n].
 // Thread q of the knot's TPK takes the blocks whose owner is q mod TPK, so
-// each owner's gradient is summed by one thread in block order.
-template <typename T, int TPK, class LaneT>
+// each owner's gradient is summed by one thread in block order.  ``Wide``:
+// a bound's rows from 64 on are flagged in meta.sb_mask_hi.
+template <typename T, int TPK, bool Wide, class LaneT>
 __device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
                              const LaneT& L, int b, int t, T* alx, int q) {
   const int n = L.n, Tn = L.Tn;
@@ -749,8 +760,17 @@ __device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
     } else {                              // c = [x - z_max; z_min - x], masked
       const T* zx = par;
       for (int j = 0; j < n; ++j) {
-        const bool mu_ = (sb.mask >> j) & 1ull;
-        const bool ml_ = (sb.mask >> (n + j)) & 1ull;
+        bool mu_, ml_;
+        if constexpr (Wide) {
+          const int l = n + j;
+          mu_ = j < 64 ? (sb.mask >> j) & 1ull
+                       : (meta.sb_mask_hi[k] >> (j - 64)) & 1ull;
+          ml_ = l < 64 ? (sb.mask >> l) & 1ull
+                       : (meta.sb_mask_hi[k] >> (l - 64)) & 1ull;
+        } else {
+          mu_ = (sb.mask >> j) & 1ull;
+          ml_ = (sb.mask >> (n + j)) & 1ull;
+        }
         const size_t ou = o0 + (size_t)j * Tn, ol = o0 + (size_t)(n + j) * Tn;
         T cu = T(0), cl = T(0), gj = T(0);
         if (mu_) {
@@ -790,7 +810,7 @@ __device__ void rk2_mid(const Model& mdl, const T* x, const T* u, T dt,
 // players q mod TPK to the thread's part of the 1-norm.
 
 // The knot's constraint and collision-cost terms (see above).
-template <typename T, int TPK, class LaneT>
+template <typename T, int TPK, bool Wide, class LaneT>
 __device__ void knot_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
                             const LaneT& L, int b, int t, int q, T* alx,
                             T* alu, T* cgx) {
@@ -801,7 +821,7 @@ __device__ void knot_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
     for (int c = 0; c < n; ++c) alx[o * n + c] = T(0);
   for (int c = q; c < m; c += TPK) alu[c] = T(0);
 
-  state_blocks<T, TPK>(A, meta, L, b, t, alx, q);
+  state_blocks<T, TPK, Wide>(A, meta, L, b, t, alx, q);
   // Control-bound blocks: c = [u - z_max; z_min - u] (masked rows 0).
   for (int k = 0; k < A.ncb; ++k) {
     const size_t o = (((size_t)b * A.ncb + k) * Tn + t) * 2 * m;
@@ -973,12 +993,13 @@ struct LaneLayout {
 };
 
 // The parameter table from the wrapper's flat int arrays.  s_meta per state
-// block: kind, owner, row, par, cnt, a0..a5, eq; s_mask per block; p_meta
-// per pair: owner, dim, pxi0..2, pxj0..2; c_mask per control block: 2m
-// flags, then each control block's eq.
+// block: kind, owner, row, par, cnt, a0..a5, eq; s_mask per block two
+// words, bits 0..63 and 64..127 (which only a ``wide`` instance takes);
+// p_meta per pair: owner, dim, pxi0..2, pxj0..2; c_mask per control block:
+// 2m flags, then each control block's eq.
 bool make_meta(const int* s_meta, const unsigned long long* s_mask,
                const int* p_meta, const unsigned char* c_mask, int nsb,
-               int npair, int ncb, int m, TrialMeta* meta) {
+               int npair, int ncb, int m, bool wide, TrialMeta* meta) {
   if (nsb > kMaxSB || ncb > kMaxCB || npair > kMaxPair || m > kMaxM)
     return false;
   *meta = TrialMeta{};
@@ -992,7 +1013,9 @@ bool make_meta(const int* s_meta, const unsigned long long* s_mask,
     sb.cnt = (unsigned char)s[4];
     for (int j = 0; j < 6; ++j) sb.a[j] = (unsigned char)s[5 + j];
     sb.eq = (unsigned char)s[11];
-    sb.mask = s_mask[k];
+    sb.mask = s_mask[2 * k];
+    meta->sb_mask_hi[k] = s_mask[2 * k + 1];
+    if (meta->sb_mask_hi[k] != 0 && !wide) return false;
     if (sb.kind == kCylinder && sb.cnt > kMaxCyl) return false;
   }
   for (int k = 0; k < npair; ++k)
@@ -1031,7 +1054,9 @@ __device__ T lane_part(const TrialArgs<T>& A, const ModelConst& mc,
   T part = T(0);
   for (int t0 = 0; t0 < L.Tn; t0 += groups) {
     const int t = t0 + g;
-    if (t < L.Tn) knot_blocks<T, TPK>(A, meta, L, b, t, q, alx, alu, cgx);
+    if (t < L.Tn)
+      knot_blocks<T, TPK, Model::kWideMask>(A, meta, L, b, t, q, alx, alu,
+                                            cgx);
     if constexpr (TPK > 1) __syncwarp();
     if (t < L.Tn)
       part = knot_rows<T, Model, TPK>(A, mc, L, b, t, q, rg, alx, alu, cgx,
@@ -1148,8 +1173,9 @@ int launch(const void* const* in, void* const* out, const double* mconst,
   for (int k = 0; k < kMaxConst; ++k) mc.c[k] = mconst[k];
   const int n = Model::NI * p, m = Model::Layout::m(mc, p);
   TrialMeta meta;
-  if (n > kMaxN ||
-      !make_meta(s_meta, s_mask, p_meta, c_mask, nsb, npair, ncb, m, &meta))
+  if (n > (Model::kWideMask ? kMaxNWide : kMaxN) ||
+      !make_meta(s_meta, s_mask, p_meta, c_mask, nsb, npair, ncb, m,
+                 Model::kWideMask, &meta))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   TrialArgs<T> A;

@@ -4,7 +4,8 @@
 * ``rk2_step``  explicit midpoint; used inside the Newton residual.
 * ``rk3_step``  Kutta third order; used only for the initial rollout.
 * ``step_jacobians`` (A, B) of the RK2 step by ``torch.func.jacfwd``,
-  vmapped over every leading axis.
+  vmapped over every leading axis; ``step_jacobians_traj`` the same over a
+  trajectory's knots.
 * ``rk2_vjp``   the dual pulls ``A^T lam`` / ``B^T lam`` as one VJP through
   the RK2 step per player cotangent.
 * ``rollout_rk3`` forward simulation.
@@ -38,6 +39,16 @@ def step_jacobians(model, xs, us, dt):
     jac = vmap(jacfwd(lambda x, u: rk2_step(model, x, u, dt), argnums=(0, 1)))
     A, B = jac(xs.reshape(-1, n), us.reshape(-1, m))
     return A.reshape(lead + (n, n)), B.reshape(lead + (n, m))
+
+
+def step_jacobians_traj(model, xs, us, dt):
+    """(A, B) at every knot of a trajectory: xs [..., T, n], us [..., T, m]
+    (batch-first; the reference's takes one scenario's [T, n], [T, m]) ->
+    [..., T, n, n], [..., T, n, m]."""
+    if xs.shape[:-1] != us.shape[:-1]:
+        raise ValueError(f"xs {tuple(xs.shape)} and us {tuple(us.shape)} "
+                         f"differ in their knots")
+    return step_jacobians(model, xs, us, dt)
 
 
 def rk2_vjp(model, xs, us, lams, dt):

@@ -23,16 +23,22 @@ knot's operands copied in while a knot is eliminated
 (``csrc/thomas_dense_core.cuh``, with the Q form a compile-time policy:
 K1 and K3's classes for d > 24 LU and a back substitution, K3's others
 Gauss-Jordan).  K3's size classes cover d = n + m <= 32 and d + p n + 1 <=
-96 (the library's ``thomas_dense_tiled_fits``), K1's d <= 32 and
-d + p n + 1 <= 96 with 128 threads a lane and, with 256, d <= 48 and
-d + p n + 1 <= 160 (``thomas_sq_tiled_fits``).  Wider systems take the
-shared-memory forward kernel of ``csrc/thomas_common.cuh`` (every
-per-knot operand, the carry and the augmented system in shared memory),
-counted apart in ``solve_thomas.big_launches`` and
-``solve_thomas_structured.wide_launches``; ``shared=True`` takes it at
-any widths, to time it against the register-tiled one.  The route is
-chosen by shape before the launch; a build or launch error raises.  See
-the sources for what bounds each on the card.
+96, K1's d <= 32 and d + p n + 1 <= 96 with 128 threads a lane and, with
+256, d <= 48 and d + p n + 1 <= 160.  Wider systems take the shared-memory
+forward kernel of ``csrc/thomas_common.cuh`` (every per-knot operand, the
+carry and the augmented system in shared memory) where its bytes fit a
+block's 232,448, counted apart in ``solve_thomas.big_launches`` and
+``solve_thomas_structured.wide_launches``; beyond that (the 4-player
+quadrotor's systems, d = 64: K1 in f64, K3 in both types) the
+device-memory route of ``csrc/thomas_global.cuh`` (K [d, d] and a panel
+of 128 right-hand sides in shared memory, the fill-in F in a workspace
+this wrapper allocates, n p n scalars a lane), counted in
+``global_launches``; it takes d <= 128 within those bytes (in f64 d up to
+about 104) and wider systems raise.  The library says which route a shape
+takes (``thomas_sq_route_*``, ``thomas_dense_route_*``), before the launch;
+a build or launch error raises.  ``forward="shared"`` or ``"device"`` takes
+that route at any widths that it holds, to time it against the route the
+shape takes.  See the sources for what bounds each on the card.
 
 Each wrapper takes its plain PyTorch version (``problem.linear_solver
 .solve_tridiagonal_schur``, after densifying Q for K1) for CPU tensors only;
@@ -122,86 +128,128 @@ def _check(spec, sq: StructuredQ, b: torch.Tensor, w_owner) -> None:
         raise ValueError("the kernel takes at most 64 w vectors")
 
 
-@functools.lru_cache(maxsize=None)
-def _sq_route(n: int, m: int, p: int, NW: int, dtype) -> str:
-    """K1's forward route at these widths: ``""`` for the register-tiled
-    kernel where one of its size classes fits (``csrc/thomas_sq.cu::
-    tiled_kernel``), else ``"wide_"`` for the shared-memory kernel."""
-    sfx = "f32" if dtype == torch.float32 else "f64"
-    fits = build.bind(build.load(_LIB), f"thomas_sq_tiled_fits_{sfx}",
-                      [build.I] * 4)
-    return "" if fits(n, m, p, NW) else "wide_"
+# The forward routes in the order of the libraries' ``*_route_*`` numbers,
+# their names, and their exports' infixes in K1's and K3's library.
+_ROUTES = ("tiled", "shared", "device")
+_ROUTE_NAMES = {"tiled": "register-tiled", "shared": "shared-memory",
+                "device": "device-memory"}
+_INFIX = {_LIB: {"tiled": "", "shared": "wide_", "device": "global_"},
+          _LIB_DENSE: {"tiled": "", "shared": "big_", "device": "global_"}}
+
+
+def _sfx(dtype) -> str:
+    return "f32" if dtype == torch.float32 else "f64"
 
 
 @functools.lru_cache(maxsize=None)
-def _sq_launch(spec, w_owner, dtype, shared=False):
+def _shape_route(name: str, dtype, widths) -> str:
+    """The forward route that library ``name`` picks for ``widths`` ((n, m,
+    p, NW) for K1, (n, m, p) for K3), asked once per shape; raises where no
+    route holds the system."""
+    export = f"{name}_route_{_sfx(dtype)}"
+    code = build.bind(build.load(name), export,
+                      [build.I] * len(widths))(*widths)
+    if code < 0:
+        raise ValueError(f"no forward kernel takes a system of widths "
+                         f"{tuple(widths)} ({export})")
+    return _ROUTES[code]
+
+
+def _pick_route(name: str, dtype, widths, forward: str) -> str:
+    """The route the shape takes (``forward`` "auto"), or the one that
+    ``forward`` names: "shared" or "device", to time it against the
+    shape's."""
+    if forward == "auto":
+        return _shape_route(name, dtype, tuple(widths))
+    if forward not in ("shared", "device"):
+        raise ValueError(f"unknown forward route {forward!r}")
+    return forward
+
+
+@functools.lru_cache(maxsize=None)
+def _sq_launch(spec, w_owner, dtype, forward="auto"):
     """K1 at these widths, once per (shape, dtype, route asked for):
     ``(route, library, forward and backward launchers, owner and w_owner
     tables)``."""
     lib = build.load(_LIB)
-    sfx = "f32" if dtype == torch.float32 else "f64"
+    sfx = _sfx(dtype)
     P, I = build.P, build.I
-    route = ("wide_" if shared else
-             _sq_route(spec.n, spec.m, spec.p, len(w_owner), dtype))
-    fwd = build.launcher(lib, f"thomas_sq_fwd_{route}{sfx}",
-                         [P] * 10 + [I] * 6 + [P])
+    route = _pick_route(_LIB, dtype, (spec.n, spec.m, spec.p, len(w_owner)),
+                        forward)
+    fwd = build.launcher(lib, f"thomas_sq_fwd_{_INFIX[_LIB][route]}{sfx}",
+                         [P] * (11 if route == "device" else 10) + [I] * 6
+                         + [P])
     bwd = build.launcher(lib, f"thomas_sq_bwd_{sfx}", [P] * 9 + [I] * 6 + [P])
     return (route, lib, fwd, bwd, build.int_table(owner_map_u(spec)),
             build.int_table(w_owner))
 
 
-def structured_forward(n: int, m: int, p: int, NW: int, dtype,
-                       shared=False):
-    """The forward kernel that K1 runs at these widths with ``NW`` w
-    vectors (``shared``: the shared-memory one): ``(register-tiled or not,
-    lanes per SM, registers a thread, local memory bytes a thread)`` from
-    the CUDA runtime; needs a card."""
-    lib = build.load(_LIB)
-    sfx = "f32" if dtype == torch.float32 else "f64"
-    route = "wide_" if shared else _sq_route(n, m, p, NW, dtype)
-    fn = build.bind(lib, f"thomas_sq_occupancy_{route}{sfx}",
-                    [build.I] * 4 + [build.P])
+def _occupancy(name: str, dtype, widths, forward: str):
+    """``(route name, lanes per SM, registers a thread, local memory bytes
+    a thread)`` of library ``name``'s forward kernel at ``widths`` on the
+    route ``forward`` names or the shape takes, from the CUDA runtime."""
+    lib = build.load(name)
+    route = _pick_route(name, dtype, widths, forward)
+    fn = build.bind(lib, f"{name}_occupancy_{_sfx(dtype)}",
+                    [build.I] * (len(widths) + 1) + [build.P])
     out = (ctypes.c_int * 3)()
-    build.check(lib, _LIB, fn(n, m, p, NW, out))
-    return (not route, *out)
+    build.check(lib, name, fn(*widths, _ROUTES.index(route), out))
+    return (_ROUTE_NAMES[route], *out)
+
+
+def structured_forward(n: int, m: int, p: int, NW: int, dtype,
+                       forward="auto"):
+    """The forward kernel that K1 runs at these widths with ``NW`` w
+    vectors (``forward``: the route asked for): ``(route name, lanes per
+    SM, registers a thread, local memory bytes a thread)``; needs a
+    card."""
+    return _occupancy(_LIB, dtype, (n, m, p, NW), forward)
 
 
 def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
-                            w_owner, shared: bool = False) -> torch.Tensor:
+                            w_owner, forward: str = "auto") -> torch.Tensor:
     """Solve the KKT system for ``b`` [B, T, W] (pass the negated residual
     for the Newton step); ``sq`` leaves are [B, T, ...] and contiguous.
     Returns the flat [B, S] solution in per-knot column order.  The
-    forward kernel is the register-tiled one where a size class fits, else
-    (or with ``shared``) the shared-memory one (counted by
-    ``wide_launches``)."""
+    forward kernel is the one the library picks by shape (or the route
+    ``forward`` names: "shared", "device"); the shared-memory one is
+    counted by ``wide_launches``, the device-memory one by
+    ``global_launches``."""
     _check(spec, sq, b, w_owner)
     if _route(b) == "plain":
         return solve_thomas_structured_plain(spec, sq, b, w_owner)
     route, lib, fwd, bwd, owner, w_own = _sq_launch(spec, tuple(w_owner),
-                                                    b.dtype, shared)
+                                                    b.dtype, forward)
     Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
     d, pn, NW = n + m, p * n, len(w_owner)
     G = torch.empty((Bsz, T, d, pn), dtype=b.dtype, device=b.device)
     yhat = torch.empty((Bsz, T, d), dtype=b.dtype, device=b.device)
     y = torch.empty((Bsz, T, spec.W), dtype=b.dtype, device=b.device)
+    outs = [G.data_ptr(), yhat.data_ptr()]
+    if route == "device":
+        work = torch.empty((Bsz, n * pn), dtype=b.dtype, device=b.device)
+        outs.append(work.data_ptr())
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib, _LIB, fwd(
             sq.qdiag.data_ptr(), sq.wv.data_ptr(), sq.Ublk.data_ptr(),
             sq.B.data_ptr(), sq.A.data_ptr(), b.data_ptr(), owner, w_own,
-            G.data_ptr(), yhat.data_ptr(), Bsz, T, n, m, p, NW, stream))
+            *outs, Bsz, T, n, m, p, NW, stream))
         build.check(lib, _LIB, bwd(
             G.data_ptr(), yhat.data_ptr(), sq.qdiag.data_ptr(),
             sq.wv.data_ptr(), sq.A.data_ptr(), b.data_ptr(), owner, w_own,
             y.data_ptr(), Bsz, T, n, m, p, NW, stream))
-    if route:
+    if route == "shared":
         solve_thomas_structured.wide_launches += 1
+    elif route == "device":
+        solve_thomas_structured.global_launches += 1
     solve_thomas_structured.launches += 1
     return y.reshape(Bsz, -1)
 
 
 solve_thomas_structured.launches = 0
 solve_thomas_structured.wide_launches = 0
+solve_thomas_structured.global_launches = 0
 
 
 def solve_thomas_plain(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
@@ -209,30 +257,20 @@ def solve_thomas_plain(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:
     return solve_tridiagonal_schur(spec, jb, b)
 
 
-@functools.lru_cache(maxsize=None)
-def _dense_route(lib, n: int, m: int, p: int, dtype) -> str:
-    """K3's forward route at these widths: ``""`` for the register-tiled
-    kernel where one of its size classes fits (``csrc/thomas_dense.cu::
-    tiled_kernel``), else ``"big_"`` for the shared-memory kernel.  Asked
-    once per shape, so that a call binds only its two launchers."""
-    sfx = "f32" if dtype == torch.float32 else "f64"
-    fits = build.bind(lib, f"thomas_dense_tiled_fits_{sfx}", [build.I] * 3)
-    return "" if fits(n, m, p) else "big_"
-
-
-def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p, shared=False
+def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p, forward="auto"
                   ) -> torch.Tensor:
     """Run K3's forward and backward kernels on [B, T, ...] operands with
     ``m`` control rows owned per ``owner``; returns y [B, T, n + m + p n].
-    The forward kernel is the register-tiled one where a size class fits,
-    else (or with ``shared``) the shared-memory one (counted by
-    ``solve_thomas.big_launches``)."""
+    The forward kernel is the one the library picks by shape, or the route
+    ``forward`` names (counted by ``solve_thomas.big_launches`` for the
+    shared-memory one, ``global_launches`` for the device-memory one)."""
     lib = build.load(_LIB_DENSE)
-    sfx = "f32" if b.dtype == torch.float32 else "f64"
-    route = "big_" if shared else _dense_route(lib, n, m, p, b.dtype)
+    sfx = _sfx(b.dtype)
+    route = _pick_route(_LIB_DENSE, b.dtype, (n, m, p), forward)
     P, I = build.P, build.I
-    fwd = build.launcher(lib, f"thomas_dense_fwd_{route}{sfx}",
-                         [P] * 8 + [I] * 5 + [P])
+    fwd = build.launcher(
+        lib, f"thomas_dense_fwd_{_INFIX[_LIB_DENSE][route]}{sfx}",
+        [P] * (9 if route == "device" else 8) + [I] * 5 + [P])
     bwd = build.launcher(lib, f"thomas_dense_bwd_{sfx}",
                          [P] * 6 + [I] * 5 + [P])
     Bsz, T = b.shape[:2]
@@ -241,50 +279,49 @@ def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p, shared=False
     G = torch.empty((Bsz, T, d, pn), dtype=b.dtype, device=b.device)
     yhat = torch.empty((Bsz, T, d), dtype=b.dtype, device=b.device)
     y = torch.empty((Bsz, T, d + pn), dtype=b.dtype, device=b.device)
+    outs = [G.data_ptr(), yhat.data_ptr()]
+    if route == "device":
+        work = torch.empty((Bsz, n * pn), dtype=b.dtype, device=b.device)
+        outs.append(work.data_ptr())
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib, _LIB_DENSE, fwd(
             Q.data_ptr(), Ub.data_ptr(), Bm.data_ptr(), A.data_ptr(),
-            b.data_ptr(), own, G.data_ptr(), yhat.data_ptr(), Bsz, T, n, m,
-            p, stream))
+            b.data_ptr(), own, *outs, Bsz, T, n, m, p, stream))
         build.check(lib, _LIB_DENSE, bwd(
             G.data_ptr(), yhat.data_ptr(), Q.data_ptr(), A.data_ptr(),
             b.data_ptr(), y.data_ptr(), Bsz, T, n, m, p, stream))
-    if route:
+    if route == "shared":
         solve_thomas.big_launches += 1
+    elif route == "device":
+        solve_thomas.global_launches += 1
     return y
 
 
-def dense_forward(n: int, m: int, p: int, dtype, shared=False):
+def dense_forward(n: int, m: int, p: int, dtype, forward="auto"):
     """The forward kernel that K3 runs at these widths (``m``: the padded
-    control rows; ``shared``: the shared-memory one): ``(register-tiled or
-    not, lanes per SM, registers a thread, local memory bytes a thread)``
-    from the CUDA runtime; needs a card."""
-    lib = build.load(_LIB_DENSE)
-    sfx = "f32" if dtype == torch.float32 else "f64"
-    route = "big_" if shared else _dense_route(lib, n, m, p, dtype)
-    fn = build.bind(lib, f"thomas_dense_occupancy_{route}{sfx}",
-                    [build.I] * 3 + [build.P])
-    out = (ctypes.c_int * 3)()
-    build.check(lib, _LIB_DENSE, fn(n, m, p, out))
-    return (not route, *out)
+    control rows; ``forward``: the route asked for): ``(route name, lanes
+    per SM, registers a thread, local memory bytes a thread)``; needs a
+    card."""
+    return _occupancy(_LIB_DENSE, dtype, (n, m, p), forward)
 
 
 def solve_thomas(spec, jb: JacBlocks, b: torch.Tensor,
-                 shared: bool = False) -> torch.Tensor:
+                 forward: str = "auto") -> torch.Tensor:
     """Solve the KKT system with dense Hessian blocks (kernel K3) for ``b``
     [B, T, W]; ``jb`` leaves are [B, T, ...] and contiguous.  Returns the
     flat [B, S] solution in per-knot column order.  A heterogeneous spec
-    is solved padded (see the module's docstring).  ``shared``: the
-    shared-memory forward kernel whatever the widths."""
+    is solved padded (see the module's docstring).  ``forward``: the
+    forward route to take ("shared", "device") at any widths that it
+    holds; by default the one the library picks by shape."""
     Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
     _check_operands(spec, jb, b, {
         "Qblk": (Bsz, T, p, n, n), "Ublk": (Bsz, T, m, m),
         "A": (Bsz, T, n, n), "B": (Bsz, T, n, m)})
     if _route(b) == "plain":
         return solve_thomas_plain(spec, jb, b)
-    launch = (functools.partial(_launch_dense, shared=True) if shared
-              else _launch_dense)
+    launch = (_launch_dense if forward == "auto"
+              else functools.partial(_launch_dense, forward=forward))
     if spec.homogeneous:
         y = launch(jb.Qblk, jb.Ublk, jb.B, jb.A, b, owner_map_u(spec), n, m,
                    p)
@@ -298,6 +335,7 @@ def solve_thomas(spec, jb: JacBlocks, b: torch.Tensor,
 
 solve_thomas.launches = 0
 solve_thomas.big_launches = 0
+solve_thomas.global_launches = 0
 
 
 def kkt_solve(spec, blocks, b: torch.Tensor, w_owner) -> torch.Tensor:

@@ -67,7 +67,11 @@ _KIND = {CollisionParams: 0, CircleParams: 1, BoundParams: 2,
 # Per-player state / control dimension of each compiled model.
 _DIMS = {"unicycle": (4, 2), "di2": (4, 2), "di3": (6, 3),
          "hdi2": (4, 2), "bicycle": (4, 2), "quadrotor": (12, 4)}
-_MAX_SB, _MAX_CB, _MAX_PAIR, _MAX_M, _MAX_N, _MAX_CYL = 64, 4, 64, 32, 32, 32
+_MAX_SB, _MAX_CB, _MAX_PAIR, _MAX_M, _MAX_CYL = 64, 4, 64, 32, 32
+# Most states of an instance: 2n state-bound rows in one 64-bit mask, or
+# in two for the quadrotor's (``TrialMeta::sb_mask_hi`` in the source).
+_MAX_N = {"quadrotor": 64}
+_MAX_N_DEFAULT = 32
 _N_CONST = 12
 _PAIR_EPS = 1e-10
 
@@ -146,7 +150,7 @@ def trial_supported(model, spec, obj, gc) -> bool:
     the collision (2 or 3 coordinates), circle, wall, 3D wall, cylinder or
     state-bound families; box bounds as the only control blocks;
     collision-cost pairs on 2 or 3 coordinates; all within the kernel's
-    table sizes.  Every sense is inside: equality rows are always
+    table sizes, and at most 32 states (the quadrotor's instance: 64).  Every sense is inside: equality rows are always
     penalized, inequality and second-order-cone rows by the inequality
     rule, as in :func:`~..constraints.sets.al_irho`."""
     name = model_name(model)
@@ -161,7 +165,8 @@ def trial_supported(model, spec, obj, gc) -> bool:
             and len(gc.state_blocks) <= _MAX_SB
             and len(gc.control_blocks) <= _MAX_CB
             and len(obj.pair_i) <= _MAX_PAIR
-            and spec.m <= _MAX_M and spec.n <= _MAX_N)
+            and spec.m <= _MAX_M
+            and spec.n <= _MAX_N.get(name, _MAX_N_DEFAULT))
 
 
 def trial_eval_plain(model, spec, obj, gc, traj: PrimalDual,
@@ -223,7 +228,9 @@ def _check(model, spec, obj, gc, traj, dtraj, alpha, reg_eff) -> None:
 
 def _state_tables(sb, dtype, device):
     """The kernel's state-block table: per block (kind, owner, first row,
-    first parameter, count, six indices, equality flag) and its mask, plus
+    first parameter, count, six indices, equality flag) and its mask (a
+    state bound's: bit j the upper row of state j, bit n + j its lower
+    row; a cylinder block's: two axis bits per cylinder), plus
     the parameter array (see ``csrc/trial_fused.cu`` SBlock for the
     layout)."""
     meta, masks, params = [], [], []
@@ -265,6 +272,13 @@ def _state_tables(sb, dtype, device):
     spar = (torch.cat(params).to(dtype).contiguous() if params
             else torch.zeros((0,), dtype=dtype, device=device))
     return meta, masks, spar, row
+
+
+def _mask_words(masks) -> list:
+    """Each state block's mask as the kernel's two 64-bit words: bits 0..63,
+    then 64..127 (a state bound's lower-bound rows past 64: n > 32)."""
+    low = (1 << 64) - 1
+    return [w for mask in masks for w in (mask & low, mask >> 64)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -329,7 +343,7 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
         (ctypes.c_void_p * len(outs))(*[a.data_ptr() for a in outs]),
         (ctypes.c_double * _N_CONST)(*model_constants(model)),
         build.int_table(s_meta),
-        (ctypes.c_ulonglong * max(1, nsb))(*s_mask),
+        (ctypes.c_ulonglong * max(2, 2 * nsb))(*_mask_words(s_mask)),
         build.int_table(p_meta), c_mask, Bsz, spec.N, p, nsb, csum, ncb,
         npair, spec.S, float(spec.dt), _PAIR_EPS * math.sqrt(n), stream))
     rows = np.cumsum([0] + [b.lam.shape[-1] for b in sb])

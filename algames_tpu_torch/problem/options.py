@@ -5,9 +5,10 @@ with the same defaults.  Left out: the TPU compiler knobs ``flat_loop``
 (the port always runs the flat (k, l) machine, as a host loop) and
 ``loop_unroll`` (iterations per while-loop trip), and the fields that no
 solver path reads (``theta``, ``alpha_increase``, ``rho_trial``,
-``gamma``, ``inner_print``, ``outer_print``, ``seed``);
-``convert.problem_from_reference`` raises on a reference problem that
-sets one of those away from its default.
+``gamma``, ``inner_print``, ``outer_print``, ``seed``), which
+``convert.problem_from_reference`` drops at any value.  ``Regularizer``
+and ``Penalty`` are the reference's records of the same names, for users
+who drive iterations by hand; the solver carries its own schedule.
 """
 from __future__ import annotations
 
@@ -86,3 +87,30 @@ class IBROptions:
     ibr_iter: int = 100
     ordering: Tuple[int, ...] = tuple(range(100))
     delta_min: float = 1e-9
+
+
+@dataclasses.dataclass(frozen=True)
+class Regularizer:
+    """Per-variable-kind Tikhonov coefficients (the reference's
+    ``Regularizer``).  The solver carries the scalar schedule ``reg = reg_0
+    l^4`` itself; this record is for users who drive iterations by hand."""
+    x: float = 0.0
+    u: float = 0.0
+    lam: float = 0.0
+
+    def set(self, rho: float) -> "Regularizer":
+        """Every coefficient set to ``rho``."""
+        return Regularizer(x=rho, u=rho, lam=rho)
+
+    def mult(self, gamma: float) -> "Regularizer":
+        """Every coefficient times ``gamma``."""
+        return Regularizer(x=self.x * gamma, u=self.u * gamma,
+                           lam=self.lam * gamma)
+
+
+@dataclasses.dataclass(frozen=True)
+class Penalty:
+    """An AL penalty pair (the reference's ``Penalty``).  The live penalty
+    evolves in the solver and is returned as ``SolveResult.rho``."""
+    rho: float = 1.0
+    rho_trial: float = 1.0

@@ -21,7 +21,8 @@ PyTorch version:
   control bounds): K3 and K4;
 - the 2-player quadrotor (N=15, spherical collision, a floor facet, a
   cylinder, thrust bounds [0, 3]): K1 and K4, and K3 on its systems
-  turned dense; with 3 players (d=48) K1's tall size class;
+  turned dense; with 3 players (d=48) K1's tall size class and K4; with 4
+  (d=64) K1's and K3's device-memory route and K4;
 - the heterogeneous double integrator (mi = (2, 1), player-blocked, N=8):
   K3 on controls padded to p max(mi) and K4's player-blocked instance;
 - iterative best response on the flagship and on the quadrotor
@@ -112,17 +113,35 @@ Phases:
    gated as ``sweep-quad2`` on its first 256 lanes; K3's launch count),
    and the shared-memory kernel itself on the 3-player quadrotor's
    systems turned dense (``K3-big48``: d=48, beyond K3's classes,
-   B_BEYOND lanes, the same gates); then the quadrotor preset with 3
+   B_BEYOND lanes, the same gates), timed beside the device-memory route
+   on the same operands; then the quadrotor preset with 3
    players (d=48): K1 on its KKT systems on its tall class (256 threads a
    lane) gated as the quadrotor's and timed beside the shared-memory
    kernel (``K1-wide``), an f64 solve of 4 scenarios against the same
    solve through the plain versions on the card (``solve-wide``: iteration
-   counts equal, x and u within 1e-8), one timed f32 chunk of 1024
-   scenarios (``sweep-quad3``: finite, none diverged; K1's launch count
-   and its share of the wall); and K1's shared-memory kernel on the
-   4-player quadrotor's systems (``K1-wide64``: d=64, beyond K1's
-   classes, B_BEYOND lanes, f32 only: its f64 instance needs more shared
-   memory than an SM has);
+   counts equal, x and u within 1e-8), K4 on its trial inputs (``K4-quad3``:
+   n=36, the quadrotor instance's second mask word), one timed f32 chunk
+   of 1024 scenarios with the fused trial (``sweep-quad3``: finite, none
+   diverged; K1's and K4's launch counts, K1's share of the wall); then the
+   4-player quadrotor (d=64, R=193, beyond every size class): K1 on its
+   systems (``K1-wide64``, B_BEYOND lanes) in f64 on the device-memory
+   route of ``csrc/thomas_global.cuh`` and in f32 on the shared-memory
+   kernel and, forced, on the device-memory route, each gated as the
+   quadrotor's and timed; K3 on the same
+   systems turned dense (``K3-big64``, device-memory route in both
+   precisions); K4 on its trial inputs (``K4-quad4``: n=48) and with a
+   state bound on all 48 states (``K4-quad4-bound``: rows past the 64th
+   in the table's second word); f64 solves of 4 scenarios (outer 2 x 5,
+   fused trial) through K1's device-memory route and K4 (``solve-wide64``)
+   and, with collision-cost pairs between the players, through K3's
+   (``solve-big64``), each against the same solve through the plain
+   versions on the card (iteration counts equal, x and u within 1e-8);
+   and one timed f32 chunk of 1024 scenarios (``sweep-quad4``: finite,
+   none diverged, the first 256 lanes' converged share and mean final
+   residual against the reference's (REF_QUAD4), the first 64 lanes'
+   mean final residual against the plain versions' on the card, K1 and K4
+   launched, K4 at least once a KKT step; K1's and K4's shares of the
+   wall, and K1's numbers at the chunk's batch);
 13. the heterogeneous game: K3 on its padded KKT systems as in 11
    (``K3-hetero``), K4 on its trial inputs (``K4-hetero``), the f64 solve
    through K3 and K4 against ``tests/golden_torch/hetero2_N8.npz`` (the
@@ -237,8 +256,9 @@ HERE = Path(__file__).resolve().parent
 MUS = [10.0 ** k for k in range(8)]
 B_KERNEL = 1024
 N_SWEEP, CHUNK = 4096, 1024
-# Published H100 SXM peaks (NVIDIA data sheet): device-memory rate and the
-# f32 rate outside the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet): device-memory rate, and the
+# f32 rate outside the tensor cores, which is also the f64 tensor cores'
+# (DMMA computes in full f64), so it bounds the f64 rows as well.
 PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
 # The reference package's f32 `schur` solve of the sweep scenarios of each
 # game but the flagship (`tests/roundabout_reference.py subset`,
@@ -280,9 +300,23 @@ BIKE3_PLAIN_TOL = 1e-10
 # The f64 3-player quadrotor solve through K1's tall size class against
 # the same solve through the plain versions on the card.
 WIDE_PLAIN_TOL = 1e-8
-# Lanes of the checks of the shared-memory forward kernels on systems
-# beyond the size classes (``K1-wide64``, ``K3-big48``).
+# Lanes of the checks of the forward kernels on systems beyond the size
+# classes (``K3-big48``: the shared-memory kernel; ``K1-wide64``,
+# ``K3-big64``: the device-memory route, and K1's shared-memory kernel in
+# f32).
 B_BEYOND = 64
+# The 4-player quadrotor's f32 sweep (``sweep-quad4``, 2 x 5): the reference
+# package's converged share of the first 256 scenarios and its mean final
+# residual norm over them (`tests/reference_fractions.py subset
+# quad4_N15`): no lane of either package converges within the cut budget,
+# so the share gate cannot fail there, and the sweep is also held to the
+# final residual (<= 1.1 x), and its first PLAIN_LANES lanes to the same
+# solve through the plain versions on the card: the mean final residual
+# within a relative PLAIN_RES_TOL, and the median lane's within
+# PLAIN_LANE_TOL (most lanes take the plain versions' path; f32 rounding
+# turns a few line searches).
+REF_QUAD4 = (0 / 256, 0.20679336786270142)
+PLAIN_LANES, PLAIN_RES_TOL, PLAIN_LANE_TOL = 64, 0.02, 1e-4
 # BASELINE config 3 as `benchmarks/bench_mpc.py` runs it: the highway's
 # collision radius and control bound, H_MPC replans, and B_MPC scenarios in
 # the batched closed loop.  REF_MPC: the reference package's f32 share of
@@ -557,7 +591,8 @@ def ptxas_report(text):
 
 def bound(nbytes, flops):
     """Least time (ms) the card could take for the work: the larger of the
-    bytes over the memory rate and the f32 operations over the f32 peak."""
+    bytes over the memory rate and the operations over the f32 and f64
+    peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -757,18 +792,16 @@ def backward_errors(spec, blocks, w_owner, b, ys, lanes=256):
 
 
 def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
-             seed0=0, gate="forward", wide=False, B=B_KERNEL, eq_mu=False,
-             shared_too=False, f64=True):
+             seed0=0, gate="forward", B=B_KERNEL, eq_mu=False,
+             shared_too=False):
     """K1 against its plain version on ``preset``'s KKT systems (default:
     the flagship), B lanes, over mu = 1 .. 1e7 (``eq_mu``: mu on the
     equality rows, ``k1_system``), on the register-tiled
-    forward kernel (``wide``: on the shared-memory one, for systems beyond
-    its size classes; the other route taken is a failure); then its times,
-    bound, library call and forward kernel (``k1_occupancy``) in f32, and
-    with ``shared_too`` the shared-memory forward kernel's device time and
-    occupancy on the same operands.  Without ``f64`` only the f32 kernel
-    runs (the shared-memory kernel's f64 instance needs more shared memory
-    than an SM has from d = 64 on).
+    forward kernel (another route taken is a failure; systems beyond the
+    size classes: :func:`phase_beyond`); then its times, bound, library
+    call and forward kernel (``k1_occupancy``) in f32, and with
+    ``shared_too`` the shared-memory forward kernel's device time and
+    occupancy on the same operands.
     ``gate`` "forward": worst relative error against the f64 plain
     version, f64 <= 1e-9 and f32 <= 1e-3.  "backward", for systems too
     ill-conditioned for that in f32 (the f32 plain version itself misses
@@ -791,7 +824,7 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
                                          penalize_rows, preset, iterates,
                                          eq_mu and not penalize_rows)
         ref = solve_thomas_structured_plain(spec, sq, b, w_owner)
-        y64 = solve(sq, b, w_owner) if f64 else ref
+        y64 = solve(sq, b, w_owner)
         sq32 = tree_map(lambda a: a.float(), sq)
         y32 = solve(sq32, b.float(), w_owner)
         torch.cuda.synchronize()
@@ -809,11 +842,8 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
     worst64 = worst32 = max_abs32 = 0.0
     launches = solve_thomas_structured.launches
     wide0 = solve_thomas_structured.wide_launches
-    calls = 2 if f64 else 1                  # kernel calls per compare
-    if not f64:
-        log(f"[{tag}] f64: not run (its shared-memory forward kernel needs "
-            f"more shared memory than an SM has); the f64 columns below are "
-            f"the plain version's")
+    dev0 = solve_thomas_structured.global_launches
+    calls = 2                                # kernel calls per compare
     for i, mu in enumerate(MUS):
         e = compare(mu, i, False)
         e64, e32, a32 = e[:3]
@@ -839,10 +869,11 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
         max_abs32 = max(max_abs32, a32)
     if solve_thomas_structured.launches != launches + calls * len(MUS):
         raise SystemExit(f"the {tag} wrapper did not launch its kernel")
-    took_wide = solve_thomas_structured.wide_launches - wide0
-    if took_wide != (calls * len(MUS) if wide else 0):
-        raise SystemExit(f"{tag}: K1 took the wrong forward route ({took_wide}"
-                         f" of {calls * len(MUS)} calls on the wide route)")
+    took = (solve_thomas_structured.wide_launches - wide0
+            + solve_thomas_structured.global_launches - dev0)
+    if took:
+        raise SystemExit(f"{tag}: K1 took the wrong forward route ({took} "
+                         f"of {calls * len(MUS)} calls beyond its classes)")
     for mu in (1e3, 1e7):
         e64, e32, _ = compare(mu, 50, True)
         log(f"[{tag}] every constraint row penalized at mu={mu:.0e} "
@@ -872,18 +903,16 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
         f"{spec.S}, {spec.S}] KKT matrices, f32, one call: {lib_ms:.4f} ms; "
         f"worst relative deviation from K1 {dev_lib:.3e} (not gated); bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-    dtypes = ("f32", "f64") if f64 else ("f32",)
     out = {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
            "device_ms": dev_ms, **bnd, "library_ms": lib_ms,
-           "forward_kernel": k1_occupancy(tag, spec, len(w_owner), B,
-                                          dtypes=dtypes)}
+           "forward_kernel": k1_occupancy(tag, spec, len(w_owner), B)}
     if shared_too:
         out["shared_device_ms"] = device_ms(
             lambda: solve_thomas_structured(spec, sq32, b32, w_owner,
-                                            shared=True), 20,
+                                            forward="shared"), 20,
             ("thomas_sq_",), 2, f"{tag} shared-memory kernel")
         out["shared_forward_kernel"] = k1_occupancy(
-            f"{tag} shared-memory kernel", spec, len(w_owner), B, True)
+            f"{tag} shared-memory kernel", spec, len(w_owner), B, "shared")
         log(f"[{tag}] f32 device time at B={B}: register-tiled "
             f"{dev_ms:.4f} ms, the shared-memory forward kernel on the same "
             f"operands {out['shared_device_ms']:.4f} ms "
@@ -891,18 +920,18 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
     return out
 
 
-def k1_occupancy(tag, spec, NW, B=B_KERNEL, shared=False,
+def k1_occupancy(tag, spec, NW, B=B_KERNEL, forward="auto",
                  dtypes=("f32", "f64")):
     """The forward kernel K1 runs at ``spec``'s widths with ``NW`` w
-    vectors (``shared``: its shared-memory one), per dtype: its route,
-    lanes per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    waves at B lanes, registers and local memory (frame) a thread
-    (``cudaFuncGetAttributes``), through ``thomas_sq_occupancy_*``;
-    printed and returned."""
+    vectors (``forward``: on that route, "shared" or "device", instead of
+    the one the shape takes), per dtype: its route, lanes per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), waves at B lanes,
+    registers and local memory (frame) a thread (``cudaFuncGetAttributes``),
+    through ``thomas_sq_occupancy_*``; printed and returned."""
     from algames_tpu_torch.ops.thomas import structured_forward
     return forward_occupancy(
         tag, lambda dt: structured_forward(spec.n, spec.m, spec.p, NW, dt,
-                                           shared),
+                                           forward),
         f"d={spec.n + spec.m}, R={spec.p * spec.n + 1}, NW={NW}", B, dtypes)
 
 
@@ -917,11 +946,11 @@ def forward_occupancy(tag, query, widths, B, dtypes=("f32", "f64")):
     for dt, name in ((torch.float32, "f32"), (torch.float64, "f64")):
         if name not in dtypes:
             continue
-        tiled, lanes, regs, frame = query(dt)
+        route, lanes, regs, frame = query(dt)
         if lanes < 1:
             raise SystemExit(f"[{tag}] the {name} forward kernel fits no "
                              f"lane on an SM")
-        out[name] = {"route": "register-tiled" if tiled else "shared-memory",
+        out[name] = {"route": route,
                      "lanes_per_sm": lanes,
                      "waves": math.ceil(B / (sms * lanes)),
                      "registers": regs, "frame_bytes": frame}
@@ -1058,7 +1087,8 @@ def quad3_game(dev, dtype):
 def quad4_game(dev, dtype):
     """The quadrotor preset with four players, outer 2 x inner 5: n=48,
     m=16, so its reduced KKT systems (d=64, R=193) lie beyond K1's size
-    classes and take its shared-memory route."""
+    classes: in f32 they take its shared-memory route, in f64 (beyond an
+    SM's shared memory) its device-memory route."""
     from algames_tpu_torch.presets import quadrotor3d
     return quadrotor3d(dev, dtype, outer=2, inner=5, p=4)
 
@@ -1107,23 +1137,26 @@ def phase_solve_wide(dev):
         f"launches {launches}")
     if not ((it == it_p).all() and dx <= WIDE_PLAIN_TOL
             and du <= WIDE_PLAIN_TOL and launches["K1"] > 0
-            and launches["K1 wide route"] == 0):
+            and launches["K1 wide route"] == 0
+            and launches["K1 device route"] == 0):
         raise SystemExit("the 3-player quadrotor solve through K1 disagrees "
                          "with the plain versions")
 
 
-def phase_sweep_quad3(dev, k1_wide):
+def phase_sweep_quad3(dev, k1_wide, k4_quad3):
     """One timed f32 chunk of ``quad3_game``: its first CHUNK scenarios
-    (x0 + 0.05 N(0, 1) from numpy seed 0), outer 2 x 5, the eager trial
-    (the fused one does not take n=36), warm, counted from zero after the
+    (x0 + 0.05 N(0, 1) from numpy seed 0), outer 2 x 5, the fused trial
+    (K4's quadrotor instance, n=36), warm, counted from zero after the
     warm-up: every trajectory finite, none diverged; K1 launched on its
-    tall register-tiled class (no wide-route launch), K3 not.  Prints K1's
-    share of the chunk's wall time (its f32 device time per call at
-    B=CHUNK from ``K1-wide``, ``k1_wide``, times its launches).  Returns
-    the launches."""
+    tall register-tiled class (no launch beyond it), K4 launched, K3 not.
+    Prints K1's and K4's shares of the chunk's wall time (their f32 device
+    times per call at B=CHUNK from ``K1-wide`` and ``K4-quad3``, ``k1_wide``
+    and ``k4_quad3``, times their launches).  Returns the launches."""
     import torch
     from algames_tpu_torch import parallel
     prob, spec = quad3_game(dev, torch.float32)
+    prob = dataclasses.replace(
+        prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
     rng = np.random.default_rng(0)
     x0s = torch.as_tensor(
         (np.asarray(prob.x0.cpu(), np.float64)[None]
@@ -1141,6 +1174,7 @@ def phase_sweep_quad3(dev, k1_wide):
         out, dataclasses.replace(opts, eps_opt=QUAD_OPT_GATE)))
     iters = out.stats.iter.cpu().numpy()
     k1_ms = k1_wide["device_ms"] * launches["K1"]
+    k4_ms = k4_quad3["device_ms"] * launches["trial"]
     log(f"[sweep-quad3] f32 {CHUNK} scenarios of the 3-player quadrotor as "
         f"one chunk, outer {opts.outer_iter} x {opts.inner_iter}: {el:.3f} "
         f"s, {CHUNK / el:.1f} solves/s; converged (opt gate "
@@ -1148,11 +1182,335 @@ def phase_sweep_quad3(dev, k1_wide):
         f"diverged {div:.4f}, finite {finite}; stats rows "
         f"{int(iters.min())}..{int(iters.max())}; launches {launches}; K1 "
         f"device time {launches['K1']} x {k1_wide['device_ms']:.4f} = "
-        f"{k1_ms:.1f} ms, {100 * k1_ms / 1e3 / el:.1f}% of the chunk's wall")
+        f"{k1_ms:.1f} ms, {100 * k1_ms / 1e3 / el:.1f}% of the chunk's wall; "
+        f"K4 {launches['trial']} x {k4_quad3['device_ms']:.4f} = "
+        f"{k4_ms:.1f} ms, {100 * k4_ms / 1e3 / el:.1f}%")
     if not (finite and div == 0.0 and launches["K1"] > 0
-            and launches["K1 wide route"] == 0 and launches["K3"] == 0):
+            and launches["K1 wide route"] == 0
+            and launches["K1 device route"] == 0 and launches["trial"] > 0
+            and launches["K3"] == 0):
         raise SystemExit("the 3-player quadrotor chunk failed its gates")
     return launches
+
+
+def quad4_bound_game(dev, dtype):
+    """``quad4_game`` with a state bound of player 0 on all 48 states: upper
+    bounds on every state, lower bounds on states 20.. only, so that its
+    rows past the 64th (K4's second mask word) carry flags and masked rows
+    alike."""
+    from algames_tpu_torch.constraints.sets import add_state_bound
+    prob, spec = quad4_game(dev, dtype)
+    lo = np.where(np.arange(spec.n) >= 20, -5.0, -np.inf)
+    gc = add_state_bound(spec, prob.gc, 0, 5.0 * np.ones(spec.n), lo)
+    return dataclasses.replace(prob, gc=gc), spec
+
+
+def quad4_cost_game(dev, dtype):
+    """``quad4_game`` with a collision cost between every pair of players
+    (radius 0.2, weight 2): its Hessian blocks are dense, so its KKT step
+    is K3's (d=64, on the device-memory route)."""
+    from algames_tpu_torch.objective.objective import add_collision_cost
+    prob, spec = quad4_game(dev, dtype)
+    obj = add_collision_cost(spec, prob.obj, radius=0.2 * np.ones(spec.p),
+                             mu=2.0 * np.ones(spec.p))
+    return dataclasses.replace(prob, obj=obj), spec
+
+
+def phase_beyond(dev, tag, form, seed0, B=B_BEYOND):
+    """K1 (``form`` "structured") or K3 ("dense": the same systems turned
+    dense) on the 4-player quadrotor's KKT systems (``quad4_game`` around
+    ``quad3_iterates``: d=64, R=193), beyond the size classes, B lanes,
+    mu = 1 .. 1e7: in f64 on the device-memory route (the shared-memory
+    kernel's f64 instance would need 443 KB for K1 and 499 KB for K3 of an
+    SM's 227), in f32 on the route the shape takes (K1: the shared-memory
+    kernel; K3: the device-memory route) and, for K1, forced onto the
+    device-memory route as well; every other route taken is a failure.
+    Each solution gated as the quadrotor's systems are: normwise backward
+    error f64 <= 1e-15 and f32 <= 1e-7, each <= 10 x the plain version's
+    in the same precision, f32 forward error <= 30 x the f32 plain
+    version's.  Then per precision and route its times (call, plain
+    version, device), bound and library
+    call, and the forward kernels' occupancy.  Returns the f64 route's
+    numbers (the kernels line's), with the f32 routes' under "f32"."""
+    import torch
+    from algames_tpu_torch.ops import thomas as TH
+    from algames_tpu_torch.utils import tree_leaves, tree_map
+    structured = form == "structured"
+    kernel = TH.solve_thomas_structured if structured else TH.solve_thomas
+    names = ("thomas_sq_",) if structured else ("thomas_dense_",)
+    f32_routes = ("auto", "device") if structured else ("auto",)
+
+    def system(mu, seed):
+        spec, sq, b, w_owner = k1_system(dev, B, mu, seed, False, quad4_game,
+                                         quad3_iterates)
+        if structured:
+            return spec, sq, b, w_owner
+        return spec, dense_of(spec, sq, w_owner), b, None
+
+    def solve(spec, blocks, b, w_owner, forward="auto"):
+        if structured:
+            return kernel(spec, blocks, b, w_owner, forward)
+        return kernel(spec, blocks, b, forward)
+
+    def plain(spec, blocks, b, w_owner):
+        if structured:
+            return TH.solve_thomas_structured_plain(spec, blocks, b, w_owner)
+        return TH.solve_thomas_plain(spec, blocks, b)
+
+    def shared_launches():
+        return kernel.wide_launches if structured else kernel.big_launches
+
+    dev0, sh0 = kernel.global_launches, shared_launches()
+    max_abs64 = 0.0
+    for i, mu in enumerate(MUS):
+        spec, blocks, b, w_owner = system(mu, seed0 + i)
+        blocks32, b32 = tree_map(lambda a: a.float(), blocks), b.float()
+        ref = plain(spec, blocks, b, w_owner)
+        p32 = plain(spec, blocks32, b32, w_owner)
+        y64 = solve(spec, blocks, b, w_owner)
+        y32 = [solve(spec, blocks32, b32, w_owner, r) for r in f32_routes]
+        torch.cuda.synchronize()
+        bws = [float(e.max()) for e in backward_errors(
+            spec, blocks, w_owner, b, (y64, ref, p32, *y32), lanes=B)]
+        b64, bp64, bp32 = bws[:3]
+        ep32 = float(rel_err(p32, ref).max())
+        ok = b64 <= 1e-15 and b64 <= 10 * bp64
+        line = (f"[{tag}] mu={mu:.0e}: backward error f64 device-memory "
+                f"route {b64:.3e} (plain {bp64:.3e}; <= 1e-15 and 10 x "
+                f"plain); f32 plain {bp32:.3e}, forward {ep32:.3e}")
+        for r, y, bw32 in zip(f32_routes, y32, bws[3:]):
+            e32 = float(rel_err(y, ref).max())
+            ok = (ok and bw32 <= 1e-7 and bw32 <= 10 * bp32
+                  and e32 <= 30 * ep32)
+            line += (f"; f32 {r} route {bw32:.3e} (<= 1e-7 and 10 x plain),"
+                     f" forward {e32:.3e} (<= 30 x plain)")
+        log(line)
+        if not ok:
+            raise SystemExit(f"{tag} disagrees with its plain version at "
+                             f"mu={mu}")
+        max_abs64 = max(max_abs64, float((y64 - ref).abs().max()))
+    took_dev = kernel.global_launches - dev0
+    took_sh = shared_launches() - sh0
+    want_sh = len(MUS) if structured else 0
+    if took_dev != 2 * len(MUS) or took_sh != want_sh:
+        raise SystemExit(f"{tag}: wrong forward routes ({took_dev} device-"
+                         f"memory, {took_sh} shared-memory launches; want "
+                         f"{2 * len(MUS)}, {want_sh})")
+
+    spec, blocks, b, w_owner = system(1e3, seed0 + 99)
+    NW = len(w_owner) if structured else 0
+
+    def numbers(dtype, forward, label):
+        bl = tree_map(lambda a: a.to(dtype), blocks)
+        bb = b.to(dtype)
+        ms = cuda_ms(lambda: solve(spec, bl, bb, w_owner, forward), 10)
+        plain_ms = cuda_ms(lambda: plain(spec, bl, bb, w_owner), 3)
+        dev_ms = device_ms(lambda: solve(spec, bl, bb, w_owner, forward), 10,
+                           names, 2, f"{tag} {label}")
+        y = solve(spec, bl, bb, w_owner, forward)
+        dense = dense_of(spec, bl, w_owner) if structured else bl
+        lib_ms, y_lib = library_solve_ms(spec, dense, bb, B)
+        bnd = bound(tensor_bytes(tree_leaves(bl) + [bb, y]),
+                    thomas_flops(spec, B, NW=NW, dense=not structured))
+        log(f"[{tag}] {label} at B={B}: call {ms:.4f} ms, plain {plain_ms:.4f}"
+            f" ms (CUDA events); device time {dev_ms:.4f} ms (events, fwd + "
+            f"bwd); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
+            f"library (torch.linalg.solve on the dense [{B}, {spec.S}, "
+            f"{spec.S}] KKT matrices) {lib_ms:.4f} ms, worst relative "
+            f"deviation {float(rel_err(y_lib, y).max()):.3e} (not gated)")
+        return {"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **bnd,
+                "library_ms": lib_ms}
+    out = {"max_abs_err": max_abs64,
+           **numbers(torch.float64, "auto", "f64 device-memory route"),
+           "f32": {r: numbers(torch.float32, r, f"f32 {r} route")
+                   for r in f32_routes}}
+    occupancy = k1_occupancy if structured else (
+        lambda t, sp, nw, *a, **k: k3_occupancy(t, sp, *a, **k))
+    out["forward_kernel"] = occupancy(tag, spec, NW, B, "device")
+    if structured:
+        out["shared_forward_kernel"] = occupancy(
+            f"{tag} shared-memory kernel", spec, NW, B, "shared",
+            dtypes=("f32",))
+        f32 = out["f32"]
+        log(f"[{tag}] f32 device time at B={B}: device-memory route "
+            f"{f32['device']['device_ms']:.4f} ms, the shared-memory kernel "
+            f"on the same operands {f32['auto']['device_ms']:.4f} ms")
+    return out
+
+
+def phase_solve_beyond(dev, tag, game, kkt):
+    """An f64 solve of 4 scenarios of ``game`` (``quad4_game``: K1;
+    ``quad4_cost_game``: K3; x0 + 0.05 N(0, 1) from numpy seed 0, outer 2 x
+    inner 5) through the kernels with the fused trial (``kkt`` K1 or K3 on
+    its device-memory route, and K4's quadrotor instance at n=48) against
+    the same solve through the plain versions on the card (eager trial):
+    per-lane iteration counts equal, x and u within WIDE_PLAIN_TOL; every
+    KKT step on the device-memory route, the other KKT kernel not launched.
+    Returns the launches."""
+    import torch
+    import algames_tpu_torch as agt
+    from algames_tpu_torch.ops.thomas import kkt_solve_plain
+    prob, spec = game(dev, torch.float64)
+    prob = dataclasses.replace(
+        prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(np.asarray(prob.x0.cpu())[None]
+                          + 0.05 * rng.standard_normal((4, spec.n)),
+                          dtype=torch.float64, device=dev)
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    res = agt.newton_solve(prob, x0s)
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t0
+    launches = read_counters(counters)
+    plain = dataclasses.replace(
+        prob, opts=dataclasses.replace(prob.opts, ls_fused=False))
+    res_p = agt.newton_solve(plain, x0s, method=kkt_solve_plain)
+    it, it_p = res.stats.iter.cpu().numpy(), res_p.stats.iter.cpu().numpy()
+    dx = float((res.traj.x - res_p.traj.x).abs().max())
+    du = float((res.traj.u - res_p.traj.u).abs().max())
+    other = "K3" if kkt == "K1" else "K1"
+    log(f"[{tag}] f64 4-player quadrotor (d=64), 4 scenarios, {el:.2f} s: "
+        f"iterations {it.tolist()} (plain versions {it_p.tolist()}), max "
+        f"|dx| {dx:.3e}, max |du| {du:.3e} from the plain versions (<= "
+        f"{WIDE_PLAIN_TOL:g}); launches {launches}")
+    if not ((it == it_p).all() and dx <= WIDE_PLAIN_TOL
+            and du <= WIDE_PLAIN_TOL and launches[kkt] > 0
+            and launches[f"{kkt} device route"] == launches[kkt]
+            and launches["trial"] > 0 and launches[other] == 0):
+        raise SystemExit(f"the {tag} solve disagrees with the plain "
+                         f"versions or missed its kernels")
+    return launches
+
+
+def phase_sweep_quad4(dev, k4_quad4):
+    """One timed f32 chunk of ``quad4_game`` with the fused trial: its first
+    CHUNK scenarios (x0 + 0.05 N(0, 1) from numpy seed 0), outer 2 x 5,
+    warm, counted from zero after the warm-up: every trajectory finite,
+    none diverged; the first 256 lanes' converged share (stationarity gate
+    QUAD_OPT_GATE) >= the reference's own - 0.01 and their mean final
+    residual norm <= 1.1 x the reference's (REF_QUAD4); the first
+    PLAIN_LANES lanes' mean final residual within PLAIN_RES_TOL of the same
+    solve's through the plain versions on the card, the median lane's
+    within PLAIN_LANE_TOL; K1 launched (f32,
+    d=64: its shared-memory kernel), K4 launched at least once a KKT step
+    (so the eager trial never ran), K3 not.  Prints the chunk's wall and
+    K1's and K4's device time shares of it: launches times the device time
+    per call at B=CHUNK (K1 timed here on the game's systems, K4 from
+    ``K4-quad4``, ``k4_quad4``), and K1's device-memory route on the same
+    operands (reported: the sweep keeps the route its shape takes).
+    Returns the launches, with K1's numbers at B=CHUNK for the kernels
+    line under "k1_row"."""
+    import torch
+    from algames_tpu_torch import parallel
+    from algames_tpu_torch.ops.thomas import (
+        kkt_solve_plain, solve_thomas_structured,
+        solve_thomas_structured_plain)
+    from algames_tpu_torch.ops.trial import trial_supported
+    from algames_tpu_torch.utils import tree_leaves, tree_map
+    prob, x0s = sweep_problem(quad4_game, dev)
+    spec, x0s = prob.spec, x0s[:CHUNK]
+    opts = prob.opts
+    if not trial_supported(prob.model, spec, prob.obj, prob.gc):
+        raise SystemExit("the fused trial does not take the 4-player "
+                         "quadrotor")
+    parallel.solve_batch(dataclasses.replace(prob, opts=dataclasses.replace(
+        opts, outer_iter=1, inner_iter=2)), x0s[:64])
+    counters = zero_counters()
+    out, el = timed_sweep(prob, x0s, "thomas")
+    launches = read_counters(counters)
+    finite = bool(torch.isfinite(out.traj.x).all())
+    div = float(parallel.divergence_mask(out).float().mean())
+    first = dataclasses.replace(out, stats=tree_slice(out.stats, 256),
+                                traj=tree_slice(out.traj, 256))
+    conv_opts = dataclasses.replace(opts, eps_opt=QUAD_OPT_GATE)
+    frac = float(parallel.convergence_fraction(first, conv_opts))
+    last = (first.stats.iter - 1).clamp_min(0).long()
+    res = float(first.stats.res.gather(1, last[:, None]).double().mean())
+    iters = out.stats.iter.cpu().numpy()
+    # The first PLAIN_LANES lanes again through the plain versions on the
+    # card (plain K1, eager trial): their final residuals against the
+    # kernels', lane by lane.
+    plain = dataclasses.replace(prob, opts=dataclasses.replace(
+        opts, ls_fused=False))
+    out_p = parallel.solve_batch(plain, x0s[:PLAIN_LANES],
+                                 method=kkt_solve_plain)
+
+    def final_res(o, lanes):
+        last = (o.stats.iter[:lanes] - 1).clamp_min(0).long()
+        return o.stats.res[:lanes].gather(1, last[:, None])[:, 0].double()
+    rk, rp = final_res(out, PLAIN_LANES), final_res(out_p, PLAIN_LANES)
+    lane_dev = (rk - rp).abs() / rp
+    mean_ratio = float(rk.mean() / rp.mean())
+    same_iters = float((out.stats.iter[:PLAIN_LANES]
+                        == out_p.stats.iter).float().mean())
+    log(f"[sweep-quad4] first {PLAIN_LANES} lanes against the plain "
+        f"versions on the card: mean final residual {float(rk.mean()):.6f} "
+        f"against {float(rp.mean()):.6f} (ratio {mean_ratio:.6f}; within "
+        f"1 +- {PLAIN_RES_TOL:g}); per-lane relative deviation median "
+        f"{float(lane_dev.median()):.3e} (<= {PLAIN_LANE_TOL:g}), max "
+        f"{float(lane_dev.max()):.3e}; "
+        f"iteration counts equal on {same_iters:.4f} of the lanes")
+    _, sq, b, w_owner = k1_system(dev, CHUNK, 1e3, 990, False, quad4_game,
+                                  quad3_iterates)
+    sq32, b32 = tree_map(lambda a: a.float(), sq), b.float()
+    k1_ms = device_ms(lambda: solve_thomas_structured(spec, sq32, b32,
+                                                      w_owner), 3,
+                      ("thomas_sq_",), 2, f"sweep-quad4 K1 B={CHUNK}")
+    # K1's row of the kernels line at the sweep's own batch: call, plain
+    # version, bound and library call on these operands.
+    y = solve_thomas_structured(spec, sq32, b32, w_owner)
+    ref = solve_thomas_structured_plain(spec, sq, b, w_owner)
+    k1_row = {
+        "max_abs_err": float((y.double() - ref).abs().max()),
+        "ms": cuda_ms(lambda: solve_thomas_structured(spec, sq32, b32,
+                                                      w_owner), 3),
+        "plain_ms": cuda_ms(lambda: solve_thomas_structured_plain(
+            spec, sq32, b32, w_owner), 2),
+        "device_ms": k1_ms,
+        **bound(tensor_bytes(tree_leaves(sq32) + [b32, y]),
+                thomas_flops(spec, CHUNK, NW=len(w_owner)))}
+    del ref
+    k1_row["library_ms"], y_lib = library_solve_ms(
+        spec, dense_of(spec, sq32, w_owner), b32, 128)
+    log(f"[sweep-quad4] K1 f32 at B={CHUNK} (the shared-memory kernel): "
+        f"call {k1_row['ms']:.4f} ms, plain {k1_row['plain_ms']:.4f} ms "
+        f"(CUDA events); device time {k1_ms:.4f} ms; bound "
+        f"{k1_row['bound_ms']:.4f} ms ({k1_row['bound_by']}); library "
+        f"(torch.linalg.solve on the dense KKT matrices, 128 lanes a call) "
+        f"{k1_row['library_ms']:.4f} ms, worst relative deviation "
+        f"{float(rel_err(y_lib, y).max()):.3e} (not gated); max |error| "
+        f"against the f64 plain version {k1_row['max_abs_err']:.3e}")
+    del y_lib
+    k1_dev_ms = device_ms(lambda: solve_thomas_structured(
+        spec, sq32, b32, w_owner, forward="device"), 3, ("thomas_sq_",), 2,
+        f"sweep-quad4 K1 device-memory route B={CHUNK}")
+    k1_share = k1_ms * launches["K1"] / 1e3 / el
+    k4_share = k4_quad4["device_ms"] * launches["trial"] / 1e3 / el
+    log(f"[sweep-quad4] f32 {CHUNK} scenarios of the 4-player quadrotor as "
+        f"one chunk, outer {opts.outer_iter} x {opts.inner_iter}, fused "
+        f"trial: {el:.3f} s, {CHUNK / el:.1f} solves/s; first 256 lanes "
+        f"converged (opt gate {QUAD_OPT_GATE:g}) {frac:.4f} (reference "
+        f"{REF_QUAD4[0]:.4f}; >= {REF_QUAD4[0] - 0.01:.4f}), mean final "
+        f"residual {res:.6f} (reference {REF_QUAD4[1]:.6f}; <= 1.1 x); "
+        f"diverged {div:.4f}, finite {finite}; stats rows "
+        f"{int(iters.min())}..{int(iters.max())}; launches {launches}; "
+        f"device time: K1 {launches['K1']} x {k1_ms:.4f} ms = "
+        f"{100 * k1_share:.1f}% of the wall, K4 {launches['trial']} x "
+        f"{k4_quad4['device_ms']:.4f} ms = {100 * k4_share:.1f}%; K1's "
+        f"device-memory route on the same operands {k1_dev_ms:.4f} ms a "
+        f"call (reported)")
+    if not (finite and div == 0.0 and frac >= REF_QUAD4[0] - 0.01
+            and res <= 1.1 * REF_QUAD4[1]
+            and abs(mean_ratio - 1) <= PLAIN_RES_TOL
+            and float(lane_dev.median()) <= PLAIN_LANE_TOL
+            and launches["K1"] > 0
+            and launches["trial"] >= launches["K1"]
+            and launches["K3"] == 0 and launches["K1 device route"] == 0):
+        raise SystemExit("the 4-player quadrotor chunk failed its gates")
+    return {**launches, "wall_s": el, "k1_share": k1_share,
+            "k4_share": k4_share, "k1_device_route_ms": k1_dev_ms,
+            "k1_row": k1_row}
 
 
 def hetero_game(dev, dtype, outer=7, inner=20):
@@ -1723,15 +2081,16 @@ def phase_k3(dev, tag="K3", preset=None, iterates=None, seed0=100,
             "forward_kernel": occ}
 
 
-def k3_occupancy(tag, spec, B=B_KERNEL, shared=False):
-    """The forward kernel K3 runs at ``spec``'s widths (``shared``: its
-    shared-memory one), per dtype, as :func:`forward_occupancy` prints
-    it."""
+def k3_occupancy(tag, spec, B=B_KERNEL, forward="auto",
+                 dtypes=("f32", "f64")):
+    """The forward kernel K3 runs at ``spec``'s widths (``forward``: on that
+    route instead of the one the shape takes), per dtype, as
+    :func:`forward_occupancy` prints it."""
     from algames_tpu_torch.ops.thomas import dense_forward
     ms = spec.p * max(spec.mi)
     return forward_occupancy(
-        tag, lambda dt: dense_forward(spec.n, ms, spec.p, dt, shared),
-        f"d={spec.n + ms}, R={spec.p * spec.n + 1}", B)
+        tag, lambda dt: dense_forward(spec.n, ms, spec.p, dt, forward),
+        f"d={spec.n + ms}, R={spec.p * spec.n + 1}", B, dtypes)
 
 
 def roundabout_k3_checks(dev, compare):
@@ -1802,9 +2161,11 @@ def phase_k3_quad(dev, tag, system, seed0, B=B_KERNEL, shared=False):
     error f64 <= 1e-15 and f32 <= 1e-7, each <= 10 x the plain version's
     own; f32 forward error <= 30 x the f32 plain version's.  With
     ``shared`` the systems lie beyond K3's size classes and must take its
-    shared-memory forward kernel; without, a register-tiled class, and the
-    shared-memory kernel is timed beside it on the same operands.  Then
-    its times, bound, library call and forward kernel in f32."""
+    shared-memory forward kernel, and the device-memory route is gated
+    (backward error <= 1e-7 and 10 x the shared-memory kernel's) and timed
+    beside it on the same operands; without, a register-tiled class, and
+    the shared-memory kernel is timed beside it.  Then its times, bound,
+    library call and forward kernel in f32."""
     import torch
     from algames_tpu_torch.ops.thomas import solve_thomas, solve_thomas_plain
     from algames_tpu_torch.utils import tree_map
@@ -1848,7 +2209,7 @@ def phase_k3_quad(dev, tag, system, seed0, B=B_KERNEL, shared=False):
                 + tensor_bytes([y]), thomas_flops(spec, B, dense=True))
     out = {"max_abs_err": max_abs32, "ms": ms, "plain_ms": plain_ms,
            "device_ms": dev_ms, **bnd,
-           "forward_kernel": k3_occupancy(tag, spec, B, shared)}
+           "forward_kernel": k3_occupancy(tag, spec, B)}
     lib_ms, y_lib = library_solve_ms(spec, jb32, b32, B)
     out["library_ms"] = lib_ms
     log(f"[{tag}] worst over mu: f64 {worst64:.3e}, f32 {worst32:.3e} "
@@ -1857,12 +2218,32 @@ def phase_k3_quad(dev, tag, system, seed0, B=B_KERNEL, shared=False):
         f"(events, fwd + bwd); bound {bnd['bound_ms']:.4f} ms "
         f"({bnd['bound_by']}); library {lib_ms:.4f} ms (worst relative "
         f"deviation from K3 {float(rel_err(y_lib, y).max()):.3e}, not gated)")
-    if not shared:
+    if shared:
+        # The device-memory route forced onto the same operands, gated as
+        # the route the shape takes: is the shared-memory kernel still
+        # faster anywhere it runs?
+        yd = solve_thomas(spec, jb32, b32, forward="device")
+        bwd, bwk = (float(e.max()) for e in backward_errors(
+            spec, jb, None, b, (yd, y), lanes=min(B, 256)))
+        if not (bwd <= 1e-7 and bwd <= 10 * bwk):
+            raise SystemExit(f"{tag}: K3's device-memory route disagrees "
+                             f"with its shared-memory kernel")
+        out["device_route_ms"] = device_ms(
+            lambda: solve_thomas(spec, jb32, b32, forward="device"), 20,
+            ("thomas_dense_",), 2, f"{tag} device-memory route")
+        out["device_route_kernel"] = k3_occupancy(
+            f"{tag} device-memory route", spec, B, "device")
+        log(f"[{tag}] f32 device time at B={B}: the shared-memory kernel "
+            f"{dev_ms:.4f} ms, the device-memory route on the same operands"
+            f" {out['device_route_ms']:.4f} ms "
+            f"({dev_ms / out['device_route_ms']:.2f} x); backward error "
+            f"{bwd:.3e} (shared-memory kernel {bwk:.3e}; <= 1e-7 and 10 x)")
+    else:
         out["shared_device_ms"] = device_ms(
-            lambda: solve_thomas(spec, jb32, b32, shared=True), 20,
+            lambda: solve_thomas(spec, jb32, b32, forward="shared"), 20,
             ("thomas_dense_",), 2, f"{tag} shared-memory kernel")
         out["shared_forward_kernel"] = k3_occupancy(
-            f"{tag} shared-memory kernel", spec, B, True)
+            f"{tag} shared-memory kernel", spec, B, "shared")
         log(f"[{tag}] f32 device time at B={B}: register-tiled "
             f"{dev_ms:.4f} ms, the shared-memory forward kernel on the same "
             f"operands {out['shared_device_ms']:.4f} ms "
@@ -2327,6 +2708,8 @@ def zero_counters():
         c.launches = 0
     counters["K1"].wide_launches = 0
     counters["K3"].big_launches = 0
+    counters["K1"].global_launches = 0
+    counters["K3"].global_launches = 0
     return counters
 
 
@@ -2334,6 +2717,8 @@ def read_counters(counters):
     launches = {k: c.launches for k, c in counters.items()}
     launches["K1 wide route"] = counters["K1"].wide_launches
     launches["K3 big route"] = counters["K3"].big_launches
+    launches["K1 device route"] = counters["K1"].global_launches
+    launches["K3 device route"] = counters["K3"].global_launches
     return launches
 
 
@@ -3118,16 +3503,34 @@ def main():
     launches_quad = phase("sweep-quad2", phase_game_sweep, "sweep-quad2",
                           quadrotor3d, REF_CONVERGED["quad2_N15"], dev, False,
                           QUAD_OPT_GATE)
-    # The 3-player quadrotor (d=48): K1's tall class; beyond its classes,
-    # the 4-player quadrotor (d=64) on its shared-memory route.
+    # The 3-player quadrotor (d=48): K1's tall class, K4 at n=36; beyond
+    # the classes, the 4-player quadrotor (d=64): K1 on its device-memory
+    # route in f64 and its shared-memory kernel in f32, K3 (with
+    # collision-cost pairs) on the device-memory route, K4 at n=48.
     k1_wide = phase("K1-wide", lambda: phase_k1(
         dev, "K1-wide", quad3_game, quad3_iterates, 900, "backward",
         shared_too=True))
     phase("solve-wide", phase_solve_wide, dev)
-    launches_quad3 = phase("sweep-quad3", phase_sweep_quad3, dev, k1_wide)
-    phase("K1-wide64", lambda: phase_k1(
-        dev, "K1-wide64", quad4_game, quad3_iterates, 950, "backward", True,
-        B_BEYOND, f64=False))
+    k4_quad3 = phase("K4-quad3", phase_trial, "K4-quad3", lambda d, t:
+                     trial_inputs(quad3_game, quad3_iterates, True, d, t,
+                                  seed=43), dev)
+    launches_quad3 = phase("sweep-quad3", phase_sweep_quad3, dev, k1_wide,
+                           k4_quad3)
+    k1_wide64 = phase("K1-wide64", phase_beyond, dev, "K1-wide64",
+                      "structured", 950)
+    k3_big64 = phase("K3-big64", phase_beyond, dev, "K3-big64", "dense",
+                     960)
+    k4_quad4 = phase("K4-quad4", phase_trial, "K4-quad4", lambda d, t:
+                     trial_inputs(quad4_game, quad3_iterates, True, d, t,
+                                  seed=47), dev)
+    phase("K4-quad4-bound", phase_trial, "K4-quad4-bound", lambda d, t:
+          trial_inputs(quad4_bound_game, quad3_iterates, True, d, t,
+                       seed=53), dev)
+    launches_wide64 = phase("solve-wide64", phase_solve_beyond, dev,
+                            "solve-wide64", quad4_game, "K1")
+    launches_big64 = phase("solve-big64", phase_solve_beyond, dev,
+                           "solve-big64", quad4_cost_game, "K3")
+    launches_quad4 = phase("sweep-quad4", phase_sweep_quad4, dev, k4_quad4)
 
     # The heterogeneous double integrator (K3 padded + K4's player-blocked
     # instance) and iterative best response (K3 at p=1).
@@ -3152,7 +3555,7 @@ def main():
     # B_MPC lanes and at one; then the ls_parallel window on the flagship.
     k1_hw = {B: phase(f"K1-highway{B}", phase_k1, dev, f"K1-highway{B}",
                       highway_game, flagship_iterates, 1100 + B, "forward",
-                      False, B) for B in (B_MPC, 1)}
+                      B) for B in (B_MPC, 1)}
     k2_hw = phase(f"K2-highway{B_MPC}", phase_trial, f"K2-highway{B_MPC}",
                   highway_trial_inputs, dev)
     mpc = phase("mpc", phase_mpc, dev, k1_hw)
@@ -3166,7 +3569,7 @@ def main():
     k1_ring = phase("K1-ring", phase_k1, dev, "K1-ring", ring3_eq_game,
                     golden_iterates("ring3_eq_N20"), 1300)
     phase("K1-ring-eq", phase_k1, dev, "K1-ring-eq", ring3_eq_game,
-          golden_iterates("ring3_eq_N20"), 1400, "backward", False, B_KERNEL,
+          golden_iterates("ring3_eq_N20"), 1400, "backward", B_KERNEL,
           True)
     k4_eq = phase("K4-eq", phase_k4_eq, dev)
     phase("golden-eq", phase_golden, "golden-eq", ring3_eq_game,
@@ -3181,14 +3584,14 @@ def main():
     long_game = functools.partial(spike_game, N=257)
     k1_long = {B: phase(f"K1-long{B}", phase_k1, dev, f"K1-long{B}",
                         long_game, flagship_iterates, 1500 + B, "forward",
-                        False, B) for B in (B_LONG, 1)}
+                        B) for B in (B_LONG, 1)}
     spike = phase("spike", phase_spike, dev)
     phase("aux", phase_aux, dev)
 
-    def entry(kernel, game, launches, numbers):
-        name, source, replaces = KERNELS[kernel]
+    def entry(kernel, game, launches, numbers, source=None):
+        name, src, replaces = KERNELS[kernel]
         return {"name": f"{kernel} {name} ({game})", "route": "cuda",
-                "source": f"algames_tpu_torch/csrc/{source}",
+                "source": f"algames_tpu_torch/csrc/{source or src}",
                 "replaces": replaces, "launches": launches, **numbers}
     kernels = [
         entry("K1", "uni3_N20", launches["K1"], k1),
@@ -3196,6 +3599,15 @@ def main():
         entry("K1", "quad2_N15", launches_quad["K1"], k1_quad),
         entry("K1", "quad3 (3-player quadrotor, d=48): the tall "
               "register-tiled class", launches_quad3["K1"], k1_wide),
+        entry("K1", "quad4 (4-player quadrotor, d=64), f64: the "
+              "device-memory route; launches at B=4, times at "
+              f"B={B_BEYOND}", launches_wide64["K1 device route"],
+              {**k1_wide64, "launches_lanes": 4, "timed_lanes": B_BEYOND},
+              "thomas_global.cuh"),
+        entry("K1", f"quad4 (4-player quadrotor, d=64), f32 sweep, B={CHUNK}"
+              ": the shared-memory kernel", launches_quad4["K1 wide route"],
+              {**launches_quad4["k1_row"], "launches_lanes": CHUNK,
+               "timed_lanes": CHUNK}),
         entry("K1", f"highway_mpc, B={B_MPC}", mpc[B_MPC]["launches"]["K1"],
               k1_hw[B_MPC]),
         entry("K1", "highway_mpc, B=1", mpc[1]["launches"]["K1"], k1_hw[1]),
@@ -3211,10 +3623,17 @@ def main():
               launches_big["K3"], k3_big),
         entry("K3", "ibr_quad2_N15, p=1 player systems (d=28): the LU class",
               launches_ibr_quad["K3"], k3_ibr_quad),
+        entry("K3", "quad4 with collision-cost pairs (d=64), f64: the "
+              "device-memory route; launches at B=4, times at "
+              f"B={B_BEYOND}", launches_big64["K3 device route"],
+              {**k3_big64, "launches_lanes": 4, "timed_lanes": B_BEYOND},
+              "thomas_global.cuh"),
         entry("K4", "round4_N40", launches4["K4"], k4),
         entry("K4", "di2_N10", launches_di["K4"], k4_di),
         entry("K4", "bike3_N20", launches_bike["K4"], k4_bike),
         entry("K4", "quad2_N15", launches_quad["K4"], k4_quad),
+        entry("K4", "quad3 (n=36)", launches_quad3["trial"], k4_quad3),
+        entry("K4", "quad4 (n=48)", launches_quad4["trial"], k4_quad4),
         entry("K4", "hetero2_N8", launches_het["K4"], k4_het),
         entry("K1", "ring3_eq_N20", launches_eq["K1"], k1_ring),
         entry("K4", "ring3_eq_N20", launches_eq["K4"], k4_eq),

@@ -62,16 +62,16 @@ def order(lib_u, name):
     """K1's wrapper on its shared-memory forward kernel, from the u-first
     library while ``name`` is "u"."""
     from algames_tpu_torch.ops import thomas
-    load, route = thomas.build.load, thomas._sq_route
+    load, route = thomas.build.load, thomas._shape_route
     if name == "u":
         thomas.build.load = lambda lib: lib_u if lib == "thomas_sq" else \
             load(lib)
-    thomas._sq_route = lambda *shape: "wide_"
+    thomas._shape_route = lambda *shape: "shared"
     thomas._sq_launch.cache_clear()
     try:
         yield
     finally:
-        thomas.build.load, thomas._sq_route = load, route
+        thomas.build.load, thomas._shape_route = load, route
         thomas._sq_launch.cache_clear()
 
 

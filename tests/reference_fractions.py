@@ -24,10 +24,13 @@ feasible share (the dyn, con and sta gates alone), the iteration counts,
 and the lanes whose counts differ.  KEY is one of
 di2_N10, bike3_N20, quad2_N15 (default: all three), hetero2_N8 (the
 heterogeneous game of ``tests/test_hetero.py`` at outer 7 x 20, as
-``chip_smoke.py`` builds it) and ring3_eq_N20 (the flagship at outer 7 x
+``chip_smoke.py`` builds it) ring3_eq_N20 (the flagship at outer 7 x
 20 with player 0 on a ring road, an equality block:
 ``tests/torch_goldens.py::ring3_eq_problem``; its starts put player 0
-back on the ring, ``chip_smoke.py::onto_ring``).
+back on the ring, ``chip_smoke.py::onto_ring``) and quad4_N15 (the
+quadrotor preset with 4 players at outer 2 x inner 5, ``jax_quadrotor``,
+as ``chip_smoke.py``'s ``sweep-quad4`` runs it; about five minutes).  Each
+also prints the mean over lanes of the final residual norm.
 
 ``full``: the reference alone over all 4096 sweep scenarios (or lanes A
 to B of them), in chunks of 256, printing the running converged and
@@ -91,7 +94,7 @@ CPU = torch.device("cpu")
 N_SUBSET = 256
 N_SWEEP = 4096
 KEYS = ("di2_N10", "bike3_N20", "quad2_N15")
-OPT_GATE = {"quad2_N15": 5e-2}
+OPT_GATE = {"quad2_N15": 5e-2, "quad4_N15": 5e-2}
 N_IBR, IBR_LANES, IBR_ITER = 512, 128, 10
 # Per IBR game: its key, the scenarios drawn, the lanes measured, the
 # rounds.
@@ -99,12 +102,50 @@ IBR_GAMES = {"ibr": ("uni3_N20", N_IBR, IBR_LANES, IBR_ITER),
              "ibr-quad": ("quad2_N15", 128, 128, 2)}
 
 
+def jax_quadrotor(p, dtype, N=15, outer=2, inner=5):
+    """The reference package's quadrotor preset (``quadrotor3d``) with ``p``
+    players, as the port's ``presets.quadrotor3d(p=p)`` builds it: the same
+    costs, blocks and thrust bounds, player i starting at y = 0.3 i; outer
+    2 x inner 5 as ``chip_smoke.py``'s ``quad4_game``."""
+    import jax.numpy as jnp
+    import algames_tpu as ag
+    from algames_tpu.presets import _default_eps_opt
+    model = ag.quadrotor_game(p=p)
+    spec = ag.spec_from_model(model, N, 0.1)
+    hover = 0.5 * 9.81 / 4.0 / model.kf
+    obj = ag.game_objective(
+        spec,
+        Q=[jnp.asarray([10, 10, 10, 1, 1, 1, 1, 1, 1, 1, 1, 1], dtype)] * p,
+        R=[0.1 * jnp.ones(4, dtype)] * p,
+        xf=[jnp.concatenate([jnp.asarray([1.5, 0.3 * i, 1.0], dtype),
+                             jnp.zeros(9, dtype)]) for i in range(p)],
+        uf=[jnp.full((4,), hover, dtype)] * p, dtype=dtype)
+    gc = ag.game_constraints(spec, dtype=dtype)
+    gc = ag.add_spherical_collision_avoidance(spec, gc, 0.1)
+    gc = ag.add_wall_constraint(spec, gc, [
+        ag.Wall3D([0.0, -1.0, 0.2], [2.0, -1.0, 0.2], [0.0, 1.0, 0.2],
+                  [0.0, 0.0, -1.0])])
+    gc = ag.add_wall_constraint(spec, gc, [
+        ag.CylinderWall([0.75, 0.15, 0.0], "z", 2.0, 0.2)])
+    gc = ag.add_control_bound(spec, gc, 3 * jnp.ones(spec.m, dtype),
+                              jnp.zeros(spec.m, dtype))
+    x0 = np.zeros(spec.n)
+    x0[[spec.pz[i][2] for i in range(p)]] = 1.0
+    x0[[spec.pz[i][1] for i in range(p)]] = 0.3 * np.arange(p)
+    opts = ag.Options(outer_iter=outer, inner_iter=inner,
+                      eps_opt=_default_eps_opt(dtype, None))
+    return ag.game_problem(N, 0.1, jnp.asarray(x0, dtype), model, opts, obj,
+                           gc), spec
+
+
 def jax_problem(key, dtype):
     """The reference package's problem of ``key``: a preset, the ring-road
-    game, or the heterogeneous game (``tests/test_hetero.py``'s, with the
-    f32 gates of the presets)."""
+    game, the 4-player quadrotor (``jax_quadrotor``), or the heterogeneous
+    game (``tests/test_hetero.py``'s, with the f32 gates of the presets)."""
     import jax.numpy as jnp
     from algames_tpu.presets import PRESETS as JAX_PRESETS
+    if key == "quad4_N15":
+        return jax_quadrotor(4, dtype)
     if key == "ring3_eq_N20":
         from torch_goldens import ring3_eq_problem
         return ring3_eq_problem(dtype)
@@ -134,7 +175,9 @@ def port_problem(key, prob, dtype):
     """The port's problem of ``key`` on the CPU: its preset, or the
     reference's heterogeneous or ring-road game carried over."""
     from algames_tpu_torch.convert import problem_from_reference
-    from algames_tpu_torch.presets import PRESETS
+    from algames_tpu_torch.presets import PRESETS, quadrotor3d
+    if key == "quad4_N15":
+        return quadrotor3d(CPU, dtype, outer=2, inner=5, p=4)[0]
     if key in ("hetero2_N8", "ring3_eq_N20"):
         return problem_from_reference(prob, CPU, dtype)
     return PRESETS[key](CPU, dtype)[0]
@@ -148,6 +191,12 @@ def sweep_inputs(x0, n, lanes=N_SUBSET, key=None):
         from chip_smoke import onto_ring
         x0s = onto_ring(x0s, 3)
     return x0s[:lanes]
+
+
+def final_mean(it, col):
+    """The mean over lanes of a stats column's last record."""
+    last = np.maximum(np.asarray(it) - 1, 0)
+    return float(np.asarray(col)[np.arange(len(last)), last].mean())
 
 
 def converged(key, opts, it, dyn, con, sta, opt):
@@ -186,7 +235,8 @@ def subset(keys):
               f"{float(np.asarray(jbatch.divergence_mask(out)).mean())}, "
               f"unconverged lanes {np.nonzero(~conv_ref)[0].tolist()}, "
               f"iterations {it_ref.min()}..{it_ref.max()} (mean "
-              f"{it_ref.mean():.2f})", flush=True)
+              f"{it_ref.mean():.2f}), mean final residual "
+              f"{final_mean(it_ref, s.res)!r}", flush=True)
 
         tprob = port_problem(key, prob, torch.float32)
         tprob = dataclasses.replace(tprob, opts=dataclasses.replace(
@@ -207,7 +257,8 @@ def subset(keys):
               f"({int(conv.sum())}/{N_SUBSET}), feasible {int(feas.sum())}/"
               f"{N_SUBSET}, diverged "
               f"{float(parallel.divergence_mask(tout).float().mean())}, "
-              f"unconverged lanes {np.nonzero(~conv)[0].tolist()}; "
+              f"unconverged lanes {np.nonzero(~conv)[0].tolist()}, mean "
+              f"final residual {final_mean(it, t.res.numpy())!r}; "
               f"iteration counts equal on {N_SUBSET - len(diff)} of "
               f"{N_SUBSET}; differing lanes (port, reference): "
               f"{[(int(k), int(it[k]), int(it_ref[k])) for k in diff]}",

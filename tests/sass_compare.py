@@ -1,13 +1,14 @@
-"""The SASS of the KKT kernel libraries (``thomas_sq``, ``thomas_dense``) of
-two source trees, kernel by kernel: whether a change to the shared
-register-tiled core left a size class's instructions as they were.  Not a
+"""The SASS of the kernel libraries (``thomas_sq``, ``thomas_dense``,
+``trial_fused``) of two source trees, kernel by kernel: whether a change to
+a shared header, the register-tiled core or the fused trial left a size
+class's or a model instance's instructions as they were.  Not a
 test module (pytest does not collect it); needs ``nvcc`` and ``cuobjdump``
 (the CUDA toolkit), not a card.
 
     python3 tests/sass_compare.py TREE_A TREE_B OUT_DIR
 
 builds ``algames_tpu_torch/csrc/<lib>.cu`` of each tree with the package's
-own nvcc flags into OUT_DIR (all four builds started together), dumps each
+own nvcc flags into OUT_DIR (all six builds started together), dumps each
 library's SASS with ``cuobjdump -sass`` and, for every kernel both trees
 compile (by mangled name), prints whether its instructions are equal once
 addresses and encodings are stripped, else both instruction counts and the
@@ -23,7 +24,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(HERE))
-LIBS = ("thomas_sq", "thomas_dense")
+LIBS = ("thomas_sq", "thomas_dense", "trial_fused")
 
 
 def cuda_tool(name):

@@ -238,12 +238,14 @@ def test_hetero_spec_takes_the_kernel_route(monkeypatch):
 
 def test_k1_route_is_chosen_by_shape(monkeypatch):
     """On a card tensor, K1's wrapper picks its forward kernel by shape
-    before the launch: the register-tiled one where the library's
-    ``thomas_sq_tiled_fits`` says a size class fits, else the shared-memory
-    one, counted by ``wide_launches``.  It asks once per shape and dtype,
-    keeps its launchers, never takes the plain version, and raises on a
-    launch error.  Checked with a fake library whose launchers record their
-    names and whose backward launcher writes the plain solution."""
+    before the launch, as the library's ``thomas_sq_route`` says: the
+    register-tiled one (0), the shared-memory one (1, counted by
+    ``wide_launches``) or the device-memory one (2, counted by
+    ``global_launches``, with a workspace); none (-1) raises.  It asks once
+    per shape and dtype, keeps its launchers, never takes the plain
+    version, and raises on a launch error.  Checked with a fake library
+    whose launchers record their names and whose backward launcher writes
+    the plain solution."""
     import contextlib
     import ctypes
     import types
@@ -255,7 +257,7 @@ def test_k1_route_is_chosen_by_shape(monkeypatch):
         spec, type(sq)(*[getattr(sq, f).to(dt) for f in
                          ("qdiag", "wv", "Ublk", "A", "B")]), b.to(dt),
         w_owner) for dt in (torch.float64, torch.float32)}
-    calls, state = [], {"fits": 1, "err": 0, "dtype": torch.float64}
+    calls, state = [], {"route": 0, "err": 0, "dtype": torch.float64}
 
     class Export:
         def __init__(self, name):
@@ -265,8 +267,8 @@ def test_k1_route_is_chosen_by_shape(monkeypatch):
             calls.append(self.name)
             if "error_string" in self.name:
                 return b"launch refused"
-            if "tiled_fits" in self.name:
-                return state["fits"]
+            if "_route_" in self.name:
+                return state["route"]
             if "_bwd_" in self.name:
                 y = want[state["dtype"]]
                 ctypes.memmove(args[8], y.data_ptr(),
@@ -286,37 +288,55 @@ def test_k1_route_is_chosen_by_shape(monkeypatch):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
-    thomas._sq_route.cache_clear()
+    thomas._shape_route.cache_clear()
     thomas._sq_launch.cache_clear()
     launches = solve_thomas_structured.launches
     wide = solve_thomas_structured.wide_launches
+    dev_mem = solve_thomas_structured.global_launches
+    sq32 = type(sq)(*[getattr(sq, f).float() for f in
+                      ("qdiag", "wv", "Ublk", "A", "B")])
     try:
         for _ in range(2):
             y = thomas.solve_thomas_structured(spec, sq, b, w_owner)
             torch.testing.assert_close(y, want[torch.float64], rtol=0,
                                        atol=0)
-        assert calls == ["thomas_sq_tiled_fits_f64", "thomas_sq_fwd_f64",
+        assert calls == ["thomas_sq_route_f64", "thomas_sq_fwd_f64",
                          "thomas_sq_bwd_f64", "thomas_sq_fwd_f64",
                          "thomas_sq_bwd_f64"]
         assert solve_thomas_structured.wide_launches == wide
         calls.clear()
-        state.update(fits=0, dtype=torch.float32)
-        sq32 = type(sq)(*[getattr(sq, f).float() for f in
-                          ("qdiag", "wv", "Ublk", "A", "B")])
+        state.update(route=1, dtype=torch.float32)
         y = thomas.solve_thomas_structured(spec, sq32, b.float(), w_owner)
         torch.testing.assert_close(y, want[torch.float32], rtol=0, atol=0)
-        assert calls == ["thomas_sq_tiled_fits_f32",
+        assert calls == ["thomas_sq_route_f32",
                          "thomas_sq_fwd_wide_f32", "thomas_sq_bwd_f32"]
         assert solve_thomas_structured.wide_launches == wide + 1
         assert solve_thomas_structured.launches == launches + 3
+        calls.clear()
+        thomas._shape_route.cache_clear()
+        thomas._sq_launch.cache_clear()
+        state["route"] = 2
+        y = thomas.solve_thomas_structured(spec, sq32, b.float(), w_owner)
+        torch.testing.assert_close(y, want[torch.float32], rtol=0, atol=0)
+        assert calls == ["thomas_sq_route_f32",
+                         "thomas_sq_fwd_global_f32", "thomas_sq_bwd_f32"]
+        assert solve_thomas_structured.global_launches == dev_mem + 1
+        assert solve_thomas_structured.wide_launches == wide + 1
+        thomas._shape_route.cache_clear()
+        thomas._sq_launch.cache_clear()
+        state["route"] = -1
+        with pytest.raises(ValueError, match="no forward kernel"):
+            thomas.solve_thomas_structured(spec, sq32, b.float(), w_owner)
+        state["route"] = 0
         state["err"] = 700
         with pytest.raises(RuntimeError, match="launch refused"):
             thomas.solve_thomas_structured(spec, sq, b, w_owner)
     finally:
-        thomas._sq_route.cache_clear()
+        thomas._shape_route.cache_clear()
         thomas._sq_launch.cache_clear()
         solve_thomas_structured.launches = launches
         solve_thomas_structured.wide_launches = wide
+        solve_thomas_structured.global_launches = dev_mem
 
 
 def test_presets_default_to_the_card():

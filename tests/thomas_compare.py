@@ -84,24 +84,32 @@ def _occupancy_probe(tree, out_dir, lib_name):
     return ctypes.CDLL(str(so))
 
 
+def _route_name(route):
+    """The forward route's name: a tree's occupancy export gives it, or
+    (before the device-memory route) whether the kernel is register-tiled."""
+    if isinstance(route, str):
+        return route
+    return "register-tiled" if route else "shared-memory"
+
+
 def _occupancy(lib, lib_name, probes, tree, out_dir, n, m, p, sfx, NW=0):
     """The forward kernel's lanes per SM at these widths, as a string (K1
     with the tree's own export: also registers and local memory)."""
     from algames_tpu_torch.ops import thomas
     dtype = torch.float32 if sfx == "f32" else torch.float64
     if lib_name == "thomas_sq" and hasattr(lib, f"thomas_sq_occupancy_{sfx}"):
-        tiled, lanes, regs, frame = thomas.structured_forward(n, m, p, NW,
+        route, lanes, regs, frame = thomas.structured_forward(n, m, p, NW,
                                                               dtype)
-        return (f"{'register-tiled' if tiled else 'shared-memory'}, {lanes} "
-                f"lanes per SM, {regs} registers, {frame} B local")
+        return (f"{_route_name(route)}, {lanes} lanes per SM, {regs} "
+                f"registers, {frame} B local")
     info = ()
     if lib_name == "thomas_dense" and hasattr(lib, f"{lib_name}_occupancy_"
                                                    f"{sfx}"):
         info = thomas.dense_forward(n, m, p, dtype)
     if len(info) == 4:                 # the tree's export gives registers
-        tiled, lanes, regs, frame = info
-        return (f"{'register-tiled' if tiled else 'shared-memory'}, {lanes} "
-                f"lanes per SM, {regs} registers, {frame} B local")
+        route, lanes, regs, frame = info
+        return (f"{_route_name(route)}, {lanes} lanes per SM, {regs} "
+                f"registers, {frame} B local")
     if len(info) == 2:
         return f"{info[1]} lanes per SM"
     fn = getattr(lib, f"{lib_name}_occupancy_{sfx}", None)
