@@ -44,21 +44,28 @@
 // w, the A ring, the carry G and LU's d x d slots) fit 3 lanes on an SM
 // (80 registers a thread at most), so B=1024 takes 3 waves where the
 // shared-memory kernel, at 2 lanes, took 4.
-// Wider systems take the shared-memory forward kernel of
-// thomas_common.cuh (the "wide" route: every per-knot operand, the carry
-// and the augmented system in shared memory, three barriers per pivot
-// step, a serial back substitution per right-hand side) where its bytes
-// fit a block's 227 KB, and beyond (from d = 64 in f64: the 4-player
-// quadrotor's systems, 443 KB) the device-memory route of
+// Wider systems up to d = 64 take the per-player blocked route of
+// thomas_blocked.cuh (the "blocked" route: F formed over the carry in
+// place, K's LU in registers, the right-hand sides built in pivot order and
+// substituted in registers, 256 threads a lane; the 4-player quadrotor's
+// systems, d = 64, in f32 and f64).  The routes it replaced stay
+// reachable by name: the shared-memory forward kernel of thomas_common.cuh
+// (the "wide" route: every per-knot operand, the carry and the augmented
+// system in shared memory, three barriers per pivot step, a serial back
+// substitution per right-hand side) where its bytes fit a block's 227 KB,
+// and beyond (from d = 64 in f64, 443 KB) the device-memory route of
 // thomas_global.cuh, with the Q form SqGlobalQ below: K [d, d] and a panel
 // of 128 right-hand sides in shared memory, the fill-in F in a workspace
-// in device memory, the carry read back from G.  The backward
+// in device memory, the carry read back from G.  The route rule: a
+// register-tiled class, else the blocked route where it fits, else the
+// shared-memory kernel, else the device-memory route.  The backward
 // kernel is the shared-memory one of thomas_common.cuh for every width:
 // a knot's multipliers are one matrix-vector product, about 7% of K1's
 // device time in the quadrotor sweep's profile on an H100 (PERF.md).
 #include "thomas_common.cuh"
 #include "thomas_dense_core.cuh"
 #include "thomas_global.cuh"
+#include "thomas_blocked.cuh"
 
 namespace {
 
@@ -362,6 +369,23 @@ thomas_sq_global_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
       work, Tn, n, m, p, meta.owner, smem_raw);
 }
 
+// The per-player blocked route (thomas_blocked.cuh); NI tiles of 16 cover
+// n.  2 lanes an SM in f32, 1 in f64.
+template <typename T, int NI>
+__global__ void
+__launch_bounds__(thomas_blocked::kThreads, sizeof(T) == 4 ? 2 : 1)
+thomas_sq_blocked_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
+                         const T* __restrict__ Ub, const T* __restrict__ Bm,
+                         const T* __restrict__ A, const T* __restrict__ bk,
+                         T* __restrict__ G_out, T* __restrict__ y_out,
+                         int Tn, int n, int m, int p, int NW,
+                         const __grid_constant__ SqMeta meta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  thomas_blocked::forward_sweep<T, NI>(qd, wv, Ub, Bm, A, bk, G_out, y_out,
+                                       Tn, n, m, p, NW, meta.owner,
+                                       meta.w_owner, smem_raw);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) thomas_sq_bwd_kernel(
     const T* __restrict__ G, const T* __restrict__ yhat,
@@ -445,6 +469,18 @@ size_t wide_smem_bytes(int n, int m, int p, int NW) {
   return thomas::fwd_smem_bytes<T>(n, m, p, p * n + NW * n, n * NW);
 }
 
+// Whether the blocked route takes these widths, and its kernel.
+template <typename T>
+bool blocked_fits(int n, int m, int p, int NW) {
+  return thomas_blocked::fits<T>(n, m, p, NW, kMaxM, kMaxNW);
+}
+
+template <typename T>
+const void* blocked_kernel(int n) {
+  if (n <= 48) return (const void*)thomas_sq_blocked_kernel<T, 3>;
+  return (const void*)thomas_sq_blocked_kernel<T, 4>;
+}
+
 template <typename T>
 int launch_fwd(const void* qd, const void* wv, const void* Ub, const void* Bm,
                const void* A, const void* b, const int* owner,
@@ -508,14 +544,40 @@ int launch_fwd_global(const void* qd, const void* wv, const void* Ub,
   return (int)cudaGetLastError();
 }
 
+// The per-player blocked route of thomas_blocked.cuh, for systems beyond
+// the size classes up to d = 64.
+template <typename T>
+int launch_fwd_blocked(const void* qd, const void* wv, const void* Ub,
+                       const void* Bm, const void* A, const void* b,
+                       const int* owner, const int* w_owner, void* G,
+                       void* yhat, int B, int Tn, int n, int m, int p, int NW,
+                       void* stream) {
+  if (!blocked_fits<T>(n, m, p, NW)) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const void* fn = blocked_kernel<T>(n);
+  const size_t bytes = thomas_blocked::smem_bytes<T>(n, m, p, NW);
+  int err = thomas::set_smem(fn, bytes);
+  if (err) return err;
+  SqMeta meta = make_meta(owner, w_owner, m, NW);
+  const T *qp = (const T*)qd, *wp = (const T*)wv, *Ubp = (const T*)Ub,
+          *Bp = (const T*)Bm, *Ap = (const T*)A, *bp = (const T*)b;
+  T *Gp = (T*)G, *yp = (T*)yhat;
+  void* args[] = {&qp, &wp, &Ubp, &Bp, &Ap,  &bp, &Gp,
+                  &yp, &Tn, &n,   &m,  &p,   &NW, &meta};
+  return (int)cudaLaunchKernel(fn, dim3(B), dim3(thomas_blocked::kThreads),
+                               args, bytes, (cudaStream_t)stream);
+}
+
 // K1's forward route at these widths, by shape: 0 a register-tiled class
-// (launch_fwd), 1 the shared-memory kernel (launch_fwd_wide) where its
-// bytes fit a block, 2 the device-memory route (launch_fwd_global), -1
+// (launch_fwd), else 3 the blocked route (launch_fwd_blocked) where it
+// fits, else 1 the shared-memory kernel (launch_fwd_wide) where its bytes
+// fit a block, else 2 the device-memory route (launch_fwd_global), -1
 // none.
 template <typename T>
 int route(int n, int m, int p, int NW) {
   if (!dims_ok(m, NW)) return -1;
   if (tiled_kernel<T>(n, m, p, NW).fn != nullptr) return 0;
+  if (blocked_fits<T>(n, m, p, NW)) return 3;
   if (wide_smem_bytes<T>(n, m, p, NW) <= (size_t)thomas_global::kMaxSmem)
     return 1;
   return thomas_global::fits<T>(n, m, p, NW) ? 2 : -1;
@@ -538,6 +600,9 @@ int occupancy(int n, int m, int p, int NW, int which, int* out) {
              thomas_global::fits<T>(n, m, p, NW)) {
     k = {(const void*)thomas_sq_global_kernel<T>, thomas_global::kThreads};
     bytes = thomas_global::smem_bytes<T>(n, m, p);
+  } else if (which == 3 && blocked_fits<T>(n, m, p, NW)) {
+    k = {blocked_kernel<T>(n), thomas_blocked::kThreads};
+    bytes = thomas_blocked::smem_bytes<T>(n, m, p, NW);
   }
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   int err = thomas::set_smem(k.fn, bytes);
@@ -594,6 +659,14 @@ int launch_bwd(const void* G, const void* yhat, const void* qd, const void* wv,
       int NW, void* stream) {                                                 \
     return launch_fwd_global<T>(qd, wv, Ub, Bm, A, b, owner, w_owner, G,      \
                                 yhat, work, B, Tn, n, m, p, NW, stream);      \
+  }                                                                           \
+  extern "C" int thomas_sq_fwd_blocked_##SUFFIX(                              \
+      const void* qd, const void* wv, const void* Ub, const void* Bm,         \
+      const void* A, const void* b, const int* owner, const int* w_owner,     \
+      void* G, void* yhat, int B, int Tn, int n, int m, int p, int NW,        \
+      void* stream) {                                                         \
+    return launch_fwd_blocked<T>(qd, wv, Ub, Bm, A, b, owner, w_owner, G,     \
+                                 yhat, B, Tn, n, m, p, NW, stream);           \
   }                                                                           \
   extern "C" int thomas_sq_route_##SUFFIX(int n, int m, int p, int NW) {      \
     return route<T>(n, m, p, NW);                                             \

@@ -24,19 +24,25 @@ knot's operands copied in while a knot is eliminated
 K1 and K3's classes for d > 24 LU and a back substitution, K3's others
 Gauss-Jordan).  K3's size classes cover d = n + m <= 32 and d + p n + 1 <=
 96, K1's d <= 32 and d + p n + 1 <= 96 with 128 threads a lane and, with
-256, d <= 48 and d + p n + 1 <= 160.  Wider systems take the shared-memory
-forward kernel of ``csrc/thomas_common.cuh`` (every per-knot operand, the
-carry and the augmented system in shared memory) where its bytes fit a
-block's 232,448, counted apart in ``solve_thomas.big_launches`` and
-``solve_thomas_structured.wide_launches``; beyond that (the 4-player
-quadrotor's systems, d = 64: K1 in f64, K3 in both types) the
-device-memory route of ``csrc/thomas_global.cuh`` (K [d, d] and a panel
-of 128 right-hand sides in shared memory, the fill-in F in a workspace
-this wrapper allocates, n p n scalars a lane), counted in
-``global_launches``; it takes d <= 128 within those bytes (in f64 d up to
-about 104) and wider systems raise.  The library says which route a shape
-takes (``thomas_sq_route_*``, ``thomas_dense_route_*``), before the launch;
-a build or launch error raises.  ``forward="shared"`` or ``"device"`` takes
+256, d <= 48 and d + p n + 1 <= 160.  K1's wider systems up to d = 64
+(the 4-player quadrotor's, in f32 and f64) take its per-player blocked
+route (``csrc/thomas_blocked.cuh``: the fill-in formed over the carry in
+place, K's LU in registers, the right-hand sides built in pivot order and
+substituted in registers, 256 threads a lane), counted in
+``solve_thomas_structured.blocked_launches``.  K3's wider systems, and
+K1's beyond the blocked route, take the shared-memory forward kernel of
+``csrc/thomas_common.cuh`` (every per-knot operand, the carry and the
+augmented system in shared memory) where its bytes fit a block's 232,448,
+counted apart in ``solve_thomas.big_launches`` and
+``solve_thomas_structured.wide_launches``; beyond that (K3 on the 4-player
+quadrotor's systems, d = 64, in both types) the device-memory route of
+``csrc/thomas_global.cuh`` (K [d, d] and a panel of 128 right-hand sides in
+shared memory, the fill-in F in a workspace this wrapper allocates, n p n
+scalars a lane), counted in ``global_launches``; it takes d <= 128 within
+those bytes (in f64 d up to about 104) and wider systems raise.  The
+library says which route a shape takes (``thomas_sq_route_*``,
+``thomas_dense_route_*``), before the launch; a build or launch error
+raises.  ``forward="shared"``, ``"device"`` or, for K1, ``"blocked"`` takes
 that route at any widths that it holds, to time it against the route the
 shape takes.  See the sources for what bounds each on the card.
 
@@ -129,11 +135,13 @@ def _check(spec, sq: StructuredQ, b: torch.Tensor, w_owner) -> None:
 
 
 # The forward routes in the order of the libraries' ``*_route_*`` numbers,
-# their names, and their exports' infixes in K1's and K3's library.
-_ROUTES = ("tiled", "shared", "device")
+# their names, and their exports' infixes in K1's and K3's library (K3 has
+# no blocked route).
+_ROUTES = ("tiled", "shared", "device", "blocked")
 _ROUTE_NAMES = {"tiled": "register-tiled", "shared": "shared-memory",
-                "device": "device-memory"}
-_INFIX = {_LIB: {"tiled": "", "shared": "wide_", "device": "global_"},
+                "device": "device-memory", "blocked": "per-player blocked"}
+_INFIX = {_LIB: {"tiled": "", "shared": "wide_", "device": "global_",
+                 "blocked": "blocked_"},
           _LIB_DENSE: {"tiled": "", "shared": "big_", "device": "global_"}}
 
 
@@ -157,11 +165,11 @@ def _shape_route(name: str, dtype, widths) -> str:
 
 def _pick_route(name: str, dtype, widths, forward: str) -> str:
     """The route the shape takes (``forward`` "auto"), or the one that
-    ``forward`` names: "shared" or "device", to time it against the
-    shape's."""
+    ``forward`` names: "shared", "device" or, in K1's library, "blocked",
+    to time it against the shape's."""
     if forward == "auto":
         return _shape_route(name, dtype, tuple(widths))
-    if forward not in ("shared", "device"):
+    if forward == "tiled" or forward not in _INFIX[name]:
         raise ValueError(f"unknown forward route {forward!r}")
     return forward
 
@@ -212,9 +220,9 @@ def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
     for the Newton step); ``sq`` leaves are [B, T, ...] and contiguous.
     Returns the flat [B, S] solution in per-knot column order.  The
     forward kernel is the one the library picks by shape (or the route
-    ``forward`` names: "shared", "device"); the shared-memory one is
-    counted by ``wide_launches``, the device-memory one by
-    ``global_launches``."""
+    ``forward`` names: "blocked", "shared", "device"); the blocked one is
+    counted by ``blocked_launches``, the shared-memory one by
+    ``wide_launches``, the device-memory one by ``global_launches``."""
     _check(spec, sq, b, w_owner)
     if _route(b) == "plain":
         return solve_thomas_structured_plain(spec, sq, b, w_owner)
@@ -243,6 +251,8 @@ def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
         solve_thomas_structured.wide_launches += 1
     elif route == "device":
         solve_thomas_structured.global_launches += 1
+    elif route == "blocked":
+        solve_thomas_structured.blocked_launches += 1
     solve_thomas_structured.launches += 1
     return y.reshape(Bsz, -1)
 
@@ -250,6 +260,7 @@ def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
 solve_thomas_structured.launches = 0
 solve_thomas_structured.wide_launches = 0
 solve_thomas_structured.global_launches = 0
+solve_thomas_structured.blocked_launches = 0
 
 
 def solve_thomas_plain(spec, jb: JacBlocks, b: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ PyTorch version:
 - the 2-player quadrotor (N=15, spherical collision, a floor facet, a
   cylinder, thrust bounds [0, 3]): K1 and K4, and K3 on its systems
   turned dense; with 3 players (d=48) K1's tall size class and K4; with 4
-  (d=64) K1's and K3's device-memory route and K4;
+  (d=64) K1's per-player blocked route, K3's device-memory route and K4;
 - the heterogeneous double integrator (mi = (2, 1), player-blocked, N=8):
   K3 on controls padded to p max(mi) and K4's player-blocked instance;
 - iterative best response on the flagship and on the quadrotor
@@ -74,19 +74,23 @@ Phases:
    divergence, the converged fractions of the first 256 and of all 4096
    scenarios each >= the reference package's own on the first 256 minus
    0.01; K3 and K4 launched and K1 not; one chunk with the plain versions
-   on the card through the first half of the outer budget (stats rows
-   compared lane by lane where the kernels finished within it), and a
-   profile of one chunk's first outer iteration (the game sweeps' plain
-   chunk and profile cut so from the whole budget and two outer
-   iterations, to keep the script in its time limit);
+   on the card through its first outer iteration (stats rows compared
+   lane by lane with the kernels' rows of that iteration), and a
+   profile of one chunk's first PROFILE_INNER inner iterations (the game
+   sweeps' plain chunk and profile cut so from the whole budget and two
+   outer iterations, then from half the outer budget and one outer
+   iteration, to keep the script in its time limit);
 10. the double integrator: K1 on its KKT systems as in 2, K4 on its trial
    inputs as in 7, the f64 solve against ``di2_N10.npz`` (iteration 30, x
    and u within 1e-8), and its f32 sweep at the preset budget (outer 7 x
-   20): 4096 scenarios as in 9, finite, no divergence, the converged
-   fractions of the first 256 and of all 4096 scenarios each >= the
-   reference package's own on the same inputs minus 0.01
-   (``tests/reference_fractions.py subset`` and ``full``), K1 and K4
-   launched and K3 not; one chunk with the plain versions, a profile;
+   20): the first 1024 of the scenarios of 9 (GAME_SWEEP_LANES; the
+   double integrator's, bicycle's, quadrotor's and heterogeneous game's
+   sweeps cut so from 4096 to keep the script in its time limit), finite,
+   no divergence, the converged fractions of the first 256 and of all
+   1024 scenarios each >= the reference package's own on the same inputs
+   minus 0.01 (``tests/reference_fractions.py subset`` and ``full``), K1
+   and K4 launched and K3 not; one chunk with the plain versions, a
+   profile;
 11. the bicycle: K3 on its KKT systems as in 6 (without the roundabout's
    extra checks), K4, the f64 solve against ``bike3_N20.npz`` (iteration
    90, x within 5e-3 and u within 5e-2, the golden's own plateau, and
@@ -103,7 +107,7 @@ Phases:
    against ``quad2_N15.npz`` (iteration 52, within 1e-8); its sweep (outer
    6 x 12, stationarity gate 5e-2 as ``tests/test_golden.py`` uses: the
    thrust clamp holds stationarity near 3e-2; the first 256 lanes gated
-   as in 10, the reference's fraction over all 4096 not being measured;
+   as in 10, the reference's fraction over all 1024 not being measured;
    K1 and K4, not K3); then K3 on the quadrotor's KKT systems turned
    dense (``K3-big``: d=32, K3's LU size class), gated as K1's phase on
    them and timed beside K3's shared-memory forward kernel on the same
@@ -124,24 +128,27 @@ Phases:
    of 1024 scenarios with the fused trial (``sweep-quad3``: finite, none
    diverged; K1's and K4's launch counts, K1's share of the wall); then the
    4-player quadrotor (d=64, R=193, beyond every size class): K1 on its
-   systems (``K1-wide64``, B_BEYOND lanes) in f64 on the device-memory
-   route of ``csrc/thomas_global.cuh`` and in f32 on the shared-memory
-   kernel and, forced, on the device-memory route, each gated as the
-   quadrotor's and timed; K3 on the same
+   systems (``K1-wide64``, B_BEYOND lanes) in f64 and f32 on its
+   per-player blocked route (``csrc/thomas_blocked.cuh``) and, forced onto
+   the same operands, on the device-memory route of
+   ``csrc/thomas_global.cuh`` and (f32) the shared-memory kernel, each
+   gated as the quadrotor's and timed; K3 on the same
    systems turned dense (``K3-big64``, device-memory route in both
    precisions); K4 on its trial inputs (``K4-quad4``: n=48) and with a
    state bound on all 48 states (``K4-quad4-bound``: rows past the 64th
    in the table's second word); f64 solves of 4 scenarios (outer 2 x 5,
-   fused trial) through K1's device-memory route and K4 (``solve-wide64``)
+   fused trial) through K1's blocked route and K4 (``solve-wide64``)
    and, with collision-cost pairs between the players, through K3's
    (``solve-big64``), each against the same solve through the plain
    versions on the card (iteration counts equal, x and u within 1e-8);
    and one timed f32 chunk of 1024 scenarios (``sweep-quad4``: finite,
    none diverged, the first 256 lanes' converged share and mean final
    residual against the reference's (REF_QUAD4), the first 64 lanes'
-   mean final residual against the plain versions' on the card, K1 and K4
-   launched, K4 at least once a KKT step; K1's and K4's shares of the
-   wall, and K1's numbers at the chunk's batch);
+   mean final residual against the plain versions' on the card, K1 (every
+   launch on its blocked route) and K4 launched, K4 at least once a KKT
+   step; K1's blocked route on the game's own systems gated over mu = 1 ..
+   1e7 and every K1 route timed at the chunk's batch, in f32 and f64; K1's
+   and K4's shares of the wall);
 13. the heterogeneous game: K3 on its padded KKT systems as in 11
    (``K3-hetero``), K4 on its trial inputs (``K4-hetero``), the f64 solve
    through K3 and K4 against ``tests/golden_torch/hetero2_N8.npz`` (the
@@ -156,14 +163,15 @@ Phases:
    512-scenario f32 sweep of ``benchmarks/bench_ibr.py`` as one chunk: on
    its first 128 lanes the share stopped before 10 rounds within 0.02 of
    the reference's and the mean final residual within 1.1 x; K3 launched,
-   neither K1 nor a trial kernel; the same chunk with the plain versions,
-   and a profile of one Gauss-Seidel round; then K3 on the quadrotor's
+   neither K1 nor a trial kernel; its first 128 lanes with the plain
+   versions, and a profile of one Gauss-Seidel round at outer 1 x 4; then K3 on the quadrotor's
    player systems (``K3-ibr-quad``: p=1, d=28, its LU class, gated as
    ``K3-big``, timed beside the shared-memory kernel), and IBR on the
    quadrotor preset (``sweep-ibr-quad2``: N_IBR_QUAD f32 scenarios, outer
    3 x 8 per player solve, IBR_QUAD_ITER rounds, gated as ``sweep-ibr`` on
    all of them against ``tests/reference_fractions.py ibr-quad``; 4 lanes
-   in f64, one round, through the kernels and the plain versions, stats
+   in f64, one round at outer 1 x 8, through the kernels and the plain
+   versions, stats
    rows equal, x and u within 1e-8);
 15. receding-horizon MPC on the highway of ``benchmarks/bench_mpc.py``
    (BASELINE config 3: p=3 unicycles, N=20, outer 3 x 8, shift 1, duals
@@ -212,6 +220,7 @@ Phases:
    bitwise ``solve_many``'s in this process) and over 2 ranks on gloo,
    both on this card (each half bitwise ``solve_many``'s of that half;
    converged >= 0.99, none diverged); K1 and K2 launched in every rank;
+   the 1-rank world then runs SPIKE's ranks' solves of 21 too;
 20. K1 on the long-horizon game's systems (``spike_game``, T=256) at
    B=32 and B=1 as in 2 (``K1-long32``, ``K1-long1``);
 21. SPIKE (``spike``): the long-horizon game in f64 at N=257 over 1 rank
@@ -256,6 +265,12 @@ HERE = Path(__file__).resolve().parent
 MUS = [10.0 ** k for k in range(8)]
 B_KERNEL = 1024
 N_SWEEP, CHUNK = 4096, 1024
+# Depth of the runs beside each preset-budget sweep, cut to keep the script
+# well inside its time limit: the plain versions' chunk runs PLAIN_OUTER
+# outer iterations, the profiled chunk (and each IBR player solve of the
+# profiled round) one outer iteration of at most PROFILE_INNER inner ones,
+# the profiled MPC loop PROFILE_REPLANS replans.
+PLAIN_OUTER, PROFILE_INNER, PROFILE_REPLANS = 1, 4, 2
 # Published H100 SXM peaks (NVIDIA data sheet): device-memory rate, and the
 # f32 rate outside the tensor cores, which is also the f64 tensor cores'
 # (DMMA computes in full f64), so it bounds the f64 rows as well.
@@ -264,21 +279,26 @@ PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
 # game but the flagship (`tests/roundabout_reference.py subset`,
 # `tests/reference_fractions.py subset` and `full`; their outputs are in
 # `tests/reference_fractions.txt`): the converged share of the first 256
-# scenarios and of all 4096, the quadrotor under its stationarity gate
-# QUAD_OPT_GATE: its thrust clamp max(0, kf w) is not smooth at hover,
-# which holds stationarity near 3e-2 (as `tests/test_golden.py` allows).
-# Each sweep is gated on both: the port's first 256 lanes against the
-# first, all its lanes against the second.  The roundabout's and the
-# quadrotor's references over all 4096 are not measured (the reference
-# package takes over half an hour per 256 of their lanes on a CPU): the
+# scenarios and of all the sweep's lanes, the quadrotor under its
+# stationarity gate QUAD_OPT_GATE: its thrust clamp max(0, kf w) is not
+# smooth at hover, which holds stationarity near 3e-2 (as
+# `tests/test_golden.py` allows).  Each sweep is gated on both: the port's
+# first 256 lanes against the first, all its lanes against the second.
+# The roundabout sweeps all N_SWEEP scenarios, the other games their first
+# GAME_SWEEP_LANES (one chunk; cut from N_SWEEP to keep the script in its
+# time limit), each against the reference's share over the same lanes
+# (`full`'s "lanes 0..1024" lines).  The roundabout's and the quadrotor's
+# references beyond 256 lanes are not measured (the reference package
+# takes over half an hour per 256 of their lanes on a CPU): the
 # roundabout's lanes are all held to its 256-lane reference, the
 # quadrotor's (whose first 256 converge more often than the rest) only its
 # first 256.
+GAME_SWEEP_LANES = 1024
 REF_CONVERGED = {"round4_N40": (253 / 256, 253 / 256),
-                 "di2_N10": (161 / 256, 2639 / 4096),
-                 "bike3_N20": (104 / 256, 1846 / 4096),
+                 "di2_N10": (161 / 256, 649 / 1024),
+                 "bike3_N20": (104 / 256, 457 / 1024),
                  "quad2_N15": (147 / 256, None),
-                 "hetero2_N8": (241 / 256, 3891 / 4096)}
+                 "hetero2_N8": (241 / 256, 977 / 1024)}
 QUAD_OPT_GATE = 5e-2
 # Iterative best response on the flagship as benchmarks/bench_ibr.py runs
 # it: N_IBR scenarios, ibr_iter rounds.  The reference package's f32
@@ -289,11 +309,11 @@ N_IBR, IBR_LANES, IBR_ITER = 512, 128, 10
 REF_IBR = (0 / 128, 0.0071520789206260815)
 # The same on the quadrotor preset: N_IBR_QUAD scenarios, all of them held
 # to the reference's run (`tests/reference_fractions.py ibr-quad`), at
-# IBR_QUAD_ITER rounds: a round of the quadrotor's IBR takes ~27 s of host
-# time beside an H100 (10 rounds took 266 s), over a fifth of the script's
-# time limit.
-N_IBR_QUAD, IBR_QUAD_ITER = 128, 2
-REF_IBR_QUAD = (0 / 128, 0.06480180173093686)
+# IBR_QUAD_ITER rounds: a round of the quadrotor's IBR takes 27-44 s of
+# host time beside an H100 (10 rounds took 266 s), so one round (cut from
+# two to keep the script in its time limit).
+N_IBR_QUAD, IBR_QUAD_ITER = 128, 1
+REF_IBR_QUAD = (0 / 128, 0.2552455230979831)
 # The f64 bicycle solve through the kernels against the same solve through
 # the plain versions on the card (measured 2.4e-15 on an H100, PERF.md).
 BIKE3_PLAIN_TOL = 1e-10
@@ -301,9 +321,9 @@ BIKE3_PLAIN_TOL = 1e-10
 # the same solve through the plain versions on the card.
 WIDE_PLAIN_TOL = 1e-8
 # Lanes of the checks of the forward kernels on systems beyond the size
-# classes (``K3-big48``: the shared-memory kernel; ``K1-wide64``,
-# ``K3-big64``: the device-memory route, and K1's shared-memory kernel in
-# f32).
+# classes (``K3-big48``: the shared-memory kernel; ``K1-wide64``: K1's
+# blocked route, its device-memory route and, in f32, its shared-memory
+# kernel; ``K3-big64``: the device-memory route).
 B_BEYOND = 64
 # The 4-player quadrotor's f32 sweep (``sweep-quad4``, 2 x 5): the reference
 # package's converged share of the first 256 scenarios and its mean final
@@ -383,10 +403,12 @@ def rel_err(a, ref):
     return (a - ref).abs().amax(dim=1) / scale
 
 
-def cuda_ms(fn, reps):
-    """Mean device-synchronised milliseconds per call, after one warm-up."""
+def cuda_ms(fn, reps, warm=True):
+    """Mean device-synchronised milliseconds per call, after one warm-up
+    (``warm=False``: the caller has just made it)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -485,8 +507,7 @@ def device_ms(fn, reps, names, per_call, tag="time"):
             raise SystemExit(f"[{tag}] the host never got ahead of the card")
         sleep_ms *= 2
     ev_ms = sum(times) / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _bracketed_launches(fn, reps, sleep_ms)
     named = [e for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA
@@ -568,14 +589,14 @@ def ptxas_report(text):
     out, kern, spills = [], None, ""
     for line in text.splitlines():
         m = re.search(r"Function properties for \S*?([a-z][a-z_]*_kernel)"
-                      r"I([fd])(?:Li(\d+)ELi(\d+)E)?"
+                      r"I([fd])(?:Li(\d+)E(?:Li(\d+)E)?)?"
                       r"(?:NS_\d+([A-Za-z]+)I[fd](?:Li(\d)E)?E)?E"
                       r"(?:Li(\d+)E)?", line)
         if m:
             spills = ""
             model = (f", {m.group(5)}{m.group(6) or ''}" if m.group(5)
                      else "")
-            tile = f", {m.group(3)}, {m.group(4)}" if m.group(3) else ""
+            tile = "".join(f", {g}" for g in m.group(3, 4) if g)
             tpk = f", {m.group(7)}" if m.group(7) else ""
             kern = (f"{m.group(1)}"
                     f"<{'float' if m.group(2) == 'f' else 'double'}{tile}"
@@ -686,8 +707,10 @@ def library_solve_ms(spec, jb, b, lanes):
     for s in range(0, Bsz, lanes):
         K = dense_kkt(spec, tree_slice(jb, s + lanes, s))
         rhs = b[s:s + lanes].reshape(K.shape[0], -1, 1)
-        ms += cuda_ms(lambda: torch.linalg.solve(K, rhs), 1)
-        ys.append(torch.linalg.solve(K, rhs)[..., 0])
+        if s == 0:
+            torch.linalg.solve(K, rhs)                  # warm-up
+        ms += cuda_ms(lambda: ys.append(torch.linalg.solve(K, rhs)[..., 0]),
+                      1, warm=False)
         del K
         torch.cuda.empty_cache()
     return ms, torch.cat(ys)
@@ -923,8 +946,8 @@ def phase_k1(dev, tag="K1", preset=None, iterates=flagship_iterates,
 def k1_occupancy(tag, spec, NW, B=B_KERNEL, forward="auto",
                  dtypes=("f32", "f64")):
     """The forward kernel K1 runs at ``spec``'s widths with ``NW`` w
-    vectors (``forward``: on that route, "shared" or "device", instead of
-    the one the shape takes), per dtype: its route, lanes per SM
+    vectors (``forward``: on that route, "blocked", "shared" or "device",
+    instead of the one the shape takes), per dtype: its route, lanes per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), waves at B lanes,
     registers and local memory (frame) a thread (``cudaFuncGetAttributes``),
     through ``thomas_sq_occupancy_*``; printed and returned."""
@@ -1087,8 +1110,7 @@ def quad3_game(dev, dtype):
 def quad4_game(dev, dtype):
     """The quadrotor preset with four players, outer 2 x inner 5: n=48,
     m=16, so its reduced KKT systems (d=64, R=193) lie beyond K1's size
-    classes: in f32 they take its shared-memory route, in f64 (beyond an
-    SM's shared memory) its device-memory route."""
+    classes: they take its per-player blocked route in f32 and f64."""
     from algames_tpu_torch.presets import quadrotor3d
     return quadrotor3d(dev, dtype, outer=2, inner=5, p=4)
 
@@ -1137,7 +1159,7 @@ def phase_solve_wide(dev):
         f"launches {launches}")
     if not ((it == it_p).all() and dx <= WIDE_PLAIN_TOL
             and du <= WIDE_PLAIN_TOL and launches["K1"] > 0
-            and launches["K1 wide route"] == 0
+            and launches["K1 shared route"] == 0
             and launches["K1 device route"] == 0):
         raise SystemExit("the 3-player quadrotor solve through K1 disagrees "
                          "with the plain versions")
@@ -1186,7 +1208,7 @@ def phase_sweep_quad3(dev, k1_wide, k4_quad3):
         f"K4 {launches['trial']} x {k4_quad3['device_ms']:.4f} = "
         f"{k4_ms:.1f} ms, {100 * k4_ms / 1e3 / el:.1f}%")
     if not (finite and div == 0.0 and launches["K1"] > 0
-            and launches["K1 wide route"] == 0
+            and launches["K1 shared route"] == 0
             and launches["K1 device route"] == 0 and launches["trial"] > 0
             and launches["K3"] == 0):
         raise SystemExit("the 3-player quadrotor chunk failed its gates")
@@ -1216,38 +1238,71 @@ def quad4_cost_game(dev, dtype):
     return dataclasses.replace(prob, obj=obj), spec
 
 
-def phase_beyond(dev, tag, form, seed0, B=B_BEYOND):
+# The forward routes timed beside the route a quad4 shape takes, by form
+# and precision: every other route that holds the shape (the shared-memory
+# kernel needs 443 KB for K1 in f64 and 250 / 499 KB for K3).
+BEYOND_ROUTES = {("structured", "f32"): ("blocked", "shared", "device"),
+                 ("structured", "f64"): ("blocked", "device"),
+                 ("dense", "f32"): ("device",), ("dense", "f64"): ("device",)}
+# K1 at the 6-player unicycle's widths (d=36): every route holds the shape
+# in both precisions (the shared-memory kernel 170 KB in f64).
+UNI6_ROUTES = {("structured", dt): ("blocked", "shared", "device")
+               for dt in ("f32", "f64")}
+# K1's blocked route forced onto the flagship's systems (d=18, inside the
+# register-tiled classes), beside the class the shape takes.
+BLOCKED_ROUTES = {("structured", dt): ("blocked",) for dt in ("f32", "f64")}
+
+
+def uni6_game(dev, dtype):
+    """The flagship with six players: n=24, m=12, so its reduced KKT
+    systems (d=36, R=145, NW=30) lie beyond K1's size classes (d + R >
+    160) at a width that is no multiple of 16."""
+    from algames_tpu_torch.presets import flagship_unicycle
+    return flagship_unicycle(dev, dtype, p=6)
+
+
+def shape_route(spec, dtype, NW=None):
+    """The forward route K1 (``NW`` w vectors) or K3 (``NW`` None) takes at
+    ``spec``'s widths, as its library says."""
+    from algames_tpu_torch.ops import thomas as TH
+    if NW is None:
+        return TH._shape_route(TH._LIB_DENSE, dtype,
+                               (spec.n, spec.m, spec.p))
+    return TH._shape_route(TH._LIB, dtype, (spec.n, spec.m, spec.p, NW))
+
+
+def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
+                 iterates=quad3_iterates, forced=BEYOND_ROUTES):
     """K1 (``form`` "structured") or K3 ("dense": the same systems turned
-    dense) on the 4-player quadrotor's KKT systems (``quad4_game`` around
-    ``quad3_iterates``: d=64, R=193), beyond the size classes, B lanes,
-    mu = 1 .. 1e7: in f64 on the device-memory route (the shared-memory
-    kernel's f64 instance would need 443 KB for K1 and 499 KB for K3 of an
-    SM's 227), in f32 on the route the shape takes (K1: the shared-memory
-    kernel; K3: the device-memory route) and, for K1, forced onto the
-    device-memory route as well; every other route taken is a failure.
-    Each solution gated as the quadrotor's systems are: normwise backward
-    error f64 <= 1e-15 and f32 <= 1e-7, each <= 10 x the plain version's
-    in the same precision, f32 forward error <= 30 x the f32 plain
-    version's.  Then per precision and route its times (call, plain
-    version, device), bound and library
-    call, and the forward kernels' occupancy.  Returns the f64 route's
-    numbers (the kernels line's), with the f32 routes' under "f32"."""
+    dense) on ``game``'s KKT systems around ``iterates`` (by default the
+    4-player quadrotor's, beyond the size classes: d=64, R=193), B lanes,
+    mu = 1 .. 1e7, in f64 and f32, on the route the shape takes and forced
+    onto every other route that ``forced`` names by form and precision (by
+    default BEYOND_ROUTES: K1 blocked, shared (f32 only) and device-memory;
+    K3 device-memory); a launch on any other route is a failure.  Each
+    solution gated as the quadrotor's systems are: normwise backward error
+    f64 <= 1e-15 and f32 <= 1e-7, each <= 10 x the plain version's in the
+    same precision, f32 forward error <= 30 x the f32 plain version's.  Then per precision and route its times (call,
+    device), and per precision the plain version's and the library call's
+    and the bound, and the forward kernels' occupancy.  Returns the f64
+    numbers of the route the shape takes (the kernels line's), with every
+    route's under "f64" and "f32" by route name and the f64 device-memory
+    route's own max |error| under "f64"."""
     import torch
     from algames_tpu_torch.ops import thomas as TH
     from algames_tpu_torch.utils import tree_leaves, tree_map
     structured = form == "structured"
     kernel = TH.solve_thomas_structured if structured else TH.solve_thomas
     names = ("thomas_sq_",) if structured else ("thomas_dense_",)
-    f32_routes = ("auto", "device") if structured else ("auto",)
 
     def system(mu, seed):
-        spec, sq, b, w_owner = k1_system(dev, B, mu, seed, False, quad4_game,
-                                         quad3_iterates)
+        spec, sq, b, w_owner = k1_system(dev, B, mu, seed, False, game,
+                                         iterates)
         if structured:
             return spec, sq, b, w_owner
         return spec, dense_of(spec, sq, w_owner), b, None
 
-    def solve(spec, blocks, b, w_owner, forward="auto"):
+    def solve(spec, blocks, b, w_owner, forward):
         if structured:
             return kernel(spec, blocks, b, w_owner, forward)
         return kernel(spec, blocks, b, forward)
@@ -1257,100 +1312,160 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND):
             return TH.solve_thomas_structured_plain(spec, blocks, b, w_owner)
         return TH.solve_thomas_plain(spec, blocks, b)
 
-    def shared_launches():
-        return kernel.wide_launches if structured else kernel.big_launches
+    spec, blocks, b, w_owner = system(1.0, seed0)
+    NW = len(w_owner) if structured else None
+    taken = {dt: shape_route(spec, dt, NW)
+             for dt in (torch.float64, torch.float32)}
+    routes = {dt: ("auto",) + tuple(r for r in forced[(form, name)]
+                                    if r != taken[dt])
+              for dt, name in ((torch.float64, "f64"),
+                               (torch.float32, "f32"))}
+    log(f"[{tag}] routes the shape takes: f64 {taken[torch.float64]}, f32 "
+        f"{taken[torch.float32]}; timed beside them: "
+        f"{ {str(dt)[6:]: r[1:] for dt, r in routes.items()} }")
+    want = {}
+    for dt, rs in routes.items():
+        for r in rs:
+            name = taken[dt] if r == "auto" else r
+            want[name] = want.get(name, 0) + len(MUS)
+    kkt = "K1" if structured else "K3"
 
-    dev0, sh0 = kernel.global_launches, shared_launches()
-    max_abs64 = 0.0
+    def route_launches():
+        launches = read_counters(kernel_counters())
+        return {r: launches[f"{kkt} {r} route"] for r in ROUTE_COUNTERS[kkt]}
+    before = route_launches()
+    max_abs64 = {}
     for i, mu in enumerate(MUS):
         spec, blocks, b, w_owner = system(mu, seed0 + i)
         blocks32, b32 = tree_map(lambda a: a.float(), blocks), b.float()
         ref = plain(spec, blocks, b, w_owner)
         p32 = plain(spec, blocks32, b32, w_owner)
-        y64 = solve(spec, blocks, b, w_owner)
-        y32 = [solve(spec, blocks32, b32, w_owner, r) for r in f32_routes]
+        y64 = [solve(spec, blocks, b, w_owner, r)
+               for r in routes[torch.float64]]
+        y32 = [solve(spec, blocks32, b32, w_owner, r)
+               for r in routes[torch.float32]]
         torch.cuda.synchronize()
         bws = [float(e.max()) for e in backward_errors(
-            spec, blocks, w_owner, b, (y64, ref, p32, *y32), lanes=B)]
-        b64, bp64, bp32 = bws[:3]
+            spec, blocks, w_owner, b, (ref, p32, *y64, *y32), lanes=B)]
+        bp64, bp32 = bws[:2]
         ep32 = float(rel_err(p32, ref).max())
-        ok = b64 <= 1e-15 and b64 <= 10 * bp64
-        line = (f"[{tag}] mu={mu:.0e}: backward error f64 device-memory "
-                f"route {b64:.3e} (plain {bp64:.3e}; <= 1e-15 and 10 x "
-                f"plain); f32 plain {bp32:.3e}, forward {ep32:.3e}")
-        for r, y, bw32 in zip(f32_routes, y32, bws[3:]):
+        ok = True
+        line = (f"[{tag}] mu={mu:.0e}: backward error plain f64 {bp64:.3e}, "
+                f"f32 {bp32:.3e}; f32 plain forward {ep32:.3e}")
+        for r, y, bw in zip(routes[torch.float64], y64, bws[2:]):
+            name = taken[torch.float64] if r == "auto" else r
+            ok = ok and bw <= 1e-15 and bw <= 10 * bp64
+            line += (f"; f64 {name} {bw:.3e} (<= 1e-15 and 10 x plain)")
+            max_abs64[name] = max(max_abs64.get(name, 0.0),
+                                  float((y - ref).abs().max()))
+        for r, y, bw in zip(routes[torch.float32], y32,
+                            bws[2 + len(y64):]):
+            name = taken[torch.float32] if r == "auto" else r
             e32 = float(rel_err(y, ref).max())
-            ok = (ok and bw32 <= 1e-7 and bw32 <= 10 * bp32
-                  and e32 <= 30 * ep32)
-            line += (f"; f32 {r} route {bw32:.3e} (<= 1e-7 and 10 x plain),"
-                     f" forward {e32:.3e} (<= 30 x plain)")
+            ok = ok and bw <= 1e-7 and bw <= 10 * bp32 and e32 <= 30 * ep32
+            line += (f"; f32 {name} {bw:.3e} (<= 1e-7 and 10 x plain), "
+                     f"forward {e32:.3e} (<= 30 x plain)")
         log(line)
         if not ok:
             raise SystemExit(f"{tag} disagrees with its plain version at "
                              f"mu={mu}")
-        max_abs64 = max(max_abs64, float((y64 - ref).abs().max()))
-    took_dev = kernel.global_launches - dev0
-    took_sh = shared_launches() - sh0
-    want_sh = len(MUS) if structured else 0
-    if took_dev != 2 * len(MUS) or took_sh != want_sh:
-        raise SystemExit(f"{tag}: wrong forward routes ({took_dev} device-"
-                         f"memory, {took_sh} shared-memory launches; want "
-                         f"{2 * len(MUS)}, {want_sh})")
+    after = route_launches()
+    took = {r: after[r] - before[r] for r in after}
+    if any(took[r] != want.get(r, 0) for r in took):
+        raise SystemExit(f"{tag}: wrong forward routes ({took}; want "
+                         f"{want})")
 
     spec, blocks, b, w_owner = system(1e3, seed0 + 99)
-    NW = len(w_owner) if structured else 0
-
-    def numbers(dtype, forward, label):
+    out = {}
+    for dtype, name in ((torch.float64, "f64"), (torch.float32, "f32")):
         bl = tree_map(lambda a: a.to(dtype), blocks)
         bb = b.to(dtype)
-        ms = cuda_ms(lambda: solve(spec, bl, bb, w_owner, forward), 10)
         plain_ms = cuda_ms(lambda: plain(spec, bl, bb, w_owner), 3)
-        dev_ms = device_ms(lambda: solve(spec, bl, bb, w_owner, forward), 10,
-                           names, 2, f"{tag} {label}")
-        y = solve(spec, bl, bb, w_owner, forward)
         dense = dense_of(spec, bl, w_owner) if structured else bl
         lib_ms, y_lib = library_solve_ms(spec, dense, bb, B)
-        bnd = bound(tensor_bytes(tree_leaves(bl) + [bb, y]),
-                    thomas_flops(spec, B, NW=NW, dense=not structured))
-        log(f"[{tag}] {label} at B={B}: call {ms:.4f} ms, plain {plain_ms:.4f}"
-            f" ms (CUDA events); device time {dev_ms:.4f} ms (events, fwd + "
-            f"bwd); bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
-            f"library (torch.linalg.solve on the dense [{B}, {spec.S}, "
-            f"{spec.S}] KKT matrices) {lib_ms:.4f} ms, worst relative "
-            f"deviation {float(rel_err(y_lib, y).max()):.3e} (not gated)")
-        return {"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **bnd,
-                "library_ms": lib_ms}
-    out = {"max_abs_err": max_abs64,
-           **numbers(torch.float64, "auto", "f64 device-memory route"),
-           "f32": {r: numbers(torch.float32, r, f"f32 {r} route")
-                   for r in f32_routes}}
+        per = {}
+        for r in routes[dtype]:
+            rname = taken[dtype] if r == "auto" else r
+            ms = cuda_ms(lambda: solve(spec, bl, bb, w_owner, r), 10)
+            dev_ms = device_ms(lambda: solve(spec, bl, bb, w_owner, r), 10,
+                               names, 2, f"{tag} {name} {rname} route")
+            y = solve(spec, bl, bb, w_owner, r)
+            bnd = bound(tensor_bytes(tree_leaves(bl) + [bb, y]),
+                        thomas_flops(spec, B, NW=NW or 0,
+                                     dense=not structured))
+            log(f"[{tag}] {name} {rname} route at B={B}: call {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms (CUDA events); device time "
+                f"{dev_ms:.4f} ms (events, fwd + bwd); bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); library "
+                f"(torch.linalg.solve on the dense [{B}, {spec.S}, {spec.S}]"
+                f" KKT matrices) {lib_ms:.4f} ms, worst relative deviation "
+                f"{float(rel_err(y_lib, y).max()):.3e} (not gated)")
+            per[rname] = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+                          **bnd, "library_ms": lib_ms}
+            if name == "f64":
+                per[rname]["max_abs_err"] = max_abs64[rname]
+        out[name] = per
+        if len(per) > 1:
+            log(f"[{tag}] {name} device time at B={B}: " + ", ".join(
+                f"{r} {v['device_ms']:.4f} ms" for r, v in per.items()))
+    out.update(out["f64"][taken[torch.float64]])
     occupancy = k1_occupancy if structured else (
         lambda t, sp, nw, *a, **k: k3_occupancy(t, sp, *a, **k))
-    out["forward_kernel"] = occupancy(tag, spec, NW, B, "device")
-    if structured:
-        out["shared_forward_kernel"] = occupancy(
-            f"{tag} shared-memory kernel", spec, NW, B, "shared",
-            dtypes=("f32",))
-        f32 = out["f32"]
-        log(f"[{tag}] f32 device time at B={B}: device-memory route "
-            f"{f32['device']['device_ms']:.4f} ms, the shared-memory kernel "
-            f"on the same operands {f32['auto']['device_ms']:.4f} ms")
+    out["forward_kernel"] = occupancy(tag, spec, NW or 0, B)
+    for r in ("blocked", "device", "shared"):
+        dts = tuple(str(dt)[6:].replace("float", "f") for dt in routes
+                    if r in routes[dt][1:])
+        if structured and dts:
+            out[f"{r}_forward_kernel"] = occupancy(
+                f"{tag} {r} route", spec, NW, B, r, dtypes=dts)
     return out
+
+
+def phase_wide36(dev):
+    """K1 at the 6-player unicycle's widths (``uni6_game``: d=36, R=145,
+    beyond the size classes, no multiple of 16): ``phase_beyond`` with
+    every route gated and timed at B_BEYOND lanes in f64 and f32
+    (UNI6_ROUTES), then every route timed on the same f32 operands at
+    B_KERNEL lanes (device time, fwd + bwd): the evidence for the route
+    rule below d = 64."""
+    import torch
+    from algames_tpu_torch.ops.thomas import solve_thomas_structured
+    from algames_tpu_torch.utils import tree_map
+    phase_beyond(dev, "K1-wide36", "structured", 980, B_BEYOND, uni6_game,
+                 flagship_iterates, UNI6_ROUTES)
+    spec, sq, b, w_owner = k1_system(dev, B_KERNEL, 1e3, 989, False,
+                                     uni6_game)
+    sq32, b32 = tree_map(lambda a: a.float(), sq), b.float()
+    del sq, b
+    wide = {r: device_ms(lambda: solve_thomas_structured(
+                spec, sq32, b32, w_owner, r), 3, ("thomas_sq_",), 2,
+                f"K1-wide36 f32 {r} route B={B_KERNEL}")
+            for r in UNI6_ROUTES[("structured", "f32")]}
+    taken = shape_route(spec, torch.float32, len(w_owner))
+    log(f"[K1-wide36] f32 device time at B={B_KERNEL} on the same operands "
+        f"(fwd + bwd): " + ", ".join(f"{r} {v:.4f} ms"
+                                     for r, v in wide.items())
+        + f"; the shape takes the {taken} route")
 
 
 def phase_solve_beyond(dev, tag, game, kkt):
     """An f64 solve of 4 scenarios of ``game`` (``quad4_game``: K1;
     ``quad4_cost_game``: K3; x0 + 0.05 N(0, 1) from numpy seed 0, outer 2 x
     inner 5) through the kernels with the fused trial (``kkt`` K1 or K3 on
-    its device-memory route, and K4's quadrotor instance at n=48) against
-    the same solve through the plain versions on the card (eager trial):
+    the route the shape takes: K1 its per-player blocked route, K3 its
+    device-memory route; and K4's quadrotor instance at n=48) against the
+    same solve through the plain versions on the card (eager trial):
     per-lane iteration counts equal, x and u within WIDE_PLAIN_TOL; every
-    KKT step on the device-memory route, the other KKT kernel not launched.
-    Returns the launches."""
+    KKT step on that route, the other KKT kernel not launched.  Returns the
+    launches, with the route under "route"."""
     import torch
     import algames_tpu_torch as agt
     from algames_tpu_torch.ops.thomas import kkt_solve_plain
+    from algames_tpu_torch.problem.residual import structured_w_owner
     prob, spec = game(dev, torch.float64)
+    route = shape_route(spec, torch.float64,
+                        len(structured_w_owner(prob.gc)) if kkt == "K1"
+                        else None)
     prob = dataclasses.replace(
         prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
     rng = np.random.default_rng(0)
@@ -1373,14 +1488,15 @@ def phase_solve_beyond(dev, tag, game, kkt):
     log(f"[{tag}] f64 4-player quadrotor (d=64), 4 scenarios, {el:.2f} s: "
         f"iterations {it.tolist()} (plain versions {it_p.tolist()}), max "
         f"|dx| {dx:.3e}, max |du| {du:.3e} from the plain versions (<= "
-        f"{WIDE_PLAIN_TOL:g}); launches {launches}")
+        f"{WIDE_PLAIN_TOL:g}); {kkt} on its {route} route; launches "
+        f"{launches}")
     if not ((it == it_p).all() and dx <= WIDE_PLAIN_TOL
             and du <= WIDE_PLAIN_TOL and launches[kkt] > 0
-            and launches[f"{kkt} device route"] == launches[kkt]
+            and launches[f"{kkt} {route} route"] == launches[kkt]
             and launches["trial"] > 0 and launches[other] == 0):
         raise SystemExit(f"the {tag} solve disagrees with the plain "
                          f"versions or missed its kernels")
-    return launches
+    return {**launches, "route": route}
 
 
 def phase_sweep_quad4(dev, k4_quad4):
@@ -1392,15 +1508,19 @@ def phase_sweep_quad4(dev, k4_quad4):
     residual norm <= 1.1 x the reference's (REF_QUAD4); the first
     PLAIN_LANES lanes' mean final residual within PLAIN_RES_TOL of the same
     solve's through the plain versions on the card, the median lane's
-    within PLAIN_LANE_TOL; K1 launched (f32,
-    d=64: its shared-memory kernel), K4 launched at least once a KKT step
-    (so the eager trial never ran), K3 not.  Prints the chunk's wall and
-    K1's and K4's device time shares of it: launches times the device time
-    per call at B=CHUNK (K1 timed here on the game's systems, K4 from
-    ``K4-quad4``, ``k4_quad4``), and K1's device-memory route on the same
-    operands (reported: the sweep keeps the route its shape takes).
-    Returns the launches, with K1's numbers at B=CHUNK for the kernels
-    line under "k1_row"."""
+    within PLAIN_LANE_TOL; every K1 launch on the route the shape takes
+    (f32, d=64: the per-player blocked route), K4 launched at least once a
+    KKT step (so the eager trial never ran), K3 not.  Then K1 on the game's
+    own systems at B=CHUNK: the route the shape takes gated over mu = 1 ..
+    1e7 on the first PLAIN_LANES lanes (normwise backward error f64 <=
+    1e-15 and f32 <= 1e-7, each <= 10 x the plain version's, f32 forward
+    error <= 30 x the f32 plain version's), and every route that holds the
+    shape timed on the same operands (f32: blocked, shared-memory,
+    device-memory; f64: blocked, device-memory).  Prints the chunk's wall
+    and K1's and K4's device time shares of it: launches times the device
+    time per call at B=CHUNK (K4 from ``K4-quad4``, ``k4_quad4``).
+    Returns the launches, with K1's numbers at B=CHUNK by route for the
+    kernels line under "k1_rows" (f32) and "k1_f64" (device times)."""
     import torch
     from algames_tpu_torch import parallel
     from algames_tpu_torch.ops.thomas import (
@@ -1453,38 +1573,83 @@ def phase_sweep_quad4(dev, k4_quad4):
         f"iteration counts equal on {same_iters:.4f} of the lanes")
     _, sq, b, w_owner = k1_system(dev, CHUNK, 1e3, 990, False, quad4_game,
                                   quad3_iterates)
+    NW = len(w_owner)
+    taken = shape_route(spec, torch.float32, NW)
+    taken64 = shape_route(spec, torch.float64, NW)
+
+    # The route the shape takes, gated over mu on the game's own systems.
+    for i, mu in enumerate(MUS):
+        _, sqm, bm, wo = k1_system(dev, CHUNK, mu, 1000 + i, False,
+                                   quad4_game, quad3_iterates)
+        y64 = solve_thomas_structured(spec, sqm, bm, wo)
+        sqm32 = tree_map(lambda a: a.float(), sqm)
+        y32 = solve_thomas_structured(spec, sqm32, bm.float(), wo)
+        sub, bsub = tree_slice(sqm, PLAIN_LANES), bm[:PLAIN_LANES]
+        sub32 = tree_map(lambda a: a.float(), sub)
+        ref = solve_thomas_structured_plain(spec, sub, bsub, wo)
+        p32 = solve_thomas_structured_plain(spec, sub32, bsub.float(), wo)
+        bw = [float(e.max()) for e in backward_errors(
+            spec, sub, wo, bsub, (ref, p32, y64[:PLAIN_LANES],
+                                  y32[:PLAIN_LANES]), lanes=PLAIN_LANES)]
+        e32 = float(rel_err(y32[:PLAIN_LANES], ref).max())
+        ep32 = float(rel_err(p32, ref).max())
+        log(f"[sweep-quad4] K1 {taken} route at B={CHUNK}, mu={mu:.0e}, "
+            f"first {PLAIN_LANES} lanes: backward error f64 {bw[2]:.3e} "
+            f"(plain {bw[0]:.3e}; <= 1e-15 and 10 x plain), f32 {bw[3]:.3e} "
+            f"(plain {bw[1]:.3e}; <= 1e-7 and 10 x plain); f32 forward "
+            f"{e32:.3e} (plain {ep32:.3e}; <= 30 x plain)")
+        if not (bw[2] <= 1e-15 and bw[2] <= 10 * bw[0] and bw[3] <= 1e-7
+                and bw[3] <= 10 * bw[1] and e32 <= 30 * ep32):
+            raise SystemExit(f"sweep-quad4: K1 disagrees with its plain "
+                             f"version at mu={mu}")
+        del sqm, sqm32, y64, y32
+
+    # Every route that holds the shape, timed on the same operands: K1's
+    # rows of the kernels line at the sweep's own batch (call, device time,
+    # max |error| against the f64 plain version by route; the plain version,
+    # bound and library call once).
     sq32, b32 = tree_map(lambda a: a.float(), sq), b.float()
-    k1_ms = device_ms(lambda: solve_thomas_structured(spec, sq32, b32,
-                                                      w_owner), 3,
-                      ("thomas_sq_",), 2, f"sweep-quad4 K1 B={CHUNK}")
-    # K1's row of the kernels line at the sweep's own batch: call, plain
-    # version, bound and library call on these operands.
-    y = solve_thomas_structured(spec, sq32, b32, w_owner)
     ref = solve_thomas_structured_plain(spec, sq, b, w_owner)
-    k1_row = {
-        "max_abs_err": float((y.double() - ref).abs().max()),
-        "ms": cuda_ms(lambda: solve_thomas_structured(spec, sq32, b32,
-                                                      w_owner), 3),
+    common = {
         "plain_ms": cuda_ms(lambda: solve_thomas_structured_plain(
             spec, sq32, b32, w_owner), 2),
-        "device_ms": k1_ms,
-        **bound(tensor_bytes(tree_leaves(sq32) + [b32, y]),
-                thomas_flops(spec, CHUNK, NW=len(w_owner)))}
-    del ref
-    k1_row["library_ms"], y_lib = library_solve_ms(
+        **bound(tensor_bytes(tree_leaves(sq32) + [b32, ref.float()]),
+                thomas_flops(spec, CHUNK, NW=NW))}
+    common["library_ms"], y_lib = library_solve_ms(
         spec, dense_of(spec, sq32, w_owner), b32, 128)
-    log(f"[sweep-quad4] K1 f32 at B={CHUNK} (the shared-memory kernel): "
-        f"call {k1_row['ms']:.4f} ms, plain {k1_row['plain_ms']:.4f} ms "
-        f"(CUDA events); device time {k1_ms:.4f} ms; bound "
-        f"{k1_row['bound_ms']:.4f} ms ({k1_row['bound_by']}); library "
-        f"(torch.linalg.solve on the dense KKT matrices, 128 lanes a call) "
-        f"{k1_row['library_ms']:.4f} ms, worst relative deviation "
-        f"{float(rel_err(y_lib, y).max()):.3e} (not gated); max |error| "
-        f"against the f64 plain version {k1_row['max_abs_err']:.3e}")
-    del y_lib
-    k1_dev_ms = device_ms(lambda: solve_thomas_structured(
-        spec, sq32, b32, w_owner, forward="device"), 3, ("thomas_sq_",), 2,
-        f"sweep-quad4 K1 device-memory route B={CHUNK}")
+    rows = {}
+    for r in BEYOND_ROUTES[("structured", "f32")]:
+        y = solve_thomas_structured(spec, sq32, b32, w_owner, r)
+        rows[r] = {
+            "max_abs_err": float((y.double() - ref).abs().max()),
+            "ms": cuda_ms(lambda: solve_thomas_structured(
+                spec, sq32, b32, w_owner, r), 3),
+            "device_ms": device_ms(lambda: solve_thomas_structured(
+                spec, sq32, b32, w_owner, r), 3, ("thomas_sq_",), 2,
+                f"sweep-quad4 K1 f32 {r} route B={CHUNK}"),
+            **common}
+        log(f"[sweep-quad4] K1 f32 {r} route at B={CHUNK}: call "
+            f"{rows[r]['ms']:.4f} ms, device time {rows[r]['device_ms']:.4f}"
+            f" ms; plain {common['plain_ms']:.4f} ms (CUDA events); bound "
+            f"{common['bound_ms']:.4f} ms ({common['bound_by']}); library "
+            f"(torch.linalg.solve on the dense KKT matrices, 128 lanes a "
+            f"call) {common['library_ms']:.4f} ms, worst relative deviation "
+            f"{float(rel_err(y_lib, y).max()):.3e} (not gated); max |error| "
+            f"against the f64 plain version {rows[r]['max_abs_err']:.3e}")
+    del y_lib, ref
+    f64 = {}
+    for r in BEYOND_ROUTES[("structured", "f64")]:
+        f64[r] = {"ms": cuda_ms(lambda: solve_thomas_structured(
+                      spec, sq, b, w_owner, r), 2),
+                  "device_ms": device_ms(lambda: solve_thomas_structured(
+                      spec, sq, b, w_owner, r), 3, ("thomas_sq_",), 2,
+                      f"sweep-quad4 K1 f64 {r} route B={CHUNK}")}
+    log(f"[sweep-quad4] K1 device time at B={CHUNK} on the same operands: "
+        f"f32 " + ", ".join(f"{r} {v['device_ms']:.4f} ms"
+                            for r, v in rows.items())
+        + "; f64 " + ", ".join(f"{r} {v['device_ms']:.4f} ms"
+                               for r, v in f64.items()))
+    k1_ms = rows[taken]["device_ms"]
     k1_share = k1_ms * launches["K1"] / 1e3 / el
     k4_share = k4_quad4["device_ms"] * launches["trial"] / 1e3 / el
     log(f"[sweep-quad4] f32 {CHUNK} scenarios of the 4-player quadrotor as "
@@ -1495,22 +1660,21 @@ def phase_sweep_quad4(dev, k4_quad4):
         f"residual {res:.6f} (reference {REF_QUAD4[1]:.6f}; <= 1.1 x); "
         f"diverged {div:.4f}, finite {finite}; stats rows "
         f"{int(iters.min())}..{int(iters.max())}; launches {launches}; "
-        f"device time: K1 {launches['K1']} x {k1_ms:.4f} ms = "
-        f"{100 * k1_share:.1f}% of the wall, K4 {launches['trial']} x "
-        f"{k4_quad4['device_ms']:.4f} ms = {100 * k4_share:.1f}%; K1's "
-        f"device-memory route on the same operands {k1_dev_ms:.4f} ms a "
-        f"call (reported)")
+        f"device time: K1 ({taken} route) {launches['K1']} x {k1_ms:.4f} ms"
+        f" = {100 * k1_share:.1f}% of the wall, K4 {launches['trial']} x "
+        f"{k4_quad4['device_ms']:.4f} ms = {100 * k4_share:.1f}%")
     if not (finite and div == 0.0 and frac >= REF_QUAD4[0] - 0.01
             and res <= 1.1 * REF_QUAD4[1]
             and abs(mean_ratio - 1) <= PLAIN_RES_TOL
             and float(lane_dev.median()) <= PLAIN_LANE_TOL
             and launches["K1"] > 0
+            and launches[f"K1 {taken} route"] == launches["K1"]
             and launches["trial"] >= launches["K1"]
-            and launches["K3"] == 0 and launches["K1 device route"] == 0):
+            and launches["K3"] == 0):
         raise SystemExit("the 4-player quadrotor chunk failed its gates")
     return {**launches, "wall_s": el, "k1_share": k1_share,
-            "k4_share": k4_share, "k1_device_route_ms": k1_dev_ms,
-            "k1_row": k1_row}
+            "k4_share": k4_share, "route": taken, "route_f64": taken64,
+            "k1_rows": rows, "k1_f64": f64}
 
 
 def hetero_game(dev, dtype, outer=7, inner=20):
@@ -1790,7 +1954,7 @@ def phase_golden(tag, preset, golden, kernels, dev, atol=(1e-8, 1e-8),
     log(f"[{tag}] f64 kernel path: iter {it} (golden {int(gold['iter'])}), "
         f"max |dx| {dx:.3e} (<= {atol[0]:g}), max |du| {du:.3e} (<= "
         f"{atol[1]:g}), {el:.2f} s; launches: KKT {ran[0]}, trial {ran[1]}, "
-        f"the other KKT kernel {ran[2]}, K1 on its wide route {wide}")
+        f"the other KKT kernel {ran[2]}, K1 on its shared-memory route {wide}")
     ok = (it == int(gold["iter"]) and dx <= atol[0] and du <= atol[1]
           and ran[0] > 0 and ran[1] > 0 and ran[2] == 0 and wide == 0)
     if plain_tol is not None:
@@ -1849,7 +2013,7 @@ def phase_sweep(dev):
     out, el = timed_sweep(prob, x0s, "thomas")
     launches = {"K1": solve_thomas_structured.launches,
                 "K2": trial_eval.launches, "K3": solve_thomas.launches,
-                "K1 wide route": solve_thomas_structured.wide_launches}
+                "K1 shared route": solve_thomas_structured.wide_launches}
     sps = N_SWEEP / el
     iters = out.stats.iter.cpu().numpy()
     cap = prob.opts.outer_iter * prob.opts.inner_iter
@@ -1865,7 +2029,7 @@ def phase_sweep(dev):
         + " ".join(f"{i}:{c}" for i, c in enumerate(hist) if c))
     if not (finite and frac >= 0.99 and div == 0.0
             and launches["K1"] > 0 and launches["K2"] > 0
-            and launches["K3"] == 0 and launches["K1 wide route"] == 0):
+            and launches["K3"] == 0 and launches["K1 shared route"] == 0):
         raise SystemExit("the flagship sweep failed its gates")
 
     plain = dataclasses.replace(
@@ -1887,14 +2051,14 @@ def profile_chunk(tag, prob, x0s, names, solve=None, what=None):
     """Host/launch overhead of the eager per-iteration loop: device time of
     one chunk (``solve()``, default ``parallel.solve_batch(prob, x0s)``;
     ``what`` names it in the log) against its wall time, under the
-    profiler.  Only device-side events count: a CPU op's own device time
-    repeats its kernels' time."""
+    profiler.  Only device-side events count (a CPU op's own device time
+    repeats its kernels' time), so the profiler records only those: host
+    events took most of its processing time."""
     import torch
     from algames_tpu_torch import parallel
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         if solve is None:
             parallel.solve_batch(prob, x0s)
@@ -2282,7 +2446,7 @@ def phase_golden_big(dev):
         f"iter {it} (golden {int(gold['iter'])}), max |dx| {dx:.3e}, max "
         f"|du| {du:.3e} (<= 1e-8); launches {launches}")
     if not (it == int(gold["iter"]) and dx <= 1e-8 and du <= 1e-8
-            and launches["K3"] > 0 and launches["K3 big route"] == 0
+            and launches["K3"] > 0 and launches["K3 shared route"] == 0
             and launches["K1"] == 0):
         raise SystemExit("the quadrotor solve through K3 misses quad2_N15")
 
@@ -2323,27 +2487,29 @@ def phase_sweep_quad2_dense(dev):
         f"{ref256 - 0.01:.4f}); diverged {div:.4f}, finite {finite}, "
         f"launches {launches}")
     if not (finite and div == 0.0 and first >= ref256 - 0.01
-            and launches["K3"] > 0 and launches["K3 big route"] == 0
+            and launches["K3"] > 0 and launches["K3 shared route"] == 0
             and launches["K1"] == 0):
         raise SystemExit("the quadrotor chunk through K3 failed its gates")
     return launches
 
 
-def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None):
-    """The f32 sweep of one game at its preset budget: N_SWEEP scenarios,
-    chunk 1024, through K1 (or K3 with ``dense``) and K4; every trajectory
+def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None,
+                     lanes=GAME_SWEEP_LANES):
+    """The f32 sweep of one game at its preset budget: the first ``lanes``
+    of the N_SWEEP scenarios, chunk 1024, through K1 (or K3 with
+    ``dense``) and K4; every trajectory
     finite, no divergence, the converged fraction (stationarity gate
     ``opt_gate``, default the preset's) of the first 256 lanes and of all
     lanes each >= the reference package's own on the same inputs minus 0.01
     (``ref`` = (its fraction of the first 256 lanes, of all lanes or None
     where that is not measured)); the
     game's KKT kernel and K4 launched and the other KKT kernel not; one
-    chunk with the plain versions on the card through the first half of
-    the outer budget (its per-lane stats rows compared with the kernels'
-    on the lanes that the kernels finished in fewer outer iterations), and
-    a profile of one chunk's first outer iteration (both cut so, from the
-    whole budget and two outer iterations, to keep the script in its time
-    limit)."""
+    chunk with the plain versions on the card through the first PLAIN_OUTER
+    outer iterations (its per-lane stats rows compared with the kernels'
+    rows of the same outer iterations), and a profile of one chunk's first
+    PROFILE_INNER inner iterations (both cut so, from the whole budget and
+    two outer iterations, then from half the outer budget and a whole
+    outer iteration, to keep the script in its time limit)."""
     import torch
     from algames_tpu_torch import parallel
     from algames_tpu_torch.ops.thomas import (kkt_solve_plain, solve_thomas,
@@ -2351,6 +2517,7 @@ def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None):
     from algames_tpu_torch.ops.trial import trial_eval
 
     prob, x0s = sweep_problem(preset, dev)
+    x0s = x0s[:lanes]
     opts = prob.opts
     gate = opt_gate if opt_gate is not None else opts.eps_opt
     conv_opts = dataclasses.replace(opts, eps_opt=gate)
@@ -2364,7 +2531,7 @@ def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None):
     out, el = timed_sweep(prob, x0s, "thomas")
     launches = {"K1": solve_thomas_structured.launches,
                 "K3": solve_thomas.launches, "K4": trial_eval.launches,
-                "K1 wide route": solve_thomas_structured.wide_launches}
+                "K1 shared route": solve_thomas_structured.wide_launches}
     kkt, other = ("K3", "K1") if dense else ("K1", "K3")
     iters = out.stats.iter.cpu().numpy()
     hist = np.bincount(iters, minlength=opts.outer_iter * opts.inner_iter + 2)
@@ -2374,14 +2541,14 @@ def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None):
     first = float(parallel.convergence_fraction(
         dataclasses.replace(out, stats=tree_slice(out.stats, 256),
                             traj=tree_slice(out.traj, 256)), conv_opts))
-    log(f"[{tag}] f32 {N_SWEEP} scenarios, chunk {CHUNK}, outer "
+    log(f"[{tag}] f32 {lanes} scenarios, chunk {CHUNK}, outer "
         f"{opts.outer_iter} x {opts.inner_iter}, kernels: {el:.3f} s, "
-        f"{N_SWEEP / el:.1f} solves/s")
+        f"{lanes / el:.1f} solves/s")
     ref256, ref_all = ref
     gate_all = -1.0 if ref_all is None else ref_all - 0.01
     all_ref = ("not measured" if ref_all is None
                else f"reference {ref_all:.4f}; >= {gate_all:.4f}")
-    log(f"[{tag}] converged (opt gate {gate:g}): all {N_SWEEP} lanes "
+    log(f"[{tag}] converged (opt gate {gate:g}): all {lanes} lanes "
         f"{frac:.4f} ({all_ref}), first 256 lanes {first:.4f} (reference "
         f"{ref256:.4f}; >= {ref256 - 0.01:.4f}); diverged {div:.4f}, finite "
         f"{finite}, launches {launches}")
@@ -2390,23 +2557,30 @@ def phase_game_sweep(tag, preset, ref, dev, dense=False, opt_gate=None):
     if not (finite and frac >= gate_all and first >= ref256 - 0.01
             and div == 0.0
             and launches[kkt] > 0 and launches["K4"] > 0
-            and launches[other] == 0 and launches["K1 wide route"] == 0):
+            and launches[other] == 0 and launches["K1 shared route"] == 0):
         raise SystemExit(f"the {tag} sweep failed its gates")
 
-    outer_p = -(-opts.outer_iter // 2)
     plain = dataclasses.replace(prob, opts=dataclasses.replace(
-        opts, ls_fused=False, outer_iter=outer_p))
+        opts, ls_fused=False, outer_iter=PLAIN_OUTER))
     out_p, el_p = timed_sweep(plain, x0s[:CHUNK], kkt_solve_plain)
     it_p = out_p.stats.iter.cpu().numpy()
-    inside = (out.stats.outer[:CHUNK].amax(dim=1) < outer_p).cpu().numpy()
+    # The rows a lane of the kernels' run would have had at the cut budget:
+    # its rows of the first PLAIN_OUTER outer iterations (the outer column
+    # counts from 1) and the record that closes the budget, unless the lane
+    # finished within it.
+    it_k = iters[:CHUNK]
+    rows_k = np.arange(out.stats.outer.shape[1])[None] < it_k[:, None]
+    want = np.minimum(((out.stats.outer[:CHUNK].cpu().numpy() <= PLAIN_OUTER)
+                       & rows_k).sum(1) + 1, it_k)
     log(f"[{tag}] one {CHUNK}-lane chunk with the plain versions on the "
-        f"card, outer {outer_p} of {opts.outer_iter}: {el_p:.3f} s for "
+        f"card, outer {PLAIN_OUTER} of {opts.outer_iter}: {el_p:.3f} s for "
         f"{int(it_p.max())} stats rows; per-lane stats rows equal to the "
-        f"kernels' on {int((it_p == iters[:CHUNK])[inside].sum())} of the "
-        f"{int(inside.sum())} lanes the kernels finished in fewer than "
-        f"{outer_p} outer iterations")
+        f"kernels' rows of the same outer iterations on "
+        f"{int((it_p == want).sum())} of {it_p.size} lanes")
     profile_chunk(f"profile-{tag}", dataclasses.replace(
-        prob, opts=dataclasses.replace(opts, outer_iter=1)), x0s[:CHUNK],
+        prob, opts=dataclasses.replace(
+            opts, outer_iter=1, inner_iter=min(opts.inner_iter,
+                                               PROFILE_INNER))), x0s[:CHUNK],
         ("thomas_dense_" if dense else "thomas_sq_", "trial_fused_"))
     return launches
 
@@ -2463,8 +2637,10 @@ def phase_sweep_ibr(dev):
     stopped before ``ibr_iter`` rounds within 0.02 of the reference
     package's own and the mean final residual at most 1.1 x its own
     (``tests/reference_fractions.py ibr``); K3 launched, neither K1 nor the
-    trial kernel.  Then the same chunk through the plain versions on the
-    card, and a profile of one Gauss-Seidel round."""
+    trial kernel.  Then the chunk's first IBR_LANES lanes through the plain
+    versions on the card (cut from the whole chunk to keep the script in
+    its time limit), and a profile of one Gauss-Seidel round at a cut player budget
+    (outer 1 x PROFILE_INNER)."""
     import torch
     from algames_tpu_torch import IBROptions, ibr_newton_solve
     from algames_tpu_torch.ops.thomas import (kkt_solve_plain, solve_thomas,
@@ -2484,10 +2660,10 @@ def phase_sweep_ibr(dev):
     solve_thomas_structured.launches = 0
     trial_eval.launches = 0
 
-    def run(method):
+    def run(method, lanes=N_IBR):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = ibr_newton_solve(prob, opts, x0s=x0s, method=method)
+        out = ibr_newton_solve(prob, opts, x0s=x0s[:lanes], method=method)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
     out, el = run("thomas")
@@ -2514,14 +2690,21 @@ def phase_sweep_ibr(dev):
             and launches["K1"] == 0 and launches["trial"] == 0):
         raise SystemExit("the IBR sweep failed its gates")
 
-    out_p, el_p = run(kkt_solve_plain)
-    it, it_p = out.stats.iter.cpu().numpy(), out_p.stats.iter.cpu().numpy()
-    log(f"[sweep-ibr] the same chunk with the plain versions on the card: "
-        f"{el_p:.3f} s, {N_IBR / el_p:.1f} solves/s; stats rows equal to "
-        f"the kernel's on {int((it == it_p).sum())} of {N_IBR} lanes")
+    out_p, el_p = run(kkt_solve_plain, IBR_LANES)
+    it = out.stats.iter[:IBR_LANES].cpu().numpy()
+    it_p = out_p.stats.iter.cpu().numpy()
+    log(f"[sweep-ibr] the chunk's first {IBR_LANES} lanes with the plain "
+        f"versions on the card: {el_p:.3f} s, {IBR_LANES / el_p:.1f} "
+        f"solves/s; stats rows equal to the kernel's on "
+        f"{int((it == it_p).sum())} of {IBR_LANES} lanes")
+    short = dataclasses.replace(prob, opts=dataclasses.replace(
+        prob.opts, outer_iter=1, inner_iter=min(prob.opts.inner_iter,
+                                                PROFILE_INNER)))
     profile_chunk("profile-ibr", prob, x0s, ("thomas_dense_",),
                   solve=lambda: ibr_newton_solve(
-                      prob, IBROptions(ibr_iter=1), x0s=x0s))
+                      short, IBROptions(ibr_iter=1), x0s=x0s),
+                  what=f"one Gauss-Seidel round over {N_IBR} lanes, outer "
+                       f"1 x {short.opts.inner_iter} per player solve")
     return launches
 
 
@@ -2538,8 +2721,9 @@ def phase_sweep_ibr_quad(dev, k3_ibr_quad):
     on its shared-memory route, neither K1 nor a trial kernel.  Prints K3's
     device time (its f32 device time per call at B=1024 from
     ``K3-ibr-quad``, ``k3_ibr_quad``, times its launches).  Then 4 lanes in
-    f64, one round, through the kernels and through the plain versions on
-    the card: stats rows and their round column equal, x and u within 1e-8.
+    f64, one round at outer 1 x 8 per player solve (cut from 3 x 8 to keep
+    the script in its time limit), through the kernels and through the
+    plain versions on the card: stats rows and their round column equal, x and u within 1e-8.
     Returns the f32 run's launches."""
     import torch
     from algames_tpu_torch import IBROptions, ibr_newton_solve
@@ -2586,11 +2770,11 @@ def phase_sweep_ibr_quad(dev, k3_ibr_quad):
         f"{k3_ibr_quad['device_ms']:.4f} (at B=1024) = {k3_ms:.1f} ms")
     if not (finite and abs(stopped - ref_stop) <= 0.02
             and mean_res <= 1.1 * ref_res and launches["K3"] > 0
-            and launches["K3 big route"] == 0 and launches["K1"] == 0
+            and launches["K3 shared route"] == 0 and launches["K1"] == 0
             and launches["trial"] == 0):
         raise SystemExit("the quadrotor IBR sweep failed its gates")
 
-    prob64, _ = quadrotor3d(dev, torch.float64, outer=3, inner=8)
+    prob64, _ = quadrotor3d(dev, torch.float64, outer=1, inner=8)
     x64 = starts(prob64, spec, torch.float64)[:4]
     out_k, _ = run(prob64, x64, 1)
     out_p, _ = run(prob64, x64, 1, kkt_solve_plain)
@@ -2600,7 +2784,8 @@ def phase_sweep_ibr_quad(dev, k3_ibr_quad):
                    == out_p.stats.outer[:, :rows]).all())
     dx = float((out_k.traj.x - out_p.traj.x).abs().max())
     du = float((out_k.traj.u - out_p.traj.u).abs().max())
-    log(f"[sweep-ibr-quad2] f64, 4 lanes, one round: stats rows "
+    log(f"[sweep-ibr-quad2] f64, 4 lanes, one round at outer 1 x 8 per "
+        f"player solve: stats rows "
         f"{it.tolist()} (plain "
         f"versions {it_p.tolist()}), round columns equal {same_q}, max |dx| "
         f"{dx:.3e}, max |du| {du:.3e} (<= 1e-8)")
@@ -2701,24 +2886,33 @@ def kernel_counters():
             "trial": trial_eval}
 
 
+# The launch counters of each KKT kernel's forward routes beyond its size
+# classes, by the route names of ``ops.thomas._ROUTES``.
+ROUTE_COUNTERS = {"K1": {"blocked": "blocked_launches",
+                         "shared": "wide_launches",
+                         "device": "global_launches"},
+                  "K3": {"shared": "big_launches",
+                         "device": "global_launches"}}
+
+
 def zero_counters():
     """Every kernel count set to 0; returns the counters."""
     counters = kernel_counters()
     for c in counters.values():
         c.launches = 0
-    counters["K1"].wide_launches = 0
-    counters["K3"].big_launches = 0
-    counters["K1"].global_launches = 0
-    counters["K3"].global_launches = 0
+    for kkt, attrs in ROUTE_COUNTERS.items():
+        for attr in attrs.values():
+            setattr(counters[kkt], attr, 0)
     return counters
 
 
 def read_counters(counters):
+    """{kernel: launches}, and each route's of K1 and K3 under "<kernel>
+    <route> route" ("K1 blocked route", "K3 shared route", ...)."""
     launches = {k: c.launches for k, c in counters.items()}
-    launches["K1 wide route"] = counters["K1"].wide_launches
-    launches["K3 big route"] = counters["K3"].big_launches
-    launches["K1 device route"] = counters["K1"].global_launches
-    launches["K3 device route"] = counters["K3"].global_launches
+    for kkt, attrs in ROUTE_COUNTERS.items():
+        for route, attr in attrs.items():
+            launches[f"{kkt} {route} route"] = getattr(counters[kkt], attr)
     return launches
 
 
@@ -2765,14 +2959,16 @@ def phase_mpc(dev, k1_by_lanes):
             f"replan, bound {k1['bound_ms']:.4f} ms")
         lk = r["launches"]
         if not (lk["K1"] > 0 and lk["K3"] == 0 and lk["trial"] == 0
-                and lk["K1 wide route"] == 0):
+                and lk["K1 shared route"] == 0):
             raise SystemExit("the highway's closed loop took the wrong "
                              "kernels")
         out[B] = r
     x0s = mpc_starts(prob, spec, B_MPC, dev, torch.float32)
     profile_chunk("profile-mpc", prob, x0s, ("thomas_sq_",),
-                  solve=lambda: agt.mpc_solve(prob, x0s, horizon=5),
-                  what=f"a closed loop of 5 replans over {B_MPC} scenarios")
+                  solve=lambda: agt.mpc_solve(prob, x0s,
+                                              horizon=PROFILE_REPLANS),
+                  what=f"a closed loop of {PROFILE_REPLANS} replans over "
+                       f"{B_MPC} scenarios")
     return out
 
 
@@ -3130,12 +3326,14 @@ def lane_summary(res, opts):
             "mean_iters": float(res.stats.iter.float().sum() / B)}
 
 
-def shard_rank(rank, dev, lanes):
+def shard_rank(rank, dev, lanes, runs=()):
     """One rank of the ``shard`` phase: the f32 flagship sweep's first
     ``lanes`` starts through ``sharded_monte_carlo`` over a mesh of the
     world (``"thomas"``, fused trial), its counts zeroed just before and
     read just after: (trajectories on the CPU, summary, launches, wall
-    seconds of the call)."""
+    seconds of the call, mesh shape, ``spike_rank``'s results for
+    ``runs`` in the same world afterwards, so that the ``spike`` phase
+    spawns no world of this size again)."""
     import torch
     from algames_tpu_torch import parallel
     from algames_tpu_torch.presets import flagship_unicycle
@@ -3153,18 +3351,25 @@ def shard_rank(rank, dev, lanes):
     trajs, summary = parallel.sharded_monte_carlo(prob, mesh, x0s[:lanes])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (trajs.cpu(), {k: float(v) for k, v in summary.items()},
-            read_counters(counters), wall, tuple(mesh.mesh.shape))
+    shard = (trajs.cpu(), {k: float(v) for k, v in summary.items()},
+             read_counters(counters), wall, tuple(mesh.mesh.shape))
+    del trajs, summary, prob, x0s
+    torch.cuda.empty_cache()
+    return shard + (spike_rank(rank, dev, runs),)
 
 
-def phase_shard(dev):
+def phase_shard(dev, spike_world=1):
     """Scenario sharding (``parallel.sharded_monte_carlo``) on the card:
     B_SHARD lanes of the f32 flagship sweep (outer 3 x 8, ``"thomas"``,
     fused trial).  World 1 on NCCL: trajectories and summary bitwise
     ``solve_many``'s on the same lanes in this process, K1 and K2
     launched.  World 2 on gloo, both ranks on this card: each rank's half
     bitwise ``solve_many`` of the same half; converged >= 0.99, none
-    diverged.  Walls of world 2 are shape-only: its ranks share one card."""
+    diverged.  Walls of world 2 are shape-only: its ranks share one card.
+    The world of ``spike_world`` ranks then runs the ``spike`` phase's
+    ranks' solves (``spike_runs``) too, one spawn for both: returns
+    ``{"spike": {spike_world: their results by rank}}`` beside the worlds'
+    launches and walls."""
     import torch
     from algames_tpu_torch import parallel
     from algames_tpu_torch.presets import flagship_unicycle
@@ -3183,10 +3388,13 @@ def phase_shard(dev):
     out = {}
     for world, backend in ((1, "nccl"), (2, "gloo")):
         t0 = time.perf_counter()
+        runs = spike_runs() if world == spike_world else ()
         ranks = parallel.run_ranks(shard_rank, world, backend, "cuda",
-                                   B_SHARD, timeout_s=RANK_TIMEOUT_S)
+                                   B_SHARD, runs, timeout_s=RANK_TIMEOUT_S)
         spawn = time.perf_counter() - t0
-        trajs, summary, launches, wall, shape = ranks[0]
+        trajs, summary, launches, wall, shape, _ = ranks[0]
+        if runs:
+            out["spike"] = {world: [r[5] for r in ranks]}
         same_ranks = all(torch.equal(r[0], trajs) and r[1] == summary
                          for r in ranks[1:])
         if world == 1:
@@ -3204,7 +3412,8 @@ def phase_shard(dev):
             f"{B_SHARD} lanes in {wall:.3f} s ({B_SHARD / wall:.1f} solves/s"
             f"{'; shape-only: the ranks share one card' if world > 1 else ''}"
             f"; solve_many in this process {el:.3f} s); the call with its "
-            f"spawn {spawn:.1f} s; summary {summary}; bitwise "
+            f"spawn {spawn:.1f} s{' and the spike ranks' if runs else ''}; "
+            f"summary {summary}; bitwise "
             f"{'solve_many' if world == 1 else 'each half'}'s {bitwise}"
             f"{f' (summary {want})' if want else ''}; ranks agree "
             f"{same_ranks}; K1 launches per rank {k1}, K2 {k2}")
@@ -3271,11 +3480,19 @@ def spike_path_ok(method, launches):
     """A long-horizon solve's launches: K1 (narrow route) for ``"thomas"``
     and no kernel for the plain methods; never K3 or a trial kernel."""
     return (launches["K3"] == launches["trial"] == 0
-            and launches["K1 wide route"] == 0
+            and launches["K1 shared route"] == 0
             and (launches["K1"] > 0) == (method == "thomas"))
 
 
-def phase_spike(dev, worlds=((1, "nccl"), (4, "gloo"))):
+def spike_runs():
+    """The (N, dtype, timed) runs of every rank of the ``spike`` phase:
+    f64 at N=257, untimed, then f32 at each N of SPIKE_NS, timed."""
+    import torch
+    return [(257, torch.float64, False)] + [(N, torch.float32, True)
+                                            for N in SPIKE_NS]
+
+
+def phase_spike(dev, worlds=((1, "nccl"), (4, "gloo")), done=None):
     """The long-horizon game (``spike_game``) with its KKT step split over
     the horizon (``parallel.spike_kkt_method``), on the card, over each
     (ranks, backend) of ``worlds`` (rank r on card r % device_count).  f64
@@ -3287,24 +3504,29 @@ def phase_spike(dev, worlds=((1, "nccl"), (4, "gloo"))):
     scenarios at N=257 (x0 + 0.05 N(0, 1), numpy seed 0), all finite.
     Each sequential solve is counted from zero after its warm-up: K1 for
     ``"thomas"``, no kernel for ``"tridiag"``, never K3 or a trial kernel.
-    Returns the rows and K1's launches in the timed f32 N=257 ``"thomas"``
-    solves, by lanes (1 and B_LONG)."""
+    ``done`` maps a world size of ``worlds`` to its ranks' results where
+    another phase's world already ran them (``phase_shard``); that world is
+    not spawned again.  Returns the rows and K1's launches in the timed f32
+    N=257 ``"thomas"`` solves, by lanes (1 and B_LONG)."""
     import torch
     from algames_tpu_torch import parallel
     rows = []
-    runs = [(257, torch.float64, False)] + [(N, torch.float32, True)
-                                              for N in SPIKE_NS]
+    runs = spike_runs()
+    done = done or {}
     torch.cuda.empty_cache()
     spike = {}
     for world, backend in worlds:
         t0 = time.perf_counter()
-        ranks = parallel.run_ranks(spike_rank, world, backend, "cuda", runs,
-                                   timeout_s=RANK_TIMEOUT_S)
+        if world in done:
+            ranks, how = done[world], "in the shard phase's world"
+        else:
+            ranks = parallel.run_ranks(spike_rank, world, backend, "cuda",
+                                       runs, timeout_s=RANK_TIMEOUT_S)
+            how = f"in {time.perf_counter() - t0:.1f} s with the spawn"
         same = all(torch.equal(a[0], b[0]) for r in ranks[1:]
                    for a, b in zip(r, ranks[0]))
         log(f"[spike] world {world} ({backend}): {len(runs)} solves per "
-            f"rank in {time.perf_counter() - t0:.1f} s with the spawn; every "
-            f"rank's x equal to rank 0's {same}")
+            f"rank {how}; every rank's x equal to rank 0's {same}")
         if not same:
             raise SystemExit("the SPIKE ranks disagree")
         spike[world] = ranks[0]
@@ -3459,7 +3681,7 @@ def main():
     phase("golden4", phase_golden, "golden4", roundabout, "round4_N40",
           flag_kkt[::-1], dev)
     launches4 = phase("sweep4", phase_game_sweep, "sweep4", roundabout,
-                      REF_CONVERGED["round4_N40"], dev, True)
+                      REF_CONVERGED["round4_N40"], dev, True, None, N_SWEEP)
 
     # The double integrator (K1 + K4), the bicycle (dense Q: K3 + K4) and
     # the quadrotor (K1 + K4, the thrust kink at u = 0).
@@ -3504,9 +3726,9 @@ def main():
                           quadrotor3d, REF_CONVERGED["quad2_N15"], dev, False,
                           QUAD_OPT_GATE)
     # The 3-player quadrotor (d=48): K1's tall class, K4 at n=36; beyond
-    # the classes, the 4-player quadrotor (d=64): K1 on its device-memory
-    # route in f64 and its shared-memory kernel in f32, K3 (with
-    # collision-cost pairs) on the device-memory route, K4 at n=48.
+    # the classes, the 4-player quadrotor (d=64): K1 on its per-player
+    # blocked route in f64 and f32, K3 (with collision-cost pairs) on the
+    # device-memory route, K4 at n=48.
     k1_wide = phase("K1-wide", lambda: phase_k1(
         dev, "K1-wide", quad3_game, quad3_iterates, 900, "backward",
         shared_too=True))
@@ -3518,6 +3740,12 @@ def main():
                            k4_quad3)
     k1_wide64 = phase("K1-wide64", phase_beyond, dev, "K1-wide64",
                       "structured", 950)
+    # K1's blocked route where d is no multiple of 16: beyond the classes
+    # at the 6-player unicycle's widths (d=36) beside the other routes, and
+    # forced onto the flagship's systems (d=18) beside their class.
+    phase("K1-wide36", phase_wide36, dev)
+    phase("K1-blocked18", phase_beyond, dev, "K1-blocked18", "structured",
+          970, B_BEYOND, None, flagship_iterates, BLOCKED_ROUTES)
     k3_big64 = phase("K3-big64", phase_beyond, dev, "K3-big64", "dense",
                      960)
     k4_quad4 = phase("K4-quad4", phase_trial, "K4-quad4", lambda d, t:
@@ -3579,13 +3807,15 @@ def main():
     phase("nullspace", phase_nullspace, dev)
 
     # Scenario sharding and the long-horizon game: K1 at T=256, SPIKE over
-    # ranks; then the checkpoint and profiling modules.
-    phase("shard", phase_shard, dev)
+    # ranks (the 1-rank world of both spawned once, in ``shard``); then the
+    # checkpoint and profiling modules.
+    shard = phase("shard", phase_shard, dev)
     long_game = functools.partial(spike_game, N=257)
     k1_long = {B: phase(f"K1-long{B}", phase_k1, dev, f"K1-long{B}",
                         long_game, flagship_iterates, 1500 + B, "forward",
                         B) for B in (B_LONG, 1)}
-    spike = phase("spike", phase_spike, dev)
+    spike = phase("spike", phase_spike, dev, ((1, "nccl"), (4, "gloo")),
+                  shard["spike"])
     phase("aux", phase_aux, dev)
 
     def entry(kernel, game, launches, numbers, source=None):
@@ -3600,14 +3830,33 @@ def main():
         entry("K1", "quad3 (3-player quadrotor, d=48): the tall "
               "register-tiled class", launches_quad3["K1"], k1_wide),
         entry("K1", "quad4 (4-player quadrotor, d=64), f64: the "
-              "device-memory route; launches at B=4, times at "
+              "per-player blocked route; launches at B=4, times at "
+              f"B={B_BEYOND}", launches_wide64["K1 blocked route"],
+              {**k1_wide64["f64"]["blocked"], "launches_lanes": 4,
+               "timed_lanes": B_BEYOND}, "thomas_blocked.cuh"),
+        entry("K1", "quad4 (4-player quadrotor, d=64), f64: the "
+              "device-memory route, timed beside the route the shape "
+              "takes; launches at B=4, times at "
               f"B={B_BEYOND}", launches_wide64["K1 device route"],
-              {**k1_wide64, "launches_lanes": 4, "timed_lanes": B_BEYOND},
-              "thomas_global.cuh"),
+              {**k1_wide64["f64"]["device"], "launches_lanes": 4,
+               "timed_lanes": B_BEYOND}, "thomas_global.cuh"),
         entry("K1", f"quad4 (4-player quadrotor, d=64), f32 sweep, B={CHUNK}"
-              ": the shared-memory kernel", launches_quad4["K1 wide route"],
-              {**launches_quad4["k1_row"], "launches_lanes": CHUNK,
-               "timed_lanes": CHUNK}),
+              ": the per-player blocked route",
+              launches_quad4["K1 blocked route"],
+              {**launches_quad4["k1_rows"]["blocked"],
+               "launches_lanes": CHUNK, "timed_lanes": CHUNK},
+              "thomas_blocked.cuh"),
+        entry("K1", f"quad4 (4-player quadrotor, d=64), f32 sweep, B={CHUNK}"
+              ": the shared-memory kernel, timed beside the route the "
+              "shape takes", launches_quad4["K1 shared route"],
+              {**launches_quad4["k1_rows"]["shared"],
+               "launches_lanes": CHUNK, "timed_lanes": CHUNK}),
+        entry("K1", f"quad4 (4-player quadrotor, d=64), f32 sweep, B={CHUNK}"
+              ": the device-memory route, timed beside the route the shape "
+              "takes", launches_quad4["K1 device route"],
+              {**launches_quad4["k1_rows"]["device"],
+               "launches_lanes": CHUNK, "timed_lanes": CHUNK},
+              "thomas_global.cuh"),
         entry("K1", f"highway_mpc, B={B_MPC}", mpc[B_MPC]["launches"]["K1"],
               k1_hw[B_MPC]),
         entry("K1", "highway_mpc, B=1", mpc[1]["launches"]["K1"], k1_hw[1]),

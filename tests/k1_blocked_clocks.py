@@ -1,0 +1,208 @@
+"""Where K1's per-player blocked forward kernel (``csrc/thomas_blocked.cuh``)
+spends its cycles, on one CUDA card.  Not a test module (pytest does not
+collect it).
+
+    python3 tests/k1_blocked_clocks.py [OUT_DIR]
+    python3 tests/k1_blocked_clocks.py --split
+
+Builds a copy of ``csrc/thomas_sq.cu`` (in OUT_DIR, default a temporary
+directory) whose blocked kernel records ``clock64()`` at the phase
+boundaries of every knot (threads 0 and 64 of lane 0, ``k1_phase_clocks``'s
+marks): the wait for the knot's operands, u = y + G a, the fill-in F
+with the y column, the products Pw, the build of K in registers, the LU
+of K, the right-hand sides in pivot order, the forward and back
+substitution, the stores.  It runs the copy on ``chip_smoke.py``'s
+``K1-wide64`` systems of the 4-player quadrotor (d=64, R=193, NW=20; mu =
+1e3) in f32 at B = 132 (one lane per SM) and B = 1024 (two), and in f64 at
+B = 132, and prints the SM cycles per knot of each phase.  The marks add a
+few registers and instructions, so the times are those of the copy, not of
+the kernel.  With ``--split`` it times instead the package's own forward
+kernels (the blocked route and the older routes on the same operands) and
+backward kernel apart, a launch at a time (``split``).
+"""
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(HERE / "tests"))
+from k1_phase_clocks import MARK  # noqa: E402
+
+PHASES = ("wait", "u", "fill-in", "Pw", "K", "LU", "right-hand sides",
+          "substitution", "stores")
+# (anchor, phase, where) in thomas_blocked.cuh: the mark goes right after or
+# before the anchor's first occurrence; phase -1 starts the clock.
+MARKS = (
+    ("  issue_A(1);\n  thomas_core::cp_async_commit();\n", -1, "after"),
+    ("    __syncthreads();                   // knot t's operands and the "
+     "carry\n", 0, "after"),
+    ("    // The fill-in F = -A_t G_{t-1}", 1, "before"),
+    ("    __syncthreads();                   // F; A_t is dead\n", 2,
+     "after"),
+    ("    __syncthreads();                   // Pw\n", 3, "after"),
+    ("    // LU of K in registers: at step s", 4, "before"),
+    ("    // The right-hand sides in pivot order, block by block", 5,
+     "before"),
+    ("    __syncthreads();                   // the right-hand sides, "
+     "L\\U\n", 6, "after"),
+    ("    __syncthreads();                   // the solution, variable "
+     "order\n", 7, "after"),
+    ("      if (lane == 0) y_out[kt * d + v] = x[pn];\n    }\n", 8, "after"),
+)
+
+
+def instrumented(out):
+    """Write the marked copy of the sources to ``out``."""
+    csrc = HERE / "algames_tpu_torch" / "csrc"
+    for src in csrc.iterdir():
+        (out / src.name).write_text(src.read_text())
+    text = (csrc / "thomas_blocked.cuh").read_text().replace(
+        "#pragma once\n", '#pragma once\n#include "k1_mark.cuh"\n', 1)
+    for anchor, phase, where in MARKS:
+        if anchor not in text:
+            raise SystemExit(f"no anchor for mark {phase}")
+        mark = f"k1_mark({phase});\n"
+        text = text.replace(
+            anchor, anchor + mark if where == "after" else mark + anchor, 1)
+    (out / "thomas_blocked.cuh").write_text(text)
+    (out / "k1_mark.cuh").write_text(MARK)
+    with open(out / "thomas_sq.cu", "a") as f:
+        f.write('\nextern "C" int k1_clocks_read(unsigned long long* out, '
+                'int reset) {\n  int e = (int)cudaMemcpyFromSymbol(out, '
+                'k1_clocks, sizeof(k1_clocks));\n  if (reset) {\n'
+                '    unsigned long long zero[32] = {};\n'
+                '    cudaMemcpyToSymbol(k1_clocks, zero, sizeof(zero));\n'
+                '  }\n  return e;\n}\n')
+
+
+def build_copy(out):
+    """The marked library, built in ``out``."""
+    sys.path.insert(0, str(HERE))
+    from algames_tpu_torch.ops import build
+    instrumented(out)
+    so = out / "k1_blocked_clocks.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
+                    str(out / "thomas_sq.cu")], check=True,
+                   capture_output=True)
+    return so
+
+
+def measure(so, tag=""):
+    """Print the SM cycles per knot of each phase of the marked library
+    ``so`` (f32 at B = 132 and 1024, f64 at B = 132)."""
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs
+    from algames_tpu_torch.core.spec import owner_map_u
+    from algames_tpu_torch.ops import build
+    from algames_tpu_torch.utils import tree_map
+    lib = ctypes.CDLL(str(so))
+    read = lib.k1_clocks_read
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    dev = torch.device("cuda:0")
+    clocks = (ctypes.c_ulonglong * 32)()
+    spec, sq64, b64, w_owner = cs.k1_system(
+        dev, cs.B_KERNEL, 1e3, 950 + 99, False, cs.quad4_game,
+        cs.quad3_iterates)
+    n, m, p, T, NW = spec.n, spec.m, spec.p, spec.T, len(w_owner)
+    own = build.int_table(owner_map_u(spec))
+    w_own = build.int_table(w_owner)
+    for dtype, sfx, batches in ((torch.float32, "f32", (132, cs.B_KERNEL)),
+                                (torch.float64, "f64", (132,))):
+        sq = tree_map(lambda a: a.to(dtype), sq64)
+        b = b64.to(dtype)
+        fwd = getattr(lib, f"thomas_sq_fwd_blocked_{sfx}")
+        fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        for lanes in batches:
+            ops = [a[:lanes].contiguous() for a in (
+                sq.qdiag, sq.wv, sq.Ublk, sq.B, sq.A, b)]
+            G = torch.empty((lanes, T, n + m, p * n), device=dev, dtype=dtype)
+            y = torch.empty((lanes, T, n + m), device=dev, dtype=dtype)
+            for _ in range(3):              # the last of three runs
+                read(clocks, 1)
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                err = fwd(*[a.data_ptr() for a in ops], own, w_own,
+                          G.data_ptr(), y.data_ptr(), lanes, T, n, m, p, NW,
+                          torch.cuda.current_stream().cuda_stream)
+                stop.record()
+                torch.cuda.synchronize()
+                if err:
+                    raise SystemExit(f"launch failed: {err}")
+                read(clocks, 0)
+            for thread, base in ((0, 0), (64, 16)):
+                per = [clocks[base + k] / T for k in range(len(PHASES))]
+                print(f"K1 quad4 blocked{tag} {sfx} B={lanes}, "
+                      f"{start.elapsed_time(stop):.4f} ms (marked copy, "
+                      f"forward only), thread {thread}, SM cycles per knot: "
+                      + ", ".join(f"{ph} {c:.0f}"
+                                  for ph, c in zip(PHASES, per))
+                      + f"; total {sum(per):.0f}", flush=True)
+
+
+def split(reps=3):
+    """Device ms a launch of K1's forward kernel, on each route that holds
+    the 4-player quadrotor's systems, and of its backward kernel, apart:
+    the package's own library (no marks), CUDA events around each launch
+    with the card idle before it; f32 at B = 1024 (``sweep-quad4``'s
+    systems) and B = 64, f64 at B = 64 (``K1-wide64``'s)."""
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs
+    from algames_tpu_torch.ops import build
+    from algames_tpu_torch.ops import thomas as TH
+    from algames_tpu_torch.utils import tree_map
+    dev = torch.device("cuda:0")
+    times = {}
+
+    def hook(f, args):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = f(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        times.setdefault(f.__name__, []).append(start.elapsed_time(stop))
+        return err
+    cases = (("f32", cs.CHUNK, 990, ("blocked", "shared", "device")),
+             ("f32", cs.B_BEYOND, 950 + 99, ("blocked", "shared", "device")),
+             ("f64", cs.B_BEYOND, 950 + 99, ("blocked", "device")))
+    for name, lanes, seed, routes in cases:
+        dtype = torch.float32 if name == "f32" else torch.float64
+        spec, sq, b, w_owner = cs.k1_system(dev, lanes, 1e3, seed, False,
+                                            cs.quad4_game, cs.quad3_iterates)
+        sq, b = tree_map(lambda a: a.to(dtype), sq), b.to(dtype)
+        for route in routes:
+            TH.solve_thomas_structured(spec, sq, b, w_owner, route)
+            times.clear()
+            build.launch_hook = hook
+            try:
+                for _ in range(reps):
+                    TH.solve_thomas_structured(spec, sq, b, w_owner, route)
+            finally:
+                build.launch_hook = None
+            print(f"K1 quad4 {name} B={lanes} {route} route, device ms a "
+                  f"launch (mean of {reps}): " + ", ".join(
+                      f"{k} {sum(v) / len(v):.4f}"
+                      for k, v in sorted(times.items())), flush=True)
+
+
+def main(out):
+    measure(build_copy(out))
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--split"]:
+        split()
+    elif len(sys.argv) > 1:
+        target = Path(sys.argv[1])
+        target.mkdir(parents=True, exist_ok=True)
+        main(target)
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            main(Path(tmp))

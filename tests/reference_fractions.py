@@ -54,7 +54,7 @@ final residual (the quantity of ``benchmarks/bench_ibr.py``).
 ``ibr-quad``: the same on the quadrotor preset (p=2, N=15) as
 ``chip_smoke.py``'s ``sweep-ibr-quad2`` runs it: its 128 scenarios
 (x0 + 0.05 N(0, 1), numpy seed 0), outer 3 x 8 per player solve,
-``ibr_iter=2``, f32.  About four minutes.
+``ibr_iter=1``, f32.  About three minutes.
 
 ``mpc``: receding-horizon MPC on the highway of
 ``benchmarks/bench_mpc.py::make_problem`` (BASELINE config 3) as
@@ -99,7 +99,7 @@ N_IBR, IBR_LANES, IBR_ITER = 512, 128, 10
 # Per IBR game: its key, the scenarios drawn, the lanes measured, the
 # rounds.
 IBR_GAMES = {"ibr": ("uni3_N20", N_IBR, IBR_LANES, IBR_ITER),
-             "ibr-quad": ("quad2_N15", 128, 128, 2)}
+             "ibr-quad": ("quad2_N15", 128, 128, 1)}
 
 
 def jax_quadrotor(p, dtype, N=15, outer=2, inner=5):

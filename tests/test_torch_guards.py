@@ -240,12 +240,14 @@ def test_k1_route_is_chosen_by_shape(monkeypatch):
     """On a card tensor, K1's wrapper picks its forward kernel by shape
     before the launch, as the library's ``thomas_sq_route`` says: the
     register-tiled one (0), the shared-memory one (1, counted by
-    ``wide_launches``) or the device-memory one (2, counted by
-    ``global_launches``, with a workspace); none (-1) raises.  It asks once
+    ``wide_launches``), the device-memory one (2, counted by
+    ``global_launches``, with a workspace) or the per-player blocked one
+    (3, counted by ``blocked_launches``); none (-1) raises.  It asks once
     per shape and dtype, keeps its launchers, never takes the plain
-    version, and raises on a launch error.  Checked with a fake library
-    whose launchers record their names and whose backward launcher writes
-    the plain solution."""
+    version, and raises on a launch error.  ``forward="blocked"`` takes the
+    blocked route without asking the library; K3's library has no blocked
+    route.  Checked with a fake library whose launchers record their names
+    and whose backward launcher writes the plain solution."""
     import contextlib
     import ctypes
     import types
@@ -293,6 +295,7 @@ def test_k1_route_is_chosen_by_shape(monkeypatch):
     launches = solve_thomas_structured.launches
     wide = solve_thomas_structured.wide_launches
     dev_mem = solve_thomas_structured.global_launches
+    blocked = solve_thomas_structured.blocked_launches
     sq32 = type(sq)(*[getattr(sq, f).float() for f in
                       ("qdiag", "wv", "Ublk", "A", "B")])
     try:
@@ -322,6 +325,37 @@ def test_k1_route_is_chosen_by_shape(monkeypatch):
                          "thomas_sq_fwd_global_f32", "thomas_sq_bwd_f32"]
         assert solve_thomas_structured.global_launches == dev_mem + 1
         assert solve_thomas_structured.wide_launches == wide + 1
+        assert solve_thomas_structured.blocked_launches == blocked
+        calls.clear()
+        thomas._shape_route.cache_clear()
+        thomas._sq_launch.cache_clear()
+        state["route"] = 3                   # the blocked route
+        for dt, sys_ in ((torch.float32, (sq32, b.float())),
+                         (torch.float64, (sq, b))):
+            state["dtype"] = dt
+            y = thomas.solve_thomas_structured(spec, *sys_, w_owner)
+            torch.testing.assert_close(y, want[dt], rtol=0, atol=0)
+        assert calls == ["thomas_sq_route_f32", "thomas_sq_fwd_blocked_f32",
+                         "thomas_sq_bwd_f32", "thomas_sq_route_f64",
+                         "thomas_sq_fwd_blocked_f64", "thomas_sq_bwd_f64"]
+        assert solve_thomas_structured.blocked_launches == blocked + 2
+        assert (solve_thomas_structured.wide_launches,
+                solve_thomas_structured.global_launches) == (wide + 1,
+                                                             dev_mem + 1)
+        calls.clear()
+        state.update(route=0, dtype=torch.float32)   # by name, not by shape
+        y = thomas.solve_thomas_structured(spec, sq32, b.float(), w_owner,
+                                           forward="blocked")
+        torch.testing.assert_close(y, want[torch.float32], rtol=0, atol=0)
+        assert calls == ["thomas_sq_fwd_blocked_f32", "thomas_sq_bwd_f32"]
+        assert solve_thomas_structured.blocked_launches == blocked + 3
+        assert solve_thomas_structured.launches == launches + 7
+        with pytest.raises(ValueError, match="unknown forward route"):
+            thomas.solve_thomas_structured(spec, sq32, b.float(), w_owner,
+                                           forward="tiled")
+        with pytest.raises(ValueError, match="unknown forward route"):
+            thomas._pick_route(thomas._LIB_DENSE, torch.float32,
+                               (spec.n, spec.m, spec.p), "blocked")
         thomas._shape_route.cache_clear()
         thomas._sq_launch.cache_clear()
         state["route"] = -1
@@ -337,6 +371,7 @@ def test_k1_route_is_chosen_by_shape(monkeypatch):
         solve_thomas_structured.launches = launches
         solve_thomas_structured.wide_launches = wide
         solve_thomas_structured.global_launches = dev_mem
+        solve_thomas_structured.blocked_launches = blocked
 
 
 def test_presets_default_to_the_card():

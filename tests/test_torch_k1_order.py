@@ -127,7 +127,6 @@ def emulate(spec, sq, b, w_owner, dtype, eliminate=lu_back_substitution):
     n, m, p, T = spec.n, spec.m, spec.p, spec.T
     pn, d = p * n, n + m
     owner = owner_map_u(spec)
-    wown = np.asarray(w_owner, int)
     Gx = np.zeros((B, n, pn), dtype)
     yx = np.zeros((B, n), dtype)
     zero = np.zeros((B, n, n), dtype)
@@ -142,6 +141,17 @@ def emulate(spec, sq, b, w_owner, dtype, eliminate=lu_back_substitution):
         sol = eliminate(M, d)
         sols.append(sol)
         Gx, yx = sol[:, :n, :pn], sol[:, :n, pn]
+    return backward(spec, sols, q, w, A, bk, w_owner, dtype)
+
+
+def backward(spec, sols, q, w, A, bk, w_owner, dtype):
+    """K1's backward recursion (thomas_sq_bwd_kernel) from each knot's
+    forward solution [B, d, p n + 1] (``sols``; numpy operands in
+    ``dtype``): the flat [B, S] solution."""
+    n, m, p, T = spec.n, spec.m, spec.p, spec.T
+    pn, d = p * n, n + m
+    wown = np.asarray(w_owner, int)
+    zero = np.zeros((B, n, n), dtype)
     lam_next = np.zeros((B, pn), dtype)
     out = [None] * T
     for t in range(T - 1, -1, -1):               # thomas_sq_bwd_kernel

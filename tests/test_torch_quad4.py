@@ -56,6 +56,7 @@ import test_torch_k3_order as k3o
 import algames_tpu_torch as agt
 from algames_tpu_torch.constraints import sets as tsets
 from algames_tpu_torch.constraints.kernels import make_bound
+from algames_tpu_torch.core.spec import owner_map_u
 from algames_tpu_torch.convert import problem_from_reference
 from algames_tpu_torch.core.traj import PrimalDual
 from algames_tpu_torch.ops import thomas, trial
@@ -274,11 +275,121 @@ def panel_lu(M, d):
     return x
 
 
+def blocked_knot(q, w, Ub, Bm, At, A1, bk, X, owner, w_owner, n, m, p):
+    """One knot of K1's per-player blocked forward route
+    (``csrc/thomas_blocked.cuh``) on lanes' numpy operands, in the kernel's
+    order: X [B, d, R] is the previous knot's solution in variable order
+    (the carry: zero at the first knot); returns this knot's.
+
+    u = y_{t-1} + G_{t-1} a, four partial sums over quarters of the row
+    added pairwise; F_i = -A_t G_{t-1,i}; the y column c + B^T a_owner on
+    the statu rows and d0 - A_t u on the dyn rows; K's x columns in
+    StructuredQ's order (``test_torch_k1_order.x_columns``); LU of K with
+    the lowest-index largest pivot, multipliers K[r, s] (1 / piv) of the
+    rows not pivoted yet, which take K[r, :] -= l K[pr, :]; the right-hand
+    sides [B^T A_{t+1}^T on the owner's statu rows; F_i A_{t+1}^T] in pivot
+    order; the forward substitution Z[v] -= L[v, s] Z[s] over v > s, step
+    by step; the back substitution last step first, x_s = Z[s] (1 / piv_s),
+    Z[v] -= U[v, s] x_s over v < s."""
+    dt = X.dtype
+    Bsz = X.shape[0]
+    pn, d = p * n, n + m
+    lanes = np.arange(Bsz)
+    a = bk[:, :pn]
+    quarter = (pn + 3) // 4
+    parts = []
+    for part in range(4):
+        s = np.zeros((Bsz, n), dt)
+        for j in range(part * quarter, min(pn, (part + 1) * quarter)):
+            s = s + X[:, :n, j] * a[:, None, j]
+        parts.append(s)
+    u = X[:, :n, pn] + ((parts[0] + parts[1]) + (parts[2] + parts[3]))
+    F = np.zeros((Bsz, n, pn), dt)
+    for i in range(p):
+        F[:, :, i * n:(i + 1) * n] = k3o.fill_in(
+            At, X[:, :n, i * n:(i + 1) * n])
+    own = np.asarray(owner, int)
+    yr = np.zeros((Bsz, d), dt)
+    v = bk[:, pn:pn + m].copy()
+    ba = a.reshape(Bsz, p, n)
+    for k in range(n):                           # c + B^T a_owner
+        v = v + Bm[:, k, :] * ba[:, own, k]
+    yr[:, :m] = v
+    s = np.zeros((Bsz, n), dt)
+    for k in range(n):                           # d0 - A_t u
+        s = s + At[:, :, k] * u[:, None, k]
+    yr[:, m:] = bk[:, pn + m:] - s
+    K = np.zeros((Bsz, d, d), dt)
+    k1o.x_columns(K, F, q, w, Bm, owner, w_owner, n, m, p)
+    K[:, :m, n:] = Ub
+    K[:, m:, n:] = Bm
+    used = np.zeros((Bsz, d), bool)
+    pivrow = np.zeros((Bsz, d), int)
+    rinv = np.zeros((Bsz, d), dt)
+    L = np.zeros((Bsz, d, d), dt)                # rows in the original order
+    for s in range(d):
+        col = K[:, :, s].copy()
+        pr = np.argmax(np.where(used, -np.inf, np.abs(col)), axis=1)
+        ri = (dt.type(1) / col[lanes, pr]).astype(dt)
+        mult = col * ri[:, None]
+        L[:, :, s] = np.where(used, L[:, :, s], mult)
+        pivrow[:, s], rinv[:, s] = pr, ri
+        prow = K[lanes, pr].copy()
+        upd = ~used & (np.arange(d)[None, :] != pr[:, None])
+        K = np.where(upd[:, :, None], K - mult[:, :, None] * prow[:, None, :],
+                     K)
+        used[lanes, pr] = True
+    rhs = np.zeros((Bsz, d, pn + 1), dt)
+    for i in range(p):
+        acc = np.zeros((Bsz, n, n), dt)          # F_i A_{t+1}^T
+        for k in range(n):
+            acc = acc + F[:, :, i * n + k, None] * A1[:, None, :, k]
+        rhs[:, m:, i * n:(i + 1) * n] = acc
+        acc = np.zeros((Bsz, m, n), dt)          # B^T A_{t+1}^T, owner i
+        for k in range(n):
+            acc = acc + Bm[:, k, :, None] * A1[:, None, :, k]
+        rhs[:, :m, i * n:(i + 1) * n] = np.where(
+            (own == i)[None, :, None], acc, dt.type(0))
+    rhs[:, :, pn] = yr
+    rows = (lanes[:, None], pivrow)
+    Z, Lp, Up = rhs[rows], L[rows], K[rows]      # pivot order
+    for s in range(d - 1):
+        Z[:, s + 1:] = Z[:, s + 1:] - Lp[:, s + 1:, s, None] * Z[:, s, None]
+    for s in range(d - 1, -1, -1):
+        xs = Z[:, s] * rinv[:, s, None]
+        Z[:, :s] = Z[:, :s] - Up[:, :s, s, None] * xs[:, None]
+        Z[:, s] = xs
+    return Z
+
+
+def blocked_route(spec, sq, b, w_owner, dtype):
+    """K1 on its per-player blocked forward route (``blocked_knot``) and the
+    unchanged backward kernel, on numpy copies of ``sq`` and ``b`` in
+    ``dtype``: the flat [B, S] solution."""
+    q, w, Ub, Bm, A = (getattr(sq, f).numpy().astype(dtype)
+                       for f in ("qdiag", "wv", "Ublk", "B", "A"))
+    bk = b.numpy().astype(dtype)
+    n, m, p, T = spec.n, spec.m, spec.p, spec.T
+    owner = owner_map_u(spec)
+    X = np.zeros((B, n + m, p * n + 1), dtype)
+    zero = np.zeros((B, n, n), dtype)
+    sols = []
+    for t in range(T):
+        A1 = A[:, t + 1] if t + 1 < T else zero
+        X = blocked_knot(q[:, t], w[:, t], Ub[:, t], Bm[:, t], A[:, t], A1,
+                         bk[:, t], X, owner, w_owner, n, m, p)
+        sols.append(X)
+    return k1o.backward(spec, sols, q, w, A, bk, w_owner, dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def full_system(form, mu):
     """B lanes of the game's full-size KKT systems (N=15), as
     ``chip_smoke.py``'s ``K1-wide64`` (structured) and ``K3-big64`` (the
-    same turned dense) build them."""
+    same turned dense) build them; the blocked route's are the structured
+    ones."""
+    if form == "blocked":
+        return full_system("structured", mu)
     spec, sq, b, w_owner = chip_smoke.k1_system(
         CPU, B, mu, 950, preset=chip_smoke.quad4_game,
         iterates=chip_smoke.quad3_iterates)
@@ -290,6 +401,8 @@ def full_system(form, mu):
 def emulate(form, spec, blocks, b, w_owner, dtype):
     if form == "dense":
         return k3o.emulate(spec, blocks, b, dtype, panel_lu)
+    if form == "blocked":
+        return blocked_route(spec, blocks, b, w_owner, dtype)
     return k1o.emulate(spec, blocks, b, w_owner, dtype, panel_lu)
 
 
@@ -301,7 +414,7 @@ def plain(form, spec, blocks, b, w_owner):
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("mu", [1e3, 1e7])
-@pytest.mark.parametrize("form", ["structured", "dense"])
+@pytest.mark.parametrize("form", ["structured", "dense", "blocked"])
 def test_emulated_route_meets_the_quadrotor_gates(form, mu, dtype):
     spec, blocks, b, w_owner = full_system(form, mu)
     assert spec.n + spec.m == 64
@@ -322,7 +435,7 @@ def test_emulated_route_meets_the_quadrotor_gates(form, mu, dtype):
         assert err <= 30 * err_plain, (err, err_plain)
 
 
-@pytest.mark.parametrize("form", ["structured", "dense"])
+@pytest.mark.parametrize("form", ["structured", "dense", "blocked"])
 def test_emulated_route_matches_the_jax_reference(form):
     spec, blocks, b, w_owner = full_system(form, 1e3)
     dense = (blocks if form == "dense"
