@@ -1,30 +1,40 @@
-// K1's forward sweep for the systems beyond its register-tiled classes: the
-// "blocked" route of thomas_sq.cu, one 256-thread block per lane.
+// The per-player blocked forward sweep for the systems beyond the
+// register-tiled classes up to d = 64: the "blocked" route of K1
+// (thomas_sq.cu) and K3 (thomas_dense.cu), one 256-thread block per lane.
+// The Q form is a compile-time policy (StructuredForm, DenseForm below): it
+// decides what a knot stages, the layout words it adds, its products and
+// K's x columns; everything else is shared.
 //
 // Replaces the forward half of algames_tpu/ops/thomas_pallas.py:566
 // (solve_thomas_pallas_structured; the kernel _make_fwd_kernel_sq, :269-374)
-// at the widths the register-tiled classes do not hold: the 4-player
-// quadrotor's systems (n=48, m=16, p=4, NW=20: d = n + m = 64, R = p n + 1 =
-// 193).  Per lane and knot t it computes what every K1 forward kernel
-// computes -- the fill-in F = -A_t G_{t-1}, K = [[Ub, B^T Q_o], [B, -I +
-// sum_i F_i Q_i]] with Q_i = diag(q_i) + sum_{owner(k) = i} w_k w_k^T, the
-// right-hand sides [owner-embedded B^T A_{t+1}^T | c + B^T a_o] and [F_i
-// A_{t+1}^T | d0 - A_t y_{t-1} + F a], and the solve with the x columns
-// eliminated first, row partial pivoting on the unused row of largest
-// magnitude and the lowest index on ties -- and writes G_t, y_t in (x, u)
-// row order for the unchanged backward kernel.
+// and of :424 (solve_thomas_pallas; _make_fwd_kernel, :114-228) at the
+// widths the register-tiled classes do not hold: the 4-player quadrotor's
+// systems (n=48, m=16, p=4, NW=20: d = n + m = 64, R = p n + 1 = 193), with
+// collision-cost pairs K3's; the 3-player quadrotor's turned dense (d=48);
+// the 6-player unicycle's (d=36).  Per lane and knot t it computes what
+// every forward kernel of both computes -- the fill-in F = -A_t G_{t-1}, K
+// = [[Ub, B^T Q_o], [B, -I + sum_i F_i Q_i]] (K1: Q_i = diag(q_i) +
+// sum_{owner(k) = i} w_k w_k^T; K3: Q_i dense), the right-hand sides
+// [owner-embedded B^T A_{t+1}^T | c + B^T a_o] and [F_i A_{t+1}^T | d0 -
+// A_t y_{t-1} + F a], and the solve with the x columns eliminated first,
+// row partial pivoting on the unused row of largest magnitude and the
+// lowest index on ties -- and writes G_t, y_t in (x, u) row order for the
+// unchanged backward kernels.
 //
 // What bounds it on the card: neither bytes (~0.11 MB a lane and knot in
 // f32) nor operations (~1.8 M multiply-adds: the fill-in and F A^T 0.88 M,
-// the substitutions 0.79 M, the LU 0.09 M), but latency.  On an H100 80GB
-// HBM3 at 700 W (tests/k1_blocked_clocks.py, one lane an SM, quad4's
-// systems) a knot takes about 222,000 SM cycles in f32 and 257,000 in f64:
-// the LU 112,000 / 123,000 (its 64 pivot steps are one dependent chain of
-// a butterfly, a barrier, a shuffle and the tile's update, about 1,750
-// cycles a step), the substitutions 49,000 / 55,000, the fill-in 19,000 /
-// 24,000, the right-hand sides 19,000 / 25,000, K and Pw 16,000 / 20,000.
-// A second lane on the SM (f32) fills the LU's idle issue slots: 1,024
-// lanes take 1.2 x the cycles a knot of one lane, in half the waves.
+// the substitutions 0.79 M, the LU 0.09 M; K3's F_i Q_i 0.44 M more), but
+// latency.  On an H100 80GB HBM3 at 700 W (tests/k1_blocked_clocks.py, one
+// lane an SM, quad4's systems) K1's knot takes about 222,000 SM cycles in
+// f32 and 257,000 in f64: the LU 112,000 / 123,000 (its 64 pivot steps are
+// one dependent chain of a butterfly, a barrier, a shuffle and the tile's
+// update, about 1,750 cycles a step), the substitutions 49,000 / 55,000,
+// the fill-in 19,000 / 24,000, the right-hand sides 19,000 / 25,000, K and
+// Pw 16,000 / 20,000.  K3's (--form dense) about as many: its per-player
+// F_i Q_i and B^T Q_i 22,000 / 27,000 and the Q_i slots' waits 3,000 in the
+// place of K and Pw.  A second lane on the SM (f32) fills the LU's idle
+// issue slots: 1,024 lanes take 1.2 x the cycles a knot of one lane, in
+// half the waves.
 //
 // Design (what does not fit an SM at these widths is F whole, the carry, K,
 // the right-hand sides and the knot operands all at once: the shared-memory
@@ -40,10 +50,15 @@
 //     over the carry in place after a barrier: F is never held apart from
 //     the carry.  (Player by player, four passes of 3 x 3 took about as
 //     long: 18,300 cycles a knot.)
-//   - The Q form's products Pw [d, NW] (B^T w_k on the owner's statu rows,
-//     F_owner(k) w_k on the dyn rows), then K is built straight into
-//     registers, a 4 x 4 tile a thread (d <= 64), in StructuredQ's order
-//     (sum_i F_i q_i, then the rank-1 terms, then -I).
+//   - K is built straight into registers, a 4 x 4 tile a thread (d <= 64):
+//     its x columns by the Q form (K1: the products Pw [d, NW] (B^T w_k on
+//     the owner's statu rows, F_owner(k) w_k on the dyn rows), then
+//     StructuredQ's order: sum_i F_i q_i, the rank-1 terms; K3: a pass a
+//     player, F_i Q_i on the dyn rows and B^T Q_i on the player's statu
+//     rows, Q_i [n, n] staged by cp.async in one of two slots while the
+//     previous player's pass runs: the whole Q, p n^2 scalars, would cost
+//     f32 its second lane an SM and not fit at all in f64), then the u
+//     columns and -I.
 //   - LU of K in registers, one block barrier a pivot step: the 16 holders
 //     of column s (one half-warp) find the pivot by a butterfly and publish
 //     the multipliers K[r, s] / piv of the unused rows in column s of the
@@ -66,7 +81,8 @@
 //     X in registers, a 4 x 13 tile a thread (208 columns a pass); each
 //     warp owns two column groups, so every step's pivot row comes by a
 //     shuffle within the warp, and the step is a rank-1 update of the tile:
-//     no barrier.  f64 (255 registers, 1 lane an SM): by panels of 16 pivot
+//     no barrier.  f64 (1 lane an SM; K1 254 registers, K3 255 and a
+//     24-byte frame): by panels of 16 pivot
 //     steps, warp w holding panel w / 2 of 128 columns (4 a lane, 16 rows);
 //     once panel Q is solved and in X, every later panel takes the rank-16
 //     update z -= L[rows, Q] z_Q, a register-tiled product with L's entries
@@ -75,18 +91,18 @@
 //     at 128 registers the panels took 107,000, their L loads exposed).  The
 //     solution lands in X in variable order: the outputs and the next
 //     knot's carry.
-//   - Knot t+1's B, Ub, q, w, b and A_{t+2} (A is a ring of two: A_{t+2}
-//     over A_t once F is formed) are copied in by cp.async while knot t is
-//     eliminated.
+//   - Knot t+1's B, Ub, b, the Q form's operands (K1: q and w; K3: Q_0)
+//     and A_{t+2} (A is a ring of two: A_{t+2} over A_t once F is formed)
+//     are copied in by cp.async while knot t is eliminated.
 // Products are FMA (f32) and DFMA (f64) on the CUDA cores: they are
 // 48-wide and bound by shared-memory loads and latency, not by FMA issue,
 // so the FP64 tensor cores (mma.sync m8n8k4) would not shorten them, and
 // one code path serves both types.  Nothing calls a library.
 //
-// Shared memory a lane at the 4-player quadrotor's widths: 101,328 bytes in
-// f32 (2 lanes an SM) and 202,000 in f64 (1); see smem_bytes().  The route
-// takes d <= 64, at most 32 control rows and 64 w vectors, within 232,448
-// bytes.
+// Shared memory a lane at the 4-player quadrotor's widths: K1 101,328 bytes
+// in f32 (2 lanes an SM) and 202,000 in f64 (1); K3 109,696 and 218,816;
+// see smem_bytes().  The route takes d <= 64, at most 32 control rows and
+// (K1) 64 w vectors, within 232,448 bytes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -116,8 +132,11 @@ __host__ __device__ inline int panels(int d) {
 // Shared-memory layout of a lane, in elements of T (then ints).  Odd row
 // strides put 16 consecutive rows of one column in 16 different banks.  Ks
 // is K padded with zeros to panels(d) rows and columns: the f64
-// substitution's 16-row panels read all of them.
-template <typename T>
+// substitution's 16-row panels read all of them.  The Q form QF sizes its
+// own words: ``q``, what it stages a knot (QF::staged: K1's q [p, n], K3's
+// two slots of one player's Q_i); ``w``, K1's w [NW, n] (NW = 0 for K3);
+// ``Pw``, its products [d, NW] (K1's, QF::kStructured; K3 has none).
+template <typename T, typename QF>
 struct Layout {
   int ldX, ldK, ldA, ldP;
   int X, K, A, Bs, q, w, bk, Ub, Pw, yr, u, rinv, words;
@@ -132,11 +151,11 @@ struct Layout {
     K = o;    o += thomas_core::round16<T>(panels(d) * ldK);
     A = o;    o += thomas_core::round16<T>(2 * n * ldA);
     Bs = o;   o += thomas_core::round16<T>(n * m);
-    q = o;    o += thomas_core::round16<T>(p * n);
+    q = o;    o += thomas_core::round16<T>(QF::staged(n, p));
     w = o;    o += thomas_core::round16<T>(NW * n);
     bk = o;   o += thomas_core::round16<T>(W);
     Ub = o;   o += thomas_core::round16<T>(m * m);
-    Pw = o;   o += thomas_core::round16<T>(d * ldP);
+    Pw = o;   o += thomas_core::round16<T>(QF::kStructured ? d * ldP : 0);
     yr = o;   o += thomas_core::round16<T>(d);
     u = o;    o += thomas_core::round16<T>(n);
     rinv = o; o += thomas_core::round16<T>(d);
@@ -146,22 +165,117 @@ struct Layout {
 
 // Bytes a lane: the layout, then pivrow [d], pos [d], owner [m], w_owner
 // [NW] as ints.
-template <typename T>
+template <typename T, typename QF>
 size_t smem_bytes(int n, int m, int p, int NW) {
-  return Layout<T>(n, m, p, NW).words * sizeof(T) +
+  return Layout<T, QF>(n, m, p, NW).words * sizeof(T) +
          (size_t)(2 * (n + m) + m + NW) * sizeof(int);
 }
 
 // Whether the route takes these widths.
-template <typename T>
+template <typename T, typename QF>
 bool fits(int n, int m, int p, int NW, int max_m, int max_nw) {
   return n >= 1 && p >= 1 && m >= 1 && m <= max_m && NW <= max_nw &&
-         n + m <= kRG * kDT && smem_bytes<T>(n, m, p, NW) <= (size_t)kMaxSmem;
+         n + m <= kRG * kDT &&
+         smem_bytes<T, QF>(n, m, p, NW) <= (size_t)kMaxSmem;
 }
 
+// K1's Q form: Q_i = diag(q_i) + sum_{owner(k) = i} w_k w_k^T, staged a
+// knot as q [p, n] (from qd [B, T, p, n]) and w [NW, n] (from wv [B, T, NW,
+// n]); its products Pw [d, NW] (B^T w_k on the statu rows of w_k's owner, 0
+// on the others; F_owner(k) w_k on the dyn rows), then K's x columns in
+// StructuredQ's order: sum_i F_i diag(q_i), then the rank-1 terms.  Its
+// statements are written out in forward_sweep under kStructured: moved
+// into functions of the form (forced inline), the same statements compiled
+// to other SASS for K1's instances (tests/sass_compare.py).
+template <typename T>
+struct StructuredForm {
+  static constexpr bool kStructured = true;
+  __host__ __device__ static int staged(int n, int p) { return p * n; }
+};
+
+// K3's Q form: every player's dense Q_i [n, n] (collision-cost pairs make
+// them full), staged a player at a time into two slots by cp.async: player
+// 0's with the knot's other operands, player i + 1's while player i's pass
+// runs.  Player i's pass adds F_i Q_i to K's dyn rows and sets B^T Q_i on
+// the statu rows that player i owns, each entry summed over k ascending,
+// the players in order (thomas_dense.cu's DenseForm order).  No products.
+// Its operand: Qg [B, T, p, n, n].
+template <typename T>
+struct DenseForm {
+  static constexpr bool kStructured = false;
+
+  __host__ __device__ static int slot(int n) {
+    return thomas_core::round16<T>(n * n);
+  }
+  __host__ __device__ static int staged(int n, int) { return 2 * slot(n); }
+
+  // Knot kt's Q_0 into slot 0.
+  __device__ static __forceinline__ void issue(T* q, const T* Qg, size_t kt,
+                                               int n, int p) {
+    thomas_core::copy_flat<T, kThreads>(q, Qg + kt * p * n * n, n * n);
+  }
+
+  // K's x columns (c < n) into the tile kx: rows e = rg + 16 i, columns
+  // c = cg + 16 j; knot kt's Q_0 in slot 0.
+  __device__ static __forceinline__ void x_columns(
+      T (&kx)[kDT][kDT], T* q, const T* X, const T* Bs, const int* own,
+      const T* Qg, size_t kt, int ldX, int n, int m, int p, int rg, int cg) {
+    const int d = n + m, nn = n * n, sl = slot(n);
+    #pragma unroll
+    for (int i = 0; i < kDT; ++i)
+      #pragma unroll
+      for (int j = 0; j < kDT; ++j) kx[i][j] = T(0);
+    #pragma unroll 1
+    for (int i2 = 0; i2 < p; ++i2) {
+      if (i2 > 0) {
+        thomas_core::cp_async_wait_all();
+        __syncthreads();               // Q_i2 in; the other slot read
+      }
+      if (i2 + 1 < p) {                // player i2 + 1 streams in
+        thomas_core::copy_flat<T, kThreads>(q + ((i2 + 1) & 1) * sl,
+                                            Qg + (kt * p + i2 + 1) * nn, nn);
+        thomas_core::cp_async_commit();
+      }
+      const T* Qi = q + (i2 & 1) * sl;
+      // Row e's left factor: B[:, e] on player i2's statu rows, F_i2[e - m,
+      // :] on the dyn rows.  (Offsets from X in the place of these
+      // pointers took the f32 instance of quad4's n = 48 9% longer a call:
+      // its right-hand sides ran 36,900 SM cycles a knot, not 19,200.)
+      const T* ap[kDT];
+      int as[kDT];
+      bool live[kDT];
+      #pragma unroll
+      for (int i = 0; i < kDT; ++i) {
+        const int e = rg + kRG * i;
+        live[i] = e < d && (e >= m || own[e] == i2);
+        ap[i] = e < m ? Bs + e : X + (e < d ? (e - m) * ldX + i2 * n : 0);
+        as[i] = e < m ? m : 1;
+      }
+      #pragma unroll 4
+      for (int k = 0; k < n; ++k) {
+        T qv[kDT];
+        #pragma unroll
+        for (int j = 0; j < kDT; ++j) {
+          const int c = cg + kCG * j;
+          qv[j] = c < n ? Qi[k * n + c] : T(0);
+        }
+        #pragma unroll
+        for (int i = 0; i < kDT; ++i)
+          if (live[i]) {
+            const T av = ap[i][k * as[i]];
+            #pragma unroll
+            for (int j = 0; j < kDT; ++j) kx[i][j] += av * qv[j];
+          }
+      }
+    }
+  }
+};
+
 // The forward sweep of lane blockIdx.x: G [B, T, d, p n] and y_hat [B, T, d]
-// in (x, u) row order.  NI: tiles of 16 that cover n.
-template <typename T, int NI>
+// in (x, u) row order.  NI: tiles of 16 that cover n; QF: the Q form and
+// qd, wv its operands (StructuredForm: q and w, NW w vectors owned per
+// w_owner; DenseForm: Q, wv unused, NW = 0).
+template <typename T, int NI, typename QF>
 __device__ __forceinline__ void forward_sweep(
     const T* __restrict__ qd, const T* __restrict__ wv,
     const T* __restrict__ Ubg, const T* __restrict__ Bg,
@@ -170,7 +284,7 @@ __device__ __forceinline__ void forward_sweep(
     const int* owner, const int* w_owner, unsigned char* raw) {
   static_assert(NI >= 1 && NI <= kDT, "n <= 64");
   const int pn = p * n, d = n + m, R = pn + 1, W = n + m + pn;
-  const Layout<T> L(n, m, p, NW);
+  const Layout<T, QF> L(n, m, p, NW);
   T* sm = reinterpret_cast<T*>(raw);
   T* X = sm + L.X;
   T* Ks = sm + L.K;
@@ -203,11 +317,16 @@ __device__ __forceinline__ void forward_sweep(
   // that these rows stay 0 and add 0 to the others.
   for (int e = tid; e < panels(d) * ldK; e += kThreads) Ks[e] = T(0);
 
-  // Knot k's operands but A; A_k into ring slot k & 1 (zeros at k == Tn).
+  // Knot k's operands but A (the Q form's first); A_k into ring slot k & 1
+  // (zeros at k == Tn).
   auto issue = [&](int k) {
     const size_t kt = lane0 + k;
-    thomas_core::copy_flat<T, kThreads>(q, qd + kt * pn, pn);
-    thomas_core::copy_flat<T, kThreads>(w, wv + kt * NW * n, NW * n);
+    if constexpr (QF::kStructured) {
+      thomas_core::copy_flat<T, kThreads>(q, qd + kt * pn, pn);
+      thomas_core::copy_flat<T, kThreads>(w, wv + kt * NW * n, NW * n);
+    } else {
+      QF::issue(q, qd, kt, n, p);
+    }
     thomas_core::copy_flat<T, kThreads>(Ub, Ubg + kt * m * m, m * m);
     thomas_core::copy_flat<T, kThreads>(Bs, Bg + kt * n * m, n * m);
     thomas_core::copy_flat<T, kThreads>(bs, bg + kt * W, W);
@@ -307,92 +426,100 @@ __device__ __forceinline__ void forward_sweep(
       thomas_core::cp_async_commit();
     }
 
-    // Pw [d, NW]: B[:, e] . w_k on the statu rows of w_k's owner (0 on the
-    // others), F_owner(k)[e - m, :] . w_k on the dyn rows.
-    #pragma unroll 1
-    for (int kk = 0; kk * kCG < NW; ++kk) {
-      const int k = cg + kCG * kk;
-      if (k < NW) {
-        const int o = wown[k];
-        const T* wk = w + k * n;
-        const T* ap[kDT];
-        int as[kDT];
-        bool live[kDT];
-        #pragma unroll
-        for (int i = 0; i < kDT; ++i) {
-          const int e = rg + kRG * i;
-          live[i] = e < d && (e >= m || own[e] == o);
-          ap[i] = e < m ? Bs + e : X + (e < d ? (e - m) * ldX + o * n : 0);
-          as[i] = e < m ? m : 1;
-        }
-        T acc[kDT];
-        #pragma unroll
-        for (int i = 0; i < kDT; ++i) acc[i] = T(0);
-        #pragma unroll 4
-        for (int j = 0; j < n; ++j) {
-          const T wj = wk[j];
+    // The Q form's products (K1's Pw), then K in registers: rows e = rg +
+    // 16 i, columns c = cg + 16 j; its x columns from the Q form, then the
+    // u columns [Ub; B] and -I.
+    if constexpr (QF::kStructured) {
+      // Pw [d, NW]: B[:, e] . w_k on the statu rows of w_k's owner (0 on the
+      // others), F_owner(k)[e - m, :] . w_k on the dyn rows.
+      #pragma unroll 1
+      for (int kk = 0; kk * kCG < NW; ++kk) {
+        const int k = cg + kCG * kk;
+        if (k < NW) {
+          const int o = wown[k];
+          const T* wk = w + k * n;
+          const T* ap[kDT];
+          int as[kDT];
+          bool live[kDT];
           #pragma unroll
-          for (int i = 0; i < kDT; ++i)
-            if (live[i]) acc[i] += ap[i][j * as[i]] * wj;
-        }
-        #pragma unroll
-        for (int i = 0; i < kDT; ++i) {
-          const int e = rg + kRG * i;
-          if (e < d) Pw[e * ldP + k] = acc[i];
-        }
-      }
-    }
-    __syncthreads();                   // Pw
-
-    // K in registers: rows e = rg + 16 i, columns c = cg + 16 j.
-    T kx[kDT][kDT];
-    #pragma unroll
-    for (int i = 0; i < kDT; ++i)
-      #pragma unroll
-      for (int j = 0; j < kDT; ++j) {
-        const int e = rg + kRG * i, c = cg + kCG * j;
-        kx[i][j] = (e < m && c < n) ? Bs[c * m + e] * q[own[e] * n + c]
-                                    : T(0);
-      }
-    #pragma unroll 1
-    for (int i2 = 0; i2 < p; ++i2) {   // sum_i F_i diag(q_i), dyn rows
-      T qv[kDT];
-      #pragma unroll
-      for (int j = 0; j < kDT; ++j) {
-        const int c = cg + kCG * j;
-        qv[j] = c < n ? q[i2 * n + c] : T(0);
-      }
-      #pragma unroll
-      for (int i = 0; i < kDT; ++i) {
-        const int e = rg + kRG * i;
-        if (e >= m && e < d) {
-          const T* f = X + (e - m) * ldX + i2 * n;
+          for (int i = 0; i < kDT; ++i) {
+            const int e = rg + kRG * i;
+            live[i] = e < d && (e >= m || own[e] == o);
+            ap[i] = e < m ? Bs + e : X + (e < d ? (e - m) * ldX + o * n : 0);
+            as[i] = e < m ? m : 1;
+          }
+          T acc[kDT];
           #pragma unroll
-          for (int j = 0; j < kDT; ++j) {
-            const int c = cg + kCG * j;
-            if (c < n) kx[i][j] += f[c] * qv[j];
+          for (int i = 0; i < kDT; ++i) acc[i] = T(0);
+          #pragma unroll 4
+          for (int j = 0; j < n; ++j) {
+            const T wj = wk[j];
+            #pragma unroll
+            for (int i = 0; i < kDT; ++i)
+              if (live[i]) acc[i] += ap[i][j * as[i]] * wj;
+          }
+          #pragma unroll
+          for (int i = 0; i < kDT; ++i) {
+            const int e = rg + kRG * i;
+            if (e < d) Pw[e * ldP + k] = acc[i];
           }
         }
       }
+      __syncthreads();                   // Pw
+
     }
-    #pragma unroll 1
-    for (int k = 0; k < NW; ++k) {     // the rank-1 terms, every row
-      T wkv[kDT];
+    T kx[kDT][kDT];
+    if constexpr (QF::kStructured) {
       #pragma unroll
-      for (int j = 0; j < kDT; ++j) {
-        const int c = cg + kCG * j;
-        wkv[j] = c < n ? w[k * n + c] : T(0);
-      }
-      #pragma unroll
-      for (int i = 0; i < kDT; ++i) {
-        const int e = rg + kRG * i;
-        const T pw = e < d ? Pw[e * ldP + k] : T(0);
+      for (int i = 0; i < kDT; ++i)
+        #pragma unroll
+        for (int j = 0; j < kDT; ++j) {
+          const int e = rg + kRG * i, c = cg + kCG * j;
+          kx[i][j] = (e < m && c < n) ? Bs[c * m + e] * q[own[e] * n + c]
+                                      : T(0);
+        }
+      #pragma unroll 1
+      for (int i2 = 0; i2 < p; ++i2) {   // sum_i F_i diag(q_i), dyn rows
+        T qv[kDT];
         #pragma unroll
         for (int j = 0; j < kDT; ++j) {
           const int c = cg + kCG * j;
-          if (c < n) kx[i][j] += pw * wkv[j];
+          qv[j] = c < n ? q[i2 * n + c] : T(0);
+        }
+        #pragma unroll
+        for (int i = 0; i < kDT; ++i) {
+          const int e = rg + kRG * i;
+          if (e >= m && e < d) {
+            const T* f = X + (e - m) * ldX + i2 * n;
+            #pragma unroll
+            for (int j = 0; j < kDT; ++j) {
+              const int c = cg + kCG * j;
+              if (c < n) kx[i][j] += f[c] * qv[j];
+            }
+          }
         }
       }
+      #pragma unroll 1
+      for (int k = 0; k < NW; ++k) {     // the rank-1 terms, every row
+        T wkv[kDT];
+        #pragma unroll
+        for (int j = 0; j < kDT; ++j) {
+          const int c = cg + kCG * j;
+          wkv[j] = c < n ? w[k * n + c] : T(0);
+        }
+        #pragma unroll
+        for (int i = 0; i < kDT; ++i) {
+          const int e = rg + kRG * i;
+          const T pw = e < d ? Pw[e * ldP + k] : T(0);
+          #pragma unroll
+          for (int j = 0; j < kDT; ++j) {
+            const int c = cg + kCG * j;
+            if (c < n) kx[i][j] += pw * wkv[j];
+          }
+        }
+      }
+    } else {
+      QF::x_columns(kx, q, X, Bs, own, qd, kt, ldX, n, m, p, rg, cg);
     }
     #pragma unroll
     for (int i = 0; i < kDT; ++i)

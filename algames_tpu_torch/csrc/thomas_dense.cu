@@ -43,14 +43,34 @@
 // the next knot's copy issued once the build has read it: double-buffered,
 // the 30,496 bytes a lane in f32 fit 7 lanes on an SM and B=1024 took a
 // second wave; staged once, 25,888 fit 8.  Systems beyond (d > 32 or
-// d + R > 96) keep the shared-memory forward kernel (the "big" route)
-// where its bytes fit a block's 227 KB; beyond that (the 4-player
-// quadrotor's systems with collision-cost pairs, d=64: 250 KB in f32 and
-// 499 KB in f64) they take the device-memory route of thomas_global.cuh
-// with the Q form DenseGlobalQ below, Q read from device memory.
+// d + R > 96) up to d = 64 take the per-player blocked route of
+// thomas_blocked.cuh, K1's design (below); wider ones the shared-memory
+// forward kernel (the "big" route) where its bytes fit a block's 227 KB,
+// and beyond that the device-memory route of thomas_global.cuh with the Q
+// form DenseGlobalQ below, Q read from device memory.  Both stay reachable
+// by name, timed beside the blocked route.
+//
+// The blocked route (thomas_dense_blocked_kernel) replaces the forward half
+// of thomas_pallas.py:424 (solve_thomas_pallas; the kernel _make_fwd_kernel,
+// :114-228) beyond the register-tiled classes: the 4-player quadrotor with
+// collision-cost pairs (n=48, m=16, p=4: d=64, R=193), the 3-player
+// quadrotor's systems turned dense (d=48), the 6-player unicycle's (d=36).
+// The TPU kernel differs from K1's only in K's x columns (B^T Q_owner on
+// the statu rows, sum_i F_i Q_i on the dyn rows), so the route is K1's
+// blocked sweep with the Q form thomas_blocked::DenseForm.  What bounds it
+// on the card is what bounds K1's: the latency of a knot's chains (64 LU
+// pivot steps, the substitutions), not bytes or operations.  What the
+// dense form adds is Q itself: p n^2 = 9,216 scalars a knot at quad4 do
+// not fit beside the rest (f32 would lose its second lane an SM, f64
+// would not fit at all), so Q comes in a player at a time by cp.async into
+// two slots (109,696 bytes a lane in f32: 2 lanes an SM; 218,816 in f64),
+// player i + 1's copy in flight while player i's pass adds F_i Q_i to K's
+// dyn rows in registers and sets B^T Q_i on player i's statu rows.  The
+// products are FMA / DFMA on the CUDA cores, as K1's.
 #include "thomas_common.cuh"
 #include "thomas_dense_core.cuh"
 #include "thomas_global.cuh"
+#include "thomas_blocked.cuh"
 
 namespace {
 
@@ -262,6 +282,24 @@ thomas_dense_global_kernel(const T* __restrict__ Qg,
                                   smem_raw);
 }
 
+// The per-player blocked route (thomas_blocked.cuh, Q form DenseForm); NI
+// tiles of 16 cover n.  2 lanes an SM in f32, 1 in f64.
+template <typename T, int NI>
+__global__ void
+__launch_bounds__(thomas_blocked::kThreads, sizeof(T) == 4 ? 2 : 1)
+thomas_dense_blocked_kernel(const T* __restrict__ Qg,
+                            const T* __restrict__ Ub,
+                            const T* __restrict__ Bm,
+                            const T* __restrict__ A,
+                            const T* __restrict__ bk, T* __restrict__ G_out,
+                            T* __restrict__ y_out, int Tn, int n, int m,
+                            int p, const __grid_constant__ DenseMeta meta) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  thomas_blocked::forward_sweep<T, NI, thomas_blocked::DenseForm<T>>(
+      Qg, nullptr, Ub, Bm, A, bk, G_out, y_out, Tn, n, m, p, 0, meta.owner,
+      nullptr, smem_raw);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) thomas_dense_bwd_kernel(
     const T* __restrict__ G, const T* __restrict__ yhat,
@@ -335,6 +373,48 @@ int launch_fwd_global(const void* Q, const void* Ub, const void* Bm,
   return (int)cudaGetLastError();
 }
 
+// Whether the blocked route takes these widths, and its kernel.
+template <typename T>
+bool blocked_fits(int n, int m, int p) {
+  return thomas_blocked::fits<T, thomas_blocked::DenseForm<T>>(n, m, p, 0,
+                                                               kMaxM, 0);
+}
+
+template <typename T>
+size_t blocked_smem_bytes(int n, int m, int p) {
+  return thomas_blocked::smem_bytes<T, thomas_blocked::DenseForm<T>>(n, m, p,
+                                                                     0);
+}
+
+template <typename T>
+const void* blocked_kernel(int n) {
+  if (n <= 48) return (const void*)thomas_dense_blocked_kernel<T, 3>;
+  return (const void*)thomas_dense_blocked_kernel<T, 4>;
+}
+
+// The per-player blocked route of thomas_blocked.cuh, for systems beyond
+// the size classes up to d = 64.
+template <typename T>
+int launch_fwd_blocked(const void* Q, const void* Ub, const void* Bm,
+                       const void* A, const void* b, const int* owner,
+                       void* G, void* yhat, int B, int Tn, int n, int m,
+                       int p, void* stream) {
+  if (!blocked_fits<T>(n, m, p)) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const void* fn = blocked_kernel<T>(n);
+  const size_t bytes = blocked_smem_bytes<T>(n, m, p);
+  int err = thomas::set_smem(fn, bytes);
+  if (err) return err;
+  DenseMeta meta;
+  pack_owner(owner, m, &meta);
+  const T *Qp = (const T*)Q, *Ubp = (const T*)Ub, *Bp = (const T*)Bm,
+          *Ap = (const T*)A, *bp = (const T*)b;
+  T *Gp = (T*)G, *yp = (T*)yhat;
+  void* args[] = {&Qp, &Ubp, &Bp, &Ap, &bp, &Gp, &yp, &Tn, &n, &m, &p, &meta};
+  return (int)cudaLaunchKernel(fn, dim3(B), dim3(thomas_blocked::kThreads),
+                               args, bytes, (cudaStream_t)stream);
+}
+
 template <typename T>
 size_t big_smem_bytes(int n, int m, int p) {
   return thomas::fwd_smem_bytes<T>(n, m, p, p * n * n, 0);
@@ -400,13 +480,15 @@ int launch_fwd(const void* Q, const void* Ub, const void* Bm, const void* A,
 }
 
 // K3's forward route at these widths, by shape: 0 a register-tiled class
-// (launch_fwd), 1 the shared-memory kernel (launch_fwd_big) where its
-// bytes fit a block, 2 the device-memory route (launch_fwd_global), -1
+// (launch_fwd), else 3 the blocked route (launch_fwd_blocked) where it
+// fits, else 1 the shared-memory kernel (launch_fwd_big) where its bytes
+// fit a block, else 2 the device-memory route (launch_fwd_global), -1
 // none.
 template <typename T>
 int route(int n, int m, int p) {
   if (m > kMaxM) return -1;
   if (tiled_kernel<T>(n, m, p).fn != nullptr) return 0;
+  if (blocked_fits<T>(n, m, p)) return 3;
   if (big_smem_bytes<T>(n, m, p) <= (size_t)thomas_global::kMaxSmem)
     return 1;
   return thomas_global::fits<T>(n, m, p, 0) ? 2 : -1;
@@ -419,6 +501,7 @@ template <typename T>
 int occupancy(int n, int m, int p, int which, int* out) {
   const void* kernel = nullptr;
   size_t bytes = 0;
+  int threads = kThreads;
   if (which == 0) {
     kernel = tiled_kernel<T>(n, m, p).fn;
     bytes = tiled_smem_bytes<T>(n, m, p);
@@ -428,6 +511,10 @@ int occupancy(int n, int m, int p, int which, int* out) {
   } else if (which == 2 && thomas_global::fits<T>(n, m, p, 0)) {
     kernel = (const void*)thomas_dense_global_kernel<T>;
     bytes = thomas_global::smem_bytes<T>(n, m, p);
+  } else if (which == 3 && blocked_fits<T>(n, m, p)) {
+    kernel = blocked_kernel<T>(n);
+    bytes = blocked_smem_bytes<T>(n, m, p);
+    threads = thomas_blocked::kThreads;
   }
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   int err = thomas::set_smem(kernel, bytes);
@@ -436,7 +523,7 @@ int occupancy(int n, int m, int p, int which, int* out) {
   err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (err) return err;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel,
-                                                           kThreads, bytes);
+                                                           threads, bytes);
   out[1] = attr.numRegs;
   out[2] = (int)attr.localSizeBytes;
   return err;
@@ -486,6 +573,13 @@ int launch_bwd(const void* G, const void* yhat, const void* Q, const void* A,
       int B, int Tn, int n, int m, int p, void* stream) {                     \
     return launch_fwd_global<T>(Q, Ub, Bm, A, b, owner, G, yhat, work, B,     \
                                 Tn, n, m, p, stream);                         \
+  }                                                                           \
+  extern "C" int thomas_dense_fwd_blocked_##SUFFIX(                           \
+      const void* Q, const void* Ub, const void* Bm, const void* A,           \
+      const void* b, const int* owner, void* G, void* yhat, int B, int Tn,    \
+      int n, int m, int p, void* stream) {                                    \
+    return launch_fwd_blocked<T>(Q, Ub, Bm, A, b, owner, G, yhat, B, Tn, n,   \
+                                 m, p, stream);                               \
   }                                                                           \
   extern "C" int thomas_dense_route_##SUFFIX(int n, int m, int p) {           \
     return route<T>(n, m, p);                                                 \

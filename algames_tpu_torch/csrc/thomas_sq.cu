@@ -381,9 +381,9 @@ thomas_sq_blocked_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
                          int Tn, int n, int m, int p, int NW,
                          const __grid_constant__ SqMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  thomas_blocked::forward_sweep<T, NI>(qd, wv, Ub, Bm, A, bk, G_out, y_out,
-                                       Tn, n, m, p, NW, meta.owner,
-                                       meta.w_owner, smem_raw);
+  thomas_blocked::forward_sweep<T, NI, thomas_blocked::StructuredForm<T>>(
+      qd, wv, Ub, Bm, A, bk, G_out, y_out, Tn, n, m, p, NW, meta.owner,
+      meta.w_owner, smem_raw);
 }
 
 template <typename T>
@@ -472,7 +472,8 @@ size_t wide_smem_bytes(int n, int m, int p, int NW) {
 // Whether the blocked route takes these widths, and its kernel.
 template <typename T>
 bool blocked_fits(int n, int m, int p, int NW) {
-  return thomas_blocked::fits<T>(n, m, p, NW, kMaxM, kMaxNW);
+  return thomas_blocked::fits<T, thomas_blocked::StructuredForm<T>>(
+      n, m, p, NW, kMaxM, kMaxNW);
 }
 
 template <typename T>
@@ -555,7 +556,9 @@ int launch_fwd_blocked(const void* qd, const void* wv, const void* Ub,
   if (!blocked_fits<T>(n, m, p, NW)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const void* fn = blocked_kernel<T>(n);
-  const size_t bytes = thomas_blocked::smem_bytes<T>(n, m, p, NW);
+  const size_t bytes =
+      thomas_blocked::smem_bytes<T, thomas_blocked::StructuredForm<T>>(
+          n, m, p, NW);
   int err = thomas::set_smem(fn, bytes);
   if (err) return err;
   SqMeta meta = make_meta(owner, w_owner, m, NW);
@@ -602,7 +605,8 @@ int occupancy(int n, int m, int p, int NW, int which, int* out) {
     bytes = thomas_global::smem_bytes<T>(n, m, p);
   } else if (which == 3 && blocked_fits<T>(n, m, p, NW)) {
     k = {blocked_kernel<T>(n), thomas_blocked::kThreads};
-    bytes = thomas_blocked::smem_bytes<T>(n, m, p, NW);
+    bytes = thomas_blocked::smem_bytes<T, thomas_blocked::StructuredForm<T>>(
+        n, m, p, NW);
   }
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   int err = thomas::set_smem(k.fn, bytes);

@@ -24,27 +24,30 @@ knot's operands copied in while a knot is eliminated
 K1 and K3's classes for d > 24 LU and a back substitution, K3's others
 Gauss-Jordan).  K3's size classes cover d = n + m <= 32 and d + p n + 1 <=
 96, K1's d <= 32 and d + p n + 1 <= 96 with 128 threads a lane and, with
-256, d <= 48 and d + p n + 1 <= 160.  K1's wider systems up to d = 64
-(the 4-player quadrotor's, in f32 and f64) take its per-player blocked
-route (``csrc/thomas_blocked.cuh``: the fill-in formed over the carry in
-place, K's LU in registers, the right-hand sides built in pivot order and
-substituted in registers, 256 threads a lane), counted in
-``solve_thomas_structured.blocked_launches``.  K3's wider systems, and
-K1's beyond the blocked route, take the shared-memory forward kernel of
-``csrc/thomas_common.cuh`` (every per-knot operand, the carry and the
-augmented system in shared memory) where its bytes fit a block's 232,448,
-counted apart in ``solve_thomas.big_launches`` and
-``solve_thomas_structured.wide_launches``; beyond that (K3 on the 4-player
-quadrotor's systems, d = 64, in both types) the device-memory route of
-``csrc/thomas_global.cuh`` (K [d, d] and a panel of 128 right-hand sides in
-shared memory, the fill-in F in a workspace this wrapper allocates, n p n
-scalars a lane), counted in ``global_launches``; it takes d <= 128 within
-those bytes (in f64 d up to about 104) and wider systems raise.  The
-library says which route a shape takes (``thomas_sq_route_*``,
-``thomas_dense_route_*``), before the launch; a build or launch error
-raises.  ``forward="shared"``, ``"device"`` or, for K1, ``"blocked"`` takes
-that route at any widths that it holds, to time it against the route the
-shape takes.  See the sources for what bounds each on the card.
+256, d <= 48 and d + p n + 1 <= 160.  Wider systems up to d = 64 take the
+per-player blocked route of ``csrc/thomas_blocked.cuh`` (the fill-in
+formed over the carry in place, K's LU in registers, the right-hand sides
+built in pivot order and substituted in registers, 256 threads a lane),
+its Q form a policy: K1's q and w staged a knot (the 4-player quadrotor,
+the 6-player unicycle), K3's dense Q_i staged a player at a time into two
+slots (the 4-player quadrotor with collision-cost pairs, the 3-player
+quadrotor turned dense, d = 48); counted in
+``solve_thomas_structured.blocked_launches`` and
+``solve_thomas.blocked_launches``.  Systems beyond it take the
+shared-memory forward kernel of ``csrc/thomas_common.cuh`` (every per-knot
+operand, the carry and the augmented system in shared memory) where its
+bytes fit a block's 232,448, counted apart in ``solve_thomas.big_launches``
+and ``solve_thomas_structured.wide_launches``; beyond that the
+device-memory route of ``csrc/thomas_global.cuh`` (K [d, d] and a panel of
+128 right-hand sides in shared memory, the fill-in F in a workspace this
+wrapper allocates, n p n scalars a lane), counted in ``global_launches``;
+it takes d <= 128 within those bytes (in f64 d up to about 104) and wider
+systems raise.  The library says which route a shape takes
+(``thomas_sq_route_*``, ``thomas_dense_route_*``), before the launch; a
+build or launch error raises.  ``forward="blocked"``, ``"shared"`` or
+``"device"`` takes that route at any widths that it holds, to time it
+against the route the shape takes.  See the sources for what bounds each
+on the card.
 
 Each wrapper takes its plain PyTorch version (``problem.linear_solver
 .solve_tridiagonal_schur``, after densifying Q for K1) for CPU tensors only;
@@ -135,14 +138,14 @@ def _check(spec, sq: StructuredQ, b: torch.Tensor, w_owner) -> None:
 
 
 # The forward routes in the order of the libraries' ``*_route_*`` numbers,
-# their names, and their exports' infixes in K1's and K3's library (K3 has
-# no blocked route).
+# their names, and their exports' infixes in K1's and K3's library.
 _ROUTES = ("tiled", "shared", "device", "blocked")
 _ROUTE_NAMES = {"tiled": "register-tiled", "shared": "shared-memory",
                 "device": "device-memory", "blocked": "per-player blocked"}
 _INFIX = {_LIB: {"tiled": "", "shared": "wide_", "device": "global_",
                  "blocked": "blocked_"},
-          _LIB_DENSE: {"tiled": "", "shared": "big_", "device": "global_"}}
+          _LIB_DENSE: {"tiled": "", "shared": "big_", "device": "global_",
+                       "blocked": "blocked_"}}
 
 
 def _sfx(dtype) -> str:
@@ -165,8 +168,8 @@ def _shape_route(name: str, dtype, widths) -> str:
 
 def _pick_route(name: str, dtype, widths, forward: str) -> str:
     """The route the shape takes (``forward`` "auto"), or the one that
-    ``forward`` names: "shared", "device" or, in K1's library, "blocked",
-    to time it against the shape's."""
+    ``forward`` names: "blocked", "shared" or "device", to time it against
+    the shape's."""
     if forward == "auto":
         return _shape_route(name, dtype, tuple(widths))
     if forward == "tiled" or forward not in _INFIX[name]:
@@ -273,8 +276,9 @@ def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p, forward="auto"
     """Run K3's forward and backward kernels on [B, T, ...] operands with
     ``m`` control rows owned per ``owner``; returns y [B, T, n + m + p n].
     The forward kernel is the one the library picks by shape, or the route
-    ``forward`` names (counted by ``solve_thomas.big_launches`` for the
-    shared-memory one, ``global_launches`` for the device-memory one)."""
+    ``forward`` names (counted by ``solve_thomas.blocked_launches`` for the
+    blocked one, ``big_launches`` for the shared-memory one,
+    ``global_launches`` for the device-memory one)."""
     lib = build.load(_LIB_DENSE)
     sfx = _sfx(b.dtype)
     route = _pick_route(_LIB_DENSE, b.dtype, (n, m, p), forward)
@@ -306,6 +310,8 @@ def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p, forward="auto"
         solve_thomas.big_launches += 1
     elif route == "device":
         solve_thomas.global_launches += 1
+    elif route == "blocked":
+        solve_thomas.blocked_launches += 1
     return y
 
 
@@ -323,8 +329,8 @@ def solve_thomas(spec, jb: JacBlocks, b: torch.Tensor,
     [B, T, W]; ``jb`` leaves are [B, T, ...] and contiguous.  Returns the
     flat [B, S] solution in per-knot column order.  A heterogeneous spec
     is solved padded (see the module's docstring).  ``forward``: the
-    forward route to take ("shared", "device") at any widths that it
-    holds; by default the one the library picks by shape."""
+    forward route to take ("blocked", "shared", "device") at any widths
+    that it holds; by default the one the library picks by shape."""
     Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
     _check_operands(spec, jb, b, {
         "Qblk": (Bsz, T, p, n, n), "Ublk": (Bsz, T, m, m),
@@ -347,6 +353,7 @@ def solve_thomas(spec, jb: JacBlocks, b: torch.Tensor,
 solve_thomas.launches = 0
 solve_thomas.big_launches = 0
 solve_thomas.global_launches = 0
+solve_thomas.blocked_launches = 0
 
 
 def kkt_solve(spec, blocks, b: torch.Tensor, w_owner) -> torch.Tensor:

@@ -22,7 +22,8 @@ PyTorch version:
 - the 2-player quadrotor (N=15, spherical collision, a floor facet, a
   cylinder, thrust bounds [0, 3]): K1 and K4, and K3 on its systems
   turned dense; with 3 players (d=48) K1's tall size class and K4; with 4
-  (d=64) K1's per-player blocked route, K3's device-memory route and K4;
+  (d=64) K1's per-player blocked route, K3's (with collision-cost pairs)
+  and K4;
 - the heterogeneous double integrator (mi = (2, 1), player-blocked, N=8):
   K3 on controls padded to p max(mi) and K4's player-blocked instance;
 - iterative best response on the flagship and on the quadrotor
@@ -115,10 +116,11 @@ Phases:
    (``golden-big``: iteration 52, within 1e-8 of ``quad2_N15.npz``), one
    f32 chunk of the quadrotor sweep through it (``sweep-quad2-dense``:
    gated as ``sweep-quad2`` on its first 256 lanes; K3's launch count),
-   and the shared-memory kernel itself on the 3-player quadrotor's
-   systems turned dense (``K3-big48``: d=48, beyond K3's classes,
-   B_BEYOND lanes, the same gates), timed beside the device-memory route
-   on the same operands; then the quadrotor preset with 3
+   and K3 on the 3-player quadrotor's systems turned dense (``K3-big48``:
+   d=48, beyond K3's classes, B_BEYOND lanes, the same gates) on its
+   per-player blocked route, its shared-memory kernel and device-memory
+   route gated and timed beside it on the same operands; then the
+   quadrotor preset with 3
    players (d=48): K1 on its KKT systems on its tall class (256 threads a
    lane) gated as the quadrotor's and timed beside the shared-memory
    kernel (``K1-wide``), an f64 solve of 4 scenarios against the same
@@ -133,13 +135,18 @@ Phases:
    the same operands, on the device-memory route of
    ``csrc/thomas_global.cuh`` and (f32) the shared-memory kernel, each
    gated as the quadrotor's and timed; K3 on the same
-   systems turned dense (``K3-big64``, device-memory route in both
-   precisions); K4 on its trial inputs (``K4-quad4``: n=48) and with a
-   state bound on all 48 states (``K4-quad4-bound``: rows past the 64th
-   in the table's second word); f64 solves of 4 scenarios (outer 2 x 5,
-   fused trial) through K1's blocked route and K4 (``solve-wide64``)
-   and, with collision-cost pairs between the players, through K3's
-   (``solve-big64``), each against the same solve through the plain
+   systems turned dense (``K3-big64``: its per-player blocked route, the
+   device-memory route forced and timed beside it, in both precisions),
+   on the 6-player unicycle's systems turned dense (``K3-wide36``: d=36,
+   every route) and, forced, on the roundabout's own systems (``K3-
+   blocked24``: d=24, beside its class); K4 on its trial inputs
+   (``K4-quad4``: n=48), with a state bound on all 48 states
+   (``K4-quad4-bound``: rows past the 64th in the table's second word) and
+   with collision-cost pairs (``K4-quad4-cost``); f64 solves of 4
+   scenarios (outer 2 x 5, fused trial) through K1's blocked route and K4
+   (``solve-wide64``) and, with collision-cost pairs between the players,
+   through K3's blocked route (``solve-big64``), each against the same
+   solve through the plain
    versions on the card (iteration counts equal, x and u within 1e-8);
    and one timed f32 chunk of 1024 scenarios (``sweep-quad4``: finite,
    none diverged, the first 256 lanes' converged share and mean final
@@ -148,6 +155,12 @@ Phases:
    launch on its blocked route) and K4 launched, K4 at least once a KKT
    step; K1's blocked route on the game's own systems gated over mu = 1 ..
    1e7 and every K1 route timed at the chunk's batch, in f32 and f64; K1's
+   and K4's shares of the wall); and one timed f32 chunk of 1024 scenarios
+   with collision-cost pairs (``sweep-quad4-dense``: finite, none
+   diverged, the first 64 lanes' mean final residual against the plain
+   versions' on the card, every K3 launch on its blocked route, K1 never,
+   K4 launched; K3 on the game's own systems gated at mu = 1, 1e3, 1e7
+   and timed beside the device-memory route at the chunk's batch; K3's
    and K4's shares of the wall);
 13. the heterogeneous game: K3 on its padded KKT systems as in 11
    (``K3-hetero``), K4 on its trial inputs (``K4-hetero``), the f64 solve
@@ -321,9 +334,10 @@ BIKE3_PLAIN_TOL = 1e-10
 # the same solve through the plain versions on the card.
 WIDE_PLAIN_TOL = 1e-8
 # Lanes of the checks of the forward kernels on systems beyond the size
-# classes (``K3-big48``: the shared-memory kernel; ``K1-wide64``: K1's
-# blocked route, its device-memory route and, in f32, its shared-memory
-# kernel; ``K3-big64``: the device-memory route).
+# classes (``K3-big48``: K3's blocked route, its shared-memory kernel and
+# device-memory route; ``K1-wide64``: K1's blocked route, its
+# device-memory route and, in f32, its shared-memory kernel; ``K3-big64``:
+# K3's blocked and device-memory routes).
 B_BEYOND = 64
 # The 4-player quadrotor's f32 sweep (``sweep-quad4``, 2 x 5): the reference
 # package's converged share of the first 256 scenarios and its mean final
@@ -1230,7 +1244,7 @@ def quad4_bound_game(dev, dtype):
 def quad4_cost_game(dev, dtype):
     """``quad4_game`` with a collision cost between every pair of players
     (radius 0.2, weight 2): its Hessian blocks are dense, so its KKT step
-    is K3's (d=64, on the device-memory route)."""
+    is K3's (d=64, on the per-player blocked route)."""
     from algames_tpu_torch.objective.objective import add_collision_cost
     prob, spec = quad4_game(dev, dtype)
     obj = add_collision_cost(spec, prob.obj, radius=0.2 * np.ones(spec.p),
@@ -1243,14 +1257,17 @@ def quad4_cost_game(dev, dtype):
 # kernel needs 443 KB for K1 in f64 and 250 / 499 KB for K3).
 BEYOND_ROUTES = {("structured", "f32"): ("blocked", "shared", "device"),
                  ("structured", "f64"): ("blocked", "device"),
-                 ("dense", "f32"): ("device",), ("dense", "f64"): ("device",)}
-# K1 at the 6-player unicycle's widths (d=36): every route holds the shape
-# in both precisions (the shared-memory kernel 170 KB in f64).
-UNI6_ROUTES = {("structured", dt): ("blocked", "shared", "device")
-               for dt in ("f32", "f64")}
-# K1's blocked route forced onto the flagship's systems (d=18, inside the
-# register-tiled classes), beside the class the shape takes.
-BLOCKED_ROUTES = {("structured", dt): ("blocked",) for dt in ("f32", "f64")}
+                 ("dense", "f32"): ("blocked", "device"),
+                 ("dense", "f64"): ("blocked", "device")}
+# K1 and K3 at the 6-player unicycle's widths (d=36): every route holds the
+# shape in both precisions (K1's shared-memory kernel 170 KB in f64).
+UNI6_ROUTES = {(form, dt): ("blocked", "shared", "device")
+               for form in ("structured", "dense") for dt in ("f32", "f64")}
+# The blocked routes forced onto systems inside the register-tiled classes
+# (K1: the flagship's, d=18; K3: the roundabout's, d=24), beside the class
+# the shape takes.
+BLOCKED_ROUTES = {(form, dt): ("blocked",)
+                  for form in ("structured", "dense") for dt in ("f32", "f64")}
 
 
 def uni6_game(dev, dtype):
@@ -1272,14 +1289,16 @@ def shape_route(spec, dtype, NW=None):
 
 
 def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
-                 iterates=quad3_iterates, forced=BEYOND_ROUTES):
+                 iterates=quad3_iterates, forced=BEYOND_ROUTES,
+                 dense_system=None):
     """K1 (``form`` "structured") or K3 ("dense": the same systems turned
-    dense) on ``game``'s KKT systems around ``iterates`` (by default the
-    4-player quadrotor's, beyond the size classes: d=64, R=193), B lanes,
-    mu = 1 .. 1e7, in f64 and f32, on the route the shape takes and forced
-    onto every other route that ``forced`` names by form and precision (by
-    default BEYOND_ROUTES: K1 blocked, shared (f32 only) and device-memory;
-    K3 device-memory); a launch on any other route is a failure.  Each
+    dense, or ``dense_system(dev, B, mu, seed)``'s own) on ``game``'s KKT
+    systems around ``iterates`` (by default the 4-player quadrotor's,
+    beyond the size classes: d=64, R=193), B lanes, mu = 1 .. 1e7, in f64
+    and f32, on the route the shape takes and forced onto every other route
+    that ``forced`` names by form and precision (by default BEYOND_ROUTES:
+    K1 blocked, shared (f32 only) and device-memory; K3 blocked and
+    device-memory); a launch on any other route is a failure.  Each
     solution gated as the quadrotor's systems are: normwise backward error
     f64 <= 1e-15 and f32 <= 1e-7, each <= 10 x the plain version's in the
     same precision, f32 forward error <= 30 x the f32 plain version's.  Then per precision and route its times (call,
@@ -1296,6 +1315,8 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
     names = ("thomas_sq_",) if structured else ("thomas_dense_",)
 
     def system(mu, seed):
+        if dense_system is not None:
+            return (*dense_system(dev, B, mu, seed), None)
         spec, sq, b, w_owner = k1_system(dev, B, mu, seed, False, game,
                                          iterates)
         if structured:
@@ -1415,7 +1436,7 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
     for r in ("blocked", "device", "shared"):
         dts = tuple(str(dt)[6:].replace("float", "f") for dt in routes
                     if r in routes[dt][1:])
-        if structured and dts:
+        if dts:
             out[f"{r}_forward_kernel"] = occupancy(
                 f"{tag} {r} route", spec, NW, B, r, dtypes=dts)
     return out
@@ -1452,8 +1473,8 @@ def phase_solve_beyond(dev, tag, game, kkt):
     """An f64 solve of 4 scenarios of ``game`` (``quad4_game``: K1;
     ``quad4_cost_game``: K3; x0 + 0.05 N(0, 1) from numpy seed 0, outer 2 x
     inner 5) through the kernels with the fused trial (``kkt`` K1 or K3 on
-    the route the shape takes: K1 its per-player blocked route, K3 its
-    device-memory route; and K4's quadrotor instance at n=48) against the
+    the route the shape takes, the per-player blocked route; and K4's
+    quadrotor instance at n=48) against the
     same solve through the plain versions on the card (eager trial):
     per-lane iteration counts equal, x and u within WIDE_PLAIN_TOL; every
     KKT step on that route, the other KKT kernel not launched.  Returns the
@@ -1675,6 +1696,156 @@ def phase_sweep_quad4(dev, k4_quad4):
     return {**launches, "wall_s": el, "k1_share": k1_share,
             "k4_share": k4_share, "route": taken, "route_f64": taken64,
             "k1_rows": rows, "k1_f64": f64}
+
+
+def phase_sweep_quad4_dense(dev, k4_cost):
+    """One timed f32 chunk of ``quad4_cost_game`` with the fused trial: its
+    first CHUNK scenarios (x0 + 0.05 N(0, 1) from numpy seed 0), outer 2 x
+    5, warm, counted from zero after the warm-up: every trajectory finite,
+    none diverged; every K3 launch on the route the shape takes (f32, d=64:
+    the per-player blocked route), K1 never launched, K4 launched; the first
+    PLAIN_LANES lanes' mean final residual within PLAIN_RES_TOL of the same
+    solve's through the plain versions on the card (the median lane's
+    deviation printed).  Then K3 on the game's own systems at B=CHUNK
+    (dense Q_i with the collision-cost pairs): the route the shape takes
+    gated at mu = 1, 1e3, 1e7 on the first PLAIN_LANES lanes (the
+    quadrotor's backward- and forward-error gates), and timed beside the
+    device-memory route on the same operands in f32 and f64.  Prints the
+    chunk's wall and K3's and K4's device time shares of it: launches times
+    the device time per call at B=CHUNK (K4 from ``K4-quad4-cost``,
+    ``k4_cost``).  Returns the launches, with K3's f32 numbers at B=CHUNK
+    by route under "k3_rows" and the f64 device times under "k3_f64"."""
+    import torch
+    from algames_tpu_torch import parallel
+    from algames_tpu_torch.ops.thomas import (kkt_solve_plain, solve_thomas,
+                                              solve_thomas_plain)
+    from algames_tpu_torch.ops.trial import trial_supported
+    from algames_tpu_torch.utils import tree_leaves, tree_map
+    prob, x0s = sweep_problem(quad4_cost_game, dev)
+    spec, x0s = prob.spec, x0s[:CHUNK]
+    opts = prob.opts
+    if not trial_supported(prob.model, spec, prob.obj, prob.gc):
+        raise SystemExit("the fused trial does not take the 4-player "
+                         "quadrotor with collision-cost pairs")
+    parallel.solve_batch(dataclasses.replace(prob, opts=dataclasses.replace(
+        opts, outer_iter=1, inner_iter=2)), x0s[:64])
+    counters = zero_counters()
+    out, el = timed_sweep(prob, x0s, "thomas")
+    launches = read_counters(counters)
+    finite = bool(torch.isfinite(out.traj.x).all())
+    div = float(parallel.divergence_mask(out).float().mean())
+    iters = out.stats.iter.cpu().numpy()
+    plain = dataclasses.replace(prob, opts=dataclasses.replace(
+        opts, ls_fused=False))
+    out_p = parallel.solve_batch(plain, x0s[:PLAIN_LANES],
+                                 method=kkt_solve_plain)
+
+    def final_res(o, lanes):
+        last = (o.stats.iter[:lanes] - 1).clamp_min(0).long()
+        return o.stats.res[:lanes].gather(1, last[:, None])[:, 0].double()
+    rk, rp = final_res(out, PLAIN_LANES), final_res(out_p, PLAIN_LANES)
+    lane_dev = (rk - rp).abs() / rp
+    mean_ratio = float(rk.mean() / rp.mean())
+    log(f"[sweep-quad4-dense] first {PLAIN_LANES} lanes against the plain "
+        f"versions on the card: mean final residual {float(rk.mean()):.6f} "
+        f"against {float(rp.mean()):.6f} (ratio {mean_ratio:.6f}; within "
+        f"1 +- {PLAIN_RES_TOL:g}); per-lane relative deviation median "
+        f"{float(lane_dev.median()):.3e}, max {float(lane_dev.max()):.3e}")
+    del out_p
+    taken = shape_route(spec, torch.float32)
+    taken64 = shape_route(spec, torch.float64)
+
+    def system(mu, seed):
+        return k3_system(dev, CHUNK, mu, seed, False, None, quad4_cost_game,
+                         quad3_iterates)[1:]
+
+    # The route the shape takes, gated over mu on the game's own systems.
+    for i, mu in enumerate((1.0, 1e3, 1e7)):
+        jb, b = system(mu, 1200 + i)
+        y64 = solve_thomas(spec, jb, b)
+        y32 = solve_thomas(spec, tree_map(lambda a: a.float(), jb),
+                           b.float())
+        sub, bsub = tree_slice(jb, PLAIN_LANES), b[:PLAIN_LANES]
+        sub32 = tree_map(lambda a: a.float(), sub)
+        ref = solve_thomas_plain(spec, sub, bsub)
+        p32 = solve_thomas_plain(spec, sub32, bsub.float())
+        bw = [float(e.max()) for e in backward_errors(
+            spec, sub, None, bsub, (ref, p32, y64[:PLAIN_LANES],
+                                    y32[:PLAIN_LANES]), lanes=PLAIN_LANES)]
+        e32 = float(rel_err(y32[:PLAIN_LANES], ref).max())
+        ep32 = float(rel_err(p32, ref).max())
+        log(f"[sweep-quad4-dense] K3 {taken} route at B={CHUNK}, "
+            f"mu={mu:.0e}, first {PLAIN_LANES} lanes: backward error f64 "
+            f"{bw[2]:.3e} (plain {bw[0]:.3e}; <= 1e-15 and 10 x plain), f32 "
+            f"{bw[3]:.3e} (plain {bw[1]:.3e}; <= 1e-7 and 10 x plain); f32 "
+            f"forward {e32:.3e} (plain {ep32:.3e}; <= 30 x plain)")
+        if not (bw[2] <= 1e-15 and bw[2] <= 10 * bw[0] and bw[3] <= 1e-7
+                and bw[3] <= 10 * bw[1] and e32 <= 30 * ep32):
+            raise SystemExit(f"sweep-quad4-dense: K3 disagrees with its "
+                             f"plain version at mu={mu}")
+        del jb, b, y64, y32
+
+    # Every route that holds the shape, timed on the same operands: K3's
+    # rows of the kernels line at the sweep's own batch.
+    jb, b = system(1e3, 1210)
+    jb32, b32 = tree_map(lambda a: a.float(), jb), b.float()
+    ref = solve_thomas_plain(spec, jb, b)
+    common = {
+        "plain_ms": cuda_ms(lambda: solve_thomas_plain(spec, jb32, b32), 2),
+        **bound(tensor_bytes(tree_leaves(jb32) + [b32, ref.float()]),
+                thomas_flops(spec, CHUNK, dense=True))}
+    common["library_ms"], y_lib = library_solve_ms(spec, jb32, b32, 128)
+    rows = {}
+    for r in BEYOND_ROUTES[("dense", "f32")]:
+        y = solve_thomas(spec, jb32, b32, r)
+        rows[r] = {
+            "max_abs_err": float((y.double() - ref).abs().max()),
+            "ms": cuda_ms(lambda: solve_thomas(spec, jb32, b32, r), 3),
+            "device_ms": device_ms(lambda: solve_thomas(spec, jb32, b32, r),
+                                   3, ("thomas_dense_",), 2,
+                                   f"sweep-quad4-dense K3 f32 {r} route "
+                                   f"B={CHUNK}"),
+            **common}
+        log(f"[sweep-quad4-dense] K3 f32 {r} route at B={CHUNK}: call "
+            f"{rows[r]['ms']:.4f} ms, device time {rows[r]['device_ms']:.4f}"
+            f" ms; plain {common['plain_ms']:.4f} ms (CUDA events); bound "
+            f"{common['bound_ms']:.4f} ms ({common['bound_by']}); library "
+            f"(torch.linalg.solve on the dense KKT matrices, 128 lanes a "
+            f"call) {common['library_ms']:.4f} ms, worst relative deviation "
+            f"{float(rel_err(y_lib, y).max()):.3e} (not gated); max |error| "
+            f"against the f64 plain version {rows[r]['max_abs_err']:.3e}")
+    del y_lib, ref, jb32, b32
+    f64 = {r: {"device_ms": device_ms(
+        lambda: solve_thomas(spec, jb, b, r), 3, ("thomas_dense_",), 2,
+        f"sweep-quad4-dense K3 f64 {r} route B={CHUNK}")}
+        for r in BEYOND_ROUTES[("dense", "f64")]}
+    log(f"[sweep-quad4-dense] K3 device time at B={CHUNK} on the same "
+        f"operands: f32 " + ", ".join(f"{r} {v['device_ms']:.4f} ms"
+                                      for r, v in rows.items())
+        + "; f64 " + ", ".join(f"{r} {v['device_ms']:.4f} ms"
+                               for r, v in f64.items()))
+    del jb, b
+    k3_ms = rows[taken]["device_ms"]
+    k3_share = k3_ms * launches["K3"] / 1e3 / el
+    k4_share = k4_cost["device_ms"] * launches["trial"] / 1e3 / el
+    log(f"[sweep-quad4-dense] f32 {CHUNK} scenarios of the 4-player "
+        f"quadrotor with collision-cost pairs as one chunk, outer "
+        f"{opts.outer_iter} x {opts.inner_iter}, fused trial: {el:.3f} s, "
+        f"{CHUNK / el:.1f} solves/s; diverged {div:.4f}, finite {finite}; "
+        f"stats rows {int(iters.min())}..{int(iters.max())}; launches "
+        f"{launches}; device time: K3 ({taken} route) {launches['K3']} x "
+        f"{k3_ms:.4f} ms = {100 * k3_share:.1f}% of the wall, K4 "
+        f"{launches['trial']} x {k4_cost['device_ms']:.4f} ms = "
+        f"{100 * k4_share:.1f}%")
+    if not (finite and div == 0.0 and abs(mean_ratio - 1) <= PLAIN_RES_TOL
+            and launches["K3"] > 0
+            and launches[f"K3 {taken} route"] == launches["K3"]
+            and launches["trial"] > 0 and launches["K1"] == 0):
+        raise SystemExit("the 4-player quadrotor chunk with collision-cost "
+                         "pairs failed its gates")
+    return {**launches, "wall_s": el, "k3_share": k3_share,
+            "k4_share": k4_share, "route": taken, "route_f64": taken64,
+            "k3_rows": rows, "k3_f64": f64}
 
 
 def hetero_game(dev, dtype, outer=7, inner=20):
@@ -2318,24 +2489,25 @@ def ibr_quad_system(dev, B, mu, seed):
                              iterates=golden_iterates("quad2_N15"))
 
 
-def phase_k3_quad(dev, tag, system, seed0, B=B_KERNEL, shared=False):
+def phase_k3_quad(dev, tag, system, seed0, B=B_KERNEL, beyond=False):
     """K3 against its plain version on quadrotor systems ``system(dev, B,
     mu, seed)``, too ill-conditioned for a forward gate in f32, B lanes,
     mu = 1 .. 1e7, gated as K1's quadrotor phases are: normwise backward
     error f64 <= 1e-15 and f32 <= 1e-7, each <= 10 x the plain version's
     own; f32 forward error <= 30 x the f32 plain version's.  With
-    ``shared`` the systems lie beyond K3's size classes and must take its
-    shared-memory forward kernel, and the device-memory route is gated
-    (backward error <= 1e-7 and 10 x the shared-memory kernel's) and timed
-    beside it on the same operands; without, a register-tiled class, and
-    the shared-memory kernel is timed beside it.  Then its times, bound,
-    library call and forward kernel in f32."""
+    ``beyond`` the systems lie beyond K3's size classes and must take its
+    per-player blocked route, and the shared-memory kernel and the
+    device-memory route are gated (backward error <= 1e-7 and 10 x the
+    blocked route's) and timed beside it on the same operands; without, a
+    register-tiled class, and the shared-memory kernel is timed beside it.
+    Then its times, bound, library call and forward kernel in f32."""
     import torch
     from algames_tpu_torch.ops.thomas import solve_thomas, solve_thomas_plain
     from algames_tpu_torch.utils import tree_map
 
     worst64 = worst32 = max_abs32 = 0.0
-    big = solve_thomas.big_launches
+    counters = kernel_counters()
+    before = read_counters(counters)
     for i, mu in enumerate(MUS):
         spec, jb, b = system(dev, B, mu, seed0 + i)
         jb32, b32 = tree_map(lambda a: a.float(), jb), b.float()
@@ -2360,10 +2532,13 @@ def phase_k3_quad(dev, tag, system, seed0, B=B_KERNEL, shared=False):
                              f"mu={mu}")
         worst64, worst32 = max(worst64, e64), max(worst32, e32)
         max_abs32 = max(max_abs32, float((y32.double() - ref).abs().max()))
-    took = solve_thomas.big_launches - big
-    if took != (2 * len(MUS) if shared else 0):
+    after = read_counters(counters)
+    took = {r: after[f"K3 {r} route"] - before[f"K3 {r} route"]
+            for r in ROUTE_COUNTERS["K3"]}
+    if took != {r: 2 * len(MUS) if beyond and r == "blocked" else 0
+                for r in took}:
         raise SystemExit(f"{tag}: K3 took the wrong forward route ({took} of "
-                         f"{2 * len(MUS)} calls on the shared-memory route)")
+                         f"{2 * len(MUS)} calls by route)")
     ms = cuda_ms(lambda: solve_thomas(spec, jb32, b32), 20)
     plain_ms = cuda_ms(lambda: solve_thomas_plain(spec, jb32, b32), 5)
     dev_ms = device_ms(lambda: solve_thomas(spec, jb32, b32), 20,
@@ -2382,26 +2557,27 @@ def phase_k3_quad(dev, tag, system, seed0, B=B_KERNEL, shared=False):
         f"(events, fwd + bwd); bound {bnd['bound_ms']:.4f} ms "
         f"({bnd['bound_by']}); library {lib_ms:.4f} ms (worst relative "
         f"deviation from K3 {float(rel_err(y_lib, y).max()):.3e}, not gated)")
-    if shared:
-        # The device-memory route forced onto the same operands, gated as
-        # the route the shape takes: is the shared-memory kernel still
-        # faster anywhere it runs?
-        yd = solve_thomas(spec, jb32, b32, forward="device")
-        bwd, bwk = (float(e.max()) for e in backward_errors(
-            spec, jb, None, b, (yd, y), lanes=min(B, 256)))
-        if not (bwd <= 1e-7 and bwd <= 10 * bwk):
-            raise SystemExit(f"{tag}: K3's device-memory route disagrees "
-                             f"with its shared-memory kernel")
-        out["device_route_ms"] = device_ms(
-            lambda: solve_thomas(spec, jb32, b32, forward="device"), 20,
-            ("thomas_dense_",), 2, f"{tag} device-memory route")
-        out["device_route_kernel"] = k3_occupancy(
-            f"{tag} device-memory route", spec, B, "device")
-        log(f"[{tag}] f32 device time at B={B}: the shared-memory kernel "
-            f"{dev_ms:.4f} ms, the device-memory route on the same operands"
-            f" {out['device_route_ms']:.4f} ms "
-            f"({dev_ms / out['device_route_ms']:.2f} x); backward error "
-            f"{bwd:.3e} (shared-memory kernel {bwk:.3e}; <= 1e-7 and 10 x)")
+    if beyond:
+        # The older routes forced onto the same operands, gated as the
+        # route the shape takes: is either still faster where it runs?
+        for r, name in (("shared", "shared-memory kernel"),
+                        ("device", "device-memory route")):
+            yr = solve_thomas(spec, jb32, b32, forward=r)
+            bwr, bwk = (float(e.max()) for e in backward_errors(
+                spec, jb, None, b, (yr, y), lanes=min(B, 256)))
+            if not (bwr <= 1e-7 and bwr <= 10 * bwk):
+                raise SystemExit(f"{tag}: K3's {name} disagrees with its "
+                                 f"blocked route")
+            out[f"{r}_route_ms"] = device_ms(
+                lambda: solve_thomas(spec, jb32, b32, forward=r), 20,
+                ("thomas_dense_",), 2, f"{tag} {name}")
+            out[f"{r}_route_kernel"] = k3_occupancy(
+                f"{tag} {name}", spec, B, r)
+            log(f"[{tag}] f32 device time at B={B}: the blocked route "
+                f"{dev_ms:.4f} ms, the {name} on the same operands "
+                f"{out[f'{r}_route_ms']:.4f} ms "
+                f"({out[f'{r}_route_ms'] / dev_ms:.2f} x); backward error "
+                f"{bwr:.3e} (blocked route {bwk:.3e}; <= 1e-7 and 10 x)")
     else:
         out["shared_device_ms"] = device_ms(
             lambda: solve_thomas(spec, jb32, b32, forward="shared"), 20,
@@ -2891,7 +3067,8 @@ def kernel_counters():
 ROUTE_COUNTERS = {"K1": {"blocked": "blocked_launches",
                          "shared": "wide_launches",
                          "device": "global_launches"},
-                  "K3": {"shared": "big_launches",
+                  "K3": {"blocked": "blocked_launches",
+                         "shared": "big_launches",
                          "device": "global_launches"}}
 
 
@@ -3727,8 +3904,8 @@ def main():
                           QUAD_OPT_GATE)
     # The 3-player quadrotor (d=48): K1's tall class, K4 at n=36; beyond
     # the classes, the 4-player quadrotor (d=64): K1 on its per-player
-    # blocked route in f64 and f32, K3 (with collision-cost pairs) on the
-    # device-memory route, K4 at n=48.
+    # blocked route in f64 and f32, K3 (with collision-cost pairs) on its
+    # own, K4 at n=48.
     k1_wide = phase("K1-wide", lambda: phase_k1(
         dev, "K1-wide", quad3_game, quad3_iterates, 900, "backward",
         shared_too=True))
@@ -3748,17 +3925,29 @@ def main():
           970, B_BEYOND, None, flagship_iterates, BLOCKED_ROUTES)
     k3_big64 = phase("K3-big64", phase_beyond, dev, "K3-big64", "dense",
                      960)
+    # K3's blocked route where d is no multiple of 16 (the 6-player
+    # unicycle's systems turned dense, d=36, beside both older routes) and
+    # forced onto the roundabout's own systems (d=24) beside their class.
+    phase("K3-wide36", phase_beyond, dev, "K3-wide36", "dense", 1900,
+          B_BEYOND, uni6_game, flagship_iterates, UNI6_ROUTES)
+    phase("K3-blocked24", phase_beyond, dev, "K3-blocked24", "dense", 1950,
+          B_BEYOND, None, None, BLOCKED_ROUTES, k3_system)
     k4_quad4 = phase("K4-quad4", phase_trial, "K4-quad4", lambda d, t:
                      trial_inputs(quad4_game, quad3_iterates, True, d, t,
                                   seed=47), dev)
     phase("K4-quad4-bound", phase_trial, "K4-quad4-bound", lambda d, t:
           trial_inputs(quad4_bound_game, quad3_iterates, True, d, t,
                        seed=53), dev)
+    k4_cost = phase("K4-quad4-cost", phase_trial, "K4-quad4-cost",
+                    lambda d, t: trial_inputs(quad4_cost_game, quad3_iterates,
+                                              True, d, t, seed=59), dev)
     launches_wide64 = phase("solve-wide64", phase_solve_beyond, dev,
                             "solve-wide64", quad4_game, "K1")
     launches_big64 = phase("solve-big64", phase_solve_beyond, dev,
                            "solve-big64", quad4_cost_game, "K3")
     launches_quad4 = phase("sweep-quad4", phase_sweep_quad4, dev, k4_quad4)
+    launches_cost = phase("sweep-quad4-dense", phase_sweep_quad4_dense, dev,
+                          k4_cost)
 
     # The heterogeneous double integrator (K3 padded + K4's player-blocked
     # instance) and iterative best response (K3 at p=1).
@@ -3873,9 +4062,28 @@ def main():
         entry("K3", "ibr_quad2_N15, p=1 player systems (d=28): the LU class",
               launches_ibr_quad["K3"], k3_ibr_quad),
         entry("K3", "quad4 with collision-cost pairs (d=64), f64: the "
-              "device-memory route; launches at B=4, times at "
-              f"B={B_BEYOND}", launches_big64["K3 device route"],
-              {**k3_big64, "launches_lanes": 4, "timed_lanes": B_BEYOND},
+              "per-player blocked route; launches at B=4, times at "
+              f"B={B_BEYOND} on quad4's systems turned dense",
+              launches_big64["K3 blocked route"],
+              {**k3_big64["f64"]["blocked"], "launches_lanes": 4,
+               "timed_lanes": B_BEYOND}, "thomas_blocked.cuh"),
+        entry("K3", "quad4 with collision-cost pairs (d=64), f64: the "
+              "device-memory route, timed beside the route the shape "
+              f"takes; launches at B=4, times at B={B_BEYOND}",
+              launches_big64["K3 device route"],
+              {**k3_big64["f64"]["device"], "launches_lanes": 4,
+               "timed_lanes": B_BEYOND}, "thomas_global.cuh"),
+        entry("K3", "quad4 with collision-cost pairs (d=64), f32 sweep, "
+              f"B={CHUNK}: the per-player blocked route",
+              launches_cost["K3 blocked route"],
+              {**launches_cost["k3_rows"]["blocked"],
+               "launches_lanes": CHUNK, "timed_lanes": CHUNK},
+              "thomas_blocked.cuh"),
+        entry("K3", "quad4 with collision-cost pairs (d=64), f32 sweep, "
+              f"B={CHUNK}: the device-memory route, timed beside the route "
+              "the shape takes", launches_cost["K3 device route"],
+              {**launches_cost["k3_rows"]["device"],
+               "launches_lanes": CHUNK, "timed_lanes": CHUNK},
               "thomas_global.cuh"),
         entry("K4", "round4_N40", launches4["K4"], k4),
         entry("K4", "di2_N10", launches_di["K4"], k4_di),
@@ -3883,6 +4091,8 @@ def main():
         entry("K4", "quad2_N15", launches_quad["K4"], k4_quad),
         entry("K4", "quad3 (n=36)", launches_quad3["trial"], k4_quad3),
         entry("K4", "quad4 (n=48)", launches_quad4["trial"], k4_quad4),
+        entry("K4", "quad4 with collision-cost pairs (n=48)",
+              launches_cost["trial"], k4_cost),
         entry("K4", "hetero2_N8", launches_het["K4"], k4_het),
         entry("K1", "ring3_eq_N20", launches_eq["K1"], k1_ring),
         entry("K4", "ring3_eq_N20", launches_eq["K4"], k4_eq),

@@ -245,9 +245,9 @@ def test_k1_route_is_chosen_by_shape(monkeypatch):
     (3, counted by ``blocked_launches``); none (-1) raises.  It asks once
     per shape and dtype, keeps its launchers, never takes the plain
     version, and raises on a launch error.  ``forward="blocked"`` takes the
-    blocked route without asking the library; K3's library has no blocked
-    route.  Checked with a fake library whose launchers record their names
-    and whose backward launcher writes the plain solution."""
+    blocked route without asking the library, in K3's library too.  Checked
+    with a fake library whose launchers record their names and whose
+    backward launcher writes the plain solution."""
     import contextlib
     import ctypes
     import types
@@ -353,9 +353,9 @@ def test_k1_route_is_chosen_by_shape(monkeypatch):
         with pytest.raises(ValueError, match="unknown forward route"):
             thomas.solve_thomas_structured(spec, sq32, b.float(), w_owner,
                                            forward="tiled")
-        with pytest.raises(ValueError, match="unknown forward route"):
-            thomas._pick_route(thomas._LIB_DENSE, torch.float32,
-                               (spec.n, spec.m, spec.p), "blocked")
+        assert thomas._pick_route(thomas._LIB_DENSE, torch.float32,
+                                  (spec.n, spec.m, spec.p),
+                                  "blocked") == "blocked"
         thomas._shape_route.cache_clear()
         thomas._sq_launch.cache_clear()
         state["route"] = -1
@@ -372,6 +372,124 @@ def test_k1_route_is_chosen_by_shape(monkeypatch):
         solve_thomas_structured.wide_launches = wide
         solve_thomas_structured.global_launches = dev_mem
         solve_thomas_structured.blocked_launches = blocked
+
+
+def test_k3_route_is_chosen_by_shape(monkeypatch):
+    """On a card tensor, K3's wrapper picks its forward kernel by shape
+    before the launch, as the library's ``thomas_dense_route`` says: the
+    register-tiled one (0), the per-player blocked one (3, counted by
+    ``blocked_launches``, no workspace), the shared-memory one (1, counted
+    by ``big_launches``) or the device-memory one (2, counted by
+    ``global_launches``, with a workspace); none (-1) raises.  It asks once
+    per shape and dtype, never takes the plain version, and raises on a
+    launch error; ``forward="blocked"`` takes the blocked route without
+    asking.  Checked with a fake library whose launchers record their names
+    and argument counts and whose backward launcher writes the plain
+    solution."""
+    import contextlib
+    import ctypes
+    import types
+    import chip_smoke
+    from algames_tpu_torch.ops import thomas
+    spec, sq, b, w_owner = chip_smoke.k1_system(torch.device("cpu"), 2, 1e3,
+                                                11)
+    jb = chip_smoke.dense_of(spec, sq, w_owner)
+    jbs = {torch.float64: (jb, b),
+           torch.float32: (type(jb)(*[getattr(jb, f).float() for f in
+                                      ("Qblk", "Ublk", "A", "B")]),
+                           b.float())}
+    want = {dt: thomas.solve_thomas_plain(spec, *sys_)
+            for dt, sys_ in jbs.items()}
+    calls, state = [], {"route": 3, "err": 0, "dtype": torch.float64}
+
+    class Export:
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, *args):
+            if "error_string" in self.name:
+                return b"launch refused"
+            calls.append((self.name, len(args)))
+            if "_route_" in self.name:
+                return state["route"]
+            if "_bwd_" in self.name:
+                y = want[state["dtype"]]
+                ctypes.memmove(args[5], y.data_ptr(),
+                               y.numel() * y.element_size())
+            return state["err"] if "_fwd_" in self.name else 0
+
+    class Library:
+        def __getattr__(self, name):
+            return Export(name)
+
+    def plain(*_):
+        raise AssertionError("the plain version ran for a card tensor")
+    monkeypatch.setattr(thomas, "_route", lambda t: "kernel")
+    monkeypatch.setattr(thomas.build, "load", lambda name: Library())
+    monkeypatch.setattr(thomas, "solve_thomas_plain", plain)
+    monkeypatch.setattr(thomas, "solve_tridiagonal_schur", plain)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    counts = ("launches", "blocked_launches", "big_launches",
+              "global_launches")
+    before = {c: getattr(solve_thomas, c) for c in counts}
+
+    def took():
+        return {c: getattr(solve_thomas, c) - before[c] for c in counts}
+
+    def solve(dt, forward="auto"):
+        state["dtype"] = dt
+        y = thomas.solve_thomas(spec, *jbs[dt], forward)
+        torch.testing.assert_close(y, want[dt], rtol=0, atol=0)
+    thomas._shape_route.cache_clear()
+    try:
+        for dt in (torch.float64, torch.float32, torch.float64):
+            solve(dt)
+        assert calls == [
+            ("thomas_dense_route_f64", 3), ("thomas_dense_fwd_blocked_f64", 14),
+            ("thomas_dense_bwd_f64", 12), ("thomas_dense_route_f32", 3),
+            ("thomas_dense_fwd_blocked_f32", 14), ("thomas_dense_bwd_f32", 12),
+            ("thomas_dense_fwd_blocked_f64", 14), ("thomas_dense_bwd_f64", 12)]
+        assert took() == {"launches": 3, "blocked_launches": 3,
+                          "big_launches": 0, "global_launches": 0}
+        calls.clear()
+        thomas._shape_route.cache_clear()
+        state["route"] = 0                   # by name, not by shape
+        solve(torch.float32, "blocked")
+        assert calls == [("thomas_dense_fwd_blocked_f32", 14),
+                         ("thomas_dense_bwd_f32", 12)]
+        solve(torch.float32)
+        assert calls[2:] == [("thomas_dense_route_f32", 3),
+                             ("thomas_dense_fwd_f32", 14),
+                             ("thomas_dense_bwd_f32", 12)]
+        assert took()["blocked_launches"] == 4
+        calls.clear()
+        for code, name, nargs, counter in ((1, "big_", 14, "big_launches"),
+                                           (2, "global_", 15,
+                                            "global_launches")):
+            thomas._shape_route.cache_clear()
+            state["route"] = code
+            solve(torch.float64)
+            assert calls == [("thomas_dense_route_f64", 3),
+                             (f"thomas_dense_fwd_{name}f64", nargs),
+                             ("thomas_dense_bwd_f64", 12)]
+            assert took()[counter] == 1
+            calls.clear()
+        assert took() == {"launches": 7, "blocked_launches": 4,
+                          "big_launches": 1, "global_launches": 1}
+        thomas._shape_route.cache_clear()
+        state["route"] = -1
+        with pytest.raises(ValueError, match="no forward kernel"):
+            solve(torch.float64)
+        state.update(route=3, err=700)
+        with pytest.raises(RuntimeError, match="launch refused"):
+            solve(torch.float32, "blocked")
+    finally:
+        thomas._shape_route.cache_clear()
+        for c, v in before.items():
+            setattr(solve_thomas, c, v)
 
 
 def test_presets_default_to_the_card():

@@ -236,6 +236,16 @@ def emulate(spec, jb, b, dtype, eliminate=None):
                            bk[:, t], Gx, yx, owner, n, m, p, eliminate)
         sols.append(sol)
         Gx, yx = sol[:, :n, :pn], sol[:, :n, pn]
+    return backward(spec, sols, Q, A, bk, dtype)
+
+
+def backward(spec, sols, Q, A, bk, dtype):
+    """K3's backward recursion (thomas_dense_bwd_kernel) from each knot's
+    forward solution [B, d, p n + 1] (``sols``; numpy operands in
+    ``dtype``): the flat [B, S] solution."""
+    n, p, T = spec.n, spec.p, spec.T
+    pn = p * n
+    zero = np.zeros((B, n, n), dtype)
     lam_next = np.zeros((B, pn), dtype)
     out = [None] * T
     for t in range(T - 1, -1, -1):

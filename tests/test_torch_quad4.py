@@ -59,6 +59,7 @@ from algames_tpu_torch.constraints.kernels import make_bound
 from algames_tpu_torch.core.spec import owner_map_u
 from algames_tpu_torch.convert import problem_from_reference
 from algames_tpu_torch.core.traj import PrimalDual
+from algames_tpu_torch.objective.objective import add_collision_cost
 from algames_tpu_torch.ops import thomas, trial
 from algames_tpu_torch.presets import quadrotor3d
 from algames_tpu_torch.utils import tree_leaves, tree_map
@@ -277,20 +278,59 @@ def panel_lu(M, d):
 
 def blocked_knot(q, w, Ub, Bm, At, A1, bk, X, owner, w_owner, n, m, p):
     """One knot of K1's per-player blocked forward route
+    (``csrc/thomas_blocked.cuh``, Q form ``StructuredForm``) on lanes'
+    numpy operands: :func:`blocked_sweep_knot` with K's x columns in
+    StructuredQ's order (``test_torch_k1_order.x_columns``)."""
+    return blocked_sweep_knot(
+        lambda K, F: k1o.x_columns(K, F, q, w, Bm, owner, w_owner, n, m, p),
+        Ub, Bm, At, A1, bk, X, owner, n, m, p)
+
+
+def dense_x_columns(K, F, Q, Bm, owner, n, m, p):
+    """K3's x columns on the blocked route (``DenseForm``), in the kernel's
+    order: player by player, k ascending, F_i Q_i added to the dyn rows and
+    B^T Q_i to the statu rows that player i owns, into one running sum per
+    entry from zero; then -I on the dyn rows."""
+    dt = K.dtype
+    own = np.asarray(owner, int)
+    acc = np.zeros(K.shape[:1] + (m + n, n), dt)
+    for i in range(p):
+        mine = (own == i)[None, :, None]
+        for k in range(n):
+            acc[:, :m] = np.where(
+                mine, acc[:, :m] + Bm[:, k, :, None] * Q[:, i, None, k, :],
+                acc[:, :m])
+            acc[:, m:] = acc[:, m:] + F[:, :, i * n + k, None] * Q[:, i, None,
+                                                                   k, :]
+    K[:, :, :n] = acc
+    K[:, m:, :n] = K[:, m:, :n] + (-np.eye(n, dtype=dt))
+
+
+def dense_blocked_knot(Q, Ub, Bm, At, A1, bk, X, owner, n, m, p):
+    """One knot of K3's per-player blocked forward route (Q form
+    ``DenseForm``): :func:`blocked_sweep_knot` with :func:`dense_x_columns`
+    (``Q`` [B, p, n, n])."""
+    return blocked_sweep_knot(
+        lambda K, F: dense_x_columns(K, F, Q, Bm, owner, n, m, p), Ub, Bm,
+        At, A1, bk, X, owner, n, m, p)
+
+
+def blocked_sweep_knot(x_columns, Ub, Bm, At, A1, bk, X, owner, n, m, p):
+    """One knot of the per-player blocked forward route
     (``csrc/thomas_blocked.cuh``) on lanes' numpy operands, in the kernel's
-    order: X [B, d, R] is the previous knot's solution in variable order
+    order, K's x columns (-I included) by the Q form's ``x_columns(K,
+    F)``: X [B, d, R] is the previous knot's solution in variable order
     (the carry: zero at the first knot); returns this knot's.
 
     u = y_{t-1} + G_{t-1} a, four partial sums over quarters of the row
     added pairwise; F_i = -A_t G_{t-1,i}; the y column c + B^T a_owner on
-    the statu rows and d0 - A_t u on the dyn rows; K's x columns in
-    StructuredQ's order (``test_torch_k1_order.x_columns``); LU of K with
-    the lowest-index largest pivot, multipliers K[r, s] (1 / piv) of the
-    rows not pivoted yet, which take K[r, :] -= l K[pr, :]; the right-hand
-    sides [B^T A_{t+1}^T on the owner's statu rows; F_i A_{t+1}^T] in pivot
-    order; the forward substitution Z[v] -= L[v, s] Z[s] over v > s, step
-    by step; the back substitution last step first, x_s = Z[s] (1 / piv_s),
-    Z[v] -= U[v, s] x_s over v < s."""
+    the statu rows and d0 - A_t u on the dyn rows; K's x columns; LU of K
+    with the lowest-index largest pivot, multipliers K[r, s] (1 / piv) of
+    the rows not pivoted yet, which take K[r, :] -= l K[pr, :]; the
+    right-hand sides [B^T A_{t+1}^T on the owner's statu rows; F_i
+    A_{t+1}^T] in pivot order; the forward substitution Z[v] -= L[v, s]
+    Z[s] over v > s, step by step; the back substitution last step first,
+    x_s = Z[s] (1 / piv_s), Z[v] -= U[v, s] x_s over v < s."""
     dt = X.dtype
     Bsz = X.shape[0]
     pn, d = p * n, n + m
@@ -320,7 +360,7 @@ def blocked_knot(q, w, Ub, Bm, At, A1, bk, X, owner, w_owner, n, m, p):
         s = s + At[:, :, k] * u[:, None, k]
     yr[:, m:] = bk[:, pn + m:] - s
     K = np.zeros((Bsz, d, d), dt)
-    k1o.x_columns(K, F, q, w, Bm, owner, w_owner, n, m, p)
+    x_columns(K, F)
     K[:, :m, n:] = Ub
     K[:, m:, n:] = Bm
     used = np.zeros((Bsz, d), bool)
@@ -382,14 +422,36 @@ def blocked_route(spec, sq, b, w_owner, dtype):
     return k1o.backward(spec, sols, q, w, A, bk, w_owner, dtype)
 
 
+def dense_blocked_route(spec, jb, b, dtype):
+    """K3 on its per-player blocked forward route (``dense_blocked_knot``)
+    and the unchanged backward kernel, on numpy copies of ``jb`` and ``b``
+    in ``dtype``: the flat [B, S] solution."""
+    Q, Ub, Bm, A = (getattr(jb, f).numpy().astype(dtype)
+                    for f in ("Qblk", "Ublk", "B", "A"))
+    bk = b.numpy().astype(dtype)
+    n, m, p, T = spec.n, spec.m, spec.p, spec.T
+    owner = owner_map_u(spec)
+    X = np.zeros((B, n + m, p * n + 1), dtype)
+    zero = np.zeros((B, n, n), dtype)
+    sols = []
+    for t in range(T):
+        A1 = A[:, t + 1] if t + 1 < T else zero
+        X = dense_blocked_knot(Q[:, t], Ub[:, t], Bm[:, t], A[:, t], A1,
+                               bk[:, t], X, owner, n, m, p)
+        sols.append(X)
+    return k3o.backward(spec, sols, Q, A, bk, dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def full_system(form, mu):
     """B lanes of the game's full-size KKT systems (N=15), as
     ``chip_smoke.py``'s ``K1-wide64`` (structured) and ``K3-big64`` (the
-    same turned dense) build them; the blocked route's are the structured
-    ones."""
+    same turned dense) build them; the blocked routes' are K1's structured
+    ones and K3's dense ones."""
     if form == "blocked":
         return full_system("structured", mu)
+    if form == "dense-blocked":
+        return full_system("dense", mu)
     spec, sq, b, w_owner = chip_smoke.k1_system(
         CPU, B, mu, 950, preset=chip_smoke.quad4_game,
         iterates=chip_smoke.quad3_iterates)
@@ -403,18 +465,21 @@ def emulate(form, spec, blocks, b, w_owner, dtype):
         return k3o.emulate(spec, blocks, b, dtype, panel_lu)
     if form == "blocked":
         return blocked_route(spec, blocks, b, w_owner, dtype)
+    if form == "dense-blocked":
+        return dense_blocked_route(spec, blocks, b, dtype)
     return k1o.emulate(spec, blocks, b, w_owner, dtype, panel_lu)
 
 
 def plain(form, spec, blocks, b, w_owner):
-    if form == "dense":
+    if form in ("dense", "dense-blocked"):
         return thomas.solve_thomas_plain(spec, blocks, b)
     return thomas.solve_thomas_structured_plain(spec, blocks, b, w_owner)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("mu", [1e3, 1e7])
-@pytest.mark.parametrize("form", ["structured", "dense", "blocked"])
+@pytest.mark.parametrize("form", ["structured", "dense", "blocked",
+                                  "dense-blocked"])
 def test_emulated_route_meets_the_quadrotor_gates(form, mu, dtype):
     spec, blocks, b, w_owner = full_system(form, mu)
     assert spec.n + spec.m == 64
@@ -435,10 +500,11 @@ def test_emulated_route_meets_the_quadrotor_gates(form, mu, dtype):
         assert err <= 30 * err_plain, (err, err_plain)
 
 
-@pytest.mark.parametrize("form", ["structured", "dense", "blocked"])
+@pytest.mark.parametrize("form", ["structured", "dense", "blocked",
+                                  "dense-blocked"])
 def test_emulated_route_matches_the_jax_reference(form):
     spec, blocks, b, w_owner = full_system(form, 1e3)
-    dense = (blocks if form == "dense"
+    dense = (blocks if w_owner is None
              else chip_smoke.dense_of(spec, blocks, w_owner))
     jspec = ag.spec_from_model(ag.quadrotor_game(p=4), spec.N, 0.1)
     assert (jspec.T, jspec.n, jspec.m, jspec.p, jspec.pu) == (
@@ -446,3 +512,62 @@ def test_emulated_route_matches_the_jax_reference(form):
     ref = jax_reference(jspec, dense, b)
     err = rel(emulate(form, spec, blocks, b, w_owner, np.float64), ref, B)
     assert err <= 1e-10, err
+
+
+@functools.lru_cache(maxsize=None)
+def dense_system(game, mu):
+    """B lanes of K3 systems beyond its classes that the blocked route
+    takes, with the JAX package's spec: ``"quad4 cost"``, the KKT systems
+    of ``chip_smoke.quad4_cost_game`` at N=4 (T=3; the game's collision
+    cost between every pair of players makes Q_i full), around
+    ``quad3_iterates``; ``"uni6 dense"``, ``K1-wide36``'s systems of the
+    6-player unicycle (d=36, no multiple of 16) turned dense.  mu on the
+    statx diagonals."""
+    if game == "quad4 cost":
+        _, jspec, tprob = short_game(4)
+        spec = tprob.spec
+        prob = dataclasses.replace(tprob, obj=add_collision_cost(
+            spec, tprob.obj, radius=0.2 * np.ones(spec.p),
+            mu=2.0 * np.ones(spec.p)))
+        spec, jb, b = chip_smoke.k3_system(
+            CPU, B, mu, 31, preset=lambda dev, dtype: (prob, spec),
+            iterates=chip_smoke.quad3_iterates)
+        return jspec, spec, jb, b
+    spec, sq, b, w_owner = chip_smoke.k1_system(CPU, B, mu, 980,
+                                                preset=chip_smoke.uni6_game)
+    jspec = ag.spec_from_model(ag.unicycle_game(p=6), spec.N, spec.dt)
+    return jspec, spec, chip_smoke.dense_of(spec, sq, w_owner), b
+
+
+def cross_player(spec, Q):
+    """The largest |entry| of the Q_i [B, T, p, n, n] that couples two
+    players' positions."""
+    worst = 0.0
+    for i in range(spec.p):
+        for j in range(spec.p):
+            if i != j:
+                block = Q[..., list(spec.px[i]), :][..., list(spec.px[j])]
+                worst = max(worst, float(np.abs(block).max()))
+    return worst
+
+
+@pytest.mark.parametrize("mu", [1e3, 1e7])
+@pytest.mark.parametrize("game", ["quad4 cost", "uni6 dense"])
+def test_dense_blocked_route_beyond_the_classes(game, mu):
+    """K3's blocked route, emulated (``dense_blocked_route``), on the
+    collision-cost game's own systems (genuinely dense Q_i) and on the
+    6-player unicycle's (d=36): the quadrotor's gates in f64 and f32
+    (``test_torch_k3_order.quad_gates``) and, at mu = 1e3, within 1e-10 of
+    the JAX package's ``solve_tridiagonal_schur`` in f64."""
+    jspec, spec, jb, b = dense_system(game, mu)
+    assert (spec.n + spec.m, jspec.n, jspec.m, jspec.p, jspec.T) == (
+        64 if game == "quad4 cost" else 36, spec.n, spec.m, spec.p, spec.T)
+    if game == "quad4 cost":
+        assert cross_player(spec, jb.Qblk.numpy()) > 0
+    ref = thomas.solve_thomas_plain(spec, jb, b).numpy()
+    for dtype in (np.float64, np.float32):
+        y = dense_blocked_route(spec, jb, b, dtype)
+        k3o.quad_gates(spec, jb, b, y, dtype, ref)
+        if dtype == np.float64 and mu == 1e3:
+            err = rel(y, jax_reference(jspec, jb, b), B)
+            assert err <= 1e-10, err
