@@ -101,8 +101,10 @@
 //
 // Shared memory a lane at the 4-player quadrotor's widths: K1 101,328 bytes
 // in f32 (2 lanes an SM) and 202,000 in f64 (1); K3 109,696 and 218,816;
-// see smem_bytes().  The route takes d <= 64, at most 32 control rows and
-// (K1) 64 w vectors, within 232,448 bytes.
+// see smem_bytes().  The route takes d <= 64 and at most 32 control rows
+// within 232,448 bytes: K1's w vectors are bounded by those bytes alone
+// (the 9-player unicycle merge, NW = 72: 131,736 bytes a lane in f32, and
+// in f64 231,064 with Pw over Ks, see Layout).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -135,8 +137,15 @@ __host__ __device__ inline int panels(int d) {
 // substitution's 16-row panels read all of them.  The Q form QF sizes its
 // own words: ``q``, what it stages a knot (QF::staged: K1's q [p, n], K3's
 // two slots of one player's Q_i); ``w``, K1's w [NW, n] (NW = 0 for K3);
-// ``Pw``, its products [d, NW] (K1's, QF::kStructured; K3 has none).
-template <typename T, typename QF>
+// ``Pw``, its products [d, NW] (K1's, QF::kStructured; K3 has none), in
+// words of its own or, with kPwInK, over K's slots Ks: Pw is dead once K is
+// in registers and the slots are first written by the LU after it, so the
+// two never live at once (where d ldP <= panels(d) ldK; forward_sweep
+// zeroes the words of Ks outside K's d x d again after K is built).  That
+// sheds Pw's bytes where the layout would not fit a block otherwise: the
+// 9-player unicycle merge in f64 (n=36, m=18, p=9, NW=72) needs 262,600
+// bytes with Pw resident and 231,064 with Pw in Ks.
+template <typename T, typename QF, bool kPwInK = false>
 struct Layout {
   int ldX, ldK, ldA, ldP;
   int X, K, A, Bs, q, w, bk, Ub, Pw, yr, u, rinv, words;
@@ -155,7 +164,11 @@ struct Layout {
     w = o;    o += thomas_core::round16<T>(NW * n);
     bk = o;   o += thomas_core::round16<T>(W);
     Ub = o;   o += thomas_core::round16<T>(m * m);
-    Pw = o;   o += thomas_core::round16<T>(QF::kStructured ? d * ldP : 0);
+    if (kPwInK) {
+      Pw = K;
+    } else {
+      Pw = o; o += thomas_core::round16<T>(QF::kStructured ? d * ldP : 0);
+    }
     yr = o;   o += thomas_core::round16<T>(d);
     u = o;    o += thomas_core::round16<T>(n);
     rinv = o; o += thomas_core::round16<T>(d);
@@ -165,18 +178,20 @@ struct Layout {
 
 // Bytes a lane: the layout, then pivrow [d], pos [d], owner [m], w_owner
 // [NW] as ints.
-template <typename T, typename QF>
+template <typename T, typename QF, bool kPwInK = false>
 size_t smem_bytes(int n, int m, int p, int NW) {
-  return Layout<T, QF>(n, m, p, NW).words * sizeof(T) +
+  return Layout<T, QF, kPwInK>(n, m, p, NW).words * sizeof(T) +
          (size_t)(2 * (n + m) + m + NW) * sizeof(int);
 }
 
-// Whether the route takes these widths.
-template <typename T, typename QF>
-bool fits(int n, int m, int p, int NW, int max_m, int max_nw) {
-  return n >= 1 && p >= 1 && m >= 1 && m <= max_m && NW <= max_nw &&
-         n + m <= kRG * kDT &&
-         smem_bytes<T, QF>(n, m, p, NW) <= (size_t)kMaxSmem;
+// Whether the route takes these widths (kPwInK: with Pw over Ks).  Shared
+// memory bounds NW; no table of a fixed size does.
+template <typename T, typename QF, bool kPwInK = false>
+bool fits(int n, int m, int p, int NW, int max_m) {
+  const int d = n + m;
+  if (kPwInK && d * odd(NW) > panels(d) * odd(panels(d))) return false;
+  return n >= 1 && p >= 1 && m >= 1 && m <= max_m && d <= kRG * kDT &&
+         smem_bytes<T, QF, kPwInK>(n, m, p, NW) <= (size_t)kMaxSmem;
 }
 
 // K1's Q form: Q_i = diag(q_i) + sum_{owner(k) = i} w_k w_k^T, staged a
@@ -274,8 +289,8 @@ struct DenseForm {
 // The forward sweep of lane blockIdx.x: G [B, T, d, p n] and y_hat [B, T, d]
 // in (x, u) row order.  NI: tiles of 16 that cover n; QF: the Q form and
 // qd, wv its operands (StructuredForm: q and w, NW w vectors owned per
-// w_owner; DenseForm: Q, wv unused, NW = 0).
-template <typename T, int NI, typename QF>
+// w_owner; DenseForm: Q, wv unused, NW = 0); kPwInK: Pw over Ks (Layout).
+template <typename T, int NI, typename QF, bool kPwInK = false>
 __device__ __forceinline__ void forward_sweep(
     const T* __restrict__ qd, const T* __restrict__ wv,
     const T* __restrict__ Ubg, const T* __restrict__ Bg,
@@ -284,7 +299,7 @@ __device__ __forceinline__ void forward_sweep(
     const int* owner, const int* w_owner, unsigned char* raw) {
   static_assert(NI >= 1 && NI <= kDT, "n <= 64");
   const int pn = p * n, d = n + m, R = pn + 1, W = n + m + pn;
-  const Layout<T, QF> L(n, m, p, NW);
+  const Layout<T, QF, kPwInK> L(n, m, p, NW);
   T* sm = reinterpret_cast<T*>(raw);
   T* X = sm + L.X;
   T* Ks = sm + L.K;
@@ -516,6 +531,15 @@ __device__ __forceinline__ void forward_sweep(
             const int c = cg + kCG * j;
             if (c < n) kx[i][j] += pw * wkv[j];
           }
+        }
+      }
+      if constexpr (kPwInK) {
+        // Pw read; the words of Ks it covered outside K's d x d back to 0
+        // (the LU writes only inside, so no barrier before it).
+        __syncthreads();
+        for (int e = tid; e < d * ldP; e += kThreads) {
+          const int r = e / ldK, c = e - r * ldK;
+          if (r >= d || c >= d) Ks[e] = T(0);
         }
       }
     } else {

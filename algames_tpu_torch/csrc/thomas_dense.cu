@@ -183,6 +183,10 @@ template <typename T>
 struct DenseGlobalQ {
   const T* Qg;                         // [B, T, p, n, n]
 
+  // Columns of the panel: one right-hand side a thread (no products).
+  __host__ __device__ static constexpr int panel_cols() {
+    return thomas_global::kThreads;
+  }
   __device__ void products(T*, const T*, const T*, size_t, const int*, int,
                            int, int) const {}
   // Row r, column c (< n) of K: B^T Q_owner, or -I + sum_i F_i Q_i.
@@ -377,7 +381,7 @@ int launch_fwd_global(const void* Q, const void* Ub, const void* Bm,
 template <typename T>
 bool blocked_fits(int n, int m, int p) {
   return thomas_blocked::fits<T, thomas_blocked::DenseForm<T>>(n, m, p, 0,
-                                                               kMaxM, 0);
+                                                               kMaxM);
 }
 
 template <typename T>

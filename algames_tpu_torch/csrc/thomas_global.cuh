@@ -19,9 +19,10 @@
 // panel of right-hand sides that does not grow with R:
 //   - K [d, d]: factored in place, then copied to pivot order with the
 //     multipliers of L below the diagonal and U on and above it;
-//   - the panel [d, kThreads]: one right-hand-side column a thread, R / 128
-//     passes (2 at R=193); it also holds the K1 form's products B^T w_k and
-//     F w_k [d, NW] while K is built, and K's copy while it is permuted;
+//   - the panel [d, max(kThreads, NW)]: one right-hand-side column a
+//     thread, R / 128 passes (2 at R=193); it also holds the K1 form's
+//     products B^T w_k and F w_k [d, NW] while K is built, and K's copy
+//     while it is permuted;
 //   - B [n, m], b [W], the pivot rows and marks.
 // F lives in a per-lane workspace in device memory that the wrapper
 // allocates (n x p n scalars a lane); the carry G_{t-1}, y_{t-1} is read
@@ -42,8 +43,9 @@
 //
 // Shared memory a lane at the 4-player quadrotor's widths: 107,008 bytes
 // in f64 and 53,760 in f32 (2 and 4 lanes an SM).  The route takes d <= 128
-// within 232,448 bytes (in f64 d up to about 104), at most 32 control rows
-// and 64 w vectors (fits); the wrappers refuse wider systems.  Bound on
+// within 232,448 bytes (in f64 d up to about 104) and at most 32 control
+// rows (fits); past 128 w vectors the panel widens to hold K1's products;
+// the wrappers refuse wider systems.  Bound on
 // the card: neither bytes nor operations, but the latency of each knot's
 // chains (d pivot steps; a right-hand side's 2 d^2 dependent multiply-adds
 // from shared memory) at 2 to 4 lanes an SM.
@@ -60,30 +62,35 @@ namespace thomas_global {
 constexpr int kThreads = 128;      // threads a lane, columns a panel
 constexpr int kMaxSmem = 232448;   // shared memory a block may have
 
-// Shared-memory layout of a lane, in scalars of T, then 2 d ints.
+// Shared-memory layout of a lane, in scalars of T, then 2 d ints.  The
+// panel has ``cols`` columns: kThreads, or more where the Q form's
+// products need them (QForm::panel_cols: K1's Pw [d, NW]).
 struct Layout {
   int K, panel, Bs, bs, total;
-  __host__ __device__ Layout(int n, int m, int p) {
+  __host__ __device__ Layout(int n, int m, int p, int cols = kThreads) {
     const int d = n + m, W = n + m + p * n;
     int o = 0;
     K = o;     o += d * d;
-    panel = o; o += d * kThreads;
+    panel = o; o += d * cols;
     Bs = o;    o += n * m;
     bs = o;    o += W;
     total = o;
   }
 };
 
+// Bytes a lane (NW: the K1 form's w vectors, which widen the panel past
+// kThreads columns).
 template <typename T>
-size_t smem_bytes(int n, int m, int p) {
-  return Layout(n, m, p).total * sizeof(T) + 2 * (n + m) * sizeof(int);
+size_t smem_bytes(int n, int m, int p, int NW = 0) {
+  return Layout(n, m, p, NW > kThreads ? NW : kThreads).total * sizeof(T) +
+         2 * (n + m) * sizeof(int);
 }
 
-// Whether the route takes these widths (NW: the K1 form's w vectors).
+// Whether the route takes these widths.
 template <typename T>
 bool fits(int n, int m, int p, int NW) {
-  return m <= thomas::kMaxM && n + m <= kThreads && NW <= kThreads &&
-         smem_bytes<T>(n, m, p) <= (size_t)kMaxSmem;
+  return m <= thomas::kMaxM && n + m <= kThreads &&
+         smem_bytes<T>(n, m, p, NW) <= (size_t)kMaxSmem;
 }
 
 // Scalars of the per-lane workspace: the fill-in F [n, p n].
@@ -144,7 +151,7 @@ __device__ void forward_sweep(const QForm& qf, const T* __restrict__ Ub,
                               const int* owner, unsigned char* raw) {
   const int pn = p * n, d = n + m, R = pn + 1, W = n + m + pn;
   const int tid = threadIdx.x, lane = blockIdx.x;
-  const Layout L(n, m, p);
+  const Layout L(n, m, p, qf.panel_cols());
   T* sm = reinterpret_cast<T*>(raw);
   T* K = sm + L.K;
   T* P = sm + L.panel;

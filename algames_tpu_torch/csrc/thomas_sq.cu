@@ -48,7 +48,10 @@
 // thomas_blocked.cuh (the "blocked" route: F formed over the carry in
 // place, K's LU in registers, the right-hand sides built in pivot order and
 // substituted in registers, 256 threads a lane; the 4-player quadrotor's
-// systems, d = 64, in f32 and f64).  The routes it replaced stay
+// systems, d = 64, in f32 and f64; the 9-player unicycle merge's, d = 54
+// with 72 w vectors, both too, f64 with the products Pw over K's slots).  No
+// table of a fixed size bounds the w vectors: their owners are a device
+// array.  The routes it replaced stay
 // reachable by name: the shared-memory forward kernel of thomas_common.cuh
 // (the "wide" route: every per-knot operand, the carry and the augmented
 // system in shared memory, three barriers per pivot step, a serial back
@@ -74,11 +77,12 @@ using thomas::Fwd;
 using thomas::kMaxM;
 using thomas::kThreads;
 
-constexpr int kMaxNW = 64;
-
+// The owner of each control row travels by value; the owner of each
+// rank-1 vector (w_owner [NW]) is a device array that the wrapper uploads
+// once per shape, so that no table sized by a constant bounds NW: only
+// shared memory does (the 9-player unicycle merge has NW = 72).
 struct SqMeta {
   int owner[kMaxM];     // player owning control row r
-  int w_owner[kMaxNW];  // player owning rank-1 vector k
 };
 
 // Q_i = diag(q_i) + sum_{owner(k) = i} w_k w_k^T.  Fw[a, k] =
@@ -222,6 +226,11 @@ struct SqGlobalQ {
   const int* w_owner;                  // [NW]
   int NW;
 
+  // Columns of the panel: one right-hand side a thread, and at least NW
+  // so that the products Pw [d, NW] fit it.
+  __host__ __device__ int panel_cols() const {
+    return NW > thomas_global::kThreads ? NW : thomas_global::kThreads;
+  }
   __device__ void products(T* Pw, const T* F, const T* Bs, size_t kt,
                            const int* owner, int n, int m, int p) const {
     const T* w = wv + kt * NW * n;
@@ -281,12 +290,12 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_fwd_kernel(
     const T* __restrict__ Ub, const T* __restrict__ Bm,
     const T* __restrict__ A, const T* __restrict__ bk,
     T* __restrict__ G_out, T* __restrict__ y_out,
-    int Tn, int n, int m, int p, int NW, const __grid_constant__ SqMeta meta) {
+    int Tn, int n, int m, int p, int NW, const int* __restrict__ w_owner,
+    const __grid_constant__ SqMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Fwd<T> S(smem_raw, n, m, p, p * n + NW * n, n * NW);
   T* w = S.q + p * n;
-  const SqForm<T> qf{S.Bs, S.q, w, S.F, S.Fw, n, m, p, S.pn, NW,
-                     meta.w_owner};
+  const SqForm<T> qf{S.Bs, S.q, w, S.F, S.Fw, n, m, p, S.pn, NW, w_owner};
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
   const int nth = kThreads;
@@ -302,7 +311,7 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_fwd_kernel(
     __syncthreads();
     for (int idx = tid; idx < n * NW; idx += nth) {
       const int a = idx / NW, k = idx % NW;
-      const int o = meta.w_owner[k];
+      const int o = w_owner[k];
       T s = T(0);
       #pragma unroll 1
       for (int j = 0; j < n; ++j) s += S.F[a * S.pn + o * n + j] * w[k * n + j];
@@ -325,10 +334,11 @@ thomas_sq_tiled_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
                        const T* __restrict__ A, const T* __restrict__ bk,
                        T* __restrict__ G_out, T* __restrict__ y_out, int Tn,
                        int n, int m, int p, int NW,
+                       const int* __restrict__ w_owner,
                        const __grid_constant__ SqMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   thomas_core::forward_sweep<T, TR, TC>(
-      StructuredQ<T>{qd, wv, meta.w_owner, NW}, Ub, Bm, A, bk,
+      StructuredQ<T>{qd, wv, w_owner, NW}, Ub, Bm, A, bk,
       G_out, y_out, Tn, n, m, p, meta.owner, smem_raw);
 }
 
@@ -347,11 +357,12 @@ thomas_sq_tiled_tall_kernel(const T* __restrict__ qd,
                             const T* __restrict__ bk,
                             T* __restrict__ G_out, T* __restrict__ y_out,
                             int Tn, int n, int m, int p, int NW,
+                            const int* __restrict__ w_owner,
                             const __grid_constant__ SqMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   thomas_core::forward_sweep<T, TR, TC, StructuredQ<T>,
                              thomas_core::kTallRG>(
-      StructuredQ<T>{qd, wv, meta.w_owner, NW}, Ub, Bm, A, bk,
+      StructuredQ<T>{qd, wv, w_owner, NW}, Ub, Bm, A, bk,
       G_out, y_out, Tn, n, m, p, meta.owner, smem_raw);
 }
 
@@ -362,16 +373,20 @@ thomas_sq_global_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
                         const T* __restrict__ Ub, const T* __restrict__ Bm,
                         const T* __restrict__ A, const T* __restrict__ bk,
                         T* G_out, T* y_out, T* work, int Tn, int n, int m,
-                        int p, int NW, const __grid_constant__ SqMeta meta) {
+                        int p, int NW, const int* __restrict__ w_owner,
+                        const __grid_constant__ SqMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   thomas_global::forward_sweep<T>(
-      SqGlobalQ<T>{qd, wv, meta.w_owner, NW}, Ub, Bm, A, bk, G_out, y_out,
+      SqGlobalQ<T>{qd, wv, w_owner, NW}, Ub, Bm, A, bk, G_out, y_out,
       work, Tn, n, m, p, meta.owner, smem_raw);
 }
 
 // The per-player blocked route (thomas_blocked.cuh); NI tiles of 16 cover
-// n.  2 lanes an SM in f32, 1 in f64.
-template <typename T, int NI>
+// n.  2 lanes an SM in f32, 1 in f64.  kPwInK (f64 only): the products Pw
+// live in K's LU slots (thomas_blocked::Layout), for the systems whose
+// whole layout does not fit a block otherwise (the 9-player unicycle merge;
+// in f32 its layout fits whole, 131,736 bytes).
+template <typename T, int NI, bool kPwInK>
 __global__ void
 __launch_bounds__(thomas_blocked::kThreads, sizeof(T) == 4 ? 2 : 1)
 thomas_sq_blocked_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
@@ -379,11 +394,13 @@ thomas_sq_blocked_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
                          const T* __restrict__ A, const T* __restrict__ bk,
                          T* __restrict__ G_out, T* __restrict__ y_out,
                          int Tn, int n, int m, int p, int NW,
+                         const int* __restrict__ w_owner,
                          const __grid_constant__ SqMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  thomas_blocked::forward_sweep<T, NI, thomas_blocked::StructuredForm<T>>(
+  thomas_blocked::forward_sweep<T, NI, thomas_blocked::StructuredForm<T>,
+                                kPwInK>(
       qd, wv, Ub, Bm, A, bk, G_out, y_out, Tn, n, m, p, NW, meta.owner,
-      meta.w_owner, smem_raw);
+      w_owner, smem_raw);
 }
 
 template <typename T>
@@ -392,16 +409,18 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_bwd_kernel(
     const T* __restrict__ qd, const T* __restrict__ wv,
     const T* __restrict__ A, const T* __restrict__ bk,
     T* __restrict__ y_out, int Tn, int n, int m, int p, int NW,
-    const __grid_constant__ SqMeta meta) {
+    const int* __restrict__ w_owner, const __grid_constant__ SqMeta meta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Bwd<T> S(smem_raw, n, m, p, p * n + NW * n);
   T* w = S.q + p * n;
   T* wx = S.ext;
-  const SqBwdForm<T> qf{S.q, w, S.xu, wx, n, NW, meta.w_owner};
+  int* wown = reinterpret_cast<int*>(wx + NW);   // w_owner, staged once
+  const SqBwdForm<T> qf{S.q, w, S.xu, wx, n, NW, wown};
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
   const int nth = kThreads;
 
+  for (int k = tid; k < NW; k += nth) wown[k] = w_owner[k];
   thomas::init_lam(S);
   for (int t = Tn - 1; t >= 0; --t) {
     const size_t kt = (size_t)lane * Tn + t;
@@ -421,14 +440,13 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_bwd_kernel(
   }
 }
 
-SqMeta make_meta(const int* owner, const int* w_owner, int m, int NW) {
+SqMeta make_meta(const int* owner, int m) {
   SqMeta meta = {};
   for (int r = 0; r < m; ++r) meta.owner[r] = owner[r];
-  for (int k = 0; k < NW; ++k) meta.w_owner[k] = w_owner[k];
   return meta;
 }
 
-bool dims_ok(int m, int NW) { return m <= kMaxM && NW <= kMaxNW; }
+bool dims_ok(int m) { return m <= kMaxM; }
 
 // A size class's kernel and its threads a lane.
 struct Tiled {
@@ -440,10 +458,10 @@ struct Tiled {
 // C = d + p n + 1 <= 16 TC, the tall one d <= 16 TR.  route() sends the
 // systems that fit none to launch_fwd_wide or launch_fwd_global.
 template <typename T>
-Tiled tiled_kernel(int n, int m, int p, int NW) {
+Tiled tiled_kernel(int n, int m, int p) {
   constexpr int k128 = thomas_core::kThreads;
   constexpr int k256 = thomas_core::kTallRG * thomas_core::kCG;
-  if (!dims_ok(m, NW)) return {nullptr, 0};
+  if (!dims_ok(m)) return {nullptr, 0};
   const int d = n + m, C = d + p * n + 1;
   if (d <= 16 && C <= 32)
     return {(const void*)thomas_sq_tiled_kernel<T, 2, 2>, k128};
@@ -469,17 +487,44 @@ size_t wide_smem_bytes(int n, int m, int p, int NW) {
   return thomas::fwd_smem_bytes<T>(n, m, p, p * n + NW * n, n * NW);
 }
 
-// Whether the blocked route takes these widths, and its kernel.
+// Whether the blocked route takes these widths with its whole layout
+// resident, or with Pw in K's slots (blocked_fits_in_k), and its kernel.
 template <typename T>
 bool blocked_fits(int n, int m, int p, int NW) {
-  return thomas_blocked::fits<T, thomas_blocked::StructuredForm<T>>(
-      n, m, p, NW, kMaxM, kMaxNW);
+  return thomas_blocked::fits<T, thomas_blocked::StructuredForm<T>, false>(
+      n, m, p, NW, kMaxM);
 }
 
 template <typename T>
-const void* blocked_kernel(int n) {
-  if (n <= 48) return (const void*)thomas_sq_blocked_kernel<T, 3>;
-  return (const void*)thomas_sq_blocked_kernel<T, 4>;
+bool blocked_fits_in_k(int n, int m, int p, int NW) {
+  return sizeof(T) == 8 &&
+         thomas_blocked::fits<T, thomas_blocked::StructuredForm<T>, true>(
+             n, m, p, NW, kMaxM);
+}
+
+template <typename T>
+bool blocked_any(int n, int m, int p, int NW) {
+  return blocked_fits<T>(n, m, p, NW) || blocked_fits_in_k<T>(n, m, p, NW);
+}
+
+template <typename T>
+const void* blocked_kernel(int n, int m, int p, int NW) {
+  if constexpr (sizeof(T) == 8) {
+    if (!blocked_fits<T>(n, m, p, NW)) {
+      if (n <= 48) return (const void*)thomas_sq_blocked_kernel<T, 3, true>;
+      return (const void*)thomas_sq_blocked_kernel<T, 4, true>;
+    }
+  }
+  if (n <= 48) return (const void*)thomas_sq_blocked_kernel<T, 3, false>;
+  return (const void*)thomas_sq_blocked_kernel<T, 4, false>;
+}
+
+template <typename T>
+size_t blocked_smem_bytes(int n, int m, int p, int NW) {
+  using SF = thomas_blocked::StructuredForm<T>;
+  return blocked_fits<T>(n, m, p, NW)
+             ? thomas_blocked::smem_bytes<T, SF, false>(n, m, p, NW)
+             : thomas_blocked::smem_bytes<T, SF, true>(n, m, p, NW);
 }
 
 template <typename T>
@@ -487,18 +532,18 @@ int launch_fwd(const void* qd, const void* wv, const void* Ub, const void* Bm,
                const void* A, const void* b, const int* owner,
                const int* w_owner, void* G, void* yhat, int B, int Tn, int n,
                int m, int p, int NW, void* stream) {
-  const Tiled k = tiled_kernel<T>(n, m, p, NW);
+  const Tiled k = tiled_kernel<T>(n, m, p);
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const size_t bytes = tiled_smem_bytes<T>(n, m, p, NW);
   int err = thomas::set_smem(k.fn, bytes);
   if (err) return err;
-  SqMeta meta = make_meta(owner, w_owner, m, NW);
+  SqMeta meta = make_meta(owner, m);
   const T *qp = (const T*)qd, *wp = (const T*)wv, *Ubp = (const T*)Ub,
           *Bp = (const T*)Bm, *Ap = (const T*)A, *bp = (const T*)b;
   T *Gp = (T*)G, *yp = (T*)yhat;
-  void* args[] = {&qp, &wp, &Ubp, &Bp, &Ap,  &bp, &Gp,
-                  &yp, &Tn, &n,   &m,  &p,   &NW, &meta};
+  void* args[] = {&qp, &wp, &Ubp, &Bp, &Ap, &bp,      &Gp,  &yp,
+                  &Tn, &n,  &m,   &p,  &NW, &w_owner, &meta};
   return (int)cudaLaunchKernel(k.fn, dim3(B), dim3(k.threads), args, bytes,
                                (cudaStream_t)stream);
 }
@@ -511,15 +556,15 @@ int launch_fwd_wide(const void* qd, const void* wv, const void* Ub,
                     const int* owner, const int* w_owner, void* G,
                     void* yhat, int B, int Tn, int n, int m, int p, int NW,
                     void* stream) {
-  if (!dims_ok(m, NW)) return (int)cudaErrorInvalidValue;
+  if (!dims_ok(m)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const size_t bytes = wide_smem_bytes<T>(n, m, p, NW);
   int err = thomas::set_smem((const void*)thomas_sq_fwd_kernel<T>, bytes);
   if (err) return err;
   thomas_sq_fwd_kernel<T><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       (const T*)qd, (const T*)wv, (const T*)Ub, (const T*)Bm, (const T*)A,
-      (const T*)b, (T*)G, (T*)yhat, Tn, n, m, p, NW,
-      make_meta(owner, w_owner, m, NW));
+      (const T*)b, (T*)G, (T*)yhat, Tn, n, m, p, NW, w_owner,
+      make_meta(owner, m));
   return (int)cudaGetLastError();
 }
 
@@ -531,17 +576,17 @@ int launch_fwd_global(const void* qd, const void* wv, const void* Ub,
                       const int* owner, const int* w_owner, void* G,
                       void* yhat, void* work, int B, int Tn, int n, int m,
                       int p, int NW, void* stream) {
-  if (!dims_ok(m, NW) || !thomas_global::fits<T>(n, m, p, NW))
+  if (!dims_ok(m) || !thomas_global::fits<T>(n, m, p, NW))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t bytes = thomas_global::smem_bytes<T>(n, m, p);
+  const size_t bytes = thomas_global::smem_bytes<T>(n, m, p, NW);
   int err = thomas::set_smem((const void*)thomas_sq_global_kernel<T>, bytes);
   if (err) return err;
   thomas_sq_global_kernel<T>
       <<<B, thomas_global::kThreads, bytes, (cudaStream_t)stream>>>(
           (const T*)qd, (const T*)wv, (const T*)Ub, (const T*)Bm,
           (const T*)A, (const T*)b, (T*)G, (T*)yhat, (T*)work, Tn, n, m, p,
-          NW, make_meta(owner, w_owner, m, NW));
+          NW, w_owner, make_meta(owner, m));
   return (int)cudaGetLastError();
 }
 
@@ -553,20 +598,18 @@ int launch_fwd_blocked(const void* qd, const void* wv, const void* Ub,
                        const int* owner, const int* w_owner, void* G,
                        void* yhat, int B, int Tn, int n, int m, int p, int NW,
                        void* stream) {
-  if (!blocked_fits<T>(n, m, p, NW)) return (int)cudaErrorInvalidValue;
+  if (!blocked_any<T>(n, m, p, NW)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const void* fn = blocked_kernel<T>(n);
-  const size_t bytes =
-      thomas_blocked::smem_bytes<T, thomas_blocked::StructuredForm<T>>(
-          n, m, p, NW);
+  const void* fn = blocked_kernel<T>(n, m, p, NW);
+  const size_t bytes = blocked_smem_bytes<T>(n, m, p, NW);
   int err = thomas::set_smem(fn, bytes);
   if (err) return err;
-  SqMeta meta = make_meta(owner, w_owner, m, NW);
+  SqMeta meta = make_meta(owner, m);
   const T *qp = (const T*)qd, *wp = (const T*)wv, *Ubp = (const T*)Ub,
           *Bp = (const T*)Bm, *Ap = (const T*)A, *bp = (const T*)b;
   T *Gp = (T*)G, *yp = (T*)yhat;
-  void* args[] = {&qp, &wp, &Ubp, &Bp, &Ap,  &bp, &Gp,
-                  &yp, &Tn, &n,   &m,  &p,   &NW, &meta};
+  void* args[] = {&qp, &wp, &Ubp, &Bp, &Ap, &bp,      &Gp,  &yp,
+                  &Tn, &n,  &m,   &p,  &NW, &w_owner, &meta};
   return (int)cudaLaunchKernel(fn, dim3(B), dim3(thomas_blocked::kThreads),
                                args, bytes, (cudaStream_t)stream);
 }
@@ -578,9 +621,9 @@ int launch_fwd_blocked(const void* qd, const void* wv, const void* Ub,
 // none.
 template <typename T>
 int route(int n, int m, int p, int NW) {
-  if (!dims_ok(m, NW)) return -1;
-  if (tiled_kernel<T>(n, m, p, NW).fn != nullptr) return 0;
-  if (blocked_fits<T>(n, m, p, NW)) return 3;
+  if (!dims_ok(m)) return -1;
+  if (tiled_kernel<T>(n, m, p).fn != nullptr) return 0;
+  if (blocked_any<T>(n, m, p, NW)) return 3;
   if (wide_smem_bytes<T>(n, m, p, NW) <= (size_t)thomas_global::kMaxSmem)
     return 1;
   return thomas_global::fits<T>(n, m, p, NW) ? 2 : -1;
@@ -594,19 +637,18 @@ int occupancy(int n, int m, int p, int NW, int which, int* out) {
   Tiled k = {nullptr, 0};
   size_t bytes = 0;
   if (which == 0) {
-    k = tiled_kernel<T>(n, m, p, NW);
+    k = tiled_kernel<T>(n, m, p);
     bytes = tiled_smem_bytes<T>(n, m, p, NW);
-  } else if (which == 1 && dims_ok(m, NW)) {
+  } else if (which == 1 && dims_ok(m)) {
     k = {(const void*)thomas_sq_fwd_kernel<T>, kThreads};
     bytes = wide_smem_bytes<T>(n, m, p, NW);
-  } else if (which == 2 && dims_ok(m, NW) &&
+  } else if (which == 2 && dims_ok(m) &&
              thomas_global::fits<T>(n, m, p, NW)) {
     k = {(const void*)thomas_sq_global_kernel<T>, thomas_global::kThreads};
-    bytes = thomas_global::smem_bytes<T>(n, m, p);
-  } else if (which == 3 && blocked_fits<T>(n, m, p, NW)) {
-    k = {blocked_kernel<T>(n), thomas_blocked::kThreads};
-    bytes = thomas_blocked::smem_bytes<T, thomas_blocked::StructuredForm<T>>(
-        n, m, p, NW);
+    bytes = thomas_global::smem_bytes<T>(n, m, p, NW);
+  } else if (which == 3 && blocked_any<T>(n, m, p, NW)) {
+    k = {blocked_kernel<T>(n, m, p, NW), thomas_blocked::kThreads};
+    bytes = blocked_smem_bytes<T>(n, m, p, NW);
   }
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   int err = thomas::set_smem(k.fn, bytes);
@@ -626,14 +668,15 @@ int launch_bwd(const void* G, const void* yhat, const void* qd, const void* wv,
                const void* A, const void* b, const int* owner,
                const int* w_owner, void* y, int B, int Tn, int n, int m,
                int p, int NW, void* stream) {
-  if (!dims_ok(m, NW)) return (int)cudaErrorInvalidValue;
+  if (!dims_ok(m)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t bytes = thomas::bwd_smem_bytes<T>(n, m, p, p * n + NW * n, NW);
+  const size_t bytes = thomas::bwd_smem_bytes<T>(n, m, p, p * n + NW * n,
+                                                 NW) + NW * sizeof(int);
   int err = thomas::set_smem((const void*)thomas_sq_bwd_kernel<T>, bytes);
   if (err) return err;
   thomas_sq_bwd_kernel<T><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       (const T*)G, (const T*)yhat, (const T*)qd, (const T*)wv, (const T*)A,
-      (const T*)b, (T*)y, Tn, n, m, p, NW, make_meta(owner, w_owner, m, NW));
+      (const T*)b, (T*)y, Tn, n, m, p, NW, w_owner, make_meta(owner, m));
   return (int)cudaGetLastError();
 }
 

@@ -57,16 +57,20 @@
 // double integrators read device memory directly, as before: their knots
 // read few values and staging cost more than it saved.  Every intermediate
 // stays in registers, thread-local or shared memory; the norm is summed by
-// warp shuffles, then over the warps in order.  The static structure
-// (block kinds, owners, senses, indices, bound masks, cylinder axes,
-// collision-cost pairs) travels as a by-value parameter table, so one
-// compiled kernel serves any player count and block list; the family
-// parameters (radii, centres, wall corners, bounds, pair weights) are small
-// device arrays.
+// warp shuffles, then over the warps in order.  The static structure of
+// the control bounds and collision-cost pairs (owners, senses, masks,
+// indices) travels as a by-value parameter table, so one compiled kernel
+// serves any player count and block list; the family parameters (radii,
+// centres, wall corners, bounds, pair weights) are small device arrays.
+// The state blocks (SBlock: kinds, owners, senses, indices, bound masks,
+// cylinder axes) are a device array too, which
+// the wrapper uploads once per problem: their number is bounded by nothing
+// but memory (the 9-player unicycle merge has 72 collision blocks, past the
+// 4 KB that a by-value table may take).
 // A state bound's 2n rows are flagged in one 64-bit mask, and for the
-// quadrotor (Model::kWideMask: n up to 64, the 3- and 4-player quadrotors'
-// 36 and 48 states) in two, the rows from 64 on in TrialMeta::sb_mask_hi,
-// at the end of the table, so that the other instances' code is unchanged.
+// quadrotor and the wide unicycle (Model::kWideMask: n up to 64, the 3- and
+// 4-player quadrotors' 36 and 48 states, the 9-player unicycle's 36) in
+// two, the rows from 64 on in SBlock::mask_hi.
 // State bounds read their AL state only at finite rows and write 0 at the
 // others, as the masked bound evaluation does; gated rows (walls,
 // cylinders) use the reference's strict comparisons and are exactly 0
@@ -76,13 +80,11 @@
 namespace {
 
 constexpr int kMaxThreads = 256;  // threads per lane: ceil(T TPK / 32) warps
-constexpr int kMaxSB = 64;    // state blocks
 constexpr int kMaxCB = 4;     // control-bound blocks
 constexpr int kMaxM = 32;     // control dimension
 constexpr int kMaxN = 32;     // state dimension (2n bound rows in a 64-bit mask)
 constexpr int kMaxNWide = 64; // the same for Model::kWideMask (two masks)
 constexpr int kMaxPair = 64;  // collision-cost pairs
-constexpr int kMaxCyl = 32;   // cylinders per block (2 axis bits each)
 constexpr int kMaxConst = 12; // model constants
 
 enum : unsigned char {
@@ -99,22 +101,25 @@ enum : unsigned char {
 // yv); per 3D wall (x1, y1, z1, x2, y2, z2, x3, y3, z3, xv, yv, zv); per
 // cylinder (p1, p2, p3, l, r); bound z_max [n] then z_min [n]).  ``mask``:
 // a bound's finite rows (bit j: upper bound of state j, bit n+j: lower
-// bound), or a cylinder block's axes (bits 2j, 2j+1: axis of cylinder j).
-// ``eq``: 1 for an equality block (its rows always penalized), 0 for the
-// inequality and second-order-cone senses.
+// bound), or a cylinder block's axes (bits 2j, 2j+1: axis of cylinder j;
+// at most 32 cylinders, ops/trial.py::_MAX_CYL);
+// ``mask_hi``: a bound's rows from 64 on (only Model::kWideMask instances
+// read it).  ``eq``: 1 for an equality block (its rows always penalized), 0
+// for the inequality and second-order-cone senses.  40 bytes; the wrapper
+// packs the same layout (ops/trial.py::SBLOCK, checked against
+// trial_fused_sblock_bytes).
 struct SBlock {
   unsigned long long mask;
+  unsigned long long mask_hi;
   int row, par;
   unsigned char kind, owner, cnt, eq;
   unsigned char a[6];
 };
 
 struct TrialMeta {
-  SBlock sb[kMaxSB];
   unsigned char pair[kMaxPair][8];  // owner, dim, pxi[3], pxj[3]
   unsigned char c_mask[kMaxCB][2 * kMaxM];
   unsigned char c_eq[kMaxCB];       // control blocks' ``eq``, as SBlock's
-  unsigned long long sb_mask_hi[kMaxSB];  // bound rows 64.. (kWideMask)
 };
 
 struct ModelConst {
@@ -261,6 +266,15 @@ struct Unicycle {
       gu[1] = g[3];
     }
   }
+};
+
+// The unicycle past 32 states (nine players or more): the same model with
+// a state bound's rows from 64 on in SBlock::mask_hi, a second instance so
+// that the games of up to eight players keep theirs.
+template <typename T>
+struct UnicycleWide : Unicycle<T> {
+  static constexpr bool kWideMask = true;
+  __device__ explicit UnicycleWide(const ModelConst& k) : Unicycle<T>(k) {}
 };
 
 // Double integrator in D dimensions: x = [pos (D); vel (D)], u = acc (D),
@@ -530,6 +544,7 @@ template <typename T>
 struct TrialArgs {
   const T *x, *u, *lam, *dx, *du, *dlam, *alpha, *reg, *Qd, *xf, *Rdp, *ufp,
       *spar, *slam, *smu, *zmax, *zmin, *clam, *cmu, *pmr;
+  const SBlock* sb;                   // [nsb], device memory
   T *rx0, *ru0, *rd, *sc, *cc, *tn;
   int N, p, nsb, csum, ncb, npair, S;
   T dt, eps_n;
@@ -655,13 +670,16 @@ __device__ __forceinline__ T sqdist(const LaneT& L, int k,
 // State blocks at knot t+1: values into sc, AL gradients into alx [p n].
 // Thread q of the knot's TPK takes the blocks whose owner is q mod TPK, so
 // each owner's gradient is summed by one thread in block order.  ``Wide``:
-// a bound's rows from 64 on are flagged in meta.sb_mask_hi.
+// a bound's rows from 64 on are flagged in SBlock::mask_hi.
 template <typename T, int TPK, bool Wide, class LaneT>
-__device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
+__device__ void state_blocks(const TrialArgs<T>& A, const SBlock* sbs,
                              const LaneT& L, int b, int t, T* alx, int q) {
   const int n = L.n, Tn = L.Tn;
   for (int k = 0; k < A.nsb; ++k) {
-    const SBlock& sb = meta.sb[k];
+    // The record by value: read through a reference, its fields were read
+    // again after every store to the shared gradient (which might alias
+    // them), and the bicycle's trials ran 10% longer on an H100.
+    const SBlock sb = sbs[k];
     if constexpr (TPK > 1) {
       if ((sb.owner & (TPK - 1)) != q) continue;
     }
@@ -732,8 +750,10 @@ __device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
                           : T(0);
         const size_t o = o0 + (size_t)j * Tn;
         const T w = al_weight(cv, A.slam[o], A.smu[o], sb.eq);
-        if (gate)
+        if (gate) {
+          #pragma unroll
           for (int r = 0; r < 3; ++r) g[sb.a[r]] += pw[9 + r] * w;
+        }
         A.sc[o] = cv;
       }
     } else if (sb.kind == kCylinder) {    // r^2 - distance^2 to the axis
@@ -764,9 +784,9 @@ __device__ void state_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
         if constexpr (Wide) {
           const int l = n + j;
           mu_ = j < 64 ? (sb.mask >> j) & 1ull
-                       : (meta.sb_mask_hi[k] >> (j - 64)) & 1ull;
+                       : (sb.mask_hi >> (j - 64)) & 1ull;
           ml_ = l < 64 ? (sb.mask >> l) & 1ull
-                       : (meta.sb_mask_hi[k] >> (l - 64)) & 1ull;
+                       : (sb.mask_hi >> (l - 64)) & 1ull;
         } else {
           mu_ = (sb.mask >> j) & 1ull;
           ml_ = (sb.mask >> (n + j)) & 1ull;
@@ -812,8 +832,8 @@ __device__ void rk2_mid(const Model& mdl, const T* x, const T* u, T dt,
 // The knot's constraint and collision-cost terms (see above).
 template <typename T, int TPK, bool Wide, class LaneT>
 __device__ void knot_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
-                            const LaneT& L, int b, int t, int q, T* alx,
-                            T* alu, T* cgx) {
+                            const SBlock* sbs, const LaneT& L, int b, int t,
+                            int q, T* alx, T* alu, T* cgx) {
   const int p = A.p, n = L.n, m = L.m, N = A.N, Tn = L.Tn;
   const T dt = A.dt;
   const T scale = (t + 1 < N - 1) ? dt : T(1);
@@ -821,7 +841,7 @@ __device__ void knot_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
     for (int c = 0; c < n; ++c) alx[o * n + c] = T(0);
   for (int c = q; c < m; c += TPK) alu[c] = T(0);
 
-  state_blocks<T, TPK, Wide>(A, meta, L, b, t, alx, q);
+  state_blocks<T, TPK, Wide>(A, sbs, L, b, t, alx, q);
   // Control-bound blocks: c = [u - z_max; z_min - u] (masked rows 0).
   for (int k = 0; k < A.ncb; ++k) {
     const size_t o = (((size_t)b * A.ncb + k) * Tn + t) * 2 * m;
@@ -972,7 +992,8 @@ int lane_threads(int Tn) {
 
 // Shared memory of a lane, in scalars: the staged trial point and iterate
 // (see Lane; none without ``stage``), then per knot group (the TPK threads
-// of one knot) its alx, alu and, with collision-cost pairs, cgx.
+// of one knot) its alx, alu and, with collision-cost pairs, cgx; then, at
+// the next 8 bytes, the state blocks (sblock_offset, lane_bytes).
 struct LaneLayout {
   int ldx, ldu, xt, x0, ut, u0, lt, work, per, total;
   __host__ __device__ LaneLayout(int N, int n, int m, int p, int npair,
@@ -992,32 +1013,27 @@ struct LaneLayout {
   }
 };
 
-// The parameter table from the wrapper's flat int arrays.  s_meta per state
-// block: kind, owner, row, par, cnt, a0..a5, eq; s_mask per block two
-// words, bits 0..63 and 64..127 (which only a ``wide`` instance takes);
-// p_meta per pair: owner, dim, pxi0..2, pxj0..2; c_mask per control block:
-// 2m flags, then each control block's eq.
-bool make_meta(const int* s_meta, const unsigned long long* s_mask,
-               const int* p_meta, const unsigned char* c_mask, int nsb,
-               int npair, int ncb, int m, bool wide, TrialMeta* meta) {
-  if (nsb > kMaxSB || ncb > kMaxCB || npair > kMaxPair || m > kMaxM)
-    return false;
+// Where the staged state blocks start (models with Model::kStage), and a
+// lane's bytes.
+__host__ __device__ __forceinline__ size_t sblock_offset(int total,
+                                                         size_t scalar) {
+  return ((size_t)total * scalar + 7) & ~(size_t)7;
+}
+template <typename T, class Model>
+size_t lane_bytes(const LaneLayout& S, int nsb) {
+  return Model::kStage ? sblock_offset(S.total, sizeof(T)) +
+                             (size_t)nsb * sizeof(SBlock)
+                       : (size_t)S.total * sizeof(T);
+}
+
+// The parameter table from the wrapper's flat arrays: p_meta per pair:
+// owner, dim, pxi0..2, pxj0..2; c_mask per control block: 2m flags, then
+// each control block's eq.  (The state blocks come packed, in device
+// memory.)
+bool make_meta(const int* p_meta, const unsigned char* c_mask, int npair,
+               int ncb, int m, TrialMeta* meta) {
+  if (ncb > kMaxCB || npair > kMaxPair || m > kMaxM) return false;
   *meta = TrialMeta{};
-  for (int k = 0; k < nsb; ++k) {
-    const int* s = s_meta + 12 * k;
-    SBlock& sb = meta->sb[k];
-    sb.kind = (unsigned char)s[0];
-    sb.owner = (unsigned char)s[1];
-    sb.row = s[2];
-    sb.par = s[3];
-    sb.cnt = (unsigned char)s[4];
-    for (int j = 0; j < 6; ++j) sb.a[j] = (unsigned char)s[5 + j];
-    sb.eq = (unsigned char)s[11];
-    sb.mask = s_mask[2 * k];
-    meta->sb_mask_hi[k] = s_mask[2 * k + 1];
-    if (meta->sb_mask_hi[k] != 0 && !wide) return false;
-    if (sb.kind == kCylinder && sb.cnt > kMaxCyl) return false;
-  }
   for (int k = 0; k < npair; ++k)
     for (int j = 0; j < 8; ++j)
       meta->pair[k][j] = (unsigned char)p_meta[8 * k + j];
@@ -1043,8 +1059,8 @@ __host__ __device__ __forceinline__ int work_groups(int nth, int tpk,
 // stores, which the compiler may not move a later read across.
 template <typename T, class Model, int TPK, class LaneT>
 __device__ T lane_part(const TrialArgs<T>& A, const ModelConst& mc,
-                       const TrialMeta& meta, const LaneT& L, int b, T* work,
-                       int per) {
+                       const TrialMeta& meta, const SBlock* sbs,
+                       const LaneT& L, int b, T* work, int per) {
   const int tid = threadIdx.x, groups = blockDim.x / TPK;
   const int g = tid / TPK, q = tid & (TPK - 1);
   T* alx = work + g * per;                                 // AL grads
@@ -1055,8 +1071,8 @@ __device__ T lane_part(const TrialArgs<T>& A, const ModelConst& mc,
   for (int t0 = 0; t0 < L.Tn; t0 += groups) {
     const int t = t0 + g;
     if (t < L.Tn)
-      knot_blocks<T, TPK, Model::kWideMask>(A, meta, L, b, t, q, alx, alu,
-                                            cgx);
+      knot_blocks<T, TPK, Model::kWideMask>(A, meta, sbs, L, b, t, q, alx,
+                                            alu, cgx);
     if constexpr (TPK > 1) __syncwarp();
     if (t < L.Tn)
       part = knot_rows<T, Model, TPK>(A, mc, L, b, t, q, rg, alx, alu, cgx,
@@ -1066,9 +1082,12 @@ __device__ T lane_part(const TrialArgs<T>& A, const ModelConst& mc,
   return part;
 }
 
-// One lane's trial, in one block: the lane's inputs staged in shared memory
-// (models with Model::kStage), one pass over the knots, the 1-norm summed
-// by warp shuffles and then over the warps in order.
+// One lane's trial, in one block: the lane's inputs and the state blocks'
+// records staged in shared memory (models with Model::kStage; the others
+// read both from device memory, where a barrier after staging the records
+// cost the 3D double integrator's trials 4.6% on an H100,
+// tests/trial_compare.py), one pass over the knots, the 1-norm summed by
+// warp shuffles and then over the warps in order.
 template <typename T, class Model, int TPK>
 __device__ __forceinline__ void trial_lane(const TrialArgs<T>& A,
                                            const ModelConst& mc,
@@ -1086,6 +1105,12 @@ __device__ __forceinline__ void trial_lane(const TrialArgs<T>& A,
                ol = (size_t)b * p * Tn * n;
   T part;
   if constexpr (Model::kStage) {
+    SBlock* sbs = reinterpret_cast<SBlock*>(
+        smem_raw + sblock_offset(S.total, sizeof(T)));
+    constexpr int kWords = (int)(sizeof(SBlock) / sizeof(int));
+    const int* src = reinterpret_cast<const int*>(A.sb);
+    int* dst = reinterpret_cast<int*>(sbs);
+    for (int i = tid; i < A.nsb * kWords; i += nth) dst[i] = src[i];
     stage(sm + S.xt, sm + S.x0, A.x + ox, A.dx + ox, al, N, n, S.ldx);
     stage(sm + S.ut, sm + S.u0, A.u + ou, A.du + ou, al, Tn, m, S.ldu);
     stage(sm + S.lt, (T*)nullptr, A.lam + ol, A.dlam + ol, al, p * Tn, n,
@@ -1093,11 +1118,13 @@ __device__ __forceinline__ void trial_lane(const TrialArgs<T>& A,
     __syncthreads();
     const Lane<T> L{sm + S.xt, sm + S.x0, sm + S.ut, sm + S.u0, sm + S.lt,
                     Tn, n, m, S.ldx, S.ldu};
-    part = lane_part<T, Model, TPK>(A, mc, meta, L, b, sm + S.work, S.per);
+    part = lane_part<T, Model, TPK>(A, mc, meta, sbs, L, b, sm + S.work,
+                                    S.per);
   } else {
     const GlobalLane<T> L{A.x + ox, A.u + ou, A.lam + ol, A.dx + ox,
                           A.du + ou, A.dlam + ol, al, Tn, n, m};
-    part = lane_part<T, Model, TPK>(A, mc, meta, L, b, sm + S.work, S.per);
+    part = lane_part<T, Model, TPK>(A, mc, meta, A.sb, L, b, sm + S.work,
+                                    S.per);
   }
   for (int off = 16; off > 0; off >>= 1)
     part += __shfl_down_sync(0xffffffffu, part, off);
@@ -1122,15 +1149,16 @@ __global__ void trial_fused_kernel(const __grid_constant__ TrialArgs<T> A,
 }
 
 // Lanes per SM of an instance for a game of horizon N - 1 knots, p
-// players and (with npair) collision-cost pairs; -1 on error.
+// players, (with npair) collision-cost pairs and nsb state blocks; -1 on
+// error.
 template <typename T, class Model, int TPK>
-int occupancy(const double* mconst, int N, int p, int npair) {
+int occupancy(const double* mconst, int N, int p, int npair, int nsb) {
   ModelConst mc;
   for (int k = 0; k < kMaxConst; ++k) mc.c[k] = mconst[k];
   const int nth = lane_threads<TPK>(N - 1);
   const LaneLayout S(N, Model::NI * p, Model::Layout::m(mc, p), p, npair,
                      work_groups(nth, TPK, N - 1), Model::kStage);
-  const size_t bytes = (size_t)S.total * sizeof(T);
+  const size_t bytes = lane_bytes<T, Model>(S, nsb);
   const auto kernel = trial_fused_kernel<T, Model, TPK>;
   if (bytes > 48 * 1024 &&
       cudaFuncSetAttribute(kernel,
@@ -1150,7 +1178,7 @@ int run_kernel(const TrialArgs<T>& A, const ModelConst& mc,
   const int nth = lane_threads<TPK>(A.N - 1);
   const LaneLayout S(A.N, Model::NI * A.p, Model::Layout::m(mc, A.p), A.p,
                      A.npair, work_groups(nth, TPK, A.N - 1), Model::kStage);
-  const size_t bytes = (size_t)S.total * sizeof(T);
+  const size_t bytes = lane_bytes<T, Model>(S, A.nsb);
   const auto kernel = trial_fused_kernel<T, Model, TPK>;
   if (bytes > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
@@ -1165,20 +1193,21 @@ int run_kernel(const TrialArgs<T>& A, const ModelConst& mc,
 
 template <typename T, class Model, int TPK>
 int launch(const void* const* in, void* const* out, const double* mconst,
-           const int* s_meta, const unsigned long long* s_mask,
-           const int* p_meta, const unsigned char* c_mask, int B, int N,
-           int p, int nsb, int csum, int ncb, int npair, int S, double dt,
-           double eps_n, void* stream) {
+           const void* sblocks, const int* p_meta,
+           const unsigned char* c_mask, int B, int N, int p, int nsb,
+           int csum, int ncb, int npair, int S, double dt, double eps_n,
+           void* stream) {
   ModelConst mc;
   for (int k = 0; k < kMaxConst; ++k) mc.c[k] = mconst[k];
   const int n = Model::NI * p, m = Model::Layout::m(mc, p);
   TrialMeta meta;
-  if (n > (Model::kWideMask ? kMaxNWide : kMaxN) ||
-      !make_meta(s_meta, s_mask, p_meta, c_mask, nsb, npair, ncb, m,
-                 Model::kWideMask, &meta))
+  if (n > (Model::kWideMask ? kMaxNWide : kMaxN) || nsb < 0 ||
+      (nsb > 0 && sblocks == nullptr) ||
+      !make_meta(p_meta, c_mask, npair, ncb, m, &meta))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   TrialArgs<T> A;
+  A.sb = (const SBlock*)sblocks;
   const T** ins[] = {&A.x, &A.u, &A.lam, &A.dx, &A.du, &A.dlam, &A.alpha,
                      &A.reg, &A.Qd, &A.xf, &A.Rdp, &A.ufp, &A.spar, &A.slam,
                      &A.smu, &A.zmax, &A.zmin, &A.clam, &A.cmu, &A.pmr};
@@ -1193,25 +1222,29 @@ int launch(const void* const* in, void* const* out, const double* mconst,
 }  // namespace
 
 // trial_fused_<instance>_<type>(inputs [20], outputs [6], model constants
-// [12], tables, sizes, stream): the operands in the order of TrialArgs;
-// trial_fused_<instance>_<type>_occupancy: its lanes per SM.
+// [12], the state blocks (device, SBlock [nsb]), tables, sizes, stream):
+// the operands in the order of TrialArgs;
+// trial_fused_<instance>_<type>_occupancy: its lanes per SM (with nsb state
+// blocks staged).
 // An instance is a model with its threads per knot (TPK): one, or two for
 // the unicycle games of four or more players ("unicycle_spread"), whose
 // knots carry the most blocks and pairs (on the roundabout's trials two
-// threads per knot ran faster than one or four on an H100).
+// threads per knot ran faster than one or four on an H100); past 32 states
+// (nine players or more) the unicycle's wide instance ("unicycle_wide",
+// two threads per knot), whose state bounds take two mask words.
 #define TRIAL_EXPORT(NAME, SUFFIX, T, MODEL, TPK)                             \
   extern "C" int trial_fused_##NAME##_##SUFFIX(                               \
       const void* const* in, void* const* out, const double* mconst,          \
-      const int* s_meta, const unsigned long long* s_mask, const int* p_meta, \
-      const unsigned char* c_mask, int B, int N, int p, int nsb, int csum,    \
-      int ncb, int npair, int S, double dt, double eps_n, void* stream) {     \
-    return launch<T, MODEL, TPK>(in, out, mconst, s_meta, s_mask, p_meta,     \
-                                 c_mask, B, N, p, nsb, csum, ncb, npair, S,   \
-                                 dt, eps_n, stream);                          \
+      const void* sblocks, const int* p_meta, const unsigned char* c_mask,    \
+      int B, int N, int p, int nsb, int csum, int ncb, int npair, int S,      \
+      double dt, double eps_n, void* stream) {                                \
+    return launch<T, MODEL, TPK>(in, out, mconst, sblocks, p_meta, c_mask, B, \
+                                 N, p, nsb, csum, ncb, npair, S, dt, eps_n,   \
+                                 stream);                                     \
   }                                                                           \
   extern "C" int trial_fused_##NAME##_##SUFFIX##_occupancy(                   \
-      const double* mconst, int N, int p, int npair) {                        \
-    return occupancy<T, MODEL, TPK>(mconst, N, p, npair);                     \
+      const double* mconst, int N, int p, int npair, int nsb) {               \
+    return occupancy<T, MODEL, TPK>(mconst, N, p, npair, nsb);                \
   }
 #define TRIAL_EXPORT_BOTH(NAME, MODEL, TPK)                                   \
   TRIAL_EXPORT(NAME, f32, float, MODEL<float>, TPK)                           \
@@ -1224,11 +1257,14 @@ template <typename T> using HeteroDoubleIntegrator2 =
 
 TRIAL_EXPORT_BOTH(unicycle, Unicycle, 1)
 TRIAL_EXPORT_BOTH(unicycle_spread, Unicycle, 2)
+TRIAL_EXPORT_BOTH(unicycle_wide, UnicycleWide, 2)
 TRIAL_EXPORT_BOTH(di2, DoubleIntegrator2, 1)
 TRIAL_EXPORT_BOTH(di3, DoubleIntegrator3, 1)
 TRIAL_EXPORT_BOTH(hdi2, HeteroDoubleIntegrator2, 1)
 TRIAL_EXPORT_BOTH(bicycle, Bicycle, 1)
 TRIAL_EXPORT_BOTH(quadrotor, Quadrotor, 1)
+
+extern "C" int trial_fused_sblock_bytes() { return (int)sizeof(SBlock); }
 
 extern "C" const char* trial_fused_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -91,8 +91,9 @@ def solve_thomas_structured_plain(spec, sq: StructuredQ, b: torch.Tensor,
 
 def _check_operands(spec, blocks, b: torch.Tensor, want) -> None:
     """Raise unless ``b`` and every named operand of ``blocks`` has its
-    shape, ``b``'s type and device, and is contiguous, and the (padded)
-    control rows fit the kernels' 32."""
+    shape, ``b``'s type and device, and is contiguous.  The widths the
+    kernels take are the library's to say, where one is about to launch
+    (``_shape_route``); the plain versions take any."""
     Bsz, T = b.shape[0], spec.T
     if tuple(b.shape) != (Bsz, T, spec.W):
         raise ValueError(f"b has shape {tuple(b.shape)}, want "
@@ -111,8 +112,6 @@ def _check_operands(spec, blocks, b: torch.Tensor, want) -> None:
             raise ValueError(f"{name} must be contiguous")
     if not b.is_contiguous():
         raise ValueError("b must be contiguous")
-    if spec.p * max(spec.mi) > 32:
-        raise ValueError("the kernels take at most 32 (padded) control rows")
 
 
 def _route(b: torch.Tensor) -> str:
@@ -133,8 +132,6 @@ def _check(spec, sq: StructuredQ, b: torch.Tensor, w_owner) -> None:
     _check_operands(spec, sq, b, {
         "qdiag": (Bsz, T, p, n), "wv": (Bsz, T, NW, n),
         "Ublk": (Bsz, T, m, m), "A": (Bsz, T, n, n), "B": (Bsz, T, n, m)})
-    if NW > 64:
-        raise ValueError("the kernel takes at most 64 w vectors")
 
 
 # The forward routes in the order of the libraries' ``*_route_*`` numbers,
@@ -178,10 +175,11 @@ def _pick_route(name: str, dtype, widths, forward: str) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _sq_launch(spec, w_owner, dtype, forward="auto"):
-    """K1 at these widths, once per (shape, dtype, route asked for):
-    ``(route, library, forward and backward launchers, owner and w_owner
-    tables)``."""
+def _sq_launch(spec, w_owner, dtype, device, forward="auto"):
+    """K1 at these widths, once per (shape, dtype, device, route asked
+    for): ``(route, library, forward and backward launchers, the owner
+    table (host, by value), the w_owner table (int32 on ``device``, its
+    length NW: no table of a fixed size bounds it)``."""
     lib = build.load(_LIB)
     sfx = _sfx(dtype)
     P, I = build.P, build.I
@@ -191,8 +189,8 @@ def _sq_launch(spec, w_owner, dtype, forward="auto"):
                          [P] * (11 if route == "device" else 10) + [I] * 6
                          + [P])
     bwd = build.launcher(lib, f"thomas_sq_bwd_{sfx}", [P] * 9 + [I] * 6 + [P])
-    return (route, lib, fwd, bwd, build.int_table(owner_map_u(spec)),
-            build.int_table(w_owner))
+    w_own = torch.tensor(w_owner or (0,), dtype=torch.int32, device=device)
+    return (route, lib, fwd, bwd, build.int_table(owner_map_u(spec)), w_own)
 
 
 def _occupancy(name: str, dtype, widths, forward: str):
@@ -229,8 +227,8 @@ def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
     _check(spec, sq, b, w_owner)
     if _route(b) == "plain":
         return solve_thomas_structured_plain(spec, sq, b, w_owner)
-    route, lib, fwd, bwd, owner, w_own = _sq_launch(spec, tuple(w_owner),
-                                                    b.dtype, forward)
+    route, lib, fwd, bwd, owner, w_own = _sq_launch(
+        spec, tuple(w_owner), b.dtype, b.device, forward)
     Bsz, T, n, m, p = b.shape[0], spec.T, spec.n, spec.m, spec.p
     d, pn, NW = n + m, p * n, len(w_owner)
     G = torch.empty((Bsz, T, d, pn), dtype=b.dtype, device=b.device)
@@ -244,12 +242,12 @@ def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib, _LIB, fwd(
             sq.qdiag.data_ptr(), sq.wv.data_ptr(), sq.Ublk.data_ptr(),
-            sq.B.data_ptr(), sq.A.data_ptr(), b.data_ptr(), owner, w_own,
-            *outs, Bsz, T, n, m, p, NW, stream))
+            sq.B.data_ptr(), sq.A.data_ptr(), b.data_ptr(), owner,
+            w_own.data_ptr(), *outs, Bsz, T, n, m, p, NW, stream))
         build.check(lib, _LIB, bwd(
             G.data_ptr(), yhat.data_ptr(), sq.qdiag.data_ptr(),
-            sq.wv.data_ptr(), sq.A.data_ptr(), b.data_ptr(), owner, w_own,
-            y.data_ptr(), Bsz, T, n, m, p, NW, stream))
+            sq.wv.data_ptr(), sq.A.data_ptr(), b.data_ptr(), owner,
+            w_own.data_ptr(), y.data_ptr(), Bsz, T, n, m, p, NW, stream))
     if route == "shared":
         solve_thomas_structured.wide_launches += 1
     elif route == "device":

@@ -14,9 +14,11 @@ of the kernel, with its layout (interleaved, or player-blocked with ragged
 controls) as a compile-time policy; its constants are kernel arguments, and
 the state
 blocks (collision in 2 or 3 dimensions, circle, 2D wall, 3D wall, cylinder,
-state bound), control bounds and collision-cost pairs travel as a by-value
-table, each block with its sense (equality rows are always penalized; the
-inequality and second-order-cone rows by the inequality rule).  CUDA was
+state bound) travel as a device array of ``SBlock`` records (:data:`SBLOCK`,
+uploaded once per problem: their number is bounded by memory alone), the
+control bounds and collision-cost pairs as a by-value table, each block
+with its sense (equality rows are always penalized; the inequality and
+second-order-cone rows by the inequality rule).  CUDA was
 chosen over Triton because the body is a per-knot scalar
 program with data-dependent indices (collision pairs, owners, bound masks,
 gates) and loops over players and blocks, which maps directly onto one
@@ -67,10 +69,11 @@ _KIND = {CollisionParams: 0, CircleParams: 1, BoundParams: 2,
 # Per-player state / control dimension of each compiled model.
 _DIMS = {"unicycle": (4, 2), "di2": (4, 2), "di3": (6, 3),
          "hdi2": (4, 2), "bicycle": (4, 2), "quadrotor": (12, 4)}
-_MAX_SB, _MAX_CB, _MAX_PAIR, _MAX_M, _MAX_CYL = 64, 4, 64, 32, 32
+_MAX_CB, _MAX_PAIR, _MAX_M, _MAX_CYL = 4, 64, 32, 32
 # Most states of an instance: 2n state-bound rows in one 64-bit mask, or
-# in two for the quadrotor's (``TrialMeta::sb_mask_hi`` in the source).
-_MAX_N = {"quadrotor": 64}
+# in two for the quadrotor's and the wide unicycle's (``SBlock::mask_hi``
+# in the source).
+_MAX_N = {"quadrotor": 64, "unicycle": 64}
 _MAX_N_DEFAULT = 32
 _N_CONST = 12
 _PAIR_EPS = 1e-10
@@ -95,9 +98,13 @@ def instance_name(model, spec) -> str:
     """The compiled kernel instance for ``model``: the model's name, with
     ``_spread`` (two threads per knot, which split the knot's blocks,
     collision-cost pairs and players) for unicycle games of four or more
-    players, whose knots carry the most blocks and pairs."""
+    players, whose knots carry the most blocks and pairs, and ``_wide``
+    (two threads per knot, a state bound's rows in two mask words) past 32
+    states: nine players or more."""
     name = model_name(model)
-    return f"{name}_spread" if name == "unicycle" and spec.p >= 4 else name
+    if name != "unicycle" or spec.p < 4:
+        return name
+    return "unicycle_wide" if spec.n > _MAX_N_DEFAULT else "unicycle_spread"
 
 
 def model_constants(model) -> list:
@@ -150,7 +157,9 @@ def trial_supported(model, spec, obj, gc) -> bool:
     the collision (2 or 3 coordinates), circle, wall, 3D wall, cylinder or
     state-bound families; box bounds as the only control blocks;
     collision-cost pairs on 2 or 3 coordinates; all within the kernel's
-    table sizes, and at most 32 states (the quadrotor's instance: 64).  Every sense is inside: equality rows are always
+    table sizes (any number of state blocks), and at most 32 states (the
+    quadrotor's instance and the unicycle's wide one: 64).  Every sense is
+    inside: equality rows are always
     penalized, inequality and second-order-cone rows by the inequality
     rule, as in :func:`~..constraints.sets.al_irho`."""
     name = model_name(model)
@@ -162,7 +171,6 @@ def trial_supported(model, spec, obj, gc) -> bool:
                     for b in gc.control_blocks)
             and all(len(a) in (2, 3) and len(a) == len(b)
                     for a, b in zip(obj.pxi, obj.pxj))
-            and len(gc.state_blocks) <= _MAX_SB
             and len(gc.control_blocks) <= _MAX_CB
             and len(obj.pair_i) <= _MAX_PAIR
             and spec.m <= _MAX_M
@@ -281,6 +289,49 @@ def _mask_words(masks) -> list:
     return [w for mask in masks for w in (mask & low, mask >> 64)]
 
 
+# ``SBlock`` of ``csrc/trial_fused.cu``: one state block's record, 40 bytes.
+SBLOCK = np.dtype({
+    "names": ["mask", "mask_hi", "row", "par", "kind", "owner", "cnt", "eq",
+              "a"],
+    "formats": ["<u8", "<u8", "<i4", "<i4", "u1", "u1", "u1", "u1",
+                ("u1", 6)],
+    "offsets": [0, 8, 16, 20, 24, 25, 26, 27, 28], "itemsize": 40})
+
+
+def _sblock_table(meta, masks) -> np.ndarray:
+    """The state blocks as the kernel's ``SBlock`` records, from
+    :func:`_state_tables`' ``meta`` (12 ints a block) and ``masks``."""
+    nsb = len(masks)
+    rec = np.zeros(nsb, SBLOCK)
+    if nsb:
+        m = np.asarray(meta, np.int64).reshape(nsb, 12)
+        words = np.asarray(_mask_words(masks), np.uint64).reshape(nsb, 2)
+        rec["mask"], rec["mask_hi"] = words[:, 0], words[:, 1]
+        rec["kind"], rec["owner"], rec["row"], rec["par"] = m.T[:4]
+        rec["cnt"], rec["a"], rec["eq"] = m[:, 4], m[:, 5:11], m[:, 11]
+    return rec
+
+
+@functools.lru_cache(maxsize=64)
+def _sblock_device(meta, masks, device):
+    """:func:`_sblock_table` on ``device``, uploaded once per table (a copy
+    from the host on every call would synchronise the stream each time)."""
+    rec = _sblock_table(meta, masks)
+    return torch.as_tensor(rec.view(np.uint8).copy()).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The kernel library, its ``SBlock`` size checked against
+    :data:`SBLOCK`."""
+    lib = build.load(_LIB)
+    size = build.bind(lib, "trial_fused_sblock_bytes", [])()
+    if size != SBLOCK.itemsize:
+        raise RuntimeError(f"SBlock is {size} bytes in the library, "
+                           f"{SBLOCK.itemsize} in the wrapper")
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _owner_index(spec, device):
     """(owner of each control, control index), on ``device``, once per spec:
@@ -297,7 +348,7 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
     sfx = "f32" if dtype == torch.float32 else "f64"
     P, I, D = build.P, build.I, ctypes.c_double
     fn = build.launcher(lib, f"trial_fused_{instance_name(model, spec)}_"
-                        f"{sfx}", [P] * 7 + [I] * 8 + [D, D, P])
+                        f"{sfx}", [P] * 6 + [I] * 8 + [D, D, P])
     Bsz, T, n, m, p = traj.x.shape[0], spec.T, spec.n, spec.m, spec.p
     sb, cb = gc.state_blocks, gc.control_blocks
     nsb, ncb, npair = len(sb), len(cb), len(obj.pair_i)
@@ -305,6 +356,7 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
     s_meta, s_mask, spar, csum = _state_tables(sb, dtype, device)
+    sblocks = _sblock_device(tuple(s_meta), tuple(s_mask), device)
     # Stacked state AL state [B, Csum, T]: rows of every block, knots last.
     slam = (torch.cat([b.lam.transpose(1, 2) for b in sb], dim=1) if sb
             else zeros(Bsz, 0, T))
@@ -342,9 +394,8 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
         (ctypes.c_void_p * len(ins))(*[a.data_ptr() for a in ins]),
         (ctypes.c_void_p * len(outs))(*[a.data_ptr() for a in outs]),
         (ctypes.c_double * _N_CONST)(*model_constants(model)),
-        build.int_table(s_meta),
-        (ctypes.c_ulonglong * max(2, 2 * nsb))(*_mask_words(s_mask)),
-        build.int_table(p_meta), c_mask, Bsz, spec.N, p, nsb, csum, ncb,
+        sblocks.data_ptr(), build.int_table(p_meta), c_mask, Bsz, spec.N,
+        p, nsb, csum, ncb,
         npair, spec.S, float(spec.dt), _PAIR_EPS * math.sqrt(n), stream))
     rows = np.cumsum([0] + [b.lam.shape[-1] for b in sb])
     lite = R.PointLite(
@@ -355,15 +406,16 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
     return tn, lite
 
 
-def trial_occupancy(model, spec, obj, dtype) -> int:
-    """Lanes per SM of the kernel instance that runs ``model``'s trials
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a card."""
-    lib = build.load(_LIB)
+def trial_occupancy(model, spec, obj, dtype, nsb=0) -> int:
+    """Lanes per SM of the kernel instance that runs ``model``'s trials with
+    ``nsb`` state blocks (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    needs a card."""
+    lib = _library()
     sfx = "f32" if dtype == torch.float32 else "f64"
     fn = build.bind(lib, f"trial_fused_{instance_name(model, spec)}_{sfx}"
-                    "_occupancy", [build.P] + [build.I] * 3)
+                    "_occupancy", [build.P] + [build.I] * 4)
     return fn((ctypes.c_double * _N_CONST)(*model_constants(model)), spec.N,
-              spec.p, len(obj.pair_i))
+              spec.p, len(obj.pair_i), nsb)
 
 
 def trial_eval(model, spec, obj, gc, traj: PrimalDual, dtraj: PrimalDual,
@@ -377,7 +429,7 @@ def trial_eval(model, spec, obj, gc, traj: PrimalDual, dtraj: PrimalDual,
                                 reg_eff)
     if traj.x.device.type != "cuda":
         raise ValueError(f"unsupported device {traj.x.device}")
-    lib = build.load(_LIB)
+    lib = _library()
     with torch.cuda.device(traj.x.device):
         out = _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff,
                       torch.cuda.current_stream().cuda_stream)

@@ -161,7 +161,22 @@ Phases:
    versions' on the card, every K3 launch on its blocked route, K1 never,
    K4 launched; K3 on the game's own systems gated at mu = 1, 1e3, 1e7
    and timed beside the device-memory route at the chunk's batch; K3's
-   and K4's shares of the wall);
+   and K4's shares of the wall); then the 9-player flagship merge
+   (``uni9_game``: n=36, m=18, d=54, R=325, 72 w vectors and 72 state
+   blocks, past the caps that earlier kernels had): the f64 solve of
+   B_GOLDEN9 lanes from x0 through K1 and K2 against
+   ``tests/golden_torch/uni9_N20.npz`` (``golden-uni9``: iteration counts
+   equal, x and u within 1e-8, every K1 launch on the route the shape
+   takes, K2 launched); K1 on its systems (``K1-uni9``, B_BEYOND lanes,
+   f64 and f32, mu = 1 .. 1e7) on the route the shape takes (the
+   per-player blocked route: in f64 with the products Pw over K's slots)
+   and forced onto the device-memory route, gated as the quadrotor's and
+   timed; K2's wide unicycle instance on its trial inputs (``K2-uni9``,
+   B=1024); one timed f32 chunk of 1024 scenarios at the flagship's
+   budget 3 x 8 (``sweep-uni9``: as ``sweep-quad4``, against REF_UNI9,
+   the converged share gated, without the plain versions' lanes; K1's
+   blocked route gated over mu at B=1024 on the first 64 lanes and both
+   routes timed in f32 and f64; K1's and K2's shares of the wall);
 13. the heterogeneous game: K3 on its padded KKT systems as in 11
    (``K3-hetero``), K4 on its trial inputs (``K4-hetero``), the f64 solve
    through K3 and K4 against ``tests/golden_torch/hetero2_N8.npz`` (the
@@ -350,6 +365,21 @@ B_BEYOND = 64
 # PLAIN_LANE_TOL (most lanes take the plain versions' path; f32 rounding
 # turns a few line searches).
 REF_QUAD4 = (0 / 256, 0.20679336786270142)
+# The 9-player flagship merge (``uni9_game``: d=54, NW=72, 72 state blocks)
+# at the flagship's budget 3 x 8: the reference package's converged share of
+# the first 256 f32 sweep scenarios and their mean final residual norm
+# (`tests/reference_fractions.py subset uni9_N20`); the lanes of its f64
+# golden solve; the forward routes that hold its systems (its f32 systems
+# fit the blocked route's layout whole, 131,736 bytes a lane; its f64 ones
+# with the products Pw over K's slots, 231,064 bytes; the shared-memory
+# kernel holds neither).
+REF_UNI9 = (256 / 256, 7.022567388048628e-06)
+B_GOLDEN9 = 4
+# Lanes of its dense [S, S] KKT matrices a batch (S = 7182: 413 MB a lane
+# in f64), for the backward errors and the library call.
+B_DENSE9 = 16
+UNI9_ROUTES = {("structured", dt): ("blocked", "device")
+               for dt in ("f32", "f64")}
 PLAIN_LANES, PLAIN_RES_TOL, PLAIN_LANE_TOL = 64, 0.02, 1e-4
 # BASELINE config 3 as `benchmarks/bench_mpc.py` runs it: the highway's
 # collision radius and control bound, H_MPC replans, and B_MPC scenarios in
@@ -1278,6 +1308,61 @@ def uni6_game(dev, dtype):
     return flagship_unicycle(dev, dtype, p=6)
 
 
+def uni9_game(dev, dtype, outer=7, inner=20):
+    """The flagship merge with nine players (``flagship_unicycle(p=9)``):
+    n=36, m=18, 72 collision blocks, so its reduced KKT systems (d=54,
+    R=325, NW=72) pass the 64 w vectors and its trials the 32 states and
+    64 state blocks that earlier kernels capped."""
+    from algames_tpu_torch.presets import flagship_unicycle
+    return flagship_unicycle(dev, dtype, outer=outer, inner=inner, p=9)
+
+
+def uni9_sweep_game(dev, dtype):
+    """``uni9_game`` at the flagship bench's budget, outer 3 x inner 8."""
+    return uni9_game(dev, dtype, outer=3, inner=8)
+
+
+def phase_golden_uni9(dev):
+    """B_GOLDEN9 lanes of the f64 9-player merge from its x0 through the
+    kernels (K1 on the route its shape takes, K2's wide unicycle instance),
+    counted from zero just before: on every lane the frozen JAX solution's
+    iteration count (``uni9_N20``), x and u within 1e-8; every K1 launch on
+    that route, K2 launched, K3 not.  Returns the launches, with the route
+    under "route"."""
+    import torch
+    import algames_tpu_torch as agt
+    from algames_tpu_torch.ops.trial import instance_name
+    from algames_tpu_torch.problem.residual import structured_w_owner
+    gold = load_golden("uni9_N20")
+    prob, spec = uni9_game(dev, torch.float64)
+    prob = dataclasses.replace(
+        prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
+    route = shape_route(spec, torch.float64,
+                        len(structured_w_owner(prob.gc)))
+    x0s = prob.x0[None].repeat(B_GOLDEN9, 1)
+    counters = zero_counters()
+    t0 = time.perf_counter()
+    res = agt.newton_solve(prob, x0s)
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t0
+    launches = read_counters(counters)
+    it = res.stats.iter.cpu().numpy()
+    dx = float(np.abs(res.traj.x.cpu().numpy() - gold["x"][None]).max())
+    du = float(np.abs(res.traj.u.cpu().numpy() - gold["u"][None]).max())
+    log(f"[golden-uni9] f64 9-player merge (d=54, NW=72, 72 state blocks), "
+        f"{B_GOLDEN9} lanes from x0, {el:.2f} s: iterations {it.tolist()} "
+        f"(golden {int(gold['iter'])}), max |dx| {dx:.3e}, max |du| "
+        f"{du:.3e} (<= 1e-8); K1 on its {route} route, K2 instance "
+        f"{instance_name(prob.model, spec)}; launches {launches}")
+    if not ((it == int(gold["iter"])).all() and dx <= 1e-8 and du <= 1e-8
+            and launches["K1"] > 0
+            and launches[f"K1 {route} route"] == launches["K1"]
+            and launches["trial"] > 0 and launches["K3"] == 0):
+        raise SystemExit("the 9-player merge's f64 kernel path misses "
+                         "uni9_N20 or its kernels")
+    return {**launches, "route": route}
+
+
 def shape_route(spec, dtype, NW=None):
     """The forward route K1 (``NW`` w vectors) or K3 (``NW`` None) takes at
     ``spec``'s widths, as its library says."""
@@ -1290,7 +1375,7 @@ def shape_route(spec, dtype, NW=None):
 
 def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
                  iterates=quad3_iterates, forced=BEYOND_ROUTES,
-                 dense_system=None):
+                 dense_system=None, dense_lanes=None):
     """K1 (``form`` "structured") or K3 ("dense": the same systems turned
     dense, or ``dense_system(dev, B, mu, seed)``'s own) on ``game``'s KKT
     systems around ``iterates`` (by default the 4-player quadrotor's,
@@ -1305,8 +1390,12 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
     device), and per precision the plain version's and the library call's
     and the bound, and the forward kernels' occupancy.  Returns the f64
     numbers of the route the shape takes (the kernels line's), with every
-    route's under "f64" and "f32" by route name and the f64 device-memory
-    route's own max |error| under "f64"."""
+    route's under "f64" and "f32" by route name, each with its max |error|
+    against the f64 plain version over the mu schedule.  ``dense_lanes``:
+    the systems whose dense KKT matrices the backward errors and the
+    library call take at once (default all B; fewer where those matrices
+    would not fit the card together: the 9-player merge's are 413 MB a
+    lane in f64)."""
     import torch
     from algames_tpu_torch.ops import thomas as TH
     from algames_tpu_torch.utils import tree_leaves, tree_map
@@ -1355,7 +1444,7 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
         launches = read_counters(kernel_counters())
         return {r: launches[f"{kkt} {r} route"] for r in ROUTE_COUNTERS[kkt]}
     before = route_launches()
-    max_abs64 = {}
+    max_abs = {"f64": {}, "f32": {}}
     for i, mu in enumerate(MUS):
         spec, blocks, b, w_owner = system(mu, seed0 + i)
         blocks32, b32 = tree_map(lambda a: a.float(), blocks), b.float()
@@ -1367,7 +1456,8 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
                for r in routes[torch.float32]]
         torch.cuda.synchronize()
         bws = [float(e.max()) for e in backward_errors(
-            spec, blocks, w_owner, b, (ref, p32, *y64, *y32), lanes=B)]
+            spec, blocks, w_owner, b, (ref, p32, *y64, *y32),
+            lanes=dense_lanes or B)]
         bp64, bp32 = bws[:2]
         ep32 = float(rel_err(p32, ref).max())
         ok = True
@@ -1377,13 +1467,15 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
             name = taken[torch.float64] if r == "auto" else r
             ok = ok and bw <= 1e-15 and bw <= 10 * bp64
             line += (f"; f64 {name} {bw:.3e} (<= 1e-15 and 10 x plain)")
-            max_abs64[name] = max(max_abs64.get(name, 0.0),
-                                  float((y - ref).abs().max()))
+            max_abs["f64"][name] = max(max_abs["f64"].get(name, 0.0),
+                                       float((y - ref).abs().max()))
         for r, y, bw in zip(routes[torch.float32], y32,
                             bws[2 + len(y64):]):
             name = taken[torch.float32] if r == "auto" else r
             e32 = float(rel_err(y, ref).max())
             ok = ok and bw <= 1e-7 and bw <= 10 * bp32 and e32 <= 30 * ep32
+            max_abs["f32"][name] = max(max_abs["f32"].get(name, 0.0),
+                                       float((y.double() - ref).abs().max()))
             line += (f"; f32 {name} {bw:.3e} (<= 1e-7 and 10 x plain), "
                      f"forward {e32:.3e} (<= 30 x plain)")
         log(line)
@@ -1403,7 +1495,7 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
         bb = b.to(dtype)
         plain_ms = cuda_ms(lambda: plain(spec, bl, bb, w_owner), 3)
         dense = dense_of(spec, bl, w_owner) if structured else bl
-        lib_ms, y_lib = library_solve_ms(spec, dense, bb, B)
+        lib_ms, y_lib = library_solve_ms(spec, dense, bb, dense_lanes or B)
         per = {}
         for r in routes[dtype]:
             rname = taken[dtype] if r == "auto" else r
@@ -1422,9 +1514,8 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
                 f" KKT matrices) {lib_ms:.4f} ms, worst relative deviation "
                 f"{float(rel_err(y_lib, y).max()):.3e} (not gated)")
             per[rname] = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
-                          **bnd, "library_ms": lib_ms}
-            if name == "f64":
-                per[rname]["max_abs_err"] = max_abs64[rname]
+                          **bnd, "library_ms": lib_ms,
+                          "max_abs_err": max_abs[name][rname]}
         out[name] = per
         if len(per) > 1:
             log(f"[{tag}] {name} device time at B={B}: " + ", ".join(
@@ -1520,7 +1611,12 @@ def phase_solve_beyond(dev, tag, game, kkt):
     return {**launches, "route": route}
 
 
-def phase_sweep_quad4(dev, k4_quad4):
+def phase_sweep_beyond(dev, trial_row, tag="sweep-quad4", game=None,
+                      iterates=None, reference=REF_QUAD4,
+                      opt_gate=QUAD_OPT_GATE,
+                      routes=BEYOND_ROUTES, seeds=(990, 1000),
+                      plain_lanes=PLAIN_LANES, k4_name="K4",
+                      dense_lanes=None, library=True):
     """One timed f32 chunk of ``quad4_game`` with the fused trial: its first
     CHUNK scenarios (x0 + 0.05 N(0, 1) from numpy seed 0), outer 2 x 5,
     warm, counted from zero after the warm-up: every trajectory finite,
@@ -1539,9 +1635,21 @@ def phase_sweep_quad4(dev, k4_quad4):
     shape timed on the same operands (f32: blocked, shared-memory,
     device-memory; f64: blocked, device-memory).  Prints the chunk's wall
     and K1's and K4's device time shares of it: launches times the device
-    time per call at B=CHUNK (K4 from ``K4-quad4``, ``k4_quad4``).
+    time per call at B=CHUNK (K4 from ``K4-quad4``, ``trial_row``).
     Returns the launches, with K1's numbers at B=CHUNK by route for the
-    kernels line under "k1_rows" (f32) and "k1_f64" (device times)."""
+    kernels line under "k1_rows" (f32) and "k1_f64" (device times).
+    ``sweep-uni9`` runs the same on ``game`` (``uni9_game``, ``iterates``
+    around its start, ``routes`` the routes that hold its shape, K1's
+    systems from numpy seeds ``seeds``) at the flagship's budget 3 x 8 with
+    its reference ``reference`` and stationarity gate ``opt_gate``: where the
+    reference converges on some lanes the residual gate is left out (lanes
+    that converged stop at residuals f32 rounding sets), and with
+    ``plain_lanes`` 0 the plain versions' lanes are left out (the share
+    gate holds the chunk to the reference lane by lane's outcome);
+    ``dense_lanes``: the lanes of a dense KKT matrix batch (backward errors,
+    library call), by default 64 and 128; without ``library`` the library
+    call is not timed (the 9-player merge's dense matrices take 35 s at
+    B=1024; ``K1-uni9`` times it at B=64)."""
     import torch
     from algames_tpu_torch import parallel
     from algames_tpu_torch.ops.thomas import (
@@ -1549,12 +1657,13 @@ def phase_sweep_quad4(dev, k4_quad4):
         solve_thomas_structured_plain)
     from algames_tpu_torch.ops.trial import trial_supported
     from algames_tpu_torch.utils import tree_leaves, tree_map
-    prob, x0s = sweep_problem(quad4_game, dev)
+    game = game or quad4_game
+    iterates = iterates or quad3_iterates
+    prob, x0s = sweep_problem(game, dev)
     spec, x0s = prob.spec, x0s[:CHUNK]
     opts = prob.opts
     if not trial_supported(prob.model, spec, prob.obj, prob.gc):
-        raise SystemExit("the fused trial does not take the 4-player "
-                         "quadrotor")
+        raise SystemExit(f"{tag}: the fused trial does not take the game")
     parallel.solve_batch(dataclasses.replace(prob, opts=dataclasses.replace(
         opts, outer_iter=1, inner_iter=2)), x0s[:64])
     counters = zero_counters()
@@ -1564,44 +1673,48 @@ def phase_sweep_quad4(dev, k4_quad4):
     div = float(parallel.divergence_mask(out).float().mean())
     first = dataclasses.replace(out, stats=tree_slice(out.stats, 256),
                                 traj=tree_slice(out.traj, 256))
-    conv_opts = dataclasses.replace(opts, eps_opt=QUAD_OPT_GATE)
+    conv_opts = dataclasses.replace(opts, eps_opt=opt_gate)
     frac = float(parallel.convergence_fraction(first, conv_opts))
     last = (first.stats.iter - 1).clamp_min(0).long()
     res = float(first.stats.res.gather(1, last[:, None]).double().mean())
     iters = out.stats.iter.cpu().numpy()
-    # The first PLAIN_LANES lanes again through the plain versions on the
+    # The first plain_lanes lanes again through the plain versions on the
     # card (plain K1, eager trial): their final residuals against the
     # kernels', lane by lane.
-    plain = dataclasses.replace(prob, opts=dataclasses.replace(
-        opts, ls_fused=False))
-    out_p = parallel.solve_batch(plain, x0s[:PLAIN_LANES],
-                                 method=kkt_solve_plain)
+    plain_ok = True
+    if plain_lanes:
+        plain = dataclasses.replace(prob, opts=dataclasses.replace(
+            opts, ls_fused=False))
+        out_p = parallel.solve_batch(plain, x0s[:plain_lanes],
+                                     method=kkt_solve_plain)
 
-    def final_res(o, lanes):
-        last = (o.stats.iter[:lanes] - 1).clamp_min(0).long()
-        return o.stats.res[:lanes].gather(1, last[:, None])[:, 0].double()
-    rk, rp = final_res(out, PLAIN_LANES), final_res(out_p, PLAIN_LANES)
-    lane_dev = (rk - rp).abs() / rp
-    mean_ratio = float(rk.mean() / rp.mean())
-    same_iters = float((out.stats.iter[:PLAIN_LANES]
-                        == out_p.stats.iter).float().mean())
-    log(f"[sweep-quad4] first {PLAIN_LANES} lanes against the plain "
-        f"versions on the card: mean final residual {float(rk.mean()):.6f} "
-        f"against {float(rp.mean()):.6f} (ratio {mean_ratio:.6f}; within "
-        f"1 +- {PLAIN_RES_TOL:g}); per-lane relative deviation median "
-        f"{float(lane_dev.median()):.3e} (<= {PLAIN_LANE_TOL:g}), max "
-        f"{float(lane_dev.max()):.3e}; "
-        f"iteration counts equal on {same_iters:.4f} of the lanes")
-    _, sq, b, w_owner = k1_system(dev, CHUNK, 1e3, 990, False, quad4_game,
-                                  quad3_iterates)
+        def final_res(o, lanes):
+            last = (o.stats.iter[:lanes] - 1).clamp_min(0).long()
+            return o.stats.res[:lanes].gather(1, last[:, None])[:, 0].double()
+        rk, rp = final_res(out, plain_lanes), final_res(out_p, plain_lanes)
+        lane_dev = (rk - rp).abs() / rp
+        mean_ratio = float(rk.mean() / rp.mean())
+        same_iters = float((out.stats.iter[:plain_lanes]
+                            == out_p.stats.iter).float().mean())
+        log(f"[{tag}] first {plain_lanes} lanes against the plain "
+            f"versions on the card: mean final residual "
+            f"{float(rk.mean()):.6f} against {float(rp.mean()):.6f} (ratio "
+            f"{mean_ratio:.6f}; within 1 +- {PLAIN_RES_TOL:g}); per-lane "
+            f"relative deviation median {float(lane_dev.median()):.3e} (<= "
+            f"{PLAIN_LANE_TOL:g}), max {float(lane_dev.max()):.3e}; "
+            f"iteration counts equal on {same_iters:.4f} of the lanes")
+        plain_ok = (abs(mean_ratio - 1) <= PLAIN_RES_TOL
+                    and float(lane_dev.median()) <= PLAIN_LANE_TOL)
+    _, sq, b, w_owner = k1_system(dev, CHUNK, 1e3, seeds[0], False, game,
+                                  iterates)
     NW = len(w_owner)
     taken = shape_route(spec, torch.float32, NW)
     taken64 = shape_route(spec, torch.float64, NW)
 
     # The route the shape takes, gated over mu on the game's own systems.
     for i, mu in enumerate(MUS):
-        _, sqm, bm, wo = k1_system(dev, CHUNK, mu, 1000 + i, False,
-                                   quad4_game, quad3_iterates)
+        _, sqm, bm, wo = k1_system(dev, CHUNK, mu, seeds[1] + i, False,
+                                   game, iterates)
         y64 = solve_thomas_structured(spec, sqm, bm, wo)
         sqm32 = tree_map(lambda a: a.float(), sqm)
         y32 = solve_thomas_structured(spec, sqm32, bm.float(), wo)
@@ -1611,17 +1724,18 @@ def phase_sweep_quad4(dev, k4_quad4):
         p32 = solve_thomas_structured_plain(spec, sub32, bsub.float(), wo)
         bw = [float(e.max()) for e in backward_errors(
             spec, sub, wo, bsub, (ref, p32, y64[:PLAIN_LANES],
-                                  y32[:PLAIN_LANES]), lanes=PLAIN_LANES)]
+                                  y32[:PLAIN_LANES]),
+            lanes=dense_lanes or PLAIN_LANES)]
         e32 = float(rel_err(y32[:PLAIN_LANES], ref).max())
         ep32 = float(rel_err(p32, ref).max())
-        log(f"[sweep-quad4] K1 {taken} route at B={CHUNK}, mu={mu:.0e}, "
+        log(f"[{tag}] K1 {taken} route at B={CHUNK}, mu={mu:.0e}, "
             f"first {PLAIN_LANES} lanes: backward error f64 {bw[2]:.3e} "
             f"(plain {bw[0]:.3e}; <= 1e-15 and 10 x plain), f32 {bw[3]:.3e} "
             f"(plain {bw[1]:.3e}; <= 1e-7 and 10 x plain); f32 forward "
             f"{e32:.3e} (plain {ep32:.3e}; <= 30 x plain)")
         if not (bw[2] <= 1e-15 and bw[2] <= 10 * bw[0] and bw[3] <= 1e-7
                 and bw[3] <= 10 * bw[1] and e32 <= 30 * ep32):
-            raise SystemExit(f"sweep-quad4: K1 disagrees with its plain "
+            raise SystemExit(f"{tag}: K1 disagrees with its plain "
                              f"version at mu={mu}")
         del sqm, sqm32, y64, y32
 
@@ -1636,10 +1750,11 @@ def phase_sweep_quad4(dev, k4_quad4):
             spec, sq32, b32, w_owner), 2),
         **bound(tensor_bytes(tree_leaves(sq32) + [b32, ref.float()]),
                 thomas_flops(spec, CHUNK, NW=NW))}
-    common["library_ms"], y_lib = library_solve_ms(
-        spec, dense_of(spec, sq32, w_owner), b32, 128)
+    common["library_ms"], y_lib = (library_solve_ms(
+        spec, dense_of(spec, sq32, w_owner), b32, dense_lanes or 128)
+        if library else (None, None))
     rows = {}
-    for r in BEYOND_ROUTES[("structured", "f32")]:
+    for r in routes[("structured", "f32")]:
         y = solve_thomas_structured(spec, sq32, b32, w_owner, r)
         rows[r] = {
             "max_abs_err": float((y.double() - ref).abs().max()),
@@ -1647,52 +1762,56 @@ def phase_sweep_quad4(dev, k4_quad4):
                 spec, sq32, b32, w_owner, r), 3),
             "device_ms": device_ms(lambda: solve_thomas_structured(
                 spec, sq32, b32, w_owner, r), 3, ("thomas_sq_",), 2,
-                f"sweep-quad4 K1 f32 {r} route B={CHUNK}"),
+                f"{tag} K1 f32 {r} route B={CHUNK}"),
             **common}
-        log(f"[sweep-quad4] K1 f32 {r} route at B={CHUNK}: call "
+        log(f"[{tag}] K1 f32 {r} route at B={CHUNK}: call "
             f"{rows[r]['ms']:.4f} ms, device time {rows[r]['device_ms']:.4f}"
             f" ms; plain {common['plain_ms']:.4f} ms (CUDA events); bound "
-            f"{common['bound_ms']:.4f} ms ({common['bound_by']}); library "
-            f"(torch.linalg.solve on the dense KKT matrices, 128 lanes a "
-            f"call) {common['library_ms']:.4f} ms, worst relative deviation "
-            f"{float(rel_err(y_lib, y).max()):.3e} (not gated); max |error| "
-            f"against the f64 plain version {rows[r]['max_abs_err']:.3e}")
+            f"{common['bound_ms']:.4f} ms ({common['bound_by']}); "
+            + (f"library (torch.linalg.solve on the dense KKT matrices, "
+               f"{dense_lanes or 128} lanes a call) "
+               f"{common['library_ms']:.4f} ms, worst relative deviation "
+               f"{float(rel_err(y_lib, y).max()):.3e} (not gated); "
+               if library else "library not timed here; ")
+            + f"max |error| against the f64 plain version "
+            f"{rows[r]['max_abs_err']:.3e}")
     del y_lib, ref
     f64 = {}
-    for r in BEYOND_ROUTES[("structured", "f64")]:
+    for r in routes[("structured", "f64")]:
         f64[r] = {"ms": cuda_ms(lambda: solve_thomas_structured(
                       spec, sq, b, w_owner, r), 2),
                   "device_ms": device_ms(lambda: solve_thomas_structured(
                       spec, sq, b, w_owner, r), 3, ("thomas_sq_",), 2,
-                      f"sweep-quad4 K1 f64 {r} route B={CHUNK}")}
-    log(f"[sweep-quad4] K1 device time at B={CHUNK} on the same operands: "
+                      f"{tag} K1 f64 {r} route B={CHUNK}")}
+    log(f"[{tag}] K1 device time at B={CHUNK} on the same operands: "
         f"f32 " + ", ".join(f"{r} {v['device_ms']:.4f} ms"
                             for r, v in rows.items())
         + "; f64 " + ", ".join(f"{r} {v['device_ms']:.4f} ms"
                                for r, v in f64.items()))
     k1_ms = rows[taken]["device_ms"]
     k1_share = k1_ms * launches["K1"] / 1e3 / el
-    k4_share = k4_quad4["device_ms"] * launches["trial"] / 1e3 / el
-    log(f"[sweep-quad4] f32 {CHUNK} scenarios of the 4-player quadrotor as "
-        f"one chunk, outer {opts.outer_iter} x {opts.inner_iter}, fused "
-        f"trial: {el:.3f} s, {CHUNK / el:.1f} solves/s; first 256 lanes "
-        f"converged (opt gate {QUAD_OPT_GATE:g}) {frac:.4f} (reference "
-        f"{REF_QUAD4[0]:.4f}; >= {REF_QUAD4[0] - 0.01:.4f}), mean final "
-        f"residual {res:.6f} (reference {REF_QUAD4[1]:.6f}; <= 1.1 x); "
-        f"diverged {div:.4f}, finite {finite}; stats rows "
+    k4_share = trial_row["device_ms"] * launches["trial"] / 1e3 / el
+    res_gate = reference[0] == 0
+    log(f"[{tag}] f32 {CHUNK} scenarios as one chunk, outer "
+        f"{opts.outer_iter} x {opts.inner_iter}, fused trial: {el:.3f} s, "
+        f"{CHUNK / el:.1f} solves/s; first 256 lanes converged (opt gate "
+        f"{opt_gate:g}) {frac:.4f} (reference {reference[0]:.4f}; >= "
+        f"{reference[0] - 0.01:.4f}), mean final residual {res:.6g} "
+        f"(reference {reference[1]:.6g}; "
+        + ("<= 1.1 x" if res_gate else "not gated")
+        + f"); diverged {div:.4f}, finite {finite}; stats rows "
         f"{int(iters.min())}..{int(iters.max())}; launches {launches}; "
         f"device time: K1 ({taken} route) {launches['K1']} x {k1_ms:.4f} ms"
-        f" = {100 * k1_share:.1f}% of the wall, K4 {launches['trial']} x "
-        f"{k4_quad4['device_ms']:.4f} ms = {100 * k4_share:.1f}%")
-    if not (finite and div == 0.0 and frac >= REF_QUAD4[0] - 0.01
-            and res <= 1.1 * REF_QUAD4[1]
-            and abs(mean_ratio - 1) <= PLAIN_RES_TOL
-            and float(lane_dev.median()) <= PLAIN_LANE_TOL
+        f" = {100 * k1_share:.1f}% of the wall, {k4_name} "
+        f"{launches['trial']} x {trial_row['device_ms']:.4f} ms = "
+        f"{100 * k4_share:.1f}%")
+    if not (finite and div == 0.0 and frac >= reference[0] - 0.01
+            and (res <= 1.1 * reference[1] or not res_gate) and plain_ok
             and launches["K1"] > 0
             and launches[f"K1 {taken} route"] == launches["K1"]
             and launches["trial"] >= launches["K1"]
             and launches["K3"] == 0):
-        raise SystemExit("the 4-player quadrotor chunk failed its gates")
+        raise SystemExit(f"{tag}: the chunk failed its gates")
     return {**launches, "wall_s": el, "k1_share": k1_share,
             "k4_share": k4_share, "route": taken, "route_f64": taken64,
             "k1_rows": rows, "k1_f64": f64}
@@ -2057,7 +2176,8 @@ def phase_trial(tag, inputs, dev):
             dev_ms = device_ms(lambda: trial_eval(*args), 20,
                                ("trial_fused_",), 1, tag)
             bnd = trial_bound(*args, lite_k, tn_k)
-            lanes = trial_occupancy(prob.model, spec, prob.obj, dtype)
+            lanes = trial_occupancy(prob.model, spec, prob.obj, dtype,
+                                    len(gc.state_blocks))
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             B = alpha.shape[0]
             log(f"[{tag}] kernel instance {instance_name(prob.model, spec)}: "
@@ -3945,9 +4065,24 @@ def main():
                             "solve-wide64", quad4_game, "K1")
     launches_big64 = phase("solve-big64", phase_solve_beyond, dev,
                            "solve-big64", quad4_cost_game, "K3")
-    launches_quad4 = phase("sweep-quad4", phase_sweep_quad4, dev, k4_quad4)
+    launches_quad4 = phase("sweep-quad4", phase_sweep_beyond, dev, k4_quad4)
     launches_cost = phase("sweep-quad4-dense", phase_sweep_quad4_dense, dev,
                           k4_cost)
+
+    # The 9-player flagship merge (d=54, NW=72, n=36, 72 state blocks): K1
+    # past 64 w vectors (f32 on the blocked route, f64 with its products
+    # over K's slots), K2's wide unicycle instance.
+    launches_g9 = phase("golden-uni9", phase_golden_uni9, dev)
+    k1_uni9 = phase("K1-uni9", phase_beyond, dev, "K1-uni9", "structured",
+                    2200, B_BEYOND, uni9_game, flagship_iterates, UNI9_ROUTES,
+                    None, B_DENSE9)
+    k2_uni9 = phase("K2-uni9", phase_trial, "K2-uni9", lambda d, t:
+                    trial_inputs(uni9_game, flagship_iterates, True, d, t,
+                                 seed=61), dev)
+    launches_uni9 = phase("sweep-uni9", phase_sweep_beyond, dev, k2_uni9,
+                          "sweep-uni9", uni9_sweep_game, flagship_iterates,
+                          REF_UNI9, 1e-2, UNI9_ROUTES, (2290, 2300), 0, "K2",
+                          B_DENSE9, False)
 
     # The heterogeneous double integrator (K3 padded + K4's player-blocked
     # instance) and iterative best response (K3 at p=1).
@@ -4046,6 +4181,38 @@ def main():
               {**launches_quad4["k1_rows"]["device"],
                "launches_lanes": CHUNK, "timed_lanes": CHUNK},
               "thomas_global.cuh"),
+        entry("K1", "uni9_N20 (9-player merge, d=54, NW=72), f32: the "
+              f"per-player blocked route; launches in the B={CHUNK} sweep, "
+              f"times at B={B_BEYOND} (the library call on the sweep's "
+              "dense matrices takes over half a minute)",
+              launches_uni9["K1 blocked route"],
+              {**k1_uni9["f32"]["blocked"], "launches_lanes": CHUNK,
+               "timed_lanes": B_BEYOND,
+               "device_ms_sweep_batch": launches_uni9["k1_rows"]["blocked"][
+                   "device_ms"]}, "thomas_blocked.cuh"),
+        entry("K1", "uni9_N20 (9-player merge, d=54, NW=72), f32: the "
+              "device-memory route, timed beside the route the shape takes; "
+              f"launches in the B={CHUNK} sweep, times at B={B_BEYOND}",
+              launches_uni9["K1 device route"],
+              {**k1_uni9["f32"]["device"], "launches_lanes": CHUNK,
+               "timed_lanes": B_BEYOND,
+               "device_ms_sweep_batch": launches_uni9["k1_rows"]["device"][
+                   "device_ms"]}, "thomas_global.cuh"),
+        entry("K1", "uni9_N20 (9-player merge, d=54, NW=72), f64: the "
+              "per-player blocked route with Pw over K's slots; launches at "
+              f"B={B_GOLDEN9}, times at B={B_BEYOND}",
+              launches_g9["K1 blocked route"],
+              {**k1_uni9["f64"]["blocked"], "launches_lanes": B_GOLDEN9,
+               "timed_lanes": B_BEYOND}, "thomas_blocked.cuh"),
+        entry("K1", "uni9_N20 (9-player merge, d=54, NW=72), f64: the "
+              "device-memory route, timed beside the route the shape takes; "
+              f"launches at B={B_GOLDEN9}, times at B={B_BEYOND}",
+              launches_g9["K1 device route"],
+              {**k1_uni9["f64"]["device"], "launches_lanes": B_GOLDEN9,
+               "timed_lanes": B_BEYOND}, "thomas_global.cuh"),
+        entry("K2", f"uni9_N20 (9-player merge, n=36, 72 state blocks): the "
+              f"wide unicycle instance, B={CHUNK}", launches_uni9["trial"],
+              k2_uni9),
         entry("K1", f"highway_mpc, B={B_MPC}", mpc[B_MPC]["launches"]["K1"],
               k1_hw[B_MPC]),
         entry("K1", "highway_mpc, B=1", mpc[1]["launches"]["K1"], k1_hw[1]),

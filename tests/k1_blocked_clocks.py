@@ -4,6 +4,7 @@ Not a test module (pytest does not collect it).
 
     python3 tests/k1_blocked_clocks.py [--form dense] [OUT_DIR]
     python3 tests/k1_blocked_clocks.py [--form dense] --split
+    python3 tests/k1_blocked_clocks.py --split uni9
 
 Builds a copy of ``csrc/thomas_sq.cu`` (in OUT_DIR, default a temporary
 directory) whose blocked kernel records ``clock64()`` at the phase
@@ -148,7 +149,9 @@ def measure(so, tag="", form="structured"):
         False, cs.quad4_game, cs.quad3_iterates)
     n, m, p, T, NW = spec.n, spec.m, spec.p, spec.T, len(w_owner)
     own = build.int_table(owner_map_u(spec))
-    w_own = build.int_table(w_owner)
+    # The w_owner table lives on the card (the kernels read it there).
+    w_dev = torch.tensor(w_owner, dtype=torch.int32, device=dev)
+    w_own = ctypes.c_void_p(w_dev.data_ptr())
     if form == "dense":
         jb64 = cs.dense_of(spec, sq64, w_owner)
     for dtype, sfx, batches in ((torch.float32, "f32", (132, cs.B_KERNEL)),
@@ -193,13 +196,16 @@ def measure(so, tag="", form="structured"):
                       + f"; total {sum(per):.0f}", flush=True)
 
 
-def split(reps=3, form="structured"):
+def split(reps=3, form="structured", game="quad4"):
     """Device ms a launch of K1's (``form`` "dense": K3's) forward kernel,
     on each route that holds the 4-player quadrotor's systems, and of its
     backward kernel, apart: the package's own library (no marks), CUDA
     events around each launch with the card idle before it; f32 at B =
     1024 (``sweep-quad4``'s systems; K3: ``sweep-quad4-dense``'s) and B =
-    64, f64 at B = 64 (``K1-wide64``'s; K3: ``K3-big64``'s)."""
+    64, f64 at B = 64 (``K1-wide64``'s; K3: ``K3-big64``'s).  ``game``
+    "uni9" (K1 only): the 9-player unicycle merge's systems (d=54, NW=72;
+    ``K1-uni9``'s) on its blocked and device-memory routes, the same
+    batches."""
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs
     from algames_tpu_torch.ops import build
@@ -222,11 +228,18 @@ def split(reps=3, form="structured"):
         cases = (("f32", cs.CHUNK, 1210, ("blocked", "device")),
                  ("f32", cs.B_BEYOND, 960 + 99, ("blocked", "device")),
                  ("f64", cs.B_BEYOND, 960 + 99, ("blocked", "device")))
+    elif game == "uni9":
+        cases = (("f32", cs.CHUNK, 2290, ("blocked", "device")),
+                 ("f32", cs.B_BEYOND, 2200 + 99, ("blocked", "device")),
+                 ("f64", cs.B_BEYOND, 2200 + 99, ("blocked", "device")))
     else:
         cases = (("f32", cs.CHUNK, 990, ("blocked", "shared", "device")),
                  ("f32", cs.B_BEYOND, 950 + 99,
                   ("blocked", "shared", "device")),
                  ("f64", cs.B_BEYOND, 950 + 99, ("blocked", "device")))
+    system_game, system_iterates = ((cs.uni9_game, cs.flagship_iterates)
+                                    if game == "uni9" else
+                                    (cs.quad4_game, cs.quad3_iterates))
     for name, lanes, seed, routes in cases:
         dtype = torch.float32 if name == "f32" else torch.float64
         if form == "dense" and lanes == cs.CHUNK:
@@ -235,8 +248,7 @@ def split(reps=3, form="structured"):
             args = (tree_map(lambda a: a.to(dtype), jb), b.to(dtype))
         else:
             spec, sq, b, w_owner = cs.k1_system(dev, lanes, 1e3, seed, False,
-                                                cs.quad4_game,
-                                                cs.quad3_iterates)
+                                                system_game, system_iterates)
             if form == "dense":
                 args = (tree_map(lambda a: a.to(dtype),
                                  cs.dense_of(spec, sq, w_owner)),
@@ -258,7 +270,7 @@ def split(reps=3, form="structured"):
                     solve(route)
             finally:
                 build.launch_hook = None
-            print(f"{'K1' if form == 'structured' else 'K3'} quad4 {name} "
+            print(f"{'K1' if form == 'structured' else 'K3'} {game} {name} "
                   f"B={lanes} {route} route, device ms a "
                   f"launch (mean of {reps}): " + ", ".join(
                       f"{k} {sum(v) / len(v):.4f}"
@@ -275,7 +287,7 @@ if __name__ == "__main__":
     if argv[:2] == ["--form", "dense"]:
         form, argv = "dense", argv[2:]
     if argv[:1] == ["--split"]:
-        split(form=form)
+        split(form=form, game=argv[1] if len(argv) > 1 else "quad4")
     elif argv:
         target = Path(argv[0])
         target.mkdir(parents=True, exist_ok=True)

@@ -143,7 +143,9 @@ def main(out):
         sq, b = tree_map(lambda a: a.float(), sq), b.float()
         n, m, p, T, NW = spec.n, spec.m, spec.p, spec.T, len(w_owner)
         own = build.int_table(owner_map_u(spec))
-        w_own = build.int_table(w_owner)
+        # The w_owner table lives on the card (the kernels read it there).
+        w_dev = torch.tensor(w_owner, dtype=torch.int32, device=dev)
+        w_own = ctypes.c_void_p(w_dev.data_ptr())
         for route, phases in (("", TILED), ("wide_", WIDE)):
             fwd = getattr(lib, f"thomas_sq_fwd_{route}f32")
             fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [

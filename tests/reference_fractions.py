@@ -29,7 +29,9 @@ heterogeneous game of ``tests/test_hetero.py`` at outer 7 x 20, as
 ``tests/torch_goldens.py::ring3_eq_problem``; its starts put player 0
 back on the ring, ``chip_smoke.py::onto_ring``) and quad4_N15 (the
 quadrotor preset with 4 players at outer 2 x inner 5, ``jax_quadrotor``,
-as ``chip_smoke.py``'s ``sweep-quad4`` runs it; about five minutes).  Each
+as ``chip_smoke.py``'s ``sweep-quad4`` runs it; about five minutes) and
+uni9_N20 (the flagship merge with 9 players, ``flagship_unicycle(p=9)``
+at outer 3 x inner 8, as ``chip_smoke.py``'s ``sweep-uni9`` runs it).  Each
 also prints the mean over lanes of the final residual norm.
 
 ``full``: the reference alone over all 4096 sweep scenarios (or lanes A
@@ -146,6 +148,9 @@ def jax_problem(key, dtype):
     from algames_tpu.presets import PRESETS as JAX_PRESETS
     if key == "quad4_N15":
         return jax_quadrotor(4, dtype)
+    if key == "uni9_N20":
+        from algames_tpu.presets import flagship_unicycle
+        return flagship_unicycle(dtype, p=9, outer=3, inner=8)
     if key == "ring3_eq_N20":
         from torch_goldens import ring3_eq_problem
         return ring3_eq_problem(dtype)
@@ -178,6 +183,9 @@ def port_problem(key, prob, dtype):
     from algames_tpu_torch.presets import PRESETS, quadrotor3d
     if key == "quad4_N15":
         return quadrotor3d(CPU, dtype, outer=2, inner=5, p=4)[0]
+    if key == "uni9_N20":
+        from algames_tpu_torch.presets import flagship_unicycle
+        return flagship_unicycle(CPU, dtype, outer=3, inner=8, p=9)[0]
     if key in ("hetero2_N8", "ring3_eq_N20"):
         return problem_from_reference(prob, CPU, dtype)
     return PRESETS[key](CPU, dtype)[0]

@@ -12,7 +12,9 @@ own nvcc flags into OUT_DIR (all six builds started together), dumps each
 library's SASS with ``cuobjdump -sass`` and, for every kernel both trees
 compile (by mangled name), prints whether its instructions are equal once
 addresses and encodings are stripped, else both instruction counts and the
-number of differing lines; then the kernels only one tree has.
+number of differing lines; then the kernels whose parameters changed (the
+same name and template arguments, a new trailing ``false`` argument aside)
+likewise; then the kernels only one tree has.
 """
 import concurrent.futures
 import os
@@ -86,10 +88,33 @@ def main(tree_a, tree_b, out):
                      f"SASS differs ({len(a[name])} against {len(b[name])} "
                      f"instructions, {diff} lines differ)")
                   + f" [{len(a[name])} instructions]", flush=True)
-        for tree, only in ((tree_a, set(a) - set(b)),
-                           (tree_b, set(b) - set(a))):
+        only_a, only_b = set(a) - set(b), set(b) - set(a)
+        # A kernel whose parameters changed keeps its name and template
+        # arguments (a new trailing ``false`` argument aside): compared as
+        # the same instance under another signature.
+        by_base = {base(n): n for n in only_b}
+        for name in sorted(only_a):
+            other = by_base.get(base(name))
+            if other is None:
+                continue
+            only_a.discard(name)
+            only_b.discard(other)
+            diff = sum(x != y for x, y in zip(a[name], b[other])) + abs(
+                len(a[name]) - len(b[other]))
+            print(f"{lib} {name} -> {other}: signature changed, SASS "
+                  + ("equal" if a[name] == b[other] else
+                     f"differs ({len(a[name])} against {len(b[other])} "
+                     f"instructions, {diff} lines differ)"), flush=True)
+        for tree, only in ((tree_a, only_a), (tree_b, only_b)):
             for name in sorted(only):
                 print(f"{lib} {name}: only in {tree}", flush=True)
+
+
+def base(name):
+    """A kernel's mangled name up to its parameter list, a trailing
+    ``false`` template argument dropped."""
+    m = re.match(r"(.*?E)v", name)
+    return (m.group(1) if m else name).replace("Lb0E", "")
 
 
 if __name__ == "__main__":

@@ -185,8 +185,8 @@ def test_specialization_predicate(case):
         assert trial.trial_supported(model, spec, obj, g)
     # A collision block and a collision-cost pair on three coordinates are
     # inside; outside: both on four coordinates, a state block of another
-    # shape used as a control block, another model, a heterogeneous layout,
-    # too many state blocks.
+    # shape used as a control block, another model, a heterogeneous layout;
+    # inside again: any number of state blocks.
     coll3, coll4 = (tsets.ConBlock(
         params=CollisionParams(radius=torch.tensor(0.1, dtype=torch.float64),
                                pxi=tuple(range(k)),
@@ -218,7 +218,8 @@ def test_specialization_predicate(case):
                           CPU),
         lam=torch.zeros(spec.T, 2 * spec.n), mu=torch.ones(spec.T, 2 * spec.n),
         owner=1, is_state=True)
-    many = dataclasses.replace(gc, state_blocks=(bound,) * 65)
-    assert not trial.trial_supported(model, spec, obj, many)
-    assert trial.trial_supported(model, spec, obj, dataclasses.replace(
-        gc, state_blocks=(bound,) * 64))
+    # Any number of state blocks: the kernel reads them from device memory
+    # (64 was the by-value table's limit until the 9-player merge's 72).
+    for k in (64, 65, 90):
+        assert trial.trial_supported(model, spec, obj, dataclasses.replace(
+            gc, state_blocks=(bound,) * k))

@@ -512,3 +512,81 @@ def test_kernel_libraries_have_sources():
     for name in sources:
         text = (build.CSRC_DIR / f"{name}.cu").read_text()
         assert f'extern "C" const char* {name}_error_string' in text
+
+
+@pytest.mark.parametrize("p", [9, 10])
+def test_k1_owner_tables_come_from_the_spec(monkeypatch, p):
+    """K1's wrapper builds its tables from the spec at any number of w
+    vectors (the 9- and 10-player merges: 72 and 90): the control rows'
+    owners by value (m of them), the w vectors' owners as an int32 array
+    of length NW on the operands' device, built once per shape; no table
+    of a fixed size bounds NW.  Checked with a fake library."""
+    from algames_tpu_torch.ops import thomas
+    from algames_tpu_torch.problem.residual import structured_w_owner
+
+    class Library:
+        def __getattr__(self, name):
+            return (lambda *a: 3) if "_route_" in name else (lambda *a: 0)
+    monkeypatch.setattr(thomas.build, "load", lambda name: Library())
+    monkeypatch.setattr(thomas.build, "bind",
+                        lambda lib, fn, argtypes: getattr(lib, fn))
+    thomas._shape_route.cache_clear()
+    thomas._sq_launch.cache_clear()
+    try:
+        prob, spec = flagship_unicycle(torch.device("cpu"), torch.float64,
+                                       outer=1, inner=1, p=p, N=3)
+        w_owner = structured_w_owner(prob.gc)
+        assert len(w_owner) == p * (p - 1)
+        route, _, _, _, owner, w_own = thomas._sq_launch(
+            spec, w_owner, torch.float32, torch.device("cpu"))
+        assert route == "blocked"
+        assert list(owner) == [r % p for r in range(spec.m)]
+        assert w_own.dtype == torch.int32 and w_own.device.type == "cpu"
+        assert w_own.tolist() == list(w_owner)
+        assert sorted(set(w_own.tolist())) == list(range(p))
+        assert thomas._sq_launch(spec, w_owner, torch.float32,
+                                 torch.device("cpu"))[5] is w_own
+    finally:
+        thomas._shape_route.cache_clear()
+        thomas._sq_launch.cache_clear()
+
+
+@pytest.mark.parametrize("p", [9, 10])
+def test_trial_tables_at_many_state_blocks(p):
+    """The fused trial takes the 9- and 10-player merges (72 and 90 state
+    blocks, 36 and 40 states: the unicycle's wide instance), and its
+    state-block table holds every block as the kernel's 40-byte ``SBlock``
+    record, in block order; with a state bound on all n states appended,
+    its lower-bound rows past the 64th in the record's ``mask_hi``."""
+    import numpy as np
+    from algames_tpu_torch.constraints import sets as tsets
+    from algames_tpu_torch.ops import trial
+    prob, spec = flagship_unicycle(torch.device("cpu"), torch.float64,
+                                   outer=1, inner=1, p=p, N=3)
+    n = spec.n
+    gc = tsets.add_state_bound(spec, prob.gc, 0, 5 * np.ones(n),
+                               -5 * np.ones(n))
+    assert trial.trial_supported(prob.model, spec, prob.obj, gc)
+    assert trial.instance_name(prob.model, spec) == "unicycle_wide"
+    sb = gc.state_blocks
+    nsb = len(sb)
+    assert nsb == p * (p - 1) + 1
+    meta, masks, spar, rows = trial._state_tables(sb, torch.float64,
+                                                  torch.device("cpu"))
+    assert len(meta) == 12 * nsb and len(masks) == nsb
+    assert rows == sum(b.lam.shape[-1] for b in sb) == p * (p - 1) + 2 * n
+    rec = trial._sblock_table(meta, masks)
+    assert rec.dtype.itemsize == 40 and rec.shape == (nsb,)
+    for k, blk in enumerate(sb[:-1]):          # collision blocks
+        par = blk.params
+        assert (rec["kind"][k], rec["owner"][k], rec["row"][k],
+                rec["cnt"][k], rec["eq"][k]) == (0, blk.owner, k, 2, 0)
+        assert list(rec["a"][k]) == [*par.pxi, 0, *par.pxj, 0]
+        assert rec["mask"][k] == rec["mask_hi"][k] == 0
+    assert rec["kind"][-1] == 2 and rec["row"][-1] == p * (p - 1)
+    assert int(rec["mask"][-1]) == (1 << 64) - 1
+    assert int(rec["mask_hi"][-1]) == (1 << (2 * n - 64)) - 1
+    dev = trial._sblock_device(tuple(meta), tuple(masks),
+                               torch.device("cpu"))
+    assert dev.dtype == torch.uint8 and dev.numel() == 40 * nsb
+    assert bytes(dev.numpy()) == rec.tobytes()

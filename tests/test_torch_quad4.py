@@ -185,20 +185,23 @@ def test_plain_trial_matches_the_fused_pallas_trial():
 def test_trial_supported_on_the_wide_quadrotors():
     """K4's quadrotor instance takes up to 64 states (the 3- and 4-player
     quadrotors: 36 and 48); 6 players (72) lie outside and keep the eager
-    trial; the other models stay at 32.  A state bound on all 48 states
-    flags its lower-bound rows of states 16.. in the table's second
-    word."""
+    trial; the unicycle takes up to 64 states too (its wide instance past
+    32: 9 players, 36 states, inside; 17 players, 68, outside).  A state
+    bound on all 48 states flags its lower-bound rows of states 16.. in the
+    table's second word."""
     for p, inside in ((3, True), (4, True), (6, False)):
         prob, spec = quadrotor3d(CPU, F64, p=p)
         assert trial.trial_supported(prob.model, spec, prob.obj,
                                      prob.gc) == inside, p
-    uni = agt.unicycle_game(p=9)
-    spec = agt.spec_from_model(uni, 5, 0.1)
-    gc = tsets.game_constraints(spec, dtype=F64, device=CPU)
-    obj = agt.game_objective(spec, Q=[np.ones(4)] * 9, R=[np.ones(2)] * 9,
-                             xf=[np.zeros(4)] * 9, uf=[np.zeros(2)] * 9,
-                             dtype=F64, device=CPU)
-    assert spec.n == 36 and not trial.trial_supported(uni, spec, obj, gc)
+    for p, inside in ((9, True), (17, False)):
+        uni = agt.unicycle_game(p=p)
+        spec = agt.spec_from_model(uni, 5, 0.1)
+        gc = tsets.game_constraints(spec, dtype=F64, device=CPU)
+        obj = agt.game_objective(spec, Q=[np.ones(4)] * p,
+                                 R=[np.ones(2)] * p, xf=[np.zeros(4)] * p,
+                                 uf=[np.zeros(2)] * p, dtype=F64, device=CPU)
+        assert spec.n == 4 * p
+        assert trial.trial_supported(uni, spec, obj, gc) == inside, p
     prob, spec = quadrotor3d(CPU, F64, p=4)
     n = spec.n
     bound = tsets.ConBlock(

@@ -3,7 +3,7 @@ by the JAX package in f64 on the CPU.  Not a test module (pytest does not
 collect it); ``chip_smoke.py`` reads its files and never imports JAX.
 
     JAX_PLATFORMS=cpu python tests/torch_goldens.py [hetero] [ibr] [ring3_eq]
-        [ibr_quad]
+        [ibr_quad] [uni9]
 
 writes, under ``tests/golden_torch/``:
 
@@ -25,7 +25,10 @@ writes, under ``tests/golden_torch/``:
   inner 4 per player solve, one round) from two starts x0 + 0.05 N(0, 1)
   (numpy seed 0), vmapped, through ``method="schur"``: the starts
   ``x0s``, x, u, and per lane the stats rows ``iter``, their ``outer``
-  (round) column and residuals ``res``.  About 90 s, 70 of them tracing.
+  (round) column and residuals ``res``.  About 90 s, 70 of them tracing;
+- ``uni9_N20.npz``: the 9-player flagship merge (``flagship_unicycle(p=9)``,
+  outer 7 x inner 20) from its own x0 through ``method="schur"``: x0, x,
+  u, ``iter`` and the final violations.
 
 ``test_torch_hetero.py``, ``test_torch_ibr.py`` and
 ``test_torch_cones.py`` check that the files still match the JAX package,
@@ -163,10 +166,27 @@ def ibr_quad_solution():
             "res": np.asarray(res.stats.res)[:, :rows]}
 
 
+def uni9_solution():
+    """The 9-player flagship merge (``flagship_unicycle(p=9)``: n = 36, 72
+    collision blocks, outer 7 x inner 20, f64) from its own x0 through
+    ``schur``: x0, x, u, ``iter`` and the final violations."""
+    import algames_tpu as ag
+    from algames_tpu.presets import flagship_unicycle
+    prob, _ = flagship_unicycle(p=9)
+    res = ag.newton_solve_jit(prob, method="schur")
+    it = int(res.stats.iter)
+    out = {"x0": np.asarray(prob.x0), "x": np.asarray(res.traj.x),
+           "u": np.asarray(res.traj.u), "iter": np.asarray(it)}
+    for k in ("dyn_vio", "con_vio", "sta_vio", "opt_vio"):
+        out[k] = np.asarray(getattr(res.stats, k)[it - 1])
+    return out
+
+
 GOLDENS = {"hetero": ("hetero2_N8", hetero_solution),
            "ibr": ("ibr_uni3_N20", ibr_solution),
            "ring3_eq": ("ring3_eq_N20", ring3_eq_solution),
-           "ibr_quad": ("ibr_quad2_N6", ibr_quad_solution)}
+           "ibr_quad": ("ibr_quad2_N6", ibr_quad_solution),
+           "uni9": ("uni9_N20", uni9_solution)}
 
 
 if __name__ == "__main__":
