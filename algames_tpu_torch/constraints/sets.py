@@ -375,7 +375,10 @@ def dual_update(gc: GameConstraints, traj) -> GameConstraints:
     """Dual ascent on every block: per-player state step ``alphax_dual[i]``,
     shared control step ``alpha_dual``; each block projected onto its cone
     (ineq: [0, lam_max]; eq: [-lam_max, lam_max]; soc: proj_soc of
-    lam - alpha mu c)."""
+    lam - alpha mu c).  A player past the steps ``Options.alphax_dual``
+    gives (ten by default) takes the last, as the reference package's
+    clamped index does."""
+    last = gc.alphax_dual.shape[0] - 1
     def upd(block: ConBlock, alpha):
         c = block_values(block, traj)
         if block.sense == "soc":
@@ -390,7 +393,7 @@ def dual_update(gc: GameConstraints, traj) -> GameConstraints:
         return dataclasses.replace(block, lam=lam)
     return dataclasses.replace(
         gc,
-        state_blocks=tuple(upd(b, gc.alphax_dual[b.owner])
+        state_blocks=tuple(upd(b, gc.alphax_dual[min(b.owner, last)])
                            for b in gc.state_blocks),
         control_blocks=tuple(upd(b, gc.alpha_dual)
                              for b in gc.control_blocks))

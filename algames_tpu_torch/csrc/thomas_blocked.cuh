@@ -185,12 +185,12 @@ size_t smem_bytes(int n, int m, int p, int NW) {
 }
 
 // Whether the route takes these widths (kPwInK: with Pw over Ks).  Shared
-// memory bounds NW; no table of a fixed size does.
+// memory bounds m and NW; no table of a fixed size does.
 template <typename T, typename QF, bool kPwInK = false>
-bool fits(int n, int m, int p, int NW, int max_m) {
+bool fits(int n, int m, int p, int NW) {
   const int d = n + m;
   if (kPwInK && d * odd(NW) > panels(d) * odd(panels(d))) return false;
-  return n >= 1 && p >= 1 && m >= 1 && m <= max_m && d <= kRG * kDT &&
+  return n >= 1 && p >= 1 && m >= 1 && d <= kRG * kDT &&
          smem_bytes<T, QF, kPwInK>(n, m, p, NW) <= (size_t)kMaxSmem;
 }
 

@@ -18,7 +18,9 @@
 //
 // One thread block per lane walks the knots in order (the TPU kernel's
 // sequential grid axis becomes a loop); every per-knot operand, the (G, y)
-// carry and the augmented system [d x (d+R)] live in shared memory.  Only G
+// carry, the owner of each control row (a device array of m ints, staged
+// once a launch: no table of a fixed size bounds m) and the augmented
+// system [d x (d+R)] live in shared memory.  Only G
 // and y_hat go to device memory, for the backward launch.  Pivoting is
 // virtual, as on the TPU: a row is marked used instead of being moved, the
 // pivot is the unused row of largest magnitude with the lowest index on
@@ -41,7 +43,6 @@ namespace thomas {
 // H100.  The backward kernels keep theirs unrolled: only d or p*n threads
 // work per knot there, and they need the instruction-level parallelism.
 constexpr int kThreads = 128;
-constexpr int kMaxM = 32;
 
 template <typename T>
 __device__ __forceinline__ T absval(T v) { return v < T(0) ? -v : v; }
@@ -69,10 +70,16 @@ struct FwdLayout {
   }
 };
 
+// Ints after the scalars: the pivot marks and rows [d] each, the control
+// rows' owners [m], rounded up to keep the pivot value 8-byte aligned.
+__host__ __device__ inline int fwd_ints(int n, int m) {
+  return (2 * (n + m) + m + 1) & ~1;
+}
+
 template <typename T>
 size_t fwd_smem_bytes(int n, int m, int p, int qs, int fws) {
   const FwdLayout L(n, m, p, qs, fws);
-  return L.total * sizeof(T) + 2 * (n + m) * sizeof(int) + sizeof(T);
+  return L.total * sizeof(T) + fwd_ints(n, m) * sizeof(int) + sizeof(T);
 }
 
 // Shared-memory layout of the backward kernel: lam_{t+1}, lam_t, (x, u),
@@ -88,7 +95,7 @@ template <typename T>
 struct Fwd {
   int n, m, p, pn, d, R, W, C;
   T *Gx, *yx, *q, *Ub, *Bs, *At, *At1T, *bs, *F, *Fw, *M, *sol;
-  int *used, *pivrow;
+  int *used, *pivrow, *own;
   T* pivval;
 
   __device__ Fwd(unsigned char* raw, int n_, int m_, int p_, int qs, int fws)
@@ -114,15 +121,19 @@ struct Fwd {
     sol = sm + L.sol;
     used = reinterpret_cast<int*>(sm + L.total);
     pivrow = used + d;
-    pivval = reinterpret_cast<T*>(pivrow + d);  // 2d ints keep 8-byte alignment
+    own = pivrow + d;
+    pivval = reinterpret_cast<T*>(used + fwd_ints(n_, m_));
   }
 };
 
-// Zero the (G, y) carry.
+// Zero the (G, y) carry and stage the control rows' owners (``owner``: a
+// device array of m ints).
 template <typename T>
-__device__ __forceinline__ void init_carry(const Fwd<T>& S) {
+__device__ __forceinline__ void init_carry(const Fwd<T>& S,
+                                           const int* owner) {
   for (int i = threadIdx.x; i < S.n * S.pn; i += kThreads) S.Gx[i] = T(0);
   for (int i = threadIdx.x; i < S.n; i += kThreads) S.yx[i] = T(0);
+  for (int r = threadIdx.x; r < S.m; r += kThreads) S.own[r] = owner[r];
 }
 
 // Knot t's operands other than Q: Ublk, B, A_t, A_{t+1}^T (zero at the last
@@ -171,11 +182,11 @@ struct ColumnOrder {
 
 // Augmented reduced system M = [K | RHS], rows [statu (m) | dyn (n)],
 // columns [x (n) | u (m)], then [G rhs (pn) | y rhs (1)].
-// ``owner[r]`` is the player owning control row r.
+// ``S.own[r]`` is the player owning control row r.
 template <typename T, typename QForm>
 __device__ __forceinline__ void build_system(const Fwd<T>& S,
-                                             const int* owner,
                                              const QForm& qf) {
+  const int* owner = S.own;
   const int n = S.n, m = S.m, pn = S.pn, d = S.d, C = S.C;
   const ColumnOrder col(n, m);
   for (int idx = threadIdx.x; idx < d * C; idx += kThreads) {

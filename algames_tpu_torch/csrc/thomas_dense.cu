@@ -76,12 +76,11 @@ namespace {
 
 using thomas::Bwd;
 using thomas::Fwd;
-using thomas::kMaxM;
 using thomas::kThreads;
 
-struct DenseMeta {
-  int owner[kMaxM];     // player owning control row r
-};
+// The owner of each control row is a device array of m ints (``owner``)
+// that the wrapper uploads once per shape: no table of a fixed size bounds
+// m.
 
 template <typename T>
 struct DenseForm {
@@ -183,27 +182,26 @@ template <typename T>
 struct DenseGlobalQ {
   const T* Qg;                         // [B, T, p, n, n]
 
-  // Columns of the panel: one right-hand side a thread (no products).
-  __host__ __device__ static constexpr int panel_cols() {
-    return thomas_global::kThreads;
-  }
-  __device__ void products(T*, const T*, const T*, size_t, const int*, int,
-                           int, int) const {}
-  // Row r, column c (< n) of K: B^T Q_owner, or -I + sum_i F_i Q_i.
-  __device__ T x_entry(int r, int c, const T*, const T* F, const T* Bs,
-                       size_t kt, const int* owner, int n, int m,
-                       int p) const {
-    const int pn = p * n;
+  // K[:, :n] of knot kt into K (row stride d): B^T Q_owner, or -I + sum_i
+  // F_i Q_i (the panel unused: no products).
+  __device__ void x_columns(T* K, T*, const T* F, const T* Bs, size_t kt,
+                            const int* owner, int n, int m, int p) const {
+    const int pn = p * n, d = n + m;
     const T* Q = Qg + kt * pn * n;
-    T v = T(0);
-    if (r < m) {
-      const T* Qo = Q + owner[r] * n * n;
-      for (int k = 0; k < n; ++k) v += Bs[k * m + r] * Qo[k * n + c];
-      return v;
+    for (int idx = threadIdx.x; idx < d * n;
+         idx += thomas_global::kThreads) {
+      const int r = idx / n, c = idx - r * n;
+      T v = T(0);
+      if (r < m) {
+        const T* Qo = Q + owner[r] * n * n;
+        for (int k = 0; k < n; ++k) v += Bs[k * m + r] * Qo[k * n + c];
+      } else {
+        const T* f = F + (r - m) * pn;
+        for (int j = 0; j < pn; ++j) v += f[j] * Q[j * n + c];
+        if (r - m == c) v += T(-1);
+      }
+      K[r * d + c] = v;
     }
-    const T* f = F + (r - m) * pn;
-    for (int j = 0; j < pn; ++j) v += f[j] * Q[j * n + c];
-    return (r - m == c) ? v + T(-1) : v;
   }
 };
 
@@ -212,7 +210,7 @@ __global__ void __launch_bounds__(kThreads) thomas_dense_fwd_kernel(
     const T* __restrict__ Qg, const T* __restrict__ Ub,
     const T* __restrict__ Bm, const T* __restrict__ A,
     const T* __restrict__ bk, T* __restrict__ G_out, T* __restrict__ y_out,
-    int Tn, int n, int m, int p, const __grid_constant__ DenseMeta meta) {
+    int Tn, int n, int m, int p, const int* __restrict__ owner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int pnn = p * n * n;
   const Fwd<T> S(smem_raw, n, m, p, pnn, 0);
@@ -221,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) thomas_dense_fwd_kernel(
   const int tid = threadIdx.x;
   const int nth = kThreads;
 
-  thomas::init_carry(S);
+  thomas::init_carry(S, owner);
   for (int t = 0; t < Tn; ++t) {
     const size_t kt = (size_t)lane * Tn + t;
     for (int i = tid; i < pnn; i += nth) S.q[i] = Qg[kt * pnn + i];
@@ -229,7 +227,7 @@ __global__ void __launch_bounds__(kThreads) thomas_dense_fwd_kernel(
     __syncthreads();
     thomas::fill_in(S);
     __syncthreads();
-    thomas::build_system(S, meta.owner, qf);
+    thomas::build_system(S, qf);
     __syncthreads();
     thomas::solve_and_store(S, G_out, y_out, kt);
   }
@@ -246,11 +244,11 @@ thomas_dense_tiled_kernel(const T* __restrict__ Qg, const T* __restrict__ Ub,
                           const T* __restrict__ Bm, const T* __restrict__ A,
                           const T* __restrict__ bk, T* __restrict__ G_out,
                           T* __restrict__ y_out, int Tn, int n, int m, int p,
-                          const __grid_constant__ DenseMeta meta) {
+                          const int* __restrict__ owner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   thomas_core::forward_sweep<T, TR, TC>(DenseQ<T, false>{Qg}, Ub, Bm, A,
                                         bk, G_out, y_out, Tn, n, m, p,
-                                        meta.owner, smem_raw);
+                                        owner, smem_raw);
 }
 
 // The same for the classes of d <= 32: LU, Q staged once.
@@ -263,11 +261,11 @@ thomas_dense_tiled_lu_kernel(const T* __restrict__ Qg,
                              const T* __restrict__ A,
                              const T* __restrict__ bk, T* __restrict__ G_out,
                              T* __restrict__ y_out, int Tn, int n, int m,
-                             int p, const __grid_constant__ DenseMeta meta) {
+                             int p, const int* __restrict__ owner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   thomas_core::forward_sweep<T, TR, TC>(DenseQ<T, true>{Qg}, Ub, Bm, A,
                                         bk, G_out, y_out, Tn, n, m, p,
-                                        meta.owner, smem_raw);
+                                        owner, smem_raw);
 }
 
 // The device-memory route (thomas_global.cuh).
@@ -279,10 +277,10 @@ thomas_dense_global_kernel(const T* __restrict__ Qg,
                            const T* __restrict__ A,
                            const T* __restrict__ bk, T* G_out, T* y_out,
                            T* work, int Tn, int n, int m, int p,
-                           const __grid_constant__ DenseMeta meta) {
+                           const int* __restrict__ owner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   thomas_global::forward_sweep<T>(DenseGlobalQ<T>{Qg}, Ub, Bm, A, bk, G_out,
-                                  y_out, work, Tn, n, m, p, meta.owner,
+                                  y_out, work, Tn, n, m, p, owner,
                                   smem_raw);
 }
 
@@ -297,14 +295,17 @@ thomas_dense_blocked_kernel(const T* __restrict__ Qg,
                             const T* __restrict__ A,
                             const T* __restrict__ bk, T* __restrict__ G_out,
                             T* __restrict__ y_out, int Tn, int n, int m,
-                            int p, const __grid_constant__ DenseMeta meta) {
+                            int p, const int* __restrict__ owner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   thomas_blocked::forward_sweep<T, NI, thomas_blocked::DenseForm<T>>(
-      Qg, nullptr, Ub, Bm, A, bk, G_out, y_out, Tn, n, m, p, 0, meta.owner,
+      Qg, nullptr, Ub, Bm, A, bk, G_out, y_out, Tn, n, m, p, 0, owner,
       nullptr, smem_raw);
 }
 
-template <typename T>
+// kStageQ: Q [p, n, n] staged a knot; else read from device memory, for
+// the systems whose Q does not fit a block beside the rest (p n^2 scalars:
+// from 15 unicycles on in f32, 12 in f64).
+template <typename T, bool kStageQ>
 __global__ void __launch_bounds__(kThreads) thomas_dense_bwd_kernel(
     const T* __restrict__ G, const T* __restrict__ yhat,
     const T* __restrict__ Qg, const T* __restrict__ A,
@@ -312,8 +313,7 @@ __global__ void __launch_bounds__(kThreads) thomas_dense_bwd_kernel(
     int p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int pnn = p * n * n;
-  const Bwd<T> S(smem_raw, n, m, p, pnn);
-  const DenseBwdForm<T> qf{S.q, S.xu, n};
+  const Bwd<T> S(smem_raw, n, m, p, kStageQ ? pnn : 0);
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
   const int nth = kThreads;
@@ -321,18 +321,15 @@ __global__ void __launch_bounds__(kThreads) thomas_dense_bwd_kernel(
   thomas::init_lam(S);
   for (int t = Tn - 1; t >= 0; --t) {
     const size_t kt = (size_t)lane * Tn + t;
-    for (int i = tid; i < pnn; i += nth) S.q[i] = Qg[kt * pnn + i];
+    if (kStageQ)
+      for (int i = tid; i < pnn; i += nth) S.q[i] = Qg[kt * pnn + i];
     thomas::load_At1T(S, A, kt, t, Tn);
     __syncthreads();
     thomas::primal_step(S, G, yhat, kt);
     __syncthreads();
+    const DenseBwdForm<T> qf{kStageQ ? S.q : Qg + kt * pnn, S.xu, n};
     thomas::multipliers_and_store(S, bk, y_out, kt, qf);
   }
-}
-
-void pack_owner(const int* owner, int m, DenseMeta* meta) {
-  *meta = DenseMeta{};
-  for (int r = 0; r < m; ++r) meta->owner[r] = owner[r];
 }
 
 // The shared-memory kernel of thomas_common.cuh, for systems beyond the
@@ -342,16 +339,13 @@ int launch_fwd_big(const void* Q, const void* Ub, const void* Bm,
                    const void* A, const void* b, const int* owner, void* G,
                    void* yhat, int B, int Tn, int n, int m, int p,
                    void* stream) {
-  if (m > kMaxM) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const size_t bytes = thomas::fwd_smem_bytes<T>(n, m, p, p * n * n, 0);
   int err = thomas::set_smem((const void*)thomas_dense_fwd_kernel<T>, bytes);
   if (err) return err;
-  DenseMeta meta;
-  pack_owner(owner, m, &meta);
   thomas_dense_fwd_kernel<T><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       (const T*)Q, (const T*)Ub, (const T*)Bm, (const T*)A, (const T*)b,
-      (T*)G, (T*)yhat, Tn, n, m, p, meta);
+      (T*)G, (T*)yhat, Tn, n, m, p, owner);
   return (int)cudaGetLastError();
 }
 
@@ -362,26 +356,23 @@ int launch_fwd_global(const void* Q, const void* Ub, const void* Bm,
                       const void* A, const void* b, const int* owner,
                       void* G, void* yhat, void* work, int B, int Tn, int n,
                       int m, int p, void* stream) {
-  if (!thomas_global::fits<T>(n, m, p, 0)) return (int)cudaErrorInvalidValue;
+  if (!thomas_global::fits<T>(n, m, p)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const size_t bytes = thomas_global::smem_bytes<T>(n, m, p);
   int err = thomas::set_smem((const void*)thomas_dense_global_kernel<T>,
                              bytes);
   if (err) return err;
-  DenseMeta meta;
-  pack_owner(owner, m, &meta);
   thomas_dense_global_kernel<T>
       <<<B, thomas_global::kThreads, bytes, (cudaStream_t)stream>>>(
           (const T*)Q, (const T*)Ub, (const T*)Bm, (const T*)A, (const T*)b,
-          (T*)G, (T*)yhat, (T*)work, Tn, n, m, p, meta);
+          (T*)G, (T*)yhat, (T*)work, Tn, n, m, p, owner);
   return (int)cudaGetLastError();
 }
 
 // Whether the blocked route takes these widths, and its kernel.
 template <typename T>
 bool blocked_fits(int n, int m, int p) {
-  return thomas_blocked::fits<T, thomas_blocked::DenseForm<T>>(n, m, p, 0,
-                                                               kMaxM);
+  return thomas_blocked::fits<T, thomas_blocked::DenseForm<T>>(n, m, p, 0);
 }
 
 template <typename T>
@@ -409,12 +400,11 @@ int launch_fwd_blocked(const void* Q, const void* Ub, const void* Bm,
   const size_t bytes = blocked_smem_bytes<T>(n, m, p);
   int err = thomas::set_smem(fn, bytes);
   if (err) return err;
-  DenseMeta meta;
-  pack_owner(owner, m, &meta);
   const T *Qp = (const T*)Q, *Ubp = (const T*)Ub, *Bp = (const T*)Bm,
           *Ap = (const T*)A, *bp = (const T*)b;
   T *Gp = (T*)G, *yp = (T*)yhat;
-  void* args[] = {&Qp, &Ubp, &Bp, &Ap, &bp, &Gp, &yp, &Tn, &n, &m, &p, &meta};
+  void* args[] = {&Qp, &Ubp, &Bp, &Ap, &bp, &Gp,
+                  &yp, &Tn,  &n,  &m,  &p,  &owner};
   return (int)cudaLaunchKernel(fn, dim3(B), dim3(thomas_blocked::kThreads),
                                args, bytes, (cudaStream_t)stream);
 }
@@ -473,12 +463,11 @@ int launch_fwd(const void* Q, const void* Ub, const void* Bm, const void* A,
   const size_t bytes = tiled_smem_bytes<T>(n, m, p);
   int err = thomas::set_smem(kernel, bytes);
   if (err) return err;
-  DenseMeta meta;
-  pack_owner(owner, m, &meta);
   const T *Qp = (const T*)Q, *Ubp = (const T*)Ub, *Bp = (const T*)Bm,
           *Ap = (const T*)A, *bp = (const T*)b;
   T *Gp = (T*)G, *yp = (T*)yhat;
-  void* args[] = {&Qp, &Ubp, &Bp, &Ap, &bp, &Gp, &yp, &Tn, &n, &m, &p, &meta};
+  void* args[] = {&Qp, &Ubp, &Bp, &Ap, &bp, &Gp,
+                  &yp, &Tn,  &n,  &m,  &p,  &owner};
   return (int)cudaLaunchKernel(kernel, dim3(B), dim3(thomas_core::kThreads),
                                args, bytes, (cudaStream_t)stream);
 }
@@ -490,12 +479,11 @@ int launch_fwd(const void* Q, const void* Ub, const void* Bm, const void* A,
 // none.
 template <typename T>
 int route(int n, int m, int p) {
-  if (m > kMaxM) return -1;
   if (tiled_kernel<T>(n, m, p).fn != nullptr) return 0;
   if (blocked_fits<T>(n, m, p)) return 3;
   if (big_smem_bytes<T>(n, m, p) <= (size_t)thomas_global::kMaxSmem)
     return 1;
-  return thomas_global::fits<T>(n, m, p, 0) ? 2 : -1;
+  return thomas_global::fits<T>(n, m, p) ? 2 : -1;
 }
 
 // The forward kernel of ``which`` route (as route() numbers them) at these
@@ -509,10 +497,10 @@ int occupancy(int n, int m, int p, int which, int* out) {
   if (which == 0) {
     kernel = tiled_kernel<T>(n, m, p).fn;
     bytes = tiled_smem_bytes<T>(n, m, p);
-  } else if (which == 1 && m <= kMaxM) {
+  } else if (which == 1) {
     kernel = (const void*)thomas_dense_fwd_kernel<T>;
     bytes = big_smem_bytes<T>(n, m, p);
-  } else if (which == 2 && thomas_global::fits<T>(n, m, p, 0)) {
+  } else if (which == 2 && thomas_global::fits<T>(n, m, p)) {
     kernel = (const void*)thomas_dense_global_kernel<T>;
     bytes = thomas_global::smem_bytes<T>(n, m, p);
   } else if (which == 3 && blocked_fits<T>(n, m, p)) {
@@ -533,19 +521,26 @@ int occupancy(int n, int m, int p, int which, int* out) {
   return err;
 }
 
+// The backward kernel: Q staged a knot where it fits a block beside the
+// rest, else read from device memory.
 template <typename T>
 int launch_bwd(const void* G, const void* yhat, const void* Q, const void* A,
                const void* b, void* y, int B, int Tn, int n, int m, int p,
                void* stream) {
-  if (m > kMaxM) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t bytes = thomas::bwd_smem_bytes<T>(n, m, p, p * n * n, 0);
-  int err = thomas::set_smem((const void*)thomas_dense_bwd_kernel<T>, bytes);
+  size_t bytes = thomas::bwd_smem_bytes<T>(n, m, p, p * n * n, 0);
+  const bool stage = bytes <= (size_t)thomas_global::kMaxSmem;
+  const void* fn = stage ? (const void*)thomas_dense_bwd_kernel<T, true>
+                         : (const void*)thomas_dense_bwd_kernel<T, false>;
+  if (!stage) bytes = thomas::bwd_smem_bytes<T>(n, m, p, 0, 0);
+  int err = thomas::set_smem(fn, bytes);
   if (err) return err;
-  thomas_dense_bwd_kernel<T><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const T*)G, (const T*)yhat, (const T*)Q, (const T*)A, (const T*)b,
-      (T*)y, Tn, n, m, p);
-  return (int)cudaGetLastError();
+  const T *Gp = (const T*)G, *yhp = (const T*)yhat, *Qp = (const T*)Q,
+          *Ap = (const T*)A, *bp = (const T*)b;
+  T* yp = (T*)y;
+  void* args[] = {&Gp, &yhp, &Qp, &Ap, &bp, &yp, &Tn, &n, &m, &p};
+  return (int)cudaLaunchKernel(fn, dim3(B), dim3(kThreads), args, bytes,
+                               (cudaStream_t)stream);
 }
 
 }  // namespace

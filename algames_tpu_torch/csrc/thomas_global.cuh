@@ -16,14 +16,18 @@
 // (p n^2, 73.7 KB).  The shared-memory kernel holds all of them (443 KB
 // for K1 and 499 KB for K3 in f64, 250 KB for K3 in f32; an SM offers
 // 227 KB).  Here shared memory holds only what is d x d or smaller and a
-// panel of right-hand sides that does not grow with R:
+// panel that grows with nothing:
 //   - K [d, d]: factored in place, then copied to pivot order with the
 //     multipliers of L below the diagonal and U on and above it;
-//   - the panel [d, max(kThreads, NW)]: one right-hand-side column a
-//     thread, R / 128 passes (2 at R=193); it also holds the K1 form's
-//     products B^T w_k and F w_k [d, NW] while K is built, and K's copy
-//     while it is permuted;
-//   - B [n, m], b [W], the pivot rows and marks.
+//   - the panel [d, kThreads]: one right-hand-side column a thread, R / 128
+//     passes (2 at R=193, 10 at the 17-player unicycle merge's R=1157); it
+//     also holds the K1 form's products B^T w_k and F w_k for a panel of
+//     at most kThreads w vectors while K is built (each panel's rank-1
+//     terms are added into K's x columns before the next panel is formed,
+//     in increasing k, so K is the same as with all NW products at once),
+//     and K's copy while it is permuted;
+//   - B [n, m], b [W], the pivot rows and marks, and the owner of each
+//     control row (a device array of m ints, staged once a launch).
 // F lives in a per-lane workspace in device memory that the wrapper
 // allocates (n x p n scalars a lane); the carry G_{t-1}, y_{t-1} is read
 // back from the outputs G and y_hat, which the previous knot wrote; Q, q,
@@ -32,23 +36,24 @@
 // which stays in the 50 MB L2 for the lanes in flight.
 //
 // A knot takes, with a block barrier between each: the fill-in F = -A_t
-// G_{t-1} into the workspace; the Q form's products; K; d pivot steps of
-// two barriers each (warp 0 finds the pivot, every thread updates the
-// rows not pivoted yet with the multiplier K[r, s] (1 / piv)); K in pivot
-// order; then, with no barrier, each thread builds its right-hand-side
-// column in pivot order, runs the forward substitution with L and the
-// back substitution with U (dot products in increasing column order,
-// divided by the pivot), and writes the solution, which is G_t's column
-// or y_t, straight into the outputs in (x, u) row order.
+// G_{t-1} into the workspace; K (the Q form's x columns, a panel of
+// products at a time, and the u columns); d pivot steps of two barriers
+// each (warp 0 finds the pivot, every thread updates the rows not pivoted
+// yet with the multiplier K[r, s] (1 / piv)); K in pivot order; then, with
+// no barrier, each thread builds its right-hand-side column in pivot
+// order, runs the forward substitution with L and the back substitution
+// with U (dot products in increasing column order, divided by the pivot),
+// and writes the solution, which is G_t's column or y_t, straight into the
+// outputs in (x, u) row order.
 //
-// Shared memory a lane at the 4-player quadrotor's widths: 107,008 bytes
-// in f64 and 53,760 in f32 (2 and 4 lanes an SM).  The route takes d <= 128
-// within 232,448 bytes (in f64 d up to about 104) and at most 32 control
-// rows (fits); past 128 w vectors the panel widens to hold K1's products;
-// the wrappers refuse wider systems.  Bound on
-// the card: neither bytes nor operations, but the latency of each knot's
-// chains (d pivot steps; a right-hand side's 2 d^2 dependent multiply-adds
-// from shared memory) at 2 to 4 lanes an SM.
+// Shared memory a lane at the 4-player quadrotor's widths: 107,072 bytes
+// in f64 and 53,824 in f32 (2 and 4 lanes an SM); at the 17-player
+// unicycle merge's (d = 102) 217,192 in f64.  The route takes d <= 128
+// within 232,448 bytes (in f64 d up to about 104), at any number of
+// control rows and w vectors (fits); the wrappers refuse wider systems.
+// Bound on the card: neither bytes nor operations, but the latency of each
+// knot's chains (d pivot steps; a right-hand side's 2 d^2 dependent
+// multiply-adds from shared memory) at 1 to 4 lanes an SM.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,35 +67,31 @@ namespace thomas_global {
 constexpr int kThreads = 128;      // threads a lane, columns a panel
 constexpr int kMaxSmem = 232448;   // shared memory a block may have
 
-// Shared-memory layout of a lane, in scalars of T, then 2 d ints.  The
-// panel has ``cols`` columns: kThreads, or more where the Q form's
-// products need them (QForm::panel_cols: K1's Pw [d, NW]).
+// Shared-memory layout of a lane, in scalars of T, then 2 d + m ints.
 struct Layout {
   int K, panel, Bs, bs, total;
-  __host__ __device__ Layout(int n, int m, int p, int cols = kThreads) {
+  __host__ __device__ Layout(int n, int m, int p) {
     const int d = n + m, W = n + m + p * n;
     int o = 0;
     K = o;     o += d * d;
-    panel = o; o += d * cols;
+    panel = o; o += d * kThreads;
     Bs = o;    o += n * m;
     bs = o;    o += W;
     total = o;
   }
 };
 
-// Bytes a lane (NW: the K1 form's w vectors, which widen the panel past
-// kThreads columns).
+// Bytes a lane: the layout, then pivrow [d], used [d], owner [m] as ints.
 template <typename T>
-size_t smem_bytes(int n, int m, int p, int NW = 0) {
-  return Layout(n, m, p, NW > kThreads ? NW : kThreads).total * sizeof(T) +
-         2 * (n + m) * sizeof(int);
+size_t smem_bytes(int n, int m, int p) {
+  return Layout(n, m, p).total * sizeof(T) + (2 * (n + m) + m) * sizeof(int);
 }
 
 // Whether the route takes these widths.
 template <typename T>
-bool fits(int n, int m, int p, int NW) {
-  return m <= thomas::kMaxM && n + m <= kThreads &&
-         smem_bytes<T>(n, m, p, NW) <= (size_t)kMaxSmem;
+bool fits(int n, int m, int p) {
+  return n >= 1 && m >= 1 && n + m <= kThreads &&
+         smem_bytes<T>(n, m, p) <= (size_t)kMaxSmem;
 }
 
 // Scalars of the per-lane workspace: the fill-in F [n, p n].
@@ -141,17 +142,21 @@ __device__ __forceinline__ T rhs_entry(int r, int col, const T* Bs,
 
 // The forward sweep of lane blockIdx.x: G [B, T, d, p n] and y_hat
 // [B, T, d] in (x, u) row order, as the other forward kernels write them.
-// ``work``: the lanes' workspaces, work_scalars a lane.
+// ``work``: the lanes' workspaces, work_scalars a lane; ``owner``: the
+// control rows' owners, a device array of m ints.  The Q form writes K's
+// x columns (x_columns: from its products where it has some, formed into
+// the panel a part at a time behind barriers of its own).
 template <typename T, class QForm>
 __device__ void forward_sweep(const QForm& qf, const T* __restrict__ Ub,
                               const T* __restrict__ Bm,
                               const T* __restrict__ A,
                               const T* __restrict__ bk, T* G, T* yhat,
                               T* work, int Tn, int n, int m, int p,
-                              const int* owner, unsigned char* raw) {
+                              const int* __restrict__ owner,
+                              unsigned char* raw) {
   const int pn = p * n, d = n + m, R = pn + 1, W = n + m + pn;
   const int tid = threadIdx.x, lane = blockIdx.x;
-  const Layout L(n, m, p, qf.panel_cols());
+  const Layout L(n, m, p);
   T* sm = reinterpret_cast<T*>(raw);
   T* K = sm + L.K;
   T* P = sm + L.panel;
@@ -159,8 +164,10 @@ __device__ void forward_sweep(const QForm& qf, const T* __restrict__ Ub,
   T* bs = sm + L.bs;
   int* pivrow = reinterpret_cast<int*>(sm + L.total);
   int* used = pivrow + d;
+  int* own = used + d;
   T* F = work + (size_t)lane * work_scalars(n, p);
 
+  for (int r = tid; r < m; r += kThreads) own[r] = owner[r];
   for (int t = 0; t < Tn; ++t) {
     const size_t kt = (size_t)lane * Tn + t;
     const T* At = A + kt * n * n;
@@ -182,20 +189,13 @@ __device__ void forward_sweep(const QForm& qf, const T* __restrict__ Ub,
       F[idx] = -s;
     }
     __syncthreads();
-    qf.products(P, F, Bs, kt, owner, n, m, p);
-    __syncthreads();
 
     // K: the x columns from the Q form, the u columns [U; B].
-    for (int idx = tid; idx < d * d; idx += kThreads) {
-      const int r = idx / d, c = idx - r * d;
-      T v;
-      if (c < n) {
-        v = qf.x_entry(r, c, P, F, Bs, kt, owner, n, m, p);
-      } else {
-        v = (r < m) ? Ub[kt * m * m + r * m + c - n]
-                    : Bs[(r - m) * m + c - n];
-      }
-      K[idx] = v;
+    qf.x_columns(K, P, F, Bs, kt, own, n, m, p);
+    for (int idx = tid; idx < d * m; idx += kThreads) {
+      const int r = idx / m, c = idx - r * m;
+      K[r * d + n + c] = (r < m) ? Ub[kt * m * m + r * m + c]
+                                 : Bs[(r - m) * m + c];
     }
     __syncthreads();
 
@@ -256,7 +256,7 @@ __device__ void forward_sweep(const QForm& qf, const T* __restrict__ Ub,
       T* x = P + tid;
       for (int j = 0; j < d; ++j)
         x[j * kThreads] = rhs_entry(pivrow[j], col, Bs, bs, F, At, A1, yp,
-                                    owner, n, m, pn);
+                                    own, n, m, pn);
       for (int i = 0; i < d; ++i) {
         const T xi = x[i * kThreads];
         for (int j = i + 1; j < d; ++j) x[j * kThreads] -= K[j * d + i] * xi;

@@ -50,8 +50,8 @@
 // substituted in registers, 256 threads a lane; the 4-player quadrotor's
 // systems, d = 64, in f32 and f64; the 9-player unicycle merge's, d = 54
 // with 72 w vectors, both too, f64 with the products Pw over K's slots).  No
-// table of a fixed size bounds the w vectors: their owners are a device
-// array.  The routes it replaced stay
+// table of a fixed size bounds the control rows or the w vectors: their
+// owners are device arrays.  The routes it replaced stay
 // reachable by name: the shared-memory forward kernel of thomas_common.cuh
 // (the "wide" route: every per-knot operand, the carry and the augmented
 // system in shared memory, three barriers per pivot step, a serial back
@@ -59,7 +59,9 @@
 // and beyond (from d = 64 in f64, 443 KB) the device-memory route of
 // thomas_global.cuh, with the Q form SqGlobalQ below: K [d, d] and a panel
 // of 128 right-hand sides in shared memory, the fill-in F in a workspace
-// in device memory, the carry read back from G.  The route rule: a
+// in device memory, the carry read back from G; it is the route of the
+// unicycle merges of 11 to 17 players, d = 66 to 102, whose products Pw
+// it forms 128 w vectors at a time.  The route rule: a
 // register-tiled class, else the blocked route where it fits, else the
 // shared-memory kernel, else the device-memory route.  The backward
 // kernel is the shared-memory one of thomas_common.cuh for every width:
@@ -74,16 +76,12 @@ namespace {
 
 using thomas::Bwd;
 using thomas::Fwd;
-using thomas::kMaxM;
 using thomas::kThreads;
 
-// The owner of each control row travels by value; the owner of each
-// rank-1 vector (w_owner [NW]) is a device array that the wrapper uploads
-// once per shape, so that no table sized by a constant bounds NW: only
-// shared memory does (the 9-player unicycle merge has NW = 72).
-struct SqMeta {
-  int owner[kMaxM];     // player owning control row r
-};
+// The owner of each control row (owner [m]) and of each rank-1 vector
+// (w_owner [NW]) are device arrays that the wrapper uploads once per shape,
+// so that no table sized by a constant bounds m or NW: only shared memory
+// does (the 17-player unicycle merge has m = 34 and NW = 272).
 
 // Q_i = diag(q_i) + sum_{owner(k) = i} w_k w_k^T.  Fw[a, k] =
 // F_{owner(k)}[a, :] . w_k is computed once per knot before the system.
@@ -215,10 +213,14 @@ struct StructuredQ {
   }
 };
 
-// The device-memory route's structured Q form (thomas_global.cuh): the
-// products Pw [d, NW] of StructuredQ (B^T w_k on the owner's statu rows,
-// F_owner(k) w_k on the dyn rows) in the panel, then each x entry from q
-// and w read from device memory, summed in StructuredQ's order.
+// The device-memory route's structured Q form (thomas_global.cuh): K's x
+// columns from q and w read from device memory, the rank-1 terms a panel
+// of at most thomas_global::kThreads w vectors at a time: the products Pw
+// [d, kc] of StructuredQ (B^T w_k on the owner's statu rows, F_owner(k) w_k
+// on the dyn rows) formed into the panel, then added into K, so that shared
+// memory does not grow with NW.  Each entry sums StructuredQ's terms in its
+// order (the diagonal part, the rank-1 terms in increasing k, -I last), so
+// K does not depend on the panel width.
 template <typename T>
 struct SqGlobalQ {
   const T* qd;                         // [B, T, p, n]
@@ -226,46 +228,57 @@ struct SqGlobalQ {
   const int* w_owner;                  // [NW]
   int NW;
 
-  // Columns of the panel: one right-hand side a thread, and at least NW
-  // so that the products Pw [d, NW] fit it.
-  __host__ __device__ int panel_cols() const {
-    return NW > thomas_global::kThreads ? NW : thomas_global::kThreads;
-  }
-  __device__ void products(T* Pw, const T* F, const T* Bs, size_t kt,
-                           const int* owner, int n, int m, int p) const {
-    const T* w = wv + kt * NW * n;
-    const int d = n + m, pn = p * n;
-    for (int idx = threadIdx.x; idx < d * NW;
-         idx += thomas_global::kThreads) {
-      const int r = idx / NW, k = idx - r * NW;
-      const int o = w_owner[k];
-      const T* wk = w + k * n;
-      T s = T(0);
-      if (r >= m) {                    // F_owner(k) w_k
-        const T* f = F + (r - m) * pn + o * n;
-        for (int j = 0; j < n; ++j) s += f[j] * wk[j];
-      } else if (owner[r] == o) {      // B^T w_k, owner's rows only
-        for (int j = 0; j < n; ++j) s += Bs[j * m + r] * wk[j];
-      }
-      Pw[idx] = s;
-    }
-  }
-  // Row r, column c (< n) of K.
-  __device__ T x_entry(int r, int c, const T* Pw, const T* F, const T* Bs,
-                       size_t kt, const int* owner, int n, int m,
-                       int p) const {
+  // K[:, :n] of knot kt into K (row stride d); P: the panel, [d, kc]
+  // products at a time; owner: the control rows' owners.  Each thread
+  // keeps its entries of K (idx = tid mod kThreads) from pass to pass.
+  // Out of line: inlined into the sweep, its loops and the sweep's shared
+  // one register budget, and the route ran 7-22% longer in both precisions
+  // on an H100 80GB HBM3 at 700 W (tests/source_variants.py, k1-inline).
+  __device__ __noinline__ void x_columns(T* K, T* P, const T* F, const T* Bs, size_t kt,
+                            const int* owner, int n, int m, int p) const {
+    constexpr int nth = thomas_global::kThreads;
     const T* q = qd + kt * p * n;
     const T* w = wv + kt * NW * n;
-    T v;
-    if (r < m) {                       // B^T diag(q_owner)
-      v = Bs[c * m + r] * q[owner[r] * n + c];
-    } else {                           // sum_i F_i diag(q_i)
-      v = T(0);
-      const T* f = F + (r - m) * p * n;
-      for (int i = 0; i < p; ++i) v += f[i * n + c] * q[i * n + c];
+    const int d = n + m, pn = p * n, tid = threadIdx.x;
+    for (int idx = tid; idx < d * n; idx += nth) {
+      const int r = idx / n, c = idx - r * n;
+      T v;
+      if (r < m) {                     // B^T diag(q_owner)
+        v = Bs[c * m + r] * q[owner[r] * n + c];
+      } else {                         // sum_i F_i diag(q_i)
+        v = T(0);
+        const T* f = F + (r - m) * pn;
+        for (int i = 0; i < p; ++i) v += f[i * n + c] * q[i * n + c];
+      }
+      if (NW == 0 && r >= m && r - m == c) v += T(-1);
+      K[r * d + c] = v;
     }
-    for (int k = 0; k < NW; ++k) v += Pw[r * NW + k] * w[k * n + c];
-    return (r >= m && r - m == c) ? v + T(-1) : v;
+    for (int k0 = 0; k0 < NW; k0 += nth) {
+      const int kc = NW - k0 < nth ? NW - k0 : nth;
+      const bool last = k0 + kc == NW;
+      for (int idx = tid; idx < d * kc; idx += nth) {
+        const int r = idx / kc, k = k0 + (idx - r * kc);
+        const int o = w_owner[k];
+        const T* wk = w + k * n;
+        T s = T(0);
+        if (r >= m) {                  // F_owner(k) w_k
+          const T* f = F + (r - m) * pn + o * n;
+          for (int j = 0; j < n; ++j) s += f[j] * wk[j];
+        } else if (owner[r] == o) {    // B^T w_k, owner's rows only
+          for (int j = 0; j < n; ++j) s += Bs[j * m + r] * wk[j];
+        }
+        P[idx] = s;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < d * n; idx += nth) {
+        const int r = idx / n, c = idx - r * n;
+        T v = K[r * d + c];
+        for (int j = 0; j < kc; ++j) v += P[r * kc + j] * w[(k0 + j) * n + c];
+        if (last && r >= m && r - m == c) v += T(-1);
+        K[r * d + c] = v;
+      }
+      if (!last) __syncthreads();      // the panel is free again
+    }
   }
 };
 
@@ -291,7 +304,7 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_fwd_kernel(
     const T* __restrict__ A, const T* __restrict__ bk,
     T* __restrict__ G_out, T* __restrict__ y_out,
     int Tn, int n, int m, int p, int NW, const int* __restrict__ w_owner,
-    const __grid_constant__ SqMeta meta) {
+    const int* __restrict__ owner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Fwd<T> S(smem_raw, n, m, p, p * n + NW * n, n * NW);
   T* w = S.q + p * n;
@@ -300,7 +313,7 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_fwd_kernel(
   const int tid = threadIdx.x;
   const int nth = kThreads;
 
-  thomas::init_carry(S);
+  thomas::init_carry(S, owner);
   for (int t = 0; t < Tn; ++t) {
     const size_t kt = (size_t)lane * Tn + t;
     for (int i = tid; i < p * n; i += nth) S.q[i] = qd[kt * p * n + i];
@@ -318,7 +331,7 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_fwd_kernel(
       S.Fw[idx] = s;
     }
     __syncthreads();
-    thomas::build_system(S, meta.owner, qf);
+    thomas::build_system(S, qf);
     __syncthreads();
     thomas::solve_and_store(S, G_out, y_out, kt);
   }
@@ -335,11 +348,11 @@ thomas_sq_tiled_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
                        T* __restrict__ G_out, T* __restrict__ y_out, int Tn,
                        int n, int m, int p, int NW,
                        const int* __restrict__ w_owner,
-                       const __grid_constant__ SqMeta meta) {
+                       const int* __restrict__ owner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   thomas_core::forward_sweep<T, TR, TC>(
       StructuredQ<T>{qd, wv, w_owner, NW}, Ub, Bm, A, bk,
-      G_out, y_out, Tn, n, m, p, meta.owner, smem_raw);
+      G_out, y_out, Tn, n, m, p, owner, smem_raw);
 }
 
 // The tall size class: TR x 16 rows and TC x 16 columns, 256 threads; 3
@@ -358,12 +371,12 @@ thomas_sq_tiled_tall_kernel(const T* __restrict__ qd,
                             T* __restrict__ G_out, T* __restrict__ y_out,
                             int Tn, int n, int m, int p, int NW,
                             const int* __restrict__ w_owner,
-                            const __grid_constant__ SqMeta meta) {
+                            const int* __restrict__ owner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   thomas_core::forward_sweep<T, TR, TC, StructuredQ<T>,
                              thomas_core::kTallRG>(
       StructuredQ<T>{qd, wv, w_owner, NW}, Ub, Bm, A, bk,
-      G_out, y_out, Tn, n, m, p, meta.owner, smem_raw);
+      G_out, y_out, Tn, n, m, p, owner, smem_raw);
 }
 
 // The device-memory route (thomas_global.cuh).
@@ -374,11 +387,11 @@ thomas_sq_global_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
                         const T* __restrict__ A, const T* __restrict__ bk,
                         T* G_out, T* y_out, T* work, int Tn, int n, int m,
                         int p, int NW, const int* __restrict__ w_owner,
-                        const __grid_constant__ SqMeta meta) {
+                        const int* __restrict__ owner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   thomas_global::forward_sweep<T>(
       SqGlobalQ<T>{qd, wv, w_owner, NW}, Ub, Bm, A, bk, G_out, y_out,
-      work, Tn, n, m, p, meta.owner, smem_raw);
+      work, Tn, n, m, p, owner, smem_raw);
 }
 
 // The per-player blocked route (thomas_blocked.cuh); NI tiles of 16 cover
@@ -395,11 +408,11 @@ thomas_sq_blocked_kernel(const T* __restrict__ qd, const T* __restrict__ wv,
                          T* __restrict__ G_out, T* __restrict__ y_out,
                          int Tn, int n, int m, int p, int NW,
                          const int* __restrict__ w_owner,
-                         const __grid_constant__ SqMeta meta) {
+                         const int* __restrict__ owner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   thomas_blocked::forward_sweep<T, NI, thomas_blocked::StructuredForm<T>,
                                 kPwInK>(
-      qd, wv, Ub, Bm, A, bk, G_out, y_out, Tn, n, m, p, NW, meta.owner,
+      qd, wv, Ub, Bm, A, bk, G_out, y_out, Tn, n, m, p, NW, owner,
       w_owner, smem_raw);
 }
 
@@ -409,7 +422,7 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_bwd_kernel(
     const T* __restrict__ qd, const T* __restrict__ wv,
     const T* __restrict__ A, const T* __restrict__ bk,
     T* __restrict__ y_out, int Tn, int n, int m, int p, int NW,
-    const int* __restrict__ w_owner, const __grid_constant__ SqMeta meta) {
+    const int* __restrict__ w_owner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Bwd<T> S(smem_raw, n, m, p, p * n + NW * n);
   T* w = S.q + p * n;
@@ -440,14 +453,6 @@ __global__ void __launch_bounds__(kThreads) thomas_sq_bwd_kernel(
   }
 }
 
-SqMeta make_meta(const int* owner, int m) {
-  SqMeta meta = {};
-  for (int r = 0; r < m; ++r) meta.owner[r] = owner[r];
-  return meta;
-}
-
-bool dims_ok(int m) { return m <= kMaxM; }
-
 // A size class's kernel and its threads a lane.
 struct Tiled {
   const void* fn;
@@ -461,7 +466,6 @@ template <typename T>
 Tiled tiled_kernel(int n, int m, int p) {
   constexpr int k128 = thomas_core::kThreads;
   constexpr int k256 = thomas_core::kTallRG * thomas_core::kCG;
-  if (!dims_ok(m)) return {nullptr, 0};
   const int d = n + m, C = d + p * n + 1;
   if (d <= 16 && C <= 32)
     return {(const void*)thomas_sq_tiled_kernel<T, 2, 2>, k128};
@@ -492,14 +496,14 @@ size_t wide_smem_bytes(int n, int m, int p, int NW) {
 template <typename T>
 bool blocked_fits(int n, int m, int p, int NW) {
   return thomas_blocked::fits<T, thomas_blocked::StructuredForm<T>, false>(
-      n, m, p, NW, kMaxM);
+      n, m, p, NW);
 }
 
 template <typename T>
 bool blocked_fits_in_k(int n, int m, int p, int NW) {
   return sizeof(T) == 8 &&
          thomas_blocked::fits<T, thomas_blocked::StructuredForm<T>, true>(
-             n, m, p, NW, kMaxM);
+             n, m, p, NW);
 }
 
 template <typename T>
@@ -538,12 +542,11 @@ int launch_fwd(const void* qd, const void* wv, const void* Ub, const void* Bm,
   const size_t bytes = tiled_smem_bytes<T>(n, m, p, NW);
   int err = thomas::set_smem(k.fn, bytes);
   if (err) return err;
-  SqMeta meta = make_meta(owner, m);
   const T *qp = (const T*)qd, *wp = (const T*)wv, *Ubp = (const T*)Ub,
           *Bp = (const T*)Bm, *Ap = (const T*)A, *bp = (const T*)b;
   T *Gp = (T*)G, *yp = (T*)yhat;
   void* args[] = {&qp, &wp, &Ubp, &Bp, &Ap, &bp,      &Gp,  &yp,
-                  &Tn, &n,  &m,   &p,  &NW, &w_owner, &meta};
+                  &Tn, &n,  &m,   &p,  &NW, &w_owner, &owner};
   return (int)cudaLaunchKernel(k.fn, dim3(B), dim3(k.threads), args, bytes,
                                (cudaStream_t)stream);
 }
@@ -556,15 +559,13 @@ int launch_fwd_wide(const void* qd, const void* wv, const void* Ub,
                     const int* owner, const int* w_owner, void* G,
                     void* yhat, int B, int Tn, int n, int m, int p, int NW,
                     void* stream) {
-  if (!dims_ok(m)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const size_t bytes = wide_smem_bytes<T>(n, m, p, NW);
   int err = thomas::set_smem((const void*)thomas_sq_fwd_kernel<T>, bytes);
   if (err) return err;
   thomas_sq_fwd_kernel<T><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       (const T*)qd, (const T*)wv, (const T*)Ub, (const T*)Bm, (const T*)A,
-      (const T*)b, (T*)G, (T*)yhat, Tn, n, m, p, NW, w_owner,
-      make_meta(owner, m));
+      (const T*)b, (T*)G, (T*)yhat, Tn, n, m, p, NW, w_owner, owner);
   return (int)cudaGetLastError();
 }
 
@@ -576,17 +577,16 @@ int launch_fwd_global(const void* qd, const void* wv, const void* Ub,
                       const int* owner, const int* w_owner, void* G,
                       void* yhat, void* work, int B, int Tn, int n, int m,
                       int p, int NW, void* stream) {
-  if (!dims_ok(m) || !thomas_global::fits<T>(n, m, p, NW))
-    return (int)cudaErrorInvalidValue;
+  if (!thomas_global::fits<T>(n, m, p)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t bytes = thomas_global::smem_bytes<T>(n, m, p, NW);
+  const size_t bytes = thomas_global::smem_bytes<T>(n, m, p);
   int err = thomas::set_smem((const void*)thomas_sq_global_kernel<T>, bytes);
   if (err) return err;
   thomas_sq_global_kernel<T>
       <<<B, thomas_global::kThreads, bytes, (cudaStream_t)stream>>>(
           (const T*)qd, (const T*)wv, (const T*)Ub, (const T*)Bm,
           (const T*)A, (const T*)b, (T*)G, (T*)yhat, (T*)work, Tn, n, m, p,
-          NW, w_owner, make_meta(owner, m));
+          NW, w_owner, owner);
   return (int)cudaGetLastError();
 }
 
@@ -604,29 +604,39 @@ int launch_fwd_blocked(const void* qd, const void* wv, const void* Ub,
   const size_t bytes = blocked_smem_bytes<T>(n, m, p, NW);
   int err = thomas::set_smem(fn, bytes);
   if (err) return err;
-  SqMeta meta = make_meta(owner, m);
   const T *qp = (const T*)qd, *wp = (const T*)wv, *Ubp = (const T*)Ub,
           *Bp = (const T*)Bm, *Ap = (const T*)A, *bp = (const T*)b;
   T *Gp = (T*)G, *yp = (T*)yhat;
   void* args[] = {&qp, &wp, &Ubp, &Bp, &Ap, &bp,      &Gp,  &yp,
-                  &Tn, &n,  &m,   &p,  &NW, &w_owner, &meta};
+                  &Tn, &n,  &m,   &p,  &NW, &w_owner, &owner};
   return (int)cudaLaunchKernel(fn, dim3(B), dim3(thomas_blocked::kThreads),
                                args, bytes, (cudaStream_t)stream);
+}
+
+// The backward kernel's bytes a lane: lam_{t+1}, lam_t, (x, u), q and w
+// staged a knot, A_{t+1}^T, w . x [NW], then w_owner [NW] as ints; in f64
+// 216,784 at the 17-player unicycle merge, past a block's 232,448 from 18
+// players on.
+template <typename T>
+size_t bwd_smem_bytes(int n, int m, int p, int NW) {
+  return thomas::bwd_smem_bytes<T>(n, m, p, p * n + NW * n, NW) +
+         NW * sizeof(int);
 }
 
 // K1's forward route at these widths, by shape: 0 a register-tiled class
 // (launch_fwd), else 3 the blocked route (launch_fwd_blocked) where it
 // fits, else 1 the shared-memory kernel (launch_fwd_wide) where its bytes
-// fit a block, else 2 the device-memory route (launch_fwd_global), -1
-// none.
+// fit a block, else 2 the device-memory route (launch_fwd_global); -1 none,
+// or where the backward kernel does not fit a block.
 template <typename T>
 int route(int n, int m, int p, int NW) {
-  if (!dims_ok(m)) return -1;
+  if (bwd_smem_bytes<T>(n, m, p, NW) > (size_t)thomas_global::kMaxSmem)
+    return -1;
   if (tiled_kernel<T>(n, m, p).fn != nullptr) return 0;
   if (blocked_any<T>(n, m, p, NW)) return 3;
   if (wide_smem_bytes<T>(n, m, p, NW) <= (size_t)thomas_global::kMaxSmem)
     return 1;
-  return thomas_global::fits<T>(n, m, p, NW) ? 2 : -1;
+  return thomas_global::fits<T>(n, m, p) ? 2 : -1;
 }
 
 // The forward kernel of ``which`` route (as route() numbers them) at these
@@ -639,13 +649,12 @@ int occupancy(int n, int m, int p, int NW, int which, int* out) {
   if (which == 0) {
     k = tiled_kernel<T>(n, m, p);
     bytes = tiled_smem_bytes<T>(n, m, p, NW);
-  } else if (which == 1 && dims_ok(m)) {
+  } else if (which == 1) {
     k = {(const void*)thomas_sq_fwd_kernel<T>, kThreads};
     bytes = wide_smem_bytes<T>(n, m, p, NW);
-  } else if (which == 2 && dims_ok(m) &&
-             thomas_global::fits<T>(n, m, p, NW)) {
+  } else if (which == 2 && thomas_global::fits<T>(n, m, p)) {
     k = {(const void*)thomas_sq_global_kernel<T>, thomas_global::kThreads};
-    bytes = thomas_global::smem_bytes<T>(n, m, p, NW);
+    bytes = thomas_global::smem_bytes<T>(n, m, p);
   } else if (which == 3 && blocked_any<T>(n, m, p, NW)) {
     k = {blocked_kernel<T>(n, m, p, NW), thomas_blocked::kThreads};
     bytes = blocked_smem_bytes<T>(n, m, p, NW);
@@ -663,20 +672,22 @@ int occupancy(int n, int m, int p, int NW, int which, int* out) {
   return err;
 }
 
+// The backward kernel (owner unused: the export keeps the forward
+// launchers' argument order).
 template <typename T>
 int launch_bwd(const void* G, const void* yhat, const void* qd, const void* wv,
                const void* A, const void* b, const int* owner,
                const int* w_owner, void* y, int B, int Tn, int n, int m,
                int p, int NW, void* stream) {
-  if (!dims_ok(m)) return (int)cudaErrorInvalidValue;
+  const size_t bytes = bwd_smem_bytes<T>(n, m, p, NW);
+  if (bytes > (size_t)thomas_global::kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t bytes = thomas::bwd_smem_bytes<T>(n, m, p, p * n + NW * n,
-                                                 NW) + NW * sizeof(int);
   int err = thomas::set_smem((const void*)thomas_sq_bwd_kernel<T>, bytes);
   if (err) return err;
   thomas_sq_bwd_kernel<T><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
       (const T*)G, (const T*)yhat, (const T*)qd, (const T*)wv, (const T*)A,
-      (const T*)b, (T*)y, Tn, n, m, p, NW, w_owner, make_meta(owner, m));
+      (const T*)b, (T*)y, Tn, n, m, p, NW, w_owner);
   return (int)cudaGetLastError();
 }
 

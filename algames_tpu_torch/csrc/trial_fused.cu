@@ -52,25 +52,27 @@
 // barrier; the instances whose knots read many values (unicycle, bicycle,
 // quadrotor) first stage the lane's trial point, iterate and trial
 // multipliers in shared memory with 16-byte loads, so that neighbouring
-// threads read neighbouring addresses.  The roundabout's lane then holds
+// threads read neighbouring addresses (the unicycle past 64 states stages
+// the point and the iterate only: its p T n trial multipliers, 22,287
+// scalars at 17 players, would not fit a block beside the rest in f64).  The roundabout's lane then holds
 // ~40 KB of shared memory: 5 lanes per SM, two waves at B=1024.  The
 // double integrators read device memory directly, as before: their knots
 // read few values and staging cost more than it saved.  Every intermediate
 // stays in registers, thread-local or shared memory; the norm is summed by
-// warp shuffles, then over the warps in order.  The static structure of
-// the control bounds and collision-cost pairs (owners, senses, masks,
-// indices) travels as a by-value parameter table, so one compiled kernel
-// serves any player count and block list; the family parameters (radii,
-// centres, wall corners, bounds, pair weights) are small device arrays.
-// The state blocks (SBlock: kinds, owners, senses, indices, bound masks,
-// cylinder axes) are a device array too, which
-// the wrapper uploads once per problem: their number is bounded by nothing
-// but memory (the 9-player unicycle merge has 72 collision blocks, past the
-// 4 KB that a by-value table may take).
-// A state bound's 2n rows are flagged in one 64-bit mask, and for the
-// quadrotor and the wide unicycle (Model::kWideMask: n up to 64, the 3- and
-// 4-player quadrotors' 36 and 48 states, the 9-player unicycle's 36) in
-// two, the rows from 64 on in SBlock::mask_hi.
+// warp shuffles, then over the warps in order.  The family parameters
+// (radii, centres, wall corners, bounds, pair weights) are small device
+// arrays; the static structure is a device array too, which the wrapper
+// uploads once per problem, so that one compiled kernel serves any player
+// count and block list, bounded by nothing but memory: the state blocks
+// (SBlock: kinds, owners, senses, indices, bound masks, cylinder axes; the
+// 17-player unicycle merge has 272 collision blocks) and the collision-cost
+// pairs and control-bound blocks (TrialMeta: owners, indices, row flags,
+// senses, at any control dimension): a by-value parameter table may take
+// 4 KB, which the merges' tables outgrow.
+// A state bound's 2n rows are flagged in one 64-bit mask (n up to 32), or,
+// for the instances past 32 states (Model::kRowFlags: the quadrotor and the
+// wide unicycle), by 2n flags in the parameter array after the bound's
+// z_max and z_min, which the wrapper writes for those instances only.
 // State bounds read their AL state only at finite rows and write 0 at the
 // others, as the masked bound evaluation does; gated rows (walls,
 // cylinders) use the reference's strict comparisons and are exactly 0
@@ -80,11 +82,7 @@
 namespace {
 
 constexpr int kMaxThreads = 256;  // threads per lane: ceil(T TPK / 32) warps
-constexpr int kMaxCB = 4;     // control-bound blocks
-constexpr int kMaxM = 32;     // control dimension
 constexpr int kMaxN = 32;     // state dimension (2n bound rows in a 64-bit mask)
-constexpr int kMaxNWide = 64; // the same for Model::kWideMask (two masks)
-constexpr int kMaxPair = 64;  // collision-cost pairs
 constexpr int kMaxConst = 12; // model constants
 
 enum : unsigned char {
@@ -99,27 +97,48 @@ enum : unsigned char {
 // state and the values; ``par`` its first entry in the parameter array
 // (collision r^2; per circle (xc, yc, r); per 2D wall (x1, y1, x2, y2, xv,
 // yv); per 3D wall (x1, y1, z1, x2, y2, z2, x3, y3, z3, xv, yv, zv); per
-// cylinder (p1, p2, p3, l, r); bound z_max [n] then z_min [n]).  ``mask``:
-// a bound's finite rows (bit j: upper bound of state j, bit n+j: lower
-// bound), or a cylinder block's axes (bits 2j, 2j+1: axis of cylinder j;
-// at most 32 cylinders, ops/trial.py::_MAX_CYL);
-// ``mask_hi``: a bound's rows from 64 on (only Model::kWideMask instances
-// read it).  ``eq``: 1 for an equality block (its rows always penalized), 0
-// for the inequality and second-order-cone senses.  40 bytes; the wrapper
-// packs the same layout (ops/trial.py::SBLOCK, checked against
-// trial_fused_sblock_bytes).
+// cylinder (p1, p2, p3, l, r); bound z_max [n], z_min [n], then, for the
+// Model::kRowFlags instances, its 2n row flags, 1 for a finite bound, in
+// the mask's order).  ``mask``: a bound's finite rows (bit j: upper bound
+// of state j, bit n+j: lower bound; 0 for the Model::kRowFlags
+// instances), or a cylinder block's axes (bits 2j, 2j+1: axis of cylinder
+// j; at most 32 cylinders, ops/trial.py::_MAX_CYL).  ``eq``: 1 for an
+// equality block (its rows always penalized), 0 for the inequality and
+// second-order-cone senses.  32 bytes; the wrapper packs the same layout
+// (ops/trial.py::SBLOCK, checked against trial_fused_sblock_bytes).
 struct SBlock {
   unsigned long long mask;
-  unsigned long long mask_hi;
   int row, par;
   unsigned char kind, owner, cnt, eq;
   unsigned char a[6];
 };
 
+// One collision-cost pair: the owner (the player pushed), the dimension (2
+// or 3), pxi then pxj.  8 bytes (ops/trial.py::PAIR, checked against
+// trial_fused_pair_bytes).
+struct Pair {
+  unsigned char owner, dim, a[3], b[3];
+};
+
+// The pairs' and the control-bound blocks' table: a device array of bytes
+// that the wrapper packs and uploads once per problem
+// (ops/trial.py::_meta_table): npair Pair records, then per control block
+// its 2m row flags (upper rows, then lower; 1 for a finite bound), then
+// each control block's ``eq`` (as SBlock's), padded to 8 bytes.
+__host__ __device__ __forceinline__ size_t meta_bytes(int npair, int ncb,
+                                                      int m) {
+  return ((size_t)npair * sizeof(Pair) + (size_t)ncb * (2 * m + 1) + 7) &
+         ~(size_t)7;
+}
+
+// A view of that table.
 struct TrialMeta {
-  unsigned char pair[kMaxPair][8];  // owner, dim, pxi[3], pxj[3]
-  unsigned char c_mask[kMaxCB][2 * kMaxM];
-  unsigned char c_eq[kMaxCB];       // control blocks' ``eq``, as SBlock's
+  const Pair* pair;
+  const unsigned char *c_mask, *c_eq;
+  __device__ TrialMeta(const unsigned char* base, int npair, int ncb, int m)
+      : pair(reinterpret_cast<const Pair*>(base)),
+        c_mask(base + npair * sizeof(Pair)),
+        c_eq(base + npair * sizeof(Pair) + ncb * 2 * m) {}
 };
 
 struct ModelConst {
@@ -239,7 +258,8 @@ template <typename T>
 struct Unicycle {
   static constexpr int NI = 4, MI = 2;
   static constexpr bool kStage = true;
-  static constexpr bool kWideMask = false;
+  static constexpr bool kStageLam = true;
+  static constexpr bool kRowFlags = false;
   using Layout = Interleaved<MI>;
   struct Lin {
     T s, c, v;
@@ -269,11 +289,17 @@ struct Unicycle {
 };
 
 // The unicycle past 32 states (nine players or more): the same model with
-// a state bound's rows from 64 on in SBlock::mask_hi, a second instance so
-// that the games of up to eight players keep theirs.
+// a state bound's rows flagged in the parameter array, and in f64 the trial
+// multipliers read from device memory rather than staged: staged, the f64
+// lane does not fit a block at 17 players (unstaged it takes 224,552 bytes
+// of shared memory with the merge's 272 state blocks), and at nine players
+// it ran 20% longer on an H100 80GB HBM3 at 700 W; in f32 staging ran 25%
+// (nine players) and 8% (17) faster there (tests/source_variants.py,
+// k2-wide-staged and k2-wide-unstaged).
 template <typename T>
 struct UnicycleWide : Unicycle<T> {
-  static constexpr bool kWideMask = true;
+  static constexpr bool kStageLam = sizeof(T) == sizeof(float);
+  static constexpr bool kRowFlags = true;
   __device__ explicit UnicycleWide(const ModelConst& k) : Unicycle<T>(k) {}
 };
 
@@ -283,7 +309,8 @@ template <typename T, int D>
 struct DoubleIntegrator {
   static constexpr int NI = 2 * D, MI = D;
   static constexpr bool kStage = false;
-  static constexpr bool kWideMask = false;
+  static constexpr bool kStageLam = false;
+  static constexpr bool kRowFlags = false;
   using Layout = Interleaved<MI>;
   struct Lin {};
   __device__ explicit DoubleIntegrator(const ModelConst&) {}
@@ -326,7 +353,8 @@ template <typename T>
 struct Bicycle {
   static constexpr int NI = 4, MI = 2;
   static constexpr bool kStage = true;
-  static constexpr bool kWideMask = false;
+  static constexpr bool kStageLam = true;
+  static constexpr bool kRowFlags = false;
   using Layout = Interleaved<MI>;
   struct Lin {
     T v, sh, ch, sb, cb, db;
@@ -454,7 +482,8 @@ template <typename T>
 struct Quadrotor {
   static constexpr int NI = 12, MI = 4;
   static constexpr bool kStage = true;
-  static constexpr bool kWideMask = true;
+  static constexpr bool kStageLam = true;
+  static constexpr bool kRowFlags = true;
   using Layout = Interleaved<MI>;
   struct Lin {
     const T *x, *u;
@@ -545,6 +574,7 @@ struct TrialArgs {
   const T *x, *u, *lam, *dx, *du, *dlam, *alpha, *reg, *Qd, *xf, *Rdp, *ufp,
       *spar, *slam, *smu, *zmax, *zmin, *clam, *cmu, *pmr;
   const SBlock* sb;                   // [nsb], device memory
+  const unsigned char* meta;          // TrialMeta's table, device memory
   T *rx0, *ru0, *rd, *sc, *cc, *tn;
   int N, p, nsb, csum, ncb, npair, S;
   T dt, eps_n;
@@ -595,6 +625,19 @@ struct GlobalLane {
   }
   __device__ T X0(int k, int c) const { return __ldg(x + k * n + c); }
   __device__ T U0(int k, int c) const { return __ldg(u + k * m + c); }
+};
+
+// The lane with its trial point and iterate staged as Lane's and its trial
+// multipliers read from device memory as GlobalLane's (Model::kStageLam
+// false).
+template <typename T>
+struct LaneXU : Lane<T> {
+  const T *lam, *dlam;
+  T al;
+  __device__ T Lm(int i, int k, int c) const {
+    const int o = (i * this->Tn + k) * this->n + c;
+    return __ldg(lam + o) + al * __ldg(dlam + o);
+  }
 };
 
 template <typename T> struct Vec16;
@@ -669,9 +712,10 @@ __device__ __forceinline__ T sqdist(const LaneT& L, int k,
 
 // State blocks at knot t+1: values into sc, AL gradients into alx [p n].
 // Thread q of the knot's TPK takes the blocks whose owner is q mod TPK, so
-// each owner's gradient is summed by one thread in block order.  ``Wide``:
-// a bound's rows from 64 on are flagged in SBlock::mask_hi.
-template <typename T, int TPK, bool Wide, class LaneT>
+// each owner's gradient is summed by one thread in block order.
+// ``Flags``: a bound's rows by their flags in the parameter array, after
+// z_max and z_min, not by SBlock::mask.
+template <typename T, int TPK, bool Flags, class LaneT>
 __device__ void state_blocks(const TrialArgs<T>& A, const SBlock* sbs,
                              const LaneT& L, int b, int t, T* alx, int q) {
   const int n = L.n, Tn = L.Tn;
@@ -781,12 +825,9 @@ __device__ void state_blocks(const TrialArgs<T>& A, const SBlock* sbs,
       const T* zx = par;
       for (int j = 0; j < n; ++j) {
         bool mu_, ml_;
-        if constexpr (Wide) {
-          const int l = n + j;
-          mu_ = j < 64 ? (sb.mask >> j) & 1ull
-                       : (sb.mask_hi >> (j - 64)) & 1ull;
-          ml_ = l < 64 ? (sb.mask >> l) & 1ull
-                       : (sb.mask_hi >> (l - 64)) & 1ull;
+        if constexpr (Flags) {
+          mu_ = zx[2 * n + j] != T(0);
+          ml_ = zx[3 * n + j] != T(0);
         } else {
           mu_ = (sb.mask >> j) & 1ull;
           ml_ = (sb.mask >> (n + j)) & 1ull;
@@ -830,7 +871,7 @@ __device__ void rk2_mid(const Model& mdl, const T* x, const T* u, T dt,
 // players q mod TPK to the thread's part of the 1-norm.
 
 // The knot's constraint and collision-cost terms (see above).
-template <typename T, int TPK, bool Wide, class LaneT>
+template <typename T, int TPK, bool Flags, class LaneT>
 __device__ void knot_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
                             const SBlock* sbs, const LaneT& L, int b, int t,
                             int q, T* alx, T* alu, T* cgx) {
@@ -841,16 +882,17 @@ __device__ void knot_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
     for (int c = 0; c < n; ++c) alx[o * n + c] = T(0);
   for (int c = q; c < m; c += TPK) alu[c] = T(0);
 
-  state_blocks<T, TPK, Wide>(A, sbs, L, b, t, alx, q);
+  state_blocks<T, TPK, Flags>(A, sbs, L, b, t, alx, q);
   // Control-bound blocks: c = [u - z_max; z_min - u] (masked rows 0).
   for (int k = 0; k < A.ncb; ++k) {
     const size_t o = (((size_t)b * A.ncb + k) * Tn + t) * 2 * m;
+    const unsigned char* cm = meta.c_mask + 2 * m * k;
+    const bool eq = meta.c_eq[k];
     for (int j = q; j < m; j += TPK) {
       const T uj = L.U(t, j);
-      const bool mu_ = meta.c_mask[k][j], ml_ = meta.c_mask[k][m + j];
+      const bool mu_ = cm[j], ml_ = cm[m + j];
       const T cu = mu_ ? uj - A.zmax[k * m + j] : T(0);
       const T cl = ml_ ? A.zmin[k * m + j] - uj : T(0);
-      const bool eq = meta.c_eq[k];
       const T wu = al_weight(cu, A.clam[o + j], A.cmu[o + j], eq);
       const T wl = al_weight(cl, A.clam[o + m + j], A.cmu[o + m + j], eq);
       alu[j] += wu * (mu_ ? T(1) : T(0)) - wl * (ml_ ? T(1) : T(0));
@@ -865,23 +907,23 @@ __device__ void knot_blocks(const TrialArgs<T>& A, const TrialMeta& meta,
     for (int o = q; o < p; o += TPK)
       for (int c = 0; c < n; ++c) cgx[o * n + c] = T(0);
     for (int k = 0; k < A.npair; ++k) {
-      const unsigned char* pr = meta.pair[k];
+      const Pair pr = meta.pair[k];
       if constexpr (TPK > 1) {
-        if ((pr[0] & (TPK - 1)) != q) continue;
+        if ((pr.owner & (TPK - 1)) != q) continue;
       }
-      const int dim = pr[1];
+      const int dim = pr.dim;
       T d[3];
-      const T dn = dsqrt(sqdist(L, t + 1, pr + 2, pr + 5, dim, d));
+      const T dn = dsqrt(sqdist(L, t + 1, pr.a, pr.b, dim, d));
       const T mu = A.pmr[2 * k], r = A.pmr[2 * k + 1];
       if (!(r - dn > T(0))) continue;
       const T eps = T(1e-10);
-      T* cg = cgx + pr[0] * n;
+      T* cg = cgx + pr.owner * n;
       #pragma unroll
       for (int j = 0; j < 3; ++j) {
         if (j >= dim) break;
         const T gj = mu * (r * (eps + d[j]) / (A.eps_n + dn) - d[j]) * scale;
-        cg[pr[2 + j]] -= gj;
-        cg[pr[5 + j]] += gj;
+        cg[pr.a[j]] -= gj;
+        cg[pr.b[j]] += gj;
       }
     }
   }
@@ -991,13 +1033,14 @@ int lane_threads(int Tn) {
 }
 
 // Shared memory of a lane, in scalars: the staged trial point and iterate
-// (see Lane; none without ``stage``), then per knot group (the TPK threads
-// of one knot) its alx, alu and, with collision-cost pairs, cgx; then, at
-// the next 8 bytes, the state blocks (sblock_offset, lane_bytes).
+// (see Lane; none without ``stage``) and trial multipliers (none without
+// ``stage_lam``), then per knot group (the TPK threads of one knot) its
+// alx, alu and, with collision-cost pairs, cgx; then, at the next 8 bytes,
+// the state blocks and TrialMeta's table (sblock_offset, lane_bytes).
 struct LaneLayout {
   int ldx, ldu, xt, x0, ut, u0, lt, work, per, total;
   __host__ __device__ LaneLayout(int N, int n, int m, int p, int npair,
-                                 int groups, bool stage) {
+                                 int groups, bool stage, bool stage_lam) {
     const int Tn = N - 1, rows = stage ? 1 : 0;
     ldx = n | 1;
     ldu = m | 1;
@@ -1006,45 +1049,12 @@ struct LaneLayout {
     x0 = o; o += rows * N * ldx;
     ut = o; o += rows * Tn * ldu;
     u0 = o; o += rows * Tn * ldu;
-    lt = o; o += rows * p * Tn * ldx;
+    lt = o; o += (stage_lam ? rows : 0) * p * Tn * ldx;
     per = p * n + m + (npair ? p * n : 0);
     work = o; o += groups * per;
     total = o;
   }
 };
-
-// Where the staged state blocks start (models with Model::kStage), and a
-// lane's bytes.
-__host__ __device__ __forceinline__ size_t sblock_offset(int total,
-                                                         size_t scalar) {
-  return ((size_t)total * scalar + 7) & ~(size_t)7;
-}
-template <typename T, class Model>
-size_t lane_bytes(const LaneLayout& S, int nsb) {
-  return Model::kStage ? sblock_offset(S.total, sizeof(T)) +
-                             (size_t)nsb * sizeof(SBlock)
-                       : (size_t)S.total * sizeof(T);
-}
-
-// The parameter table from the wrapper's flat arrays: p_meta per pair:
-// owner, dim, pxi0..2, pxj0..2; c_mask per control block: 2m flags, then
-// each control block's eq.  (The state blocks come packed, in device
-// memory.)
-bool make_meta(const int* p_meta, const unsigned char* c_mask, int npair,
-               int ncb, int m, TrialMeta* meta) {
-  if (ncb > kMaxCB || npair > kMaxPair || m > kMaxM) return false;
-  *meta = TrialMeta{};
-  for (int k = 0; k < npair; ++k)
-    for (int j = 0; j < 8; ++j)
-      meta->pair[k][j] = (unsigned char)p_meta[8 * k + j];
-  for (int k = 0; k < ncb; ++k) {
-    for (int j = 0; j < 2 * m; ++j) meta->c_mask[k][j] = c_mask[2 * m * k + j];
-    meta->c_eq[k] = c_mask[2 * m * ncb + k];
-  }
-  return true;
-}
-
-// --- kernel and launch -------------------------------------------------------
 
 // Knot groups (TPK threads each) that hold work arrays: one per knot of a
 // pass.
@@ -1052,6 +1062,29 @@ __host__ __device__ __forceinline__ int work_groups(int nth, int tpk,
                                                    int Tn) {
   return nth / tpk < Tn ? nth / tpk : Tn;
 }
+
+// Where the staged state blocks start (models with Model::kStage; the
+// table after them), and a lane's bytes.
+__host__ __device__ __forceinline__ size_t sblock_offset(int total,
+                                                         size_t scalar) {
+  return ((size_t)total * scalar + 7) & ~(size_t)7;
+}
+template <typename T, class Model>
+size_t lane_bytes(const LaneLayout& S, int nsb, size_t table) {
+  return Model::kStage ? sblock_offset(S.total, sizeof(T)) +
+                             (size_t)nsb * sizeof(SBlock) + table
+                       : (size_t)S.total * sizeof(T);
+}
+
+// The lane's layout for an instance.
+template <class Model>
+__host__ __device__ LaneLayout lane_layout(int N, int n, int m, int p,
+                                           int npair, int nth, int tpk) {
+  return LaneLayout(N, n, m, p, npair, work_groups(nth, tpk, N - 1),
+                    Model::kStage, Model::kStageLam);
+}
+
+// --- kernel and launch -------------------------------------------------------
 
 // The thread's part of the lane's 1-norm: one pass over the knots (a loop
 // past kMaxThreads), TPK threads each, with the knot group's alx, alu and
@@ -1071,8 +1104,8 @@ __device__ T lane_part(const TrialArgs<T>& A, const ModelConst& mc,
   for (int t0 = 0; t0 < L.Tn; t0 += groups) {
     const int t = t0 + g;
     if (t < L.Tn)
-      knot_blocks<T, TPK, Model::kWideMask>(A, meta, sbs, L, b, t, q, alx,
-                                            alu, cgx);
+      knot_blocks<T, TPK, Model::kRowFlags>(
+          A, meta, sbs, L, b, t, q, alx, alu, cgx);
     if constexpr (TPK > 1) __syncwarp();
     if (t < L.Tn)
       part = knot_rows<T, Model, TPK>(A, mc, L, b, t, q, rg, alx, alu, cgx,
@@ -1090,16 +1123,14 @@ __device__ T lane_part(const TrialArgs<T>& A, const ModelConst& mc,
 // warp shuffles and then over the warps in order.
 template <typename T, class Model, int TPK>
 __device__ __forceinline__ void trial_lane(const TrialArgs<T>& A,
-                                           const ModelConst& mc,
-                                           const TrialMeta& meta) {
+                                           const ModelConst& mc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T warp_part[kMaxThreads / 32];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int b = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
   const int p = A.p, n = Model::NI * p, m = Model::Layout::m(mc, p);
   const int N = A.N, Tn = N - 1;
-  const LaneLayout S(N, n, m, p, A.npair, work_groups(nth, TPK, Tn),
-                     Model::kStage);
+  const LaneLayout S = lane_layout<Model>(N, n, m, p, A.npair, nth, TPK);
   const T al = A.alpha[b];
   const size_t ox = (size_t)b * N * n, ou = (size_t)b * Tn * m,
                ol = (size_t)b * p * Tn * n;
@@ -1111,16 +1142,30 @@ __device__ __forceinline__ void trial_lane(const TrialArgs<T>& A,
     const int* src = reinterpret_cast<const int*>(A.sb);
     int* dst = reinterpret_cast<int*>(sbs);
     for (int i = tid; i < A.nsb * kWords; i += nth) dst[i] = src[i];
+    unsigned char* tab = reinterpret_cast<unsigned char*>(sbs + A.nsb);
+    const int twords = (int)(meta_bytes(A.npair, A.ncb, m) / sizeof(int));
+    const int* tsrc = reinterpret_cast<const int*>(A.meta);
+    for (int i = tid; i < twords; i += nth)
+      reinterpret_cast<int*>(tab)[i] = tsrc[i];
+    const TrialMeta meta(tab, A.npair, A.ncb, m);
     stage(sm + S.xt, sm + S.x0, A.x + ox, A.dx + ox, al, N, n, S.ldx);
     stage(sm + S.ut, sm + S.u0, A.u + ou, A.du + ou, al, Tn, m, S.ldu);
-    stage(sm + S.lt, (T*)nullptr, A.lam + ol, A.dlam + ol, al, p * Tn, n,
-          S.ldx);
+    if constexpr (Model::kStageLam)
+      stage(sm + S.lt, (T*)nullptr, A.lam + ol, A.dlam + ol, al, p * Tn, n,
+            S.ldx);
     __syncthreads();
     const Lane<T> L{sm + S.xt, sm + S.x0, sm + S.ut, sm + S.u0, sm + S.lt,
                     Tn, n, m, S.ldx, S.ldu};
-    part = lane_part<T, Model, TPK>(A, mc, meta, sbs, L, b, sm + S.work,
-                                    S.per);
+    if constexpr (Model::kStageLam) {
+      part = lane_part<T, Model, TPK>(A, mc, meta, sbs, L, b, sm + S.work,
+                                      S.per);
+    } else {
+      const LaneXU<T> LX{L, A.lam + ol, A.dlam + ol, al};
+      part = lane_part<T, Model, TPK>(A, mc, meta, sbs, LX, b, sm + S.work,
+                                      S.per);
+    }
   } else {
+    const TrialMeta meta(A.meta, A.npair, A.ncb, m);
     const GlobalLane<T> L{A.x + ox, A.u + ou, A.lam + ol, A.dx + ox,
                           A.du + ou, A.dlam + ol, al, Tn, n, m};
     part = lane_part<T, Model, TPK>(A, mc, meta, A.sb, L, b, sm + S.work,
@@ -1143,22 +1188,23 @@ __device__ __forceinline__ void trial_lane(const TrialArgs<T>& A,
 // most the earlier one-warp kernel's.
 template <typename T, class Model, int TPK>
 __global__ void trial_fused_kernel(const __grid_constant__ TrialArgs<T> A,
-                                   const __grid_constant__ ModelConst mc,
-                                   const __grid_constant__ TrialMeta meta) {
-  trial_lane<T, Model, TPK>(A, mc, meta);
+                                   const __grid_constant__ ModelConst mc) {
+  trial_lane<T, Model, TPK>(A, mc);
 }
 
 // Lanes per SM of an instance for a game of horizon N - 1 knots, p
-// players, (with npair) collision-cost pairs and nsb state blocks; -1 on
-// error.
+// players, (with npair) collision-cost pairs, nsb state blocks and ncb
+// control-bound blocks; -1 on error.
 template <typename T, class Model, int TPK>
-int occupancy(const double* mconst, int N, int p, int npair, int nsb) {
+int occupancy(const double* mconst, int N, int p, int npair, int nsb,
+              int ncb) {
   ModelConst mc;
   for (int k = 0; k < kMaxConst; ++k) mc.c[k] = mconst[k];
-  const int nth = lane_threads<TPK>(N - 1);
-  const LaneLayout S(N, Model::NI * p, Model::Layout::m(mc, p), p, npair,
-                     work_groups(nth, TPK, N - 1), Model::kStage);
-  const size_t bytes = lane_bytes<T, Model>(S, nsb);
+  const int nth = lane_threads<TPK>(N - 1), m = Model::Layout::m(mc, p);
+  const LaneLayout S =
+      lane_layout<Model>(N, Model::NI * p, m, p, npair, nth, TPK);
+  const size_t bytes =
+      lane_bytes<T, Model>(S, nsb, meta_bytes(npair, ncb, m));
   const auto kernel = trial_fused_kernel<T, Model, TPK>;
   if (bytes > 48 * 1024 &&
       cudaFuncSetAttribute(kernel,
@@ -1173,19 +1219,20 @@ int occupancy(const double* mconst, int N, int p, int npair, int nsb) {
 }
 
 template <typename T, class Model, int TPK>
-int run_kernel(const TrialArgs<T>& A, const ModelConst& mc,
-               const TrialMeta& meta, int B, void* stream) {
-  const int nth = lane_threads<TPK>(A.N - 1);
-  const LaneLayout S(A.N, Model::NI * A.p, Model::Layout::m(mc, A.p), A.p,
-                     A.npair, work_groups(nth, TPK, A.N - 1), Model::kStage);
-  const size_t bytes = lane_bytes<T, Model>(S, A.nsb);
+int run_kernel(const TrialArgs<T>& A, const ModelConst& mc, int B,
+               void* stream) {
+  const int nth = lane_threads<TPK>(A.N - 1), m = Model::Layout::m(mc, A.p);
+  const LaneLayout S =
+      lane_layout<Model>(A.N, Model::NI * A.p, m, A.p, A.npair, nth, TPK);
+  const size_t bytes =
+      lane_bytes<T, Model>(S, A.nsb, meta_bytes(A.npair, A.ncb, m));
   const auto kernel = trial_fused_kernel<T, Model, TPK>;
   if (bytes > 48 * 1024) {
     const int err = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err) return err;
   }
-  kernel<<<B, nth, bytes, (cudaStream_t)stream>>>(A, mc, meta);
+  kernel<<<B, nth, bytes, (cudaStream_t)stream>>>(A, mc);
   return (int)cudaGetLastError();
 }
 
@@ -1193,21 +1240,20 @@ int run_kernel(const TrialArgs<T>& A, const ModelConst& mc,
 
 template <typename T, class Model, int TPK>
 int launch(const void* const* in, void* const* out, const double* mconst,
-           const void* sblocks, const int* p_meta,
-           const unsigned char* c_mask, int B, int N, int p, int nsb,
-           int csum, int ncb, int npair, int S, double dt, double eps_n,
-           void* stream) {
+           const void* sblocks, const void* meta, int B, int N, int p,
+           int nsb, int csum, int ncb, int npair, int S, double dt,
+           double eps_n, void* stream) {
   ModelConst mc;
   for (int k = 0; k < kMaxConst; ++k) mc.c[k] = mconst[k];
-  const int n = Model::NI * p, m = Model::Layout::m(mc, p);
-  TrialMeta meta;
-  if (n > (Model::kWideMask ? kMaxNWide : kMaxN) || nsb < 0 ||
-      (nsb > 0 && sblocks == nullptr) ||
-      !make_meta(p_meta, c_mask, npair, ncb, m, &meta))
+  const int n = Model::NI * p;
+  if ((!Model::kRowFlags && n > kMaxN) ||
+      nsb < 0 || ncb < 0 || npair < 0 || (nsb > 0 && sblocks == nullptr) ||
+      (npair + ncb > 0 && meta == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   TrialArgs<T> A;
   A.sb = (const SBlock*)sblocks;
+  A.meta = (const unsigned char*)meta;
   const T** ins[] = {&A.x, &A.u, &A.lam, &A.dx, &A.du, &A.dlam, &A.alpha,
                      &A.reg, &A.Qd, &A.xf, &A.Rdp, &A.ufp, &A.spar, &A.slam,
                      &A.smu, &A.zmax, &A.zmin, &A.clam, &A.cmu, &A.pmr};
@@ -1216,35 +1262,37 @@ int launch(const void* const* in, void* const* out, const double* mconst,
   for (int k = 0; k < 6; ++k) *outs[k] = (T*)out[k];
   A.N = N; A.p = p; A.nsb = nsb; A.csum = csum; A.ncb = ncb;
   A.npair = npair; A.S = S; A.dt = (T)dt; A.eps_n = (T)eps_n;
-  return run_kernel<T, Model, TPK>(A, mc, meta, B, stream);
+  return run_kernel<T, Model, TPK>(A, mc, B, stream);
 }
 
 }  // namespace
 
 // trial_fused_<instance>_<type>(inputs [20], outputs [6], model constants
-// [12], the state blocks (device, SBlock [nsb]), tables, sizes, stream):
-// the operands in the order of TrialArgs;
+// [12], the state blocks (device, SBlock [nsb]), TrialMeta's table
+// (device, meta_bytes), sizes, stream): the operands in the order of
+// TrialArgs;
 // trial_fused_<instance>_<type>_occupancy: its lanes per SM (with nsb state
-// blocks staged).
+// blocks and the table of npair pairs and ncb control blocks staged).
 // An instance is a model with its threads per knot (TPK): one, or two for
 // the unicycle games of four or more players ("unicycle_spread"), whose
 // knots carry the most blocks and pairs (on the roundabout's trials two
 // threads per knot ran faster than one or four on an H100); past 32 states
 // (nine players or more) the unicycle's wide instance ("unicycle_wide",
-// two threads per knot), whose state bounds take two mask words.
+// two threads per knot: bound rows flagged in the parameter array, the
+// multipliers not staged).
 #define TRIAL_EXPORT(NAME, SUFFIX, T, MODEL, TPK)                             \
   extern "C" int trial_fused_##NAME##_##SUFFIX(                               \
       const void* const* in, void* const* out, const double* mconst,          \
-      const void* sblocks, const int* p_meta, const unsigned char* c_mask,    \
-      int B, int N, int p, int nsb, int csum, int ncb, int npair, int S,      \
-      double dt, double eps_n, void* stream) {                                \
-    return launch<T, MODEL, TPK>(in, out, mconst, sblocks, p_meta, c_mask, B, \
-                                 N, p, nsb, csum, ncb, npair, S, dt, eps_n,   \
+      const void* sblocks, const void* meta, int B, int N, int p, int nsb,    \
+      int csum, int ncb, int npair, int S, double dt, double eps_n,           \
+      void* stream) {                                                         \
+    return launch<T, MODEL, TPK>(in, out, mconst, sblocks, meta, B, N, p,     \
+                                 nsb, csum, ncb, npair, S, dt, eps_n,         \
                                  stream);                                     \
   }                                                                           \
   extern "C" int trial_fused_##NAME##_##SUFFIX##_occupancy(                   \
-      const double* mconst, int N, int p, int npair, int nsb) {               \
-    return occupancy<T, MODEL, TPK>(mconst, N, p, npair, nsb);                \
+      const double* mconst, int N, int p, int npair, int nsb, int ncb) {      \
+    return occupancy<T, MODEL, TPK>(mconst, N, p, npair, nsb, ncb);           \
   }
 #define TRIAL_EXPORT_BOTH(NAME, MODEL, TPK)                                   \
   TRIAL_EXPORT(NAME, f32, float, MODEL<float>, TPK)                           \
@@ -1265,6 +1313,8 @@ TRIAL_EXPORT_BOTH(bicycle, Bicycle, 1)
 TRIAL_EXPORT_BOTH(quadrotor, Quadrotor, 1)
 
 extern "C" int trial_fused_sblock_bytes() { return (int)sizeof(SBlock); }
+
+extern "C" int trial_fused_pair_bytes() { return (int)sizeof(Pair); }
 
 extern "C" const char* trial_fused_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

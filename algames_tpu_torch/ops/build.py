@@ -113,14 +113,3 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
     if err != 0:
         msg = getattr(lib, f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
-
-
-def int_table(values) -> ctypes.Array:
-    """A host int32 array for a launcher's by-value parameter table."""
-    values = [int(v) for v in values]
-    return (ctypes.c_int * max(1, len(values)))(*values)
-
-
-def byte_table(values) -> ctypes.Array:
-    values = [int(v) for v in values]
-    return (ctypes.c_ubyte * max(1, len(values)))(*values)

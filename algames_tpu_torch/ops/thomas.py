@@ -40,9 +40,13 @@ bytes fit a block's 232,448, counted apart in ``solve_thomas.big_launches``
 and ``solve_thomas_structured.wide_launches``; beyond that the
 device-memory route of ``csrc/thomas_global.cuh`` (K [d, d] and a panel of
 128 right-hand sides in shared memory, the fill-in F in a workspace this
-wrapper allocates, n p n scalars a lane), counted in ``global_launches``;
-it takes d <= 128 within those bytes (in f64 d up to about 104) and wider
-systems raise.  The library says which route a shape takes
+wrapper allocates, n p n scalars a lane; K1's rank-1 products a panel of
+128 w vectors at a time), counted in ``global_launches``: the route of the
+unicycle merges of 11 to 17 players; it takes d <= 128 within those bytes
+(in f64 d up to about 104) and wider systems raise.  The owners of the
+control rows (and K1's of the w vectors) are int32 arrays on the card
+(:func:`owner_table`), so no table of a fixed size bounds m or the w
+vectors.  The library says which route a shape takes
 (``thomas_sq_route_*``, ``thomas_dense_route_*``), before the launch; a
 build or launch error raises.  ``forward="blocked"``, ``"shared"`` or
 ``"device"`` takes that route at any widths that it holds, to time it
@@ -175,11 +179,20 @@ def _pick_route(name: str, dtype, widths, forward: str) -> str:
 
 
 @functools.lru_cache(maxsize=None)
+def owner_table(owner: tuple, device) -> torch.Tensor:
+    """An owner table (the control rows' owners, or K1's w vectors') as
+    the int32 array on ``device`` that the kernels read, built once per
+    table and device: a copy from the host on every call would synchronise
+    the stream each time.  No table of a fixed size bounds its length."""
+    return torch.tensor(owner or (0,), dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
 def _sq_launch(spec, w_owner, dtype, device, forward="auto"):
     """K1 at these widths, once per (shape, dtype, device, route asked
-    for): ``(route, library, forward and backward launchers, the owner
-    table (host, by value), the w_owner table (int32 on ``device``, its
-    length NW: no table of a fixed size bounds it)``."""
+    for): ``(route, library, forward and backward launchers, the control
+    rows' owners [m] and the w vectors' owners [NW], each int32 on
+    ``device``)``."""
     lib = build.load(_LIB)
     sfx = _sfx(dtype)
     P, I = build.P, build.I
@@ -189,8 +202,8 @@ def _sq_launch(spec, w_owner, dtype, device, forward="auto"):
                          [P] * (11 if route == "device" else 10) + [I] * 6
                          + [P])
     bwd = build.launcher(lib, f"thomas_sq_bwd_{sfx}", [P] * 9 + [I] * 6 + [P])
-    w_own = torch.tensor(w_owner or (0,), dtype=torch.int32, device=device)
-    return (route, lib, fwd, bwd, build.int_table(owner_map_u(spec)), w_own)
+    return (route, lib, fwd, bwd, owner_table(owner_map_u(spec), device),
+            owner_table(tuple(w_owner), device))
 
 
 def _occupancy(name: str, dtype, widths, forward: str):
@@ -242,11 +255,11 @@ def solve_thomas_structured(spec, sq: StructuredQ, b: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib, _LIB, fwd(
             sq.qdiag.data_ptr(), sq.wv.data_ptr(), sq.Ublk.data_ptr(),
-            sq.B.data_ptr(), sq.A.data_ptr(), b.data_ptr(), owner,
+            sq.B.data_ptr(), sq.A.data_ptr(), b.data_ptr(), owner.data_ptr(),
             w_own.data_ptr(), *outs, Bsz, T, n, m, p, NW, stream))
         build.check(lib, _LIB, bwd(
             G.data_ptr(), yhat.data_ptr(), sq.qdiag.data_ptr(),
-            sq.wv.data_ptr(), sq.A.data_ptr(), b.data_ptr(), owner,
+            sq.wv.data_ptr(), sq.A.data_ptr(), b.data_ptr(), owner.data_ptr(),
             w_own.data_ptr(), y.data_ptr(), Bsz, T, n, m, p, NW, stream))
     if route == "shared":
         solve_thomas_structured.wide_launches += 1
@@ -288,7 +301,7 @@ def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p, forward="auto"
                          [P] * 6 + [I] * 5 + [P])
     Bsz, T = b.shape[:2]
     d, pn = n + m, p * n
-    own = build.int_table(owner)
+    own = owner_table(tuple(owner), b.device)
     G = torch.empty((Bsz, T, d, pn), dtype=b.dtype, device=b.device)
     yhat = torch.empty((Bsz, T, d), dtype=b.dtype, device=b.device)
     y = torch.empty((Bsz, T, d + pn), dtype=b.dtype, device=b.device)
@@ -300,7 +313,7 @@ def _launch_dense(Q, Ub, Bm, A, b, owner, n, m, p, forward="auto"
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib, _LIB_DENSE, fwd(
             Q.data_ptr(), Ub.data_ptr(), Bm.data_ptr(), A.data_ptr(),
-            b.data_ptr(), own, *outs, Bsz, T, n, m, p, stream))
+            b.data_ptr(), own.data_ptr(), *outs, Bsz, T, n, m, p, stream))
         build.check(lib, _LIB_DENSE, bwd(
             G.data_ptr(), yhat.data_ptr(), Q.data_ptr(), A.data_ptr(),
             b.data_ptr(), y.data_ptr(), Bsz, T, n, m, p, stream))

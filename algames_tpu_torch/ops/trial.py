@@ -14,10 +14,12 @@ of the kernel, with its layout (interleaved, or player-blocked with ragged
 controls) as a compile-time policy; its constants are kernel arguments, and
 the state
 blocks (collision in 2 or 3 dimensions, circle, 2D wall, 3D wall, cylinder,
-state bound) travel as a device array of ``SBlock`` records (:data:`SBLOCK`,
-uploaded once per problem: their number is bounded by memory alone), the
-control bounds and collision-cost pairs as a by-value table, each block
-with its sense (equality rows are always penalized; the inequality and
+state bound) travel as a device array of ``SBlock`` records (:data:`SBLOCK`),
+the collision-cost pairs and control bounds as a device array of bytes
+(:func:`_meta_table`: :data:`PAIR` records, then the control blocks' row
+flags and senses), both uploaded once per problem, so that their numbers
+and the control dimension are bounded by memory alone; each block carries
+its sense (equality rows are always penalized; the inequality and
 second-order-cone rows by the inequality rule).  CUDA was
 chosen over Triton because the body is a per-knot scalar
 program with data-dependent indices (collision pairs, owners, bound masks,
@@ -30,7 +32,8 @@ bytes.  One block per lane makes one pass over the knots: ceil(T TPK / 32)
 warps, TPK threads per knot (two for the unicycle games of four or more
 players, :func:`instance_name`; one elsewhere) splitting a knot's blocks,
 collision-cost pairs and players, with the lane's trial point staged in
-shared memory for the unicycle, bicycle and quadrotor; nothing but the
+shared memory for the unicycle, bicycle and quadrotor (past 32 states, the
+unicycle's trial multipliers stay in device memory in f64); nothing but the
 inputs and the carried point touches device memory.  See the source for
 the measured numbers.
 
@@ -69,12 +72,16 @@ _KIND = {CollisionParams: 0, CircleParams: 1, BoundParams: 2,
 # Per-player state / control dimension of each compiled model.
 _DIMS = {"unicycle": (4, 2), "di2": (4, 2), "di3": (6, 3),
          "hdi2": (4, 2), "bicycle": (4, 2), "quadrotor": (12, 4)}
-_MAX_CB, _MAX_PAIR, _MAX_M, _MAX_CYL = 4, 64, 32, 32
-# Most states of an instance: 2n state-bound rows in one 64-bit mask, or
-# in two for the quadrotor's and the wide unicycle's (``SBlock::mask_hi``
-# in the source).
-_MAX_N = {"quadrotor": 64, "unicycle": 64}
+# Cylinders a block: two axis bits each in ``SBlock::mask``.
+_MAX_CYL = 32
+# Most states of a model: 2n state-bound rows in one 64-bit mask, or, for
+# the instances in ``_ROW_FLAGS``, flagged in the parameter array: the
+# quadrotor's, up to the widest the card has checked (4 players), and the
+# wide unicycle's, whose lane fits a block in f64 up to 17 players (n = 68:
+# 224,552 bytes of shared memory with the merge's 272 state blocks).
+_MAX_N = {"quadrotor": 64, "unicycle": 68}
 _MAX_N_DEFAULT = 32
+_ROW_FLAGS = ("quadrotor", "unicycle_wide")
 _N_CONST = 12
 _PAIR_EPS = 1e-10
 
@@ -99,8 +106,9 @@ def instance_name(model, spec) -> str:
     ``_spread`` (two threads per knot, which split the knot's blocks,
     collision-cost pairs and players) for unicycle games of four or more
     players, whose knots carry the most blocks and pairs, and ``_wide``
-    (two threads per knot, a state bound's rows in two mask words) past 32
-    states: nine players or more."""
+    (two threads per knot, a state bound's rows flagged in the parameter
+    array, in f64 the trial multipliers read from device memory) past 32
+    states, nine players or more."""
     name = model_name(model)
     if name != "unicycle" or spec.p < 4:
         return name
@@ -156,9 +164,9 @@ def trial_supported(model, spec, obj, gc) -> bool:
     the compiled models with its layout (``_layout_ok``); state blocks of
     the collision (2 or 3 coordinates), circle, wall, 3D wall, cylinder or
     state-bound families; box bounds as the only control blocks;
-    collision-cost pairs on 2 or 3 coordinates; all within the kernel's
-    table sizes (any number of state blocks), and at most 32 states (the
-    quadrotor's instance and the unicycle's wide one: 64).  Every sense is
+    collision-cost pairs on 2 or 3 coordinates (any number of blocks, pairs
+    and controls); at most 32 states (the quadrotor's instance 64, the
+    unicycle's 68).  Every sense is
     inside: equality rows are always
     penalized, inequality and second-order-cone rows by the inequality
     rule, as in :func:`~..constraints.sets.al_irho`."""
@@ -171,9 +179,6 @@ def trial_supported(model, spec, obj, gc) -> bool:
                     for b in gc.control_blocks)
             and all(len(a) in (2, 3) and len(a) == len(b)
                     for a, b in zip(obj.pxi, obj.pxj))
-            and len(gc.control_blocks) <= _MAX_CB
-            and len(obj.pair_i) <= _MAX_PAIR
-            and spec.m <= _MAX_M
             and spec.n <= _MAX_N.get(name, _MAX_N_DEFAULT))
 
 
@@ -234,13 +239,21 @@ def _check(model, spec, obj, gc, traj, dtraj, alpha, reg_eff) -> None:
             raise ValueError("trial operands must be contiguous")
 
 
-def _state_tables(sb, dtype, device):
+@functools.lru_cache(maxsize=None)
+def _row_flags(mask, dtype, device):
+    """A state bound's 2n row flags (1 for a finite bound) as the
+    parameter array holds them, on ``device`` once per mask."""
+    return torch.tensor(mask, dtype=dtype, device=device)
+
+
+def _state_tables(sb, dtype, device, flags=False):
     """The kernel's state-block table: per block (kind, owner, first row,
     first parameter, count, six indices, equality flag) and its mask (a
     state bound's: bit j the upper row of state j, bit n + j its lower
-    row; a cylinder block's: two axis bits per cylinder), plus
-    the parameter array (see ``csrc/trial_fused.cu`` SBlock for the
-    layout)."""
+    row, 0 with ``flags``; a cylinder block's: two axis bits per cylinder),
+    plus the parameter array (see ``csrc/trial_fused.cu`` SBlock for the
+    layout: a state bound's z_max, z_min, then, with ``flags``, its 2n row
+    flags)."""
     meta, masks, params = [], [], []
     row = npar = 0
     for blk in sb:
@@ -252,8 +265,11 @@ def _state_tables(sb, dtype, device):
             idx[:cnt], idx[3:3 + cnt] = par.pxi, par.pxj
             vals = [par.radius.reshape(1) ** 2]
         elif kind == 2:
-            mask = sum(1 << j for j, f in enumerate(par.mask) if f)
             vals = [par.z_max, par.z_min]
+            if flags:
+                vals.append(_row_flags(par.mask, dtype, device))
+            else:
+                mask = sum(1 << j for j, f in enumerate(par.mask) if f)
         else:
             cnt = num_rows(par)
             if kind == 1:
@@ -282,20 +298,11 @@ def _state_tables(sb, dtype, device):
     return meta, masks, spar, row
 
 
-def _mask_words(masks) -> list:
-    """Each state block's mask as the kernel's two 64-bit words: bits 0..63,
-    then 64..127 (a state bound's lower-bound rows past 64: n > 32)."""
-    low = (1 << 64) - 1
-    return [w for mask in masks for w in (mask & low, mask >> 64)]
-
-
-# ``SBlock`` of ``csrc/trial_fused.cu``: one state block's record, 40 bytes.
+# ``SBlock`` of ``csrc/trial_fused.cu``: one state block's record, 32 bytes.
 SBLOCK = np.dtype({
-    "names": ["mask", "mask_hi", "row", "par", "kind", "owner", "cnt", "eq",
-              "a"],
-    "formats": ["<u8", "<u8", "<i4", "<i4", "u1", "u1", "u1", "u1",
-                ("u1", 6)],
-    "offsets": [0, 8, 16, 20, 24, 25, 26, 27, 28], "itemsize": 40})
+    "names": ["mask", "row", "par", "kind", "owner", "cnt", "eq", "a"],
+    "formats": ["<u8", "<i4", "<i4", "u1", "u1", "u1", "u1", ("u1", 6)],
+    "offsets": [0, 8, 12, 16, 17, 18, 19, 20], "itemsize": 32})
 
 
 def _sblock_table(meta, masks) -> np.ndarray:
@@ -305,11 +312,48 @@ def _sblock_table(meta, masks) -> np.ndarray:
     rec = np.zeros(nsb, SBLOCK)
     if nsb:
         m = np.asarray(meta, np.int64).reshape(nsb, 12)
-        words = np.asarray(_mask_words(masks), np.uint64).reshape(nsb, 2)
-        rec["mask"], rec["mask_hi"] = words[:, 0], words[:, 1]
+        rec["mask"] = np.asarray(masks, np.uint64)
         rec["kind"], rec["owner"], rec["row"], rec["par"] = m.T[:4]
         rec["cnt"], rec["a"], rec["eq"] = m[:, 4], m[:, 5:11], m[:, 11]
     return rec
+
+
+# ``Pair`` of ``csrc/trial_fused.cu``: one collision-cost pair, 8 bytes.
+PAIR = np.dtype({"names": ["owner", "dim", "a", "b"],
+                 "formats": ["u1", "u1", ("u1", 3), ("u1", 3)],
+                 "offsets": [0, 1, 2, 5], "itemsize": 8})
+
+
+def _meta_table(pairs, c_mask, c_eq) -> np.ndarray:
+    """``TrialMeta``'s table of ``csrc/trial_fused.cu`` as bytes: the
+    collision-cost pairs as :data:`PAIR` records (``pairs``: per pair its
+    owner, then its pxi and pxj, 2 or 3 indices each), then each control
+    block's 2m row flags (``c_mask``, flat, block after block), then each
+    control block's equality flag (``c_eq``), padded with zeros to 8
+    bytes (at least 8)."""
+    rec = np.zeros(len(pairs), PAIR)
+    for k, (owner, a, b) in enumerate(pairs):
+        rec[k]["owner"], rec[k]["dim"] = owner, len(a)
+        rec[k]["a"][:len(a)], rec[k]["b"][:len(b)] = a, b
+    raw = rec.tobytes() + bytes(c_mask) + bytes(c_eq)
+    pad = -len(raw) % 8 if raw else 8
+    return np.frombuffer(raw + bytes(pad), np.uint8)
+
+
+def _meta_args(obj, control_blocks):
+    """:func:`_meta_table`'s arguments for a problem, as hashable tuples:
+    the objective's collision-cost pairs (owner, pxi, pxj) and the control
+    blocks' row flags and equality flags."""
+    return (tuple((int(i), tuple(obj.pxi[k]), tuple(obj.pxj[k]))
+                  for k, i in enumerate(obj.pair_i)),
+            tuple(int(v) for b in control_blocks for v in b.params.mask),
+            tuple(int(b.sense == "eq") for b in control_blocks))
+
+
+@functools.lru_cache(maxsize=64)
+def _meta_device(pairs, c_mask, c_eq, device):
+    """:func:`_meta_table` on ``device``, uploaded once per table."""
+    return torch.as_tensor(_meta_table(pairs, c_mask, c_eq).copy()).to(device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -322,13 +366,14 @@ def _sblock_device(meta, masks, device):
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    """The kernel library, its ``SBlock`` size checked against
-    :data:`SBLOCK`."""
+    """The kernel library, its ``SBlock`` and ``Pair`` sizes checked
+    against :data:`SBLOCK` and :data:`PAIR`."""
     lib = build.load(_LIB)
-    size = build.bind(lib, "trial_fused_sblock_bytes", [])()
-    if size != SBLOCK.itemsize:
-        raise RuntimeError(f"SBlock is {size} bytes in the library, "
-                           f"{SBLOCK.itemsize} in the wrapper")
+    for name, want in (("SBlock", SBLOCK), ("Pair", PAIR)):
+        size = build.bind(lib, f"trial_fused_{name.lower()}_bytes", [])()
+        if size != want.itemsize:
+            raise RuntimeError(f"{name} is {size} bytes in the library, "
+                               f"{want.itemsize} in the wrapper")
     return lib
 
 
@@ -347,15 +392,17 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
     dtype, device = traj.x.dtype, traj.x.device
     sfx = "f32" if dtype == torch.float32 else "f64"
     P, I, D = build.P, build.I, ctypes.c_double
-    fn = build.launcher(lib, f"trial_fused_{instance_name(model, spec)}_"
-                        f"{sfx}", [P] * 6 + [I] * 8 + [D, D, P])
+    inst = instance_name(model, spec)
+    fn = build.launcher(lib, f"trial_fused_{inst}_{sfx}",
+                        [P] * 5 + [I] * 8 + [D, D, P])
     Bsz, T, n, m, p = traj.x.shape[0], spec.T, spec.n, spec.m, spec.p
     sb, cb = gc.state_blocks, gc.control_blocks
     nsb, ncb, npair = len(sb), len(cb), len(obj.pair_i)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
-    s_meta, s_mask, spar, csum = _state_tables(sb, dtype, device)
+    s_meta, s_mask, spar, csum = _state_tables(sb, dtype, device,
+                                               inst in _ROW_FLAGS)
     sblocks = _sblock_device(tuple(s_meta), tuple(s_mask), device)
     # Stacked state AL state [B, Csum, T]: rows of every block, knots last.
     slam = (torch.cat([b.lam.transpose(1, 2) for b in sb], dim=1) if sb
@@ -372,13 +419,7 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
     own, j = _owner_index(spec, device)
     Rdp = obj.Rd[own, j].contiguous()
     ufp = obj.uf[own, j].contiguous()
-    p_meta = []
-    for k, i in enumerate(obj.pair_i):
-        a, b = tuple(obj.pxi[k]), tuple(obj.pxj[k])
-        p_meta += [i, len(a), *(a + (0,) * (3 - len(a))),
-                   *(b + (0,) * (3 - len(b)))]
-    c_mask = build.byte_table([v for b in cb for v in b.params.mask]
-                              + [b.sense == "eq" for b in cb])
+    table = _meta_device(*_meta_args(obj, cb), device)
 
     rx0 = torch.empty((Bsz, T, p, n), dtype=dtype, device=device)
     ru0 = torch.empty((Bsz, T, m), dtype=dtype, device=device)
@@ -394,8 +435,7 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
         (ctypes.c_void_p * len(ins))(*[a.data_ptr() for a in ins]),
         (ctypes.c_void_p * len(outs))(*[a.data_ptr() for a in outs]),
         (ctypes.c_double * _N_CONST)(*model_constants(model)),
-        sblocks.data_ptr(), build.int_table(p_meta), c_mask, Bsz, spec.N,
-        p, nsb, csum, ncb,
+        sblocks.data_ptr(), table.data_ptr(), Bsz, spec.N, p, nsb, csum, ncb,
         npair, spec.S, float(spec.dt), _PAIR_EPS * math.sqrt(n), stream))
     rows = np.cumsum([0] + [b.lam.shape[-1] for b in sb])
     lite = R.PointLite(
@@ -406,16 +446,16 @@ def _launch(lib, model, spec, obj, gc, traj, dtraj, alpha, reg_eff, stream):
     return tn, lite
 
 
-def trial_occupancy(model, spec, obj, dtype, nsb=0) -> int:
+def trial_occupancy(model, spec, obj, dtype, nsb=0, ncb=0) -> int:
     """Lanes per SM of the kernel instance that runs ``model``'s trials with
-    ``nsb`` state blocks (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
-    needs a card."""
+    ``nsb`` state blocks and ``ncb`` control blocks
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs a card."""
     lib = _library()
     sfx = "f32" if dtype == torch.float32 else "f64"
     fn = build.bind(lib, f"trial_fused_{instance_name(model, spec)}_{sfx}"
-                    "_occupancy", [build.P] + [build.I] * 4)
+                    "_occupancy", [build.P] + [build.I] * 5)
     return fn((ctypes.c_double * _N_CONST)(*model_constants(model)), spec.N,
-              spec.p, len(obj.pair_i), nsb)
+              spec.p, len(obj.pair_i), nsb, ncb)
 
 
 def trial_eval(model, spec, obj, gc, traj: PrimalDual, dtraj: PrimalDual,

@@ -141,7 +141,7 @@ Phases:
    every route) and, forced, on the roundabout's own systems (``K3-
    blocked24``: d=24, beside its class); K4 on its trial inputs
    (``K4-quad4``: n=48), with a state bound on all 48 states
-   (``K4-quad4-bound``: rows past the 64th in the table's second word) and
+   (``K4-quad4-bound``: its 96 rows flagged in the parameter array) and
    with collision-cost pairs (``K4-quad4-cost``); f64 solves of 4
    scenarios (outer 2 x 5, fused trial) through K1's blocked route and K4
    (``solve-wide64``) and, with collision-cost pairs between the players,
@@ -176,7 +176,18 @@ Phases:
    budget 3 x 8 (``sweep-uni9``: as ``sweep-quad4``, against REF_UNI9,
    the converged share gated, without the plain versions' lanes; K1's
    blocked route gated over mu at B=1024 on the first 64 lanes and both
-   routes timed in f32 and f64; K1's and K2's shares of the wall);
+   routes timed in f32 and f64; K1's and K2's shares of the wall); then
+   the widest unicycle merges (10 to 17 players): K1's route at each width
+   in both precisions (``routes-wide``), K1 on its device-memory route at
+   12, 15 (f64) and 17 players (``K1-uni12``, ``K1-uni15``, ``K1-uni17``)
+   and K3 on the 17-player systems turned dense (``K3-uni17``), gated as
+   ``K1-uni9``; K2's wide unicycle instance on the 17-player trial inputs
+   (``K2-uni17``) and with a state bound of player 0 on all 68 states
+   (``K2-uni17-bound``: its rows flagged in the parameter array, finite
+   and infinite on both sides of the 128th); the f64 golden of
+   ``uni17_N20`` as ``golden-uni9`` (``golden-uni17``) and one timed f32
+   chunk of B_SWEEP17 scenarios at 3 x 8 (``sweep-uni17``, against
+   REF_UNI17);
 13. the heterogeneous game: K3 on its padded KKT systems as in 11
    (``K3-hetero``), K4 on its trial inputs (``K4-hetero``), the f64 solve
    through K3 and K4 against ``tests/golden_torch/hetero2_N8.npz`` (the
@@ -376,10 +387,34 @@ REF_QUAD4 = (0 / 256, 0.20679336786270142)
 REF_UNI9 = (256 / 256, 7.022567388048628e-06)
 B_GOLDEN9 = 4
 # Lanes of its dense [S, S] KKT matrices a batch (S = 7182: 413 MB a lane
-# in f64), for the backward errors and the library call.
+# in f64), for the library call.
 B_DENSE9 = 16
 UNI9_ROUTES = {("structured", dt): ("blocked", "device")
                for dt in ("f32", "f64")}
+# The widest unicycle merges (``flagship_unicycle(p)``, p = 10 .. 17; d = 6p
+# reaches 102, NW = p (p - 1) 272 w vectors, m = 2p 34 control rows): K1's
+# route for each width in both precisions (``routes-wide``; 11 players and
+# more take the device-memory route, whose products Pw go 128 w vectors at
+# a time; the f64 routes of 15 and 16 players did not fit a block while
+# they took a panel of NW columns); the 17-player merge's f64 golden
+# lanes, f32 sweep lanes and the reference package's converged share and
+# mean final residual on the first REF_UNI17_LANES of them at 3 x 8
+# (`tests/reference_fractions.py subset uni17_N20`: lane 219 does not
+# converge, in the port's plain versions either); the lanes the library
+# call solves at 12, 15 and 17 players, one batch (its dense [S, S] KKT
+# matrices: S = 23,902 at 17 players, 4.57 GB a lane in f64; a lane's LU
+# took 2.2 s in f64 on an H100).
+UNI_WIDE_PLAYERS = range(10, 18)
+UNI_DEVICE_ROUTES = {(form, dt): ("device",)
+                     for form in ("structured", "dense")
+                     for dt in ("f32", "f64")}
+B_GOLDEN17, B_SWEEP17 = 4, 256
+REF_UNI17_LANES = 256
+REF_UNI17 = (255 / 256, 6.029817996022757e-06)
+B_LIBRARY_WIDE = {12: 4, 15: 2, 17: 2}
+# Lanes of K1's checks at 15 players (f64 only: the repaired route) and of
+# K3's on the 17-player systems turned dense.
+B_UNI15, B_K3_UNI17 = 16, 4
 PLAIN_LANES, PLAIN_RES_TOL, PLAIN_LANE_TOL = 64, 0.02, 1e-4
 # BASELINE config 3 as `benchmarks/bench_mpc.py` runs it: the highway's
 # collision radius and control bound, H_MPC replans, and B_MPC scenarios in
@@ -836,25 +871,49 @@ def k1_system(dev, B, mu, seed, penalize_rows=False, preset=None,
 
 def backward_errors(spec, blocks, w_owner, b, ys, lanes=256):
     """Per-lane normwise backward error |K y - b| / (|K| |y| + |b|) (infinity
-    norms, K the dense f64 KKT matrix of ``blocks``: structured with its
+    norms, K the f64 KKT matrix of ``blocks``: structured with its
     ``w_owner``, or dense ``JacBlocks`` with ``w_owner`` None) of each
     solution in ``ys``: how far from the given system the solved one lies,
-    whatever the system's condition."""
+    whatever the system's condition.  K is applied from its per-knot blocks,
+    row by row as ``dense_kkt`` lays them out, ``lanes`` lanes at a time,
+    and never formed (at 17 players it is 4.57 GB a lane in f64)."""
     import torch
+    from algames_tpu_torch.core.spec import owner_map_u
+    T, n, m, p = spec.T, spec.n, spec.m, spec.p
+    own = torch.as_tensor(owner_map_u(spec), device=b.device)
     out = [[] for _ in ys]
     for s in range(0, b.shape[0], lanes):
         sl = tree_slice(blocks, s + lanes, s)
-        K = dense_kkt(spec, sl if w_owner is None
-                      else dense_of(spec, sl, w_owner))
-        bb = b[s:s + lanes].reshape(K.shape[0], -1)
-        k_norm = K.abs().sum(-1).amax(-1)
+        jb = sl if w_owner is None else dense_of(spec, sl, w_owner)
+        Q, U, A, Bm = (jb.Qblk.double(), jb.Ublk.double(), jb.A.double(),
+                       jb.B.double())
+        L = A.shape[0]
+        zero = torch.zeros_like(A[:, :1])
+        A1 = torch.cat([A[:, 1:], zero], 1)    # A_{t+1}: statx rows of t
+        Ad = torch.cat([zero, A[:, 1:]], 1)    # A_t: dyn rows of t >= 1
+        rows = torch.cat([
+            (Q.abs().sum(-1) + 1 + A1.abs().sum(-2)[:, :, None]).reshape(
+                L, T, p * n),
+            U.abs().sum(-1) + Bm.abs().sum(-2),
+            1 + Bm.abs().sum(-1) + Ad.abs().sum(-1)], -1)
+        k_norm = rows.reshape(L, -1).amax(-1)
+        bb = b[s:s + lanes].double().reshape(L, T, -1)
         for acc, y in zip(out, ys):
-            yy = y[s:s + lanes].double().reshape(K.shape[0], -1)
-            r = torch.bmm(K, yy[..., None])[..., 0] - bb
-            acc.append(r.abs().amax(-1) / (k_norm * yy.abs().amax(-1)
-                                           + bb.abs().amax(-1)))
-        del K
-        torch.cuda.empty_cache()
+            yy = y[s:s + lanes].double().reshape(L, T, -1)
+            x, u = yy[..., :n], yy[..., n:n + m]
+            lam = yy[..., n + m:].reshape(L, T, p, n)
+            lam1 = torch.cat([lam[:, 1:], torch.zeros_like(lam[:, :1])], 1)
+            xp = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], 1)
+            rx = (torch.einsum("btpij,btj->btpi", Q, x) - lam
+                  + torch.einsum("btja,btpj->btpa", A1, lam1))
+            ru = (torch.einsum("btjk,btk->btj", U, u)
+                  + torch.einsum("btkj,btjk->btj", Bm, lam[:, :, own]))
+            rd = (torch.einsum("btak,btk->bta", Bm, u) - x
+                  + torch.einsum("btak,btk->bta", Ad, xp))
+            r = torch.cat([rx.reshape(L, T, p * n), ru, rd], -1) - bb
+            acc.append(r.abs().reshape(L, -1).amax(-1)
+                       / (k_norm * yy.abs().reshape(L, -1).amax(-1)
+                          + bb.abs().reshape(L, -1).amax(-1)))
     return [torch.cat(acc) for acc in out]
 
 
@@ -1322,45 +1381,206 @@ def uni9_sweep_game(dev, dtype):
     return uni9_game(dev, dtype, outer=3, inner=8)
 
 
-def phase_golden_uni9(dev):
+def uni_game(p, outer=7, inner=20):
+    """The flagship merge with ``p`` players (``flagship_unicycle(p=p)``):
+    n = 4p, m = 2p, p (p - 1) collision blocks; its reduced KKT systems d =
+    6p, R = 4p^2 + 1, NW = p (p - 1)."""
+    def game(dev, dtype):
+        from algames_tpu_torch.presets import flagship_unicycle
+        return flagship_unicycle(dev, dtype, outer=outer, inner=inner, p=p)
+    return game
+
+
+uni12_game, uni15_game, uni17_game = uni_game(12), uni_game(15), uni_game(17)
+# The 17-player merge at the flagship bench's budget, outer 3 x inner 8.
+uni17_sweep_game = uni_game(17, 3, 8)
+
+
+def uni17_bound_game(dev, dtype):
+    """``uni17_game`` with a state bound of player 0 on all 68 states: upper
+    bounds on every state, lower bounds on states 20.. only, so that its
+    row flags (in the parameter array past 32 states) are finite and
+    infinite alike, on both sides of the 128th row."""
+    from algames_tpu_torch.constraints.sets import add_state_bound
+    prob, spec = uni17_game(dev, dtype)
+    lo = np.where(np.arange(spec.n) >= 20, -5.0, -np.inf)
+    gc = add_state_bound(spec, prob.gc, 0, 5.0 * np.ones(spec.n), lo)
+    return dataclasses.replace(prob, gc=gc), spec
+
+
+def phase_golden_uni9(dev, tag="golden-uni9", game=uni9_game,
+                      golden="uni9_N20", lanes=B_GOLDEN9):
     """B_GOLDEN9 lanes of the f64 9-player merge from its x0 through the
     kernels (K1 on the route its shape takes, K2's wide unicycle instance),
     counted from zero just before: on every lane the frozen JAX solution's
     iteration count (``uni9_N20``), x and u within 1e-8; every K1 launch on
-    that route, K2 launched, K3 not.  Returns the launches, with the route
-    under "route"."""
+    that route, K2 launched on every trial (the eager trial never ran), K3
+    not.  Returns the launches, with the route under "route".
+    ``golden-uni17`` runs the same on ``uni17_game`` against
+    ``uni17_N20``."""
     import torch
     import algames_tpu_torch as agt
     from algames_tpu_torch.ops.trial import instance_name
+    from algames_tpu_torch.problem import solver
     from algames_tpu_torch.problem.residual import structured_w_owner
-    gold = load_golden("uni9_N20")
-    prob, spec = uni9_game(dev, torch.float64)
+    gold = load_golden(golden)
+    prob, spec = game(dev, torch.float64)
     prob = dataclasses.replace(
         prob, opts=dataclasses.replace(prob.opts, ls_fused=True))
-    route = shape_route(spec, torch.float64,
-                        len(structured_w_owner(prob.gc)))
-    x0s = prob.x0[None].repeat(B_GOLDEN9, 1)
+    NW = len(structured_w_owner(prob.gc))
+    route = shape_route(spec, torch.float64, NW)
+    x0s = prob.x0[None].repeat(lanes, 1)
+    eager = solver.trial_eval_plain
+    eager_calls = []
+
+    def counted(*a, **k):
+        eager_calls.append(1)
+        return eager(*a, **k)
+    solver.trial_eval_plain = counted
     counters = zero_counters()
     t0 = time.perf_counter()
-    res = agt.newton_solve(prob, x0s)
-    torch.cuda.synchronize()
+    try:
+        res = agt.newton_solve(prob, x0s)
+        torch.cuda.synchronize()
+    finally:
+        solver.trial_eval_plain = eager
     el = time.perf_counter() - t0
     launches = read_counters(counters)
     it = res.stats.iter.cpu().numpy()
     dx = float(np.abs(res.traj.x.cpu().numpy() - gold["x"][None]).max())
     du = float(np.abs(res.traj.u.cpu().numpy() - gold["u"][None]).max())
-    log(f"[golden-uni9] f64 9-player merge (d=54, NW=72, 72 state blocks), "
-        f"{B_GOLDEN9} lanes from x0, {el:.2f} s: iterations {it.tolist()} "
+    log(f"[{tag}] f64 {spec.p}-player merge (d={spec.n + spec.m}, "
+        f"NW={NW}, {len(prob.gc.state_blocks)} state blocks), {lanes} "
+        f"lanes from x0, {el:.2f} s: iterations {it.tolist()} "
         f"(golden {int(gold['iter'])}), max |dx| {dx:.3e}, max |du| "
         f"{du:.3e} (<= 1e-8); K1 on its {route} route, K2 instance "
-        f"{instance_name(prob.model, spec)}; launches {launches}")
+        f"{instance_name(prob.model, spec)}; launches {launches}, eager "
+        f"trials {len(eager_calls)}")
     if not ((it == int(gold["iter"])).all() and dx <= 1e-8 and du <= 1e-8
             and launches["K1"] > 0
             and launches[f"K1 {route} route"] == launches["K1"]
-            and launches["trial"] > 0 and launches["K3"] == 0):
-        raise SystemExit("the 9-player merge's f64 kernel path misses "
-                         "uni9_N20 or its kernels")
+            and launches["trial"] > 0 and not eager_calls
+            and launches["K3"] == 0):
+        raise SystemExit(f"the {spec.p}-player merge's f64 kernel path "
+                         f"misses {golden} or its kernels")
     return {**launches, "route": route}
+
+
+def phase_routes_wide(dev):
+    """K1's forward route at every width of the unicycle merges of
+    UNI_WIDE_PLAYERS players, in f32 and f64, as its library says: every
+    one is a route (the f64 device-memory route of 15 and 16 players did
+    not fit a block while its products Pw took a panel of NW columns).
+    Returns {p: (f32 route, f64 route)}."""
+    import torch
+    from algames_tpu_torch.presets import flagship_unicycle
+    from algames_tpu_torch.problem.residual import structured_w_owner
+    out = {}
+    for p in UNI_WIDE_PLAYERS:
+        prob, spec = flagship_unicycle(torch.device("cpu"), torch.float64,
+                                       outer=1, inner=1, p=p, N=3)
+        NW = len(structured_w_owner(prob.gc))
+        routes = []
+        for dt in (torch.float32, torch.float64):
+            try:
+                routes.append(shape_route(spec, dt, NW))
+            except ValueError as e:
+                raise SystemExit(f"routes-wide: {e}")
+        out[p] = tuple(routes)
+        log(f"[routes-wide] {p} players (n={spec.n}, m={spec.m}, "
+            f"d={spec.n + spec.m}, NW={NW}): K1 f32 {routes[0]}, f64 "
+            f"{routes[1]}")
+    return out
+
+
+def phase_sweep_uni17(dev, lanes=B_SWEEP17):
+    """One timed f32 chunk of the 17-player merge (``uni17_sweep_game``,
+    outer 3 x inner 8) with the fused trial: its first ``lanes`` scenarios
+    (x0 + 0.05 N(0, 1) from numpy seed 0), warm, counted from zero after
+    the warm-up: every trajectory finite, none diverged, the first
+    REF_UNI17_LANES lanes' converged share >= the reference's on the same
+    lanes - 0.01 (REF_UNI17); every K1 launch on the route the shape takes,
+    K2 launched at least once a KKT step, K3 not.  Then K1's and K2's device
+    time a call at B=``lanes`` on the game's own operands (f32), and the
+    chunk's wall with their shares of it (launches times device time a
+    call).  Returns the launches, the wall and the rows of the kernels line
+    (K1 by route)."""
+    import torch
+    from algames_tpu_torch import parallel
+    from algames_tpu_torch.ops.thomas import (solve_thomas_structured,
+                                              solve_thomas_structured_plain)
+    from algames_tpu_torch.ops.trial import trial_eval, trial_supported
+    from algames_tpu_torch.utils import tree_leaves, tree_map
+    tag = "sweep-uni17"
+    prob, x0s = sweep_problem(uni17_sweep_game, dev)
+    spec, x0s, opts = prob.spec, x0s[:lanes], prob.opts
+    if not trial_supported(prob.model, spec, prob.obj, prob.gc):
+        raise SystemExit(f"{tag}: the fused trial does not take the game")
+    parallel.solve_batch(dataclasses.replace(prob, opts=dataclasses.replace(
+        opts, outer_iter=1, inner_iter=1)), x0s[:8])
+    counters = zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = parallel.solve_many(prob, x0s, method="thomas", chunk=lanes)
+    torch.cuda.synchronize()
+    el = time.perf_counter() - t0
+    launches = read_counters(counters)
+    finite = bool(torch.isfinite(out.traj.x).all())
+    div = float(parallel.divergence_mask(out).float().mean())
+    first = dataclasses.replace(
+        out, stats=tree_slice(out.stats, REF_UNI17_LANES),
+        traj=tree_slice(out.traj, REF_UNI17_LANES))
+    frac = float(parallel.convergence_fraction(first, opts))
+    frac_all = float(parallel.convergence_fraction(out, opts))
+    iters = out.stats.iter.cpu().numpy()
+    _, sq, b, w_owner = k1_system(dev, lanes, 1e3, 2390, False,
+                                  uni17_sweep_game, flagship_iterates)
+    taken = shape_route(spec, torch.float32, len(w_owner))
+    sq32, b32 = tree_map(lambda a: a.float(), sq), b.float()
+    y = solve_thomas_structured(spec, sq32, b32, w_owner)
+    ref = solve_thomas_structured_plain(spec, sq, b, w_owner)
+    k1 = {"max_abs_err": float((y.double() - ref).abs().max()),
+          "ms": cuda_ms(lambda: solve_thomas_structured(
+              spec, sq32, b32, w_owner), 2),
+          "plain_ms": cuda_ms(lambda: solve_thomas_structured_plain(
+              spec, sq32, b32, w_owner), 1),
+          "device_ms": device_ms(lambda: solve_thomas_structured(
+              spec, sq32, b32, w_owner), 2, ("thomas_sq_",), 2,
+              f"{tag} K1 f32 B={lanes}"),
+          **bound(tensor_bytes(tree_leaves(sq32) + [b32, y]),
+                  thomas_flops(spec, lanes, NW=len(w_owner))),
+          "library_ms": None}
+    del sq, b, sq32, b32, y, ref
+    tprob, tspec, gc, traj, dtraj, alpha, reg = trial_inputs(
+        uni17_sweep_game, flagship_iterates, True, dev, torch.float32, 2391,
+        B=lanes)
+    k2_ms = device_ms(lambda: trial_eval(tprob.model, tspec, tprob.obj, gc,
+                                         traj, dtraj, alpha, reg), 5,
+                      ("trial_fused_",), 1, f"{tag} K2 f32 B={lanes}")
+    k1_share = k1["device_ms"] * launches["K1"] / 1e3 / el
+    k2_share = k2_ms * launches["trial"] / 1e3 / el
+    log(f"[{tag}] f32 {lanes} scenarios as one chunk, outer "
+        f"{opts.outer_iter} x {opts.inner_iter}, fused trial: {el:.3f} s, "
+        f"{lanes / el:.1f} solves/s; first {REF_UNI17_LANES} lanes converged "
+        f"{frac:.4f} (reference {REF_UNI17[0]:.4f}; >= "
+        f"{REF_UNI17[0] - 0.01:.4f}), all {lanes} {frac_all:.4f}; diverged "
+        f"{div:.4f}, finite {finite}; stats rows {int(iters.min())}.."
+        f"{int(iters.max())}; launches {launches}; device time: K1 ({taken} "
+        f"route) {launches['K1']} x {k1['device_ms']:.4f} ms = "
+        f"{100 * k1_share:.1f}% of the wall, K2 {launches['trial']} x "
+        f"{k2_ms:.4f} ms = {100 * k2_share:.1f}%; K1 at B={lanes}: call "
+        f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound "
+        f"{k1['bound_ms']:.4f} ms ({k1['bound_by']}), max |error| against "
+        f"the f64 plain version {k1['max_abs_err']:.3e}")
+    if not (finite and div == 0.0 and frac >= REF_UNI17[0] - 0.01
+            and launches["K1"] > 0
+            and launches[f"K1 {taken} route"] == launches["K1"]
+            and launches["trial"] >= launches["K1"]
+            and launches["K3"] == 0):
+        raise SystemExit(f"{tag}: the chunk failed its gates")
+    return {**launches, "wall_s": el, "k1_share": k1_share,
+            "k2_share": k2_share, "route": taken, "k1_row": k1,
+            "k2_device_ms": k2_ms}
 
 
 def shape_route(spec, dtype, NW=None):
@@ -1375,7 +1595,8 @@ def shape_route(spec, dtype, NW=None):
 
 def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
                  iterates=quad3_iterates, forced=BEYOND_ROUTES,
-                 dense_system=None, dense_lanes=None):
+                 dense_system=None, dense_lanes=None, reps=10,
+                 library_lanes=None, dtypes=("f64", "f32")):
     """K1 (``form`` "structured") or K3 ("dense": the same systems turned
     dense, or ``dense_system(dev, B, mu, seed)``'s own) on ``game``'s KKT
     systems around ``iterates`` (by default the 4-player quadrotor's,
@@ -1392,10 +1613,14 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
     numbers of the route the shape takes (the kernels line's), with every
     route's under "f64" and "f32" by route name, each with its max |error|
     against the f64 plain version over the mu schedule.  ``dense_lanes``:
-    the systems whose dense KKT matrices the backward errors and the
-    library call take at once (default all B; fewer where those matrices
-    would not fit the card together: the 9-player merge's are 413 MB a
-    lane in f64)."""
+    the systems whose dense KKT matrices the library call takes at once
+    (default all it solves; fewer where those matrices would not fit the
+    card together: the 9-player merge's are 413 MB a lane in f64, the
+    17-player merge's 4.57 GB); ``reps``: the timed calls of each kernel;
+    ``library_lanes``: the first lanes the library call solves (default all
+    B: the 17-player merge's dense LU takes ~9e12 operations a lane);
+    ``dtypes``: the precisions gated and timed ("f64" first: its numbers
+    are the kernels line's)."""
     import torch
     from algames_tpu_torch.ops import thomas as TH
     from algames_tpu_torch.utils import tree_leaves, tree_map
@@ -1424,14 +1649,15 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
 
     spec, blocks, b, w_owner = system(1.0, seed0)
     NW = len(w_owner) if structured else None
-    taken = {dt: shape_route(spec, dt, NW)
-             for dt in (torch.float64, torch.float32)}
-    routes = {dt: ("auto",) + tuple(r for r in forced[(form, name)]
-                                    if r != taken[dt])
-              for dt, name in ((torch.float64, "f64"),
-                               (torch.float32, "f32"))}
-    log(f"[{tag}] routes the shape takes: f64 {taken[torch.float64]}, f32 "
-        f"{taken[torch.float32]}; timed beside them: "
+    all_dts = {"f64": torch.float64, "f32": torch.float32}
+    taken = {all_dts[n]: shape_route(spec, all_dts[n], NW) for n in dtypes}
+    routes = {all_dts[name]: ("auto",) + tuple(
+                  r for r in forced[(form, name)]
+                  if r != taken[all_dts[name]])
+              for name in dtypes}
+    log(f"[{tag}] routes the shape takes: "
+        + ", ".join(f"{str(dt)[6:]} {r}" for dt, r in taken.items())
+        + f"; timed beside them: "
         f"{ {str(dt)[6:]: r[1:] for dt, r in routes.items()} }")
     want = {}
     for dt, rs in routes.items():
@@ -1451,25 +1677,25 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
         ref = plain(spec, blocks, b, w_owner)
         p32 = plain(spec, blocks32, b32, w_owner)
         y64 = [solve(spec, blocks, b, w_owner, r)
-               for r in routes[torch.float64]]
+               for r in routes.get(torch.float64, ())]
         y32 = [solve(spec, blocks32, b32, w_owner, r)
-               for r in routes[torch.float32]]
+               for r in routes.get(torch.float32, ())]
         torch.cuda.synchronize()
         bws = [float(e.max()) for e in backward_errors(
             spec, blocks, w_owner, b, (ref, p32, *y64, *y32),
-            lanes=dense_lanes or B)]
+            lanes=B)]
         bp64, bp32 = bws[:2]
         ep32 = float(rel_err(p32, ref).max())
         ok = True
         line = (f"[{tag}] mu={mu:.0e}: backward error plain f64 {bp64:.3e}, "
                 f"f32 {bp32:.3e}; f32 plain forward {ep32:.3e}")
-        for r, y, bw in zip(routes[torch.float64], y64, bws[2:]):
+        for r, y, bw in zip(routes.get(torch.float64, ()), y64, bws[2:]):
             name = taken[torch.float64] if r == "auto" else r
             ok = ok and bw <= 1e-15 and bw <= 10 * bp64
             line += (f"; f64 {name} {bw:.3e} (<= 1e-15 and 10 x plain)")
             max_abs["f64"][name] = max(max_abs["f64"].get(name, 0.0),
                                        float((y - ref).abs().max()))
-        for r, y, bw in zip(routes[torch.float32], y32,
+        for r, y, bw in zip(routes.get(torch.float32, ()), y32,
                             bws[2 + len(y64):]):
             name = taken[torch.float32] if r == "auto" else r
             e32 = float(rel_err(y, ref).max())
@@ -1490,17 +1716,20 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
 
     spec, blocks, b, w_owner = system(1e3, seed0 + 99)
     out = {}
-    for dtype, name in ((torch.float64, "f64"), (torch.float32, "f32")):
+    L = library_lanes or B
+    for name in dtypes:
+        dtype = all_dts[name]
         bl = tree_map(lambda a: a.to(dtype), blocks)
         bb = b.to(dtype)
         plain_ms = cuda_ms(lambda: plain(spec, bl, bb, w_owner), 3)
-        dense = dense_of(spec, bl, w_owner) if structured else bl
-        lib_ms, y_lib = library_solve_ms(spec, dense, bb, dense_lanes or B)
+        lib_ms, y_lib = library_solve_ms(
+            spec, (dense_of(spec, tree_slice(bl, L), w_owner) if structured
+                   else tree_slice(bl, L)), bb[:L], dense_lanes or L)
         per = {}
         for r in routes[dtype]:
             rname = taken[dtype] if r == "auto" else r
-            ms = cuda_ms(lambda: solve(spec, bl, bb, w_owner, r), 10)
-            dev_ms = device_ms(lambda: solve(spec, bl, bb, w_owner, r), 10,
+            ms = cuda_ms(lambda: solve(spec, bl, bb, w_owner, r), reps)
+            dev_ms = device_ms(lambda: solve(spec, bl, bb, w_owner, r), reps,
                                names, 2, f"{tag} {name} {rname} route")
             y = solve(spec, bl, bb, w_owner, r)
             bnd = bound(tensor_bytes(tree_leaves(bl) + [bb, y]),
@@ -1510,20 +1739,24 @@ def phase_beyond(dev, tag, form, seed0, B=B_BEYOND, game=quad4_game,
                 f"plain {plain_ms:.4f} ms (CUDA events); device time "
                 f"{dev_ms:.4f} ms (events, fwd + bwd); bound "
                 f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); library "
-                f"(torch.linalg.solve on the dense [{B}, {spec.S}, {spec.S}]"
-                f" KKT matrices) {lib_ms:.4f} ms, worst relative deviation "
-                f"{float(rel_err(y_lib, y).max()):.3e} (not gated)")
+                f"(torch.linalg.solve on the dense [{L}, {spec.S}, {spec.S}]"
+                f" KKT matrices of the first {L} lanes) {lib_ms:.4f} ms, "
+                f"worst relative deviation "
+                f"{float(rel_err(y_lib, y[:L]).max()):.3e} (not gated)")
             per[rname] = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
                           **bnd, "library_ms": lib_ms,
                           "max_abs_err": max_abs[name][rname]}
+            if L != B:
+                per[rname]["library_lanes"] = L
         out[name] = per
         if len(per) > 1:
             log(f"[{tag}] {name} device time at B={B}: " + ", ".join(
                 f"{r} {v['device_ms']:.4f} ms" for r, v in per.items()))
-    out.update(out["f64"][taken[torch.float64]])
+    first = all_dts[dtypes[0]]
+    out.update(out[dtypes[0]][taken[first]])
     occupancy = k1_occupancy if structured else (
         lambda t, sp, nw, *a, **k: k3_occupancy(t, sp, *a, **k))
-    out["forward_kernel"] = occupancy(tag, spec, NW or 0, B)
+    out["forward_kernel"] = occupancy(tag, spec, NW or 0, B, dtypes=dtypes)
     for r in ("blocked", "device", "shared"):
         dts = tuple(str(dt)[6:].replace("float", "f") for dt in routes
                     if r in routes[dt][1:])
@@ -1646,8 +1879,8 @@ def phase_sweep_beyond(dev, trial_row, tag="sweep-quad4", game=None,
     that converged stop at residuals f32 rounding sets), and with
     ``plain_lanes`` 0 the plain versions' lanes are left out (the share
     gate holds the chunk to the reference lane by lane's outcome);
-    ``dense_lanes``: the lanes of a dense KKT matrix batch (backward errors,
-    library call), by default 64 and 128; without ``library`` the library
+    ``dense_lanes``: the lanes of a dense KKT matrix batch of the library
+    call, by default 128; without ``library`` the library
     call is not timed (the 9-player merge's dense matrices take 35 s at
     B=1024; ``K1-uni9`` times it at B=64)."""
     import torch
@@ -1725,7 +1958,7 @@ def phase_sweep_beyond(dev, trial_row, tag="sweep-quad4", game=None,
         bw = [float(e.max()) for e in backward_errors(
             spec, sub, wo, bsub, (ref, p32, y64[:PLAIN_LANES],
                                   y32[:PLAIN_LANES]),
-            lanes=dense_lanes or PLAIN_LANES)]
+            lanes=PLAIN_LANES)]
         e32 = float(rel_err(y32[:PLAIN_LANES], ref).max())
         ep32 = float(rel_err(p32, ref).max())
         log(f"[{tag}] K1 {taken} route at B={CHUNK}, mu={mu:.0e}, "
@@ -2177,7 +2410,8 @@ def phase_trial(tag, inputs, dev):
                                ("trial_fused_",), 1, tag)
             bnd = trial_bound(*args, lite_k, tn_k)
             lanes = trial_occupancy(prob.model, spec, prob.obj, dtype,
-                                    len(gc.state_blocks))
+                                    len(gc.state_blocks),
+                                    len(gc.control_blocks))
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             B = alpha.shape[0]
             log(f"[{tag}] kernel instance {instance_name(prob.model, spec)}: "
@@ -4084,6 +4318,39 @@ def main():
                           REF_UNI9, 1e-2, UNI9_ROUTES, (2290, 2300), 0, "K2",
                           B_DENSE9, False)
 
+    # The widest unicycle merges: K1's route at 10 .. 17 players; K1 on its
+    # device-memory route at 12 (the first past 128 w vectors), 15 (f64:
+    # the route that did not fit a block before) and 17 players (d=102,
+    # m=34, NW=272); K3 on the 17-player systems turned dense; K2's wide
+    # unicycle instance (n=68, 272 state blocks; and with a state bound,
+    # its rows flagged in the parameter array past the 128th); the f64
+    # golden and an f32 sweep of the 17-player merge.
+    phase("routes-wide", phase_routes_wide, dev)
+    k1_uni12 = phase("K1-uni12", phase_beyond, dev, "K1-uni12", "structured",
+                     2400, B_BEYOND, uni12_game, flagship_iterates,
+                     UNI_DEVICE_ROUTES, None, B_LIBRARY_WIDE[12], 3,
+                     B_LIBRARY_WIDE[12])
+    k1_uni15 = phase("K1-uni15", phase_beyond, dev, "K1-uni15", "structured",
+                     2500, B_UNI15, uni15_game, flagship_iterates,
+                     UNI_DEVICE_ROUTES, None, B_LIBRARY_WIDE[15], 3,
+                     B_LIBRARY_WIDE[15], ("f64",))
+    k1_uni17 = phase("K1-uni17", phase_beyond, dev, "K1-uni17", "structured",
+                     2600, B_BEYOND, uni17_game, flagship_iterates,
+                     UNI_DEVICE_ROUTES, None, B_LIBRARY_WIDE[17], 3,
+                     B_LIBRARY_WIDE[17])
+    k3_uni17 = phase("K3-uni17", phase_beyond, dev, "K3-uni17", "dense", 2700,
+                     B_K3_UNI17, uni17_game, flagship_iterates,
+                     UNI_DEVICE_ROUTES, None, 1, 3, 1)
+    k2_uni17 = phase("K2-uni17", phase_trial, "K2-uni17", lambda d, t:
+                     trial_inputs(uni17_game, flagship_iterates, True, d, t,
+                                  seed=67), dev)
+    phase("K2-uni17-bound", phase_trial, "K2-uni17-bound", lambda d, t:
+          trial_inputs(uni17_bound_game, flagship_iterates, True, d, t,
+                       seed=71), dev)
+    launches_g17 = phase("golden-uni17", phase_golden_uni9, dev,
+                         "golden-uni17", uni17_game, "uni17_N20", B_GOLDEN17)
+    sweep17 = phase("sweep-uni17", phase_sweep_uni17, dev)
+
     # The heterogeneous double integrator (K3 padded + K4's player-blocked
     # instance) and iterative best response (K3 at p=1).
     k3_het = phase("K3-hetero", phase_k3, dev, "K3-hetero", hetero_game,
@@ -4213,6 +4480,41 @@ def main():
         entry("K2", f"uni9_N20 (9-player merge, n=36, 72 state blocks): the "
               f"wide unicycle instance, B={CHUNK}", launches_uni9["trial"],
               k2_uni9),
+        entry("K1", "uni12 (12-player merge, d=72, NW=132), f64: the "
+              f"device-memory route; no main path, times at B={B_BEYOND}",
+              0, {**k1_uni12["f64"]["device"], "timed_lanes": B_BEYOND},
+              "thomas_global.cuh"),
+        entry("K1", "uni12 (12-player merge, d=72, NW=132), f32: the "
+              f"device-memory route; no main path, times at B={B_BEYOND}",
+              0, {**k1_uni12["f32"]["device"], "timed_lanes": B_BEYOND},
+              "thomas_global.cuh"),
+        entry("K1", "uni15 (15-player merge, d=90, NW=210), f64: the "
+              f"device-memory route; no main path, times at B={B_UNI15}",
+              0, {**k1_uni15["f64"]["device"], "timed_lanes": B_UNI15},
+              "thomas_global.cuh"),
+        entry("K1", "uni17_N20 (17-player merge, d=102, m=34, NW=272), f64: "
+              f"the device-memory route; launches at B={B_GOLDEN17}, times "
+              f"at B={B_BEYOND}", launches_g17["K1 device route"],
+              {**k1_uni17["f64"]["device"], "launches_lanes": B_GOLDEN17,
+               "timed_lanes": B_BEYOND}, "thomas_global.cuh"),
+        entry("K1", "uni17_N20 (17-player merge, d=102, m=34, NW=272), f32: "
+              f"the device-memory route; launches in the B={B_SWEEP17} sweep, "
+              f"times at B={B_BEYOND}", sweep17["K1 device route"],
+              {**k1_uni17["f32"]["device"], "launches_lanes": B_SWEEP17,
+               "timed_lanes": B_BEYOND,
+               "device_ms_sweep_batch": sweep17["k1_row"]["device_ms"]},
+              "thomas_global.cuh"),
+        entry("K3", "uni17 turned dense (d=102, m=34), f64: the "
+              f"device-memory route; no main path, times at B={B_K3_UNI17}",
+              0, {**k3_uni17["f64"]["device"], "timed_lanes": B_K3_UNI17},
+              "thomas_global.cuh"),
+        entry("K2", "uni17_N20 (17-player merge, n=68, m=34, 272 state "
+              f"blocks): the wide unicycle instance; launches in the "
+              f"B={B_SWEEP17} sweep, times at B={B_KERNEL}",
+              sweep17["trial"], {**k2_uni17, "launches_lanes": B_SWEEP17,
+                                 "timed_lanes": B_KERNEL,
+                                 "device_ms_sweep_batch":
+                                     sweep17["k2_device_ms"]}),
         entry("K1", f"highway_mpc, B={B_MPC}", mpc[B_MPC]["launches"]["K1"],
               k1_hw[B_MPC]),
         entry("K1", "highway_mpc, B=1", mpc[1]["launches"]["K1"], k1_hw[1]),

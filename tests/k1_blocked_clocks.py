@@ -148,8 +148,10 @@ def measure(so, tag="", form="structured"):
         dev, cs.B_KERNEL, 1e3, (950 if form == "structured" else 960) + 99,
         False, cs.quad4_game, cs.quad3_iterates)
     n, m, p, T, NW = spec.n, spec.m, spec.p, spec.T, len(w_owner)
-    own = build.int_table(owner_map_u(spec))
-    # The w_owner table lives on the card (the kernels read it there).
+    # The owner tables live on the card (the kernels read them there).
+    own_dev = torch.tensor(owner_map_u(spec), dtype=torch.int32,
+                           device=dev)
+    own = ctypes.c_void_p(own_dev.data_ptr())
     w_dev = torch.tensor(w_owner, dtype=torch.int32, device=dev)
     w_own = ctypes.c_void_p(w_dev.data_ptr())
     if form == "dense":

@@ -72,14 +72,14 @@ MARKS = (
     ("thomas_dense_core.cuh", "    // Outputs in (x, u) row order", 7,
      "before"),
     ("thomas_dense_core.cuh", "    slot = slot1;\n", 8, "before"),
-    ("thomas_sq.cu", "  thomas::init_carry(S);\n", -1, "after"),
+    ("thomas_sq.cu", "  thomas::init_carry(S, owner);\n", -1, "after"),
     ("thomas_sq.cu", "    thomas::load_knot(S, Ub, Bm, A, bk, kt, t, Tn);\n"
      "    __syncthreads();\n", 0, "after"),
     ("thomas_sq.cu", "    thomas::fill_in(S);\n    __syncthreads();\n", 1,
      "after"),
-    ("thomas_sq.cu", "    thomas::build_system(S, meta.owner, qf);\n", 2,
+    ("thomas_sq.cu", "    thomas::build_system(S, qf);\n", 2,
      "before"),
-    ("thomas_sq.cu", "    thomas::build_system(S, meta.owner, qf);\n"
+    ("thomas_sq.cu", "    thomas::build_system(S, qf);\n"
      "    __syncthreads();\n", 3, "after"),
     ("thomas_common.cuh", "  // Back substitution in variable order", 4,
      "before"),
@@ -142,8 +142,10 @@ def main(out):
             kw.get("iterates", cs.flagship_iterates))
         sq, b = tree_map(lambda a: a.float(), sq), b.float()
         n, m, p, T, NW = spec.n, spec.m, spec.p, spec.T, len(w_owner)
-        own = build.int_table(owner_map_u(spec))
-        # The w_owner table lives on the card (the kernels read it there).
+        # The owner tables live on the card (the kernels read them there).
+        own_dev = torch.tensor(owner_map_u(spec), dtype=torch.int32,
+                               device=dev)
+        own = ctypes.c_void_p(own_dev.data_ptr())
         w_dev = torch.tensor(w_owner, dtype=torch.int32, device=dev)
         w_own = ctypes.c_void_p(w_dev.data_ptr())
         for route, phases in (("", TILED), ("wide_", WIDE)):

@@ -93,7 +93,10 @@ def main(out):
     spec, jb, b = cs.k3_system(dev, cs.B_KERNEL, 1e3, 199)
     jb, b = tree_map(lambda a: a.float(), jb), b.float()
     n, m, p, T = spec.n, spec.m, spec.p, spec.T
-    own = build.int_table(owner_map_u(spec))
+    # The owner tables live on the card (the kernels read them there).
+    own_dev = torch.tensor(owner_map_u(spec), dtype=torch.int32,
+                           device=dev)
+    own = ctypes.c_void_p(own_dev.data_ptr())
     clocks = (ctypes.c_ulonglong * 16)()
     for lanes in (132, cs.B_KERNEL):
         ops = [a[:lanes].contiguous() for a in (jb.Qblk, jb.Ublk, jb.B, jb.A,

@@ -6,7 +6,7 @@ sweep's inputs and the port's agreement with it lane by lane.  Not a test
 module (pytest does not collect it); it imports both packages, as the tests
 do.
 
-    JAX_PLATFORMS=cpu python tests/reference_fractions.py subset [KEY ...]
+    JAX_PLATFORMS=cpu python tests/reference_fractions.py subset [KEY[@N] ...]
     JAX_PLATFORMS=cpu python tests/reference_fractions.py full [KEY[@A:B] ...]
     JAX_PLATFORMS=cpu python tests/reference_fractions.py f64 KEY LANE ...
     JAX_PLATFORMS=cpu python tests/reference_fractions.py ibr
@@ -14,8 +14,9 @@ do.
     JAX_PLATFORMS=cpu python tests/reference_fractions.py mpc
     JAX_PLATFORMS=cpu python tests/reference_fractions.py nullspace
 
-``subset`` (minutes per game): the first 256 of ``chip_smoke.py``'s 4096
-sweep scenarios of each game (x0 + 0.05 N(0, 1), numpy seed 0), f32 at the
+``subset`` (minutes per game): the first 256 (or N) of
+``chip_smoke.py``'s 4096 sweep scenarios of each game (x0 + 0.05 N(0, 1),
+numpy seed 0), f32 at the
 preset budget, through the reference (``schur``) and through the port's
 plain versions with the fused trial; prints each converged and diverged
 fraction under the sweep's gates (dyn, con, sta 1e-3; opt 1e-2, or 5e-2 for
@@ -31,7 +32,8 @@ back on the ring, ``chip_smoke.py::onto_ring``) and quad4_N15 (the
 quadrotor preset with 4 players at outer 2 x inner 5, ``jax_quadrotor``,
 as ``chip_smoke.py``'s ``sweep-quad4`` runs it; about five minutes) and
 uni9_N20 (the flagship merge with 9 players, ``flagship_unicycle(p=9)``
-at outer 3 x inner 8, as ``chip_smoke.py``'s ``sweep-uni9`` runs it).  Each
+at outer 3 x inner 8, as ``chip_smoke.py``'s ``sweep-uni9`` runs it) and
+uni17_N20 (the same with 17 players, ``sweep-uni17``'s).  Each
 also prints the mean over lanes of the final residual norm.
 
 ``full``: the reference alone over all 4096 sweep scenarios (or lanes A
@@ -148,9 +150,9 @@ def jax_problem(key, dtype):
     from algames_tpu.presets import PRESETS as JAX_PRESETS
     if key == "quad4_N15":
         return jax_quadrotor(4, dtype)
-    if key == "uni9_N20":
+    if key in ("uni9_N20", "uni17_N20"):
         from algames_tpu.presets import flagship_unicycle
-        return flagship_unicycle(dtype, p=9, outer=3, inner=8)
+        return flagship_unicycle(dtype, p=int(key[3:-4]), outer=3, inner=8)
     if key == "ring3_eq_N20":
         from torch_goldens import ring3_eq_problem
         return ring3_eq_problem(dtype)
@@ -183,9 +185,10 @@ def port_problem(key, prob, dtype):
     from algames_tpu_torch.presets import PRESETS, quadrotor3d
     if key == "quad4_N15":
         return quadrotor3d(CPU, dtype, outer=2, inner=5, p=4)[0]
-    if key == "uni9_N20":
+    if key in ("uni9_N20", "uni17_N20"):
         from algames_tpu_torch.presets import flagship_unicycle
-        return flagship_unicycle(CPU, dtype, outer=3, inner=8, p=9)[0]
+        return flagship_unicycle(CPU, dtype, outer=3, inner=8,
+                                 p=int(key[3:-4]))[0]
     if key in ("hetero2_N8", "ring3_eq_N20"):
         return problem_from_reference(prob, CPU, dtype)
     return PRESETS[key](CPU, dtype)[0]
@@ -226,9 +229,11 @@ def subset(keys):
 
     from algames_tpu_torch import parallel
 
-    for key in keys:
+    for arg in keys:
+        key, _, lanes = arg.partition("@")
+        lanes = int(lanes or N_SUBSET)
         prob, spec = jax_problem(key, jnp.float32)
-        x0s = sweep_inputs(prob.x0, spec.n, key=key)
+        x0s = sweep_inputs(prob.x0, spec.n, lanes, key=key)
         out = jax.jit(lambda x: jbatch.solve_batch(prob, x, method="schur"))(
             jnp.asarray(x0s, jnp.float32))
         s = out.stats
@@ -238,8 +243,8 @@ def subset(keys):
         feas_ref = converged(key, prob.opts, it_ref, s.dyn_vio, s.con_vio,
                              s.sta_vio, np.zeros_like(s.opt_vio))
         print(f"{key} reference: converged {conv_ref.mean()} "
-              f"({int(conv_ref.sum())}/{N_SUBSET}), feasible (dyn, con, sta "
-              f"gates) {int(feas_ref.sum())}/{N_SUBSET}, diverged "
+              f"({int(conv_ref.sum())}/{lanes}), feasible (dyn, con, sta "
+              f"gates) {int(feas_ref.sum())}/{lanes}, diverged "
               f"{float(np.asarray(jbatch.divergence_mask(out)).mean())}, "
               f"unconverged lanes {np.nonzero(~conv_ref)[0].tolist()}, "
               f"iterations {it_ref.min()}..{it_ref.max()} (mean "
@@ -251,7 +256,7 @@ def subset(keys):
             tprob.opts, ls_fused=True))
         tout = parallel.solve_many(
             tprob, torch.as_tensor(x0s, dtype=torch.float32),
-            method="thomas", chunk=N_SUBSET)
+            method="thomas", chunk=lanes)
         t = tout.stats
         it = t.iter.numpy()
         conv = converged(key, tprob.opts, it, t.dyn_vio.numpy(),
@@ -262,13 +267,13 @@ def subset(keys):
                          np.zeros_like(t.opt_vio.numpy()))
         diff = np.nonzero(it != it_ref)[0]
         print(f"{key} port (plain versions): converged {conv.mean()} "
-              f"({int(conv.sum())}/{N_SUBSET}), feasible {int(feas.sum())}/"
-              f"{N_SUBSET}, diverged "
+              f"({int(conv.sum())}/{lanes}), feasible {int(feas.sum())}/"
+              f"{lanes}, diverged "
               f"{float(parallel.divergence_mask(tout).float().mean())}, "
               f"unconverged lanes {np.nonzero(~conv)[0].tolist()}, mean "
               f"final residual {final_mean(it, t.res.numpy())!r}; "
-              f"iteration counts equal on {N_SUBSET - len(diff)} of "
-              f"{N_SUBSET}; differing lanes (port, reference): "
+              f"iteration counts equal on {lanes - len(diff)} of "
+              f"{lanes}; differing lanes (port, reference): "
               f"{[(int(k), int(it[k]), int(it_ref[k])) for k in diff]}",
               flush=True)
 

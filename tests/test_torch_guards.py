@@ -16,7 +16,7 @@ import algames_tpu_torch as agt
 from algames_tpu_torch.ops.thomas import solve_thomas, solve_thomas_structured
 from algames_tpu_torch.ops.trial import trial_eval, trial_supported
 from algames_tpu_torch.ops import build
-from algames_tpu_torch.presets import PRESETS, flagship_unicycle
+from algames_tpu_torch.presets import PRESETS, flagship_unicycle, roundabout
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -514,13 +514,14 @@ def test_kernel_libraries_have_sources():
         assert f'extern "C" const char* {name}_error_string' in text
 
 
-@pytest.mark.parametrize("p", [9, 10])
+@pytest.mark.parametrize("p", [9, 10, 17])
 def test_k1_owner_tables_come_from_the_spec(monkeypatch, p):
-    """K1's wrapper builds its tables from the spec at any number of w
-    vectors (the 9- and 10-player merges: 72 and 90): the control rows'
-    owners by value (m of them), the w vectors' owners as an int32 array
-    of length NW on the operands' device, built once per shape; no table
-    of a fixed size bounds NW.  Checked with a fake library."""
+    """K1's wrapper builds its tables from the spec at any number of
+    control rows and w vectors (the 9-, 10- and 17-player merges: 18, 20
+    and 34 rows, 72, 90 and 272 vectors): the control rows' owners and the
+    w vectors' owners as int32 arrays of lengths m and NW on the operands'
+    device, built once per shape; no table of a fixed size bounds m or NW.
+    Checked with a fake library."""
     from algames_tpu_torch.ops import thomas
     from algames_tpu_torch.problem.residual import structured_w_owner
 
@@ -540,24 +541,29 @@ def test_k1_owner_tables_come_from_the_spec(monkeypatch, p):
         route, _, _, _, owner, w_own = thomas._sq_launch(
             spec, w_owner, torch.float32, torch.device("cpu"))
         assert route == "blocked"
-        assert list(owner) == [r % p for r in range(spec.m)]
+        assert owner.dtype == torch.int32 and owner.device.type == "cpu"
+        assert owner.tolist() == [r % p for r in range(spec.m)]
         assert w_own.dtype == torch.int32 and w_own.device.type == "cpu"
         assert w_own.tolist() == list(w_owner)
         assert sorted(set(w_own.tolist())) == list(range(p))
-        assert thomas._sq_launch(spec, w_owner, torch.float32,
-                                 torch.device("cpu"))[5] is w_own
+        again = thomas._sq_launch(spec, w_owner, torch.float32,
+                                  torch.device("cpu"))
+        assert again[4] is owner and again[5] is w_own
     finally:
         thomas._shape_route.cache_clear()
         thomas._sq_launch.cache_clear()
 
 
-@pytest.mark.parametrize("p", [9, 10])
+@pytest.mark.parametrize("p", [9, 10, 17])
 def test_trial_tables_at_many_state_blocks(p):
-    """The fused trial takes the 9- and 10-player merges (72 and 90 state
-    blocks, 36 and 40 states: the unicycle's wide instance), and its
-    state-block table holds every block as the kernel's 40-byte ``SBlock``
-    record, in block order; with a state bound on all n states appended,
-    its lower-bound rows past the 64th in the record's ``mask_hi``."""
+    """The fused trial takes the 9-, 10- and 17-player merges (72, 90 and
+    272 state blocks, 36, 40 and 68 states: the unicycle's wide
+    instance), and its state-block table holds every block as the
+    kernel's 32-byte ``SBlock`` record, in block order; with a state bound
+    on all n states appended, the wide instance's: every row's flag after
+    its z_max and z_min in the parameter array (past the 64 rows of the
+    record's mask, and past the 128th row at 17 players), the mask 0; the
+    unicycle's narrow instances' (``flags`` off): the mask, and no flags."""
     import numpy as np
     from algames_tpu_torch.constraints import sets as tsets
     from algames_tpu_torch.ops import trial
@@ -568,25 +574,78 @@ def test_trial_tables_at_many_state_blocks(p):
                                -5 * np.ones(n))
     assert trial.trial_supported(prob.model, spec, prob.obj, gc)
     assert trial.instance_name(prob.model, spec) == "unicycle_wide"
+    assert "unicycle_wide" in trial._ROW_FLAGS
     sb = gc.state_blocks
     nsb = len(sb)
     assert nsb == p * (p - 1) + 1
     meta, masks, spar, rows = trial._state_tables(sb, torch.float64,
-                                                  torch.device("cpu"))
+                                                  torch.device("cpu"), True)
     assert len(meta) == 12 * nsb and len(masks) == nsb
     assert rows == sum(b.lam.shape[-1] for b in sb) == p * (p - 1) + 2 * n
     rec = trial._sblock_table(meta, masks)
-    assert rec.dtype.itemsize == 40 and rec.shape == (nsb,)
+    assert rec.dtype.itemsize == 32 and rec.shape == (nsb,)
     for k, blk in enumerate(sb[:-1]):          # collision blocks
         par = blk.params
         assert (rec["kind"][k], rec["owner"][k], rec["row"][k],
                 rec["cnt"][k], rec["eq"][k]) == (0, blk.owner, k, 2, 0)
         assert list(rec["a"][k]) == [*par.pxi, 0, *par.pxj, 0]
-        assert rec["mask"][k] == rec["mask_hi"][k] == 0
+        assert rec["mask"][k] == 0
     assert rec["kind"][-1] == 2 and rec["row"][-1] == p * (p - 1)
-    assert int(rec["mask"][-1]) == (1 << 64) - 1
-    assert int(rec["mask_hi"][-1]) == (1 << (2 * n - 64)) - 1
+    assert int(rec["mask"][-1]) == 0
+    par = int(rec["par"][-1])
+    assert par == p * (p - 1) and spar.numel() == par + 4 * n
+    assert spar[par:].tolist() == [5.0] * n + [-5.0] * n + [1.0] * (2 * n)
     dev = trial._sblock_device(tuple(meta), tuple(masks),
                                torch.device("cpu"))
-    assert dev.dtype == torch.uint8 and dev.numel() == 40 * nsb
+    assert dev.dtype == torch.uint8 and dev.numel() == 32 * nsb
     assert bytes(dev.numpy()) == rec.tobytes()
+    # Without flags (the instances up to 32 states): the mask, at 8 players
+    # (n = 32) all 64 bits, and z_max, z_min alone.
+    prob8, spec8 = flagship_unicycle(torch.device("cpu"), torch.float64,
+                                     outer=1, inner=1, p=8, N=3)
+    gc8 = tsets.add_state_bound(spec8, prob8.gc, 0, 5 * np.ones(32),
+                                -5 * np.ones(32))
+    assert trial.instance_name(prob8.model, spec8) == "unicycle_spread"
+    assert "unicycle_spread" not in trial._ROW_FLAGS
+    meta, masks, spar, _ = trial._state_tables(
+        gc8.state_blocks, torch.float64, torch.device("cpu"))
+    rec = trial._sblock_table(meta, masks)
+    assert int(rec["mask"][-1]) == (1 << 64) - 1
+    assert spar.numel() == int(rec["par"][-1]) + 64
+
+
+def test_trial_meta_table_layout():
+    """The collision-cost pairs and control blocks reach the fused trial as
+    ``csrc/trial_fused.cu``'s ``TrialMeta`` table of bytes: 8-byte ``Pair``
+    records (owner, dimension, pxi then pxj, zero-padded to 3 each), each
+    control block's 2m row flags, each control block's equality flag, zeros
+    to the next 8 bytes (8 zero bytes for an empty table).  On the
+    roundabout (collision-cost pairs, one control bound) and a made-up table
+    of two control blocks, one of them equality rows, at 40 controls (past
+    the 32 that the by-value table held)."""
+    import numpy as np
+    from algames_tpu_torch.ops import trial
+    assert trial.PAIR.itemsize == 8
+    assert list(trial._meta_table((), (), ())) == [0] * 8
+    pairs = ((3, (0, 1), (4, 5)), (1, (2, 3, 6), (7, 8, 9)))
+    m = 40
+    mask = tuple([1] * m + [0] * m) + tuple([0, 1] * m)
+    tab = trial._meta_table(pairs, mask, (0, 1))
+    assert tab.dtype == np.uint8
+    assert list(tab[:16]) == [3, 2, 0, 1, 0, 4, 5, 0, 1, 3, 2, 3, 6, 7, 8, 9]
+    assert list(tab[16:16 + 4 * m]) == list(mask)
+    assert list(tab[16 + 4 * m:18 + 4 * m]) == [0, 1]
+    assert len(tab) == 184 and not tab[18 + 4 * m:].any()
+    prob, spec = roundabout(torch.device("cpu"))
+    args = trial._meta_args(prob.obj, prob.gc.control_blocks)
+    npair, ncb = len(prob.obj.pair_i), len(prob.gc.control_blocks)
+    assert len(args[0]) == npair > 0 and len(args[2]) == ncb == 1
+    tab = trial._meta_table(*args)
+    rec = np.frombuffer(tab[:8 * npair].tobytes(), trial.PAIR)
+    assert rec["owner"].tolist() == list(prob.obj.pair_i)
+    assert all(int(rec["dim"][k]) == len(prob.obj.pxi[k]) == 2
+               for k in range(npair))
+    flags = tab[8 * npair:8 * npair + 2 * spec.m]
+    assert flags.tolist() == [int(f) for f in
+                              prob.gc.control_blocks[0].params.mask]
+    assert len(tab) % 8 == 0

@@ -20,7 +20,7 @@ past 32 states, on the CPU against the JAX package.  f64 unless named.
   every output leaf within 1e-12 relative, as ``tests/test_torch_dense.py``
   holds the roundabout's; ``trial_supported`` on the 3- and 4-player
   quadrotors (K4's quadrotor instance takes 64 states) and not past 64; a
-  state bound's lower-bound rows past bit 64 in the table's second word.
+  state bound's rows flagged in the parameter array.
 - The slice: two scenarios of the game at N=5, outer 1 x inner 4, through
   the port's ``method="thomas"`` with ``ls_fused`` (K1 and K4, their plain
   versions here) against the JAX package's ``"schur"`` solve: iteration
@@ -185,15 +185,17 @@ def test_plain_trial_matches_the_fused_pallas_trial():
 def test_trial_supported_on_the_wide_quadrotors():
     """K4's quadrotor instance takes up to 64 states (the 3- and 4-player
     quadrotors: 36 and 48); 6 players (72) lie outside and keep the eager
-    trial; the unicycle takes up to 64 states too (its wide instance past
-    32: 9 players, 36 states, inside; 17 players, 68, outside).  A state
-    bound on all 48 states flags its lower-bound rows of states 16.. in the
-    table's second word."""
+    trial; the unicycle takes up to 68 states (its wide instance past 32:
+    9 players, 36 states, and 17 players, 68, inside; 18 players, 72,
+    outside).  A state bound on all 48 states flags all 96 rows in the
+    parameter array after its z_max and z_min (the quadrotor's instance
+    reads them there, past the 64 rows of the record's mask), its mask
+    0."""
     for p, inside in ((3, True), (4, True), (6, False)):
         prob, spec = quadrotor3d(CPU, F64, p=p)
         assert trial.trial_supported(prob.model, spec, prob.obj,
                                      prob.gc) == inside, p
-    for p, inside in ((9, True), (17, False)):
+    for p, inside in ((9, True), (17, True), (18, False)):
         uni = agt.unicycle_game(p=p)
         spec = agt.spec_from_model(uni, 5, 0.1)
         gc = tsets.game_constraints(spec, dtype=F64, device=CPU)
@@ -211,10 +213,13 @@ def test_trial_supported_on_the_wide_quadrotors():
     gc = dataclasses.replace(prob.gc, state_blocks=prob.gc.state_blocks
                              + (bound,))
     assert trial.trial_supported(prob.model, spec, prob.obj, gc)
-    _, masks, _, _ = trial._state_tables(gc.state_blocks, F64, CPU)
-    low, high = trial._mask_words(masks)[-2:]
-    assert low == (1 << 64) - 1          # upper rows 0..47, lower 48..63
-    assert high == (1 << 32) - 1         # lower rows of states 16..47
+    assert "quadrotor" in trial._ROW_FLAGS
+    meta, masks, spar, _ = trial._state_tables(gc.state_blocks, F64, CPU,
+                                               True)
+    assert masks[-1] == 0
+    par = meta[-12 + 3]                  # the bound's first parameter
+    assert spar.numel() == par + 4 * n
+    assert spar[par + 2 * n:].tolist() == [1.0] * (2 * n)
 
 
 def test_slice_matches_the_reference_schur_solve():

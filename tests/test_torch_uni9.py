@@ -20,8 +20,8 @@ state blocks, and the wrappers applied those caps on the CPU too.
 - K2's plain trial against the JAX package's hand-written Pallas trial
   (interpret mode) and its XLA trial pass at N=4, three lanes: every leaf
   within 1e-10 relative.
-- ``trial_supported`` and the K1 wrapper's checks at 9 and 10 players
-  (72 and 90 w vectors and state blocks): silent on the CPU.
+- ``trial_supported`` and the K1 wrapper's checks at 9, 10 and 17 players
+  (72, 90 and 272 w vectors and state blocks): silent on the CPU.
 """
 import dataclasses
 import functools
@@ -160,12 +160,13 @@ def test_plain_trial_matches_the_xla_trial(trial_case):
     assert_same(trial.trial_eval(*c["targs"]), ref, c["jargs"][2].shape[0])
 
 
-@pytest.mark.parametrize("p", [9, 10])
+@pytest.mark.parametrize("p", [9, 10, 17])
 def test_caps_lifted_on_the_cpu(p):
-    """At 9 and 10 players (72 and 90 w vectors, as many collision
-    blocks, 36 and 40 states) the trial lies inside the fused trial's
-    specialization (the unicycle's wide instance) and K1's wrapper checks
-    its operands and solves with the plain version, without a width cap."""
+    """At 9, 10 and 17 players (72, 90 and 272 w vectors, as many collision
+    blocks, 36, 40 and 68 states, 18, 20 and 34 control rows) the trial
+    lies inside the fused trial's specialization (the unicycle's wide
+    instance) and K1's wrapper checks its
+    operands and solves with the plain version, without a width cap."""
     prob, spec = flagship_unicycle(CPU, F64, outer=1, inner=1, p=p, N=3)
     w_owner = structured_w_owner(prob.gc)
     assert len(w_owner) == len(prob.gc.state_blocks) == p * (p - 1)

@@ -2,7 +2,7 @@
 source trees on the same inputs, on one CUDA card: device times, outputs
 and occupancy.  Not a test module (pytest does not collect it).
 
-    python3 tests/thomas_compare.py dump TREE NAME DIR
+    python3 tests/thomas_compare.py dump TREE NAME DIR [beyond]
     python3 tests/thomas_compare.py compare DIR NAME_A NAME_B
 
 ``dump`` imports ``chip_smoke.py`` and the port from TREE (a checkout, e.g.
@@ -14,7 +14,10 @@ flagship, the double integrator and the quadrotor, in f32 and f64; and, for
 a tree whose ``chip_smoke.py`` builds them, K3 on the quadrotor's systems
 turned dense and on IBR's quadrotor player systems and K1 on the 3-player
 quadrotor's (each tree runs them on whichever forward kernel its own
-routing picks).  It
+routing picks); then, beyond the classes, K1 and K3 on the 4-player
+quadrotor's systems, K1 on the 9-player merge's (B=1024, every route that
+holds them) and on the 17-player merge's (B=64, the device-memory route),
+each in f32 and f64 (with ``beyond``, only these).  It
 prints, per input set, each kernel's worst relative error against the f64
 plain version, and in f32 the device time per call (forward + backward;
 the event reading of this repository's ``chip_smoke.device_ms``, so both
@@ -137,7 +140,11 @@ def _fwd_only(spec, jb, b, lanes):
     n, m, p, T = spec.n, spec.m, spec.p, spec.T
     G = torch.empty((lanes, T, n + m, p * n), device=b.device)
     yhat = torch.empty((lanes, T, n + m), device=b.device)
-    own = build.int_table(owner_map_u(spec))
+    # The owner table: an int32 device array since the libraries lost
+    # their by-value tables, a host table before.
+    own = (thomas.owner_table(owner_map_u(spec), b.device).data_ptr()
+           if hasattr(thomas, "owner_table")
+           else build.int_table(owner_map_u(spec)))
 
     def run():
         # A tree with ``build.launcher`` times launches through its hook, an
@@ -151,7 +158,7 @@ def _fwd_only(spec, jb, b, lanes):
     return run
 
 
-def dump(tree, name, out_dir):
+def dump(tree, name, out_dir, only=None):
     sys.path.insert(0, str(tree))
     import chip_smoke as cs
     from algames_tpu_torch.ops import build, thomas
@@ -185,6 +192,8 @@ def dump(tree, name, out_dir):
         k3 += [("quad2 dense", {}, 800), ("ibr quad", {}, 1700)]
         k1 += [("K1 quad3", dict(preset=cs.quad3_game,
                                  iterates=cs.quad3_iterates), 900)]
+    if only == "beyond":
+        k3, k1 = [], []
 
         def quad(system):
             return lambda dev, B, mu, seed, *_: system(dev, B, mu, seed)
@@ -244,6 +253,53 @@ def dump(tree, name, out_dir):
                 tm.device_ms(lambda: thomas.solve_thomas_structured(
                     spec, sqt, bt, w_owner), 20, ("thomas_sq_",), 2,
                     f"{name} {tag} f32 B={cs.B_KERNEL}")
+    # Beyond the classes: K1 and K3 on the 4-player quadrotor's systems
+    # (d=64) and K1 on the 9-player merge's (d=54, NW=72), on every route
+    # that holds them, B=1024; K1 on the 17-player merge's (d=102, NW=272,
+    # m=34), on the device-memory route, B=64; f32 and f64.
+    both, device = ("blocked", "device"), ("device",)
+    beyond = []
+    if hasattr(cs, "quad4_game"):
+        beyond += [("quad4", cs.quad4_game, cs.quad3_iterates, 950, True,
+                    cs.B_KERNEL, both),
+                   ("quad4 dense", cs.quad4_game, cs.quad3_iterates, 960,
+                    False, cs.B_KERNEL, both)]
+    if hasattr(cs, "uni9_game"):
+        beyond += [("uni9", cs.uni9_game, cs.flagship_iterates, 2200, True,
+                    cs.B_KERNEL, both)]
+    if hasattr(cs, "uni17_game"):
+        beyond += [("uni17", cs.uni17_game, cs.flagship_iterates, 2600, True,
+                    64, device)]
+    for tag, game, its, seed0, structured, B, routes in beyond:
+        print(f"{name} [{time.perf_counter() - t0:.1f} s] {tag}", flush=True)
+        spec, sq, b, w_owner = cs.k1_system(dev, B, 1e3, seed0 + 99, False,
+                                            game, its)
+        if structured:
+            def run(ops, bb, r):
+                return thomas.solve_thomas_structured(spec, ops, bb, w_owner,
+                                                      r)
+            ops, ref = sq, thomas.solve_thomas_structured_plain(
+                spec, sq, b, w_owner)
+            kkt, names = "K1", ("thomas_sq_",)
+        else:
+            def run(ops, bb, r):
+                return thomas.solve_thomas(spec, ops, bb, r)
+            ops = cs.dense_of(spec, sq, w_owner)
+            ref = thomas.solve_thomas_plain(spec, ops, b)
+            kkt, names = "K3", ("thomas_dense_",)
+        for dtype in (torch.float64, torch.float32):
+            opt, bt = tree_map(lambda a: a.to(dtype), ops), b.to(dtype)
+            sfx = "f32" if dtype == torch.float32 else "f64"
+            for r in routes:
+                y = run(opt, bt, r)
+                key = f"{kkt} {tag} {r} {sfx}"
+                res[key] = [y.cpu()]
+                print(f"{name} {key}: worst rel err vs f64 plain "
+                      f"{float(cs.rel_err(y, ref).max()):.3e}", flush=True)
+                tm.device_ms(lambda: run(opt, bt, r), 10, names, 2,
+                             f"{name} {key} B={B}")
+        del sq, b, ops, ref
+        torch.cuda.empty_cache()
     for lib_name in ("thomas_sq", "thomas_dense"):
         log = build.library_path(lib_name).with_suffix(".log")
         for kern, regs, spills in cs.ptxas_report(log.read_text()):
@@ -269,6 +325,7 @@ def compare(out_dir, a_name, b_name):
 
 if __name__ == "__main__":
     if sys.argv[1] == "dump":
-        dump(Path(sys.argv[2]).resolve(), sys.argv[3], Path(sys.argv[4]))
+        dump(Path(sys.argv[2]).resolve(), sys.argv[3], Path(sys.argv[4]),
+             *sys.argv[5:])
     else:
         compare(Path(sys.argv[2]), sys.argv[3], sys.argv[4])

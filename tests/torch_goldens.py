@@ -3,7 +3,7 @@ by the JAX package in f64 on the CPU.  Not a test module (pytest does not
 collect it); ``chip_smoke.py`` reads its files and never imports JAX.
 
     JAX_PLATFORMS=cpu python tests/torch_goldens.py [hetero] [ibr] [ring3_eq]
-        [ibr_quad] [uni9]
+        [ibr_quad] [uni9] [uni17] [uni17_trial]
 
 writes, under ``tests/golden_torch/``:
 
@@ -28,7 +28,14 @@ writes, under ``tests/golden_torch/``:
   (round) column and residuals ``res``.  About 90 s, 70 of them tracing;
 - ``uni9_N20.npz``: the 9-player flagship merge (``flagship_unicycle(p=9)``,
   outer 7 x inner 20) from its own x0 through ``method="schur"``: x0, x,
-  u, ``iter`` and the final violations.
+  u, ``iter`` and the final violations;
+- ``uni17_N20.npz``: the same with 17 players (``flagship_unicycle(p=17)``:
+  n = 68, m = 34, 272 collision blocks; about three minutes);
+- ``uni17_trial_N4.npz``: the JAX package's hand-written trial
+  (``_trial_eval_handwritten``, interpret mode; about a minute) on
+  ``tests/test_torch_trial.py::_case``'s three lanes of the 17-player merge
+  at N = 4 (outer 1 x 2): ``tn`` and every ``PointLite`` leaf in order
+  (``leaf_000`` ...), for ``tests/test_torch_uni17.py``.
 
 ``test_torch_hetero.py``, ``test_torch_ibr.py`` and
 ``test_torch_cones.py`` check that the files still match the JAX package,
@@ -166,13 +173,14 @@ def ibr_quad_solution():
             "res": np.asarray(res.stats.res)[:, :rows]}
 
 
-def uni9_solution():
+def uni9_solution(p=9):
     """The 9-player flagship merge (``flagship_unicycle(p=9)``: n = 36, 72
-    collision blocks, outer 7 x inner 20, f64) from its own x0 through
-    ``schur``: x0, x, u, ``iter`` and the final violations."""
+    collision blocks, outer 7 x inner 20, f64; or with ``p`` players) from
+    its own x0 through ``schur``: x0, x, u, ``iter`` and the final
+    violations."""
     import algames_tpu as ag
     from algames_tpu.presets import flagship_unicycle
-    prob, _ = flagship_unicycle(p=9)
+    prob, _ = flagship_unicycle(p=p)
     res = ag.newton_solve_jit(prob, method="schur")
     it = int(res.stats.iter)
     out = {"x0": np.asarray(prob.x0), "x": np.asarray(res.traj.x),
@@ -182,11 +190,33 @@ def uni9_solution():
     return out
 
 
+def uni17_trial():
+    """The hand-written trial on the 17-player merge's inputs of
+    ``test_torch_trial._case`` at N = 4: tn and the PointLite leaves."""
+    import jax
+    import jax.numpy as jnp
+    from algames_tpu.ops.trial_kernel import _trial_eval_handwritten
+    from algames_tpu.presets import flagship_unicycle
+    from test_torch_trial import _case
+    prob, spec = flagship_unicycle(jnp.float64, p=17, N=4, outer=1, inner=2)
+    c = _case(prob, spec)
+    B = c["jargs"][2].shape[0]
+    tn, lite = jax.jit(lambda *a: _trial_eval_handwritten(
+        prob.model, spec, prob.obj, c["jgc"], *a, block_lanes=B,
+        interpret=True))(*c["jargs"])
+    out = {"tn": np.asarray(tn)}
+    for k, leaf in enumerate(jax.tree_util.tree_leaves(lite)):
+        out[f"leaf_{k:03d}"] = np.asarray(leaf)
+    return out
+
+
 GOLDENS = {"hetero": ("hetero2_N8", hetero_solution),
            "ibr": ("ibr_uni3_N20", ibr_solution),
            "ring3_eq": ("ring3_eq_N20", ring3_eq_solution),
            "ibr_quad": ("ibr_quad2_N6", ibr_quad_solution),
-           "uni9": ("uni9_N20", uni9_solution)}
+           "uni9": ("uni9_N20", uni9_solution),
+           "uni17": ("uni17_N20", lambda: uni9_solution(17)),
+           "uni17_trial": ("uni17_trial_N4", uni17_trial)}
 
 
 if __name__ == "__main__":

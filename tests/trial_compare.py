@@ -10,8 +10,10 @@ on one CUDA card: outputs bitwise and device times.  Not a test module
 its fused trial on ``chip_smoke.py``'s trial inputs at B=1024 (K2's and the
 roundabout K4's, and, where TREE's ``chip_smoke.py`` has them, those of the
 double-integrator, bicycle and quadrotor games, the 3D double
-integrator and the heterogeneous double integrator), in f32 and f64, prints
-each f32 call's time (CUDA events, host work included) and device time (the
+integrator, the heterogeneous double integrator, the ring road, the
+highway (B=32), the 3- and 4-player quadrotors (with a state bound, with
+collision-cost pairs) and the 9- and 17-player merges), in f32 and f64,
+prints each call's time (CUDA events, host work included) and device time (the
 event reading of this repository's ``chip_smoke.device_ms``, so both trees
 are timed alike), and saves the outputs to DIR/NAME.pt.  ``compare``
 counts the unequal output elements of two dumps, input set by input set.
@@ -50,20 +52,41 @@ def dump(tree, name, out_dir):
     if hasattr(cs, "hetero_game"):
         cases += [("hetero", cs.game_trial_inputs(cs.hetero_game,
                                                   "hetero2_N8", 37))]
+    if hasattr(cs, "ring_trial_inputs"):
+        cases += [("ring-eq", cs.ring_trial_inputs()),
+                  ("highway", cs.highway_trial_inputs)]
+    if hasattr(cs, "quad4_cost_game"):
+        cases += [(tag, lambda d, t, g=game, s=seed: cs.trial_inputs(
+                      g, cs.quad3_iterates, True, d, t, seed=s))
+                  for tag, game, seed in (
+                      ("quad3", cs.quad3_game, 43),
+                      ("quad4", cs.quad4_game, 47),
+                      ("quad4-bound", cs.quad4_bound_game, 53),
+                      ("quad4-cost", cs.quad4_cost_game, 59))]
+    if hasattr(cs, "uni9_game"):
+        cases += [("uni9", lambda d, t: cs.trial_inputs(
+            cs.uni9_game, cs.flagship_iterates, True, d, t, seed=61))]
+    if hasattr(cs, "uni17_game"):
+        cases += [("uni17", lambda d, t: cs.trial_inputs(
+            cs.uni17_game, cs.flagship_iterates, True, d, t, seed=67))]
     res = {}
     for tag, inputs in cases:
         for dtype in (torch.float32, torch.float64):
             prob, spec, gc, traj, dtraj, alpha, reg = inputs(dev, dtype)
             args = (prob.model, spec, prob.obj, gc, traj, dtraj, alpha, reg)
-            tn, lite = trial_eval(*args)
+            sfx = "f32" if dtype == torch.float32 else "f64"
+            try:
+                tn, lite = trial_eval(*args)
+            except RuntimeError as err:      # a variant's lane may not fit
+                print(f"{name} {tag} {sfx}: {err}", flush=True)
+                continue
             res[f"{tag} {str(dtype)[-7:]}"] = [
                 a.cpu() for a in [tn] + tree_leaves(lite)]
-            if dtype == torch.float32:
-                call = cs.cuda_ms(lambda: trial_eval(*args), 20)
-                device = tm.device_ms(lambda: trial_eval(*args), 50,
-                                      ("trial_",), 1, f"{name} {tag}")
-                print(f"{name} {tag} f32 B={cs.B_KERNEL}: call {call:.4f} "
-                      f"ms, device {device:.4f} ms", flush=True)
+            call = cs.cuda_ms(lambda: trial_eval(*args), 20)
+            device = tm.device_ms(lambda: trial_eval(*args), 50,
+                                  ("trial_",), 1, f"{name} {tag} {sfx}")
+            print(f"{name} {tag} {sfx} B={cs.B_KERNEL}: call {call:.4f} "
+                  f"ms, device {device:.4f} ms", flush=True)
     out_dir.mkdir(parents=True, exist_ok=True)
     torch.save(res, out_dir / f"{name}.pt")
 
